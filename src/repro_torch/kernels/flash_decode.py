@@ -1,0 +1,93 @@
+"""K5: one-token GQA flash-decode against a head-major cache on Hopper.
+
+Replaces the Pallas TPU kernel ``repro/kernels/flash_decode.py``
+``_decode_kernel`` (launched by ``flash_decode``).  The CUDA source is
+``csrc/flash_decode.cu``.  ``cur_len`` (valid cache entries, the new
+token included) stays on the device, so a decode loop never waits on the
+host; the kernel skips cache blocks at or past ``cur_len`` and, with a
+window, blocks wholly before ``cur_len − window``, and masks the ragged
+edge by index.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import _build
+
+NEG_INF = -1e30
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (64, 128)
+MAX_GROUP = 8          # query heads per kv head one block holds
+
+
+def flash_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                       v_cache: torch.Tensor, cur_len: torch.Tensor, *,
+                       window: int = 0) -> torch.Tensor:
+    """The kernel's function in plain PyTorch, fp32 throughout: the CPU
+    path of :func:`flash_decode` and its reference on the card.
+
+    q: (B, KH, G, hd); caches (B, KH, S, hd); cur_len: int32 tensor with
+    one element → (B, KH, G, hd_v).
+    """
+    hd = q.shape[-1]
+    s = torch.einsum("bkgh,bksh->bkgs", q.float(), k_cache.float())
+    s = s * (1.0 / np.sqrt(hd))
+    cur = cur_len.reshape(()).to(q.device)
+    pos = torch.arange(k_cache.shape[2], device=q.device)
+    mask = pos < cur
+    if window > 0:
+        mask = mask & (pos >= cur - window)
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    den = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-37)
+    out = torch.einsum("bkgs,bksh->bkgh", p, v_cache.float()) / den
+    return out.to(q.dtype)
+
+
+def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, cur_len: torch.Tensor, *,
+                 window: int = 0) -> torch.Tensor:
+    """q: (B, KH, G, hd); caches (B, KH, S, hd); cur_len: int32 tensor
+    with one element, on q's device → (B, KH, G, hd).
+
+    CUDA tensors launch K5 on the current stream; CPU tensors take
+    :func:`flash_decode_plain`.  ``flash_decode.launches`` counts kernel
+    launches.
+    """
+    if q.device.type == "cpu":
+        return flash_decode_plain(q, k_cache, v_cache, cur_len, window=window)
+    b, kh, g, hd = q.shape
+    s = k_cache.shape[2]
+    if q.device.type != "cuda" or any(
+            t.device != q.device for t in (k_cache, v_cache, cur_len)):
+        raise ValueError("flash_decode: all operands must share one CUDA "
+                         "device")
+    if not (q.dtype == k_cache.dtype == v_cache.dtype) or q.dtype not in _DTYPES:
+        raise TypeError(f"flash_decode: dtype {q.dtype} (want one of "
+                        f"{list(_DTYPES)} on q and both caches)")
+    if cur_len.dtype != torch.int32 or cur_len.numel() != 1:
+        raise TypeError("flash_decode: cur_len must be one int32 element")
+    if hd not in _HEAD_DIMS or k_cache.shape != (b, kh, s, hd) \
+            or v_cache.shape != k_cache.shape:
+        raise ValueError(f"flash_decode: q {tuple(q.shape)} vs caches "
+                         f"{tuple(k_cache.shape)}; head_dim in {_HEAD_DIMS}")
+    if not 1 <= g <= MAX_GROUP:
+        raise ValueError(f"flash_decode: group {g} outside 1..{MAX_GROUP}")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in (q, k_cache, v_cache)):
+        raise ValueError("flash_decode: q and caches must be contiguous and "
+                         "16-byte aligned")
+    out = torch.empty_like(q)
+    lib = _build.load()
+    err = lib.repro_flash_decode(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        cur_len.data_ptr(), out.data_ptr(), b, kh, g, s, hd, int(window),
+        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_decode launch")
+    flash_decode.launches += 1
+    return out
+
+
+flash_decode.launches = 0

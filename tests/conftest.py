@@ -27,3 +27,8 @@ def _ocrsan_gate():
             san.consume()
     assert not leaked, "unreported sanitizer findings:\n" + \
         "\n".join(str(f) for f in leaked)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where torch sees none")
