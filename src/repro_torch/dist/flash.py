@@ -1,7 +1,8 @@
 """Attention dispatch, single-device branches of ``repro.dist.flash``.
 
-* prefill/training attention: the K1 flash kernel above the length
-  threshold, the dense reference below it;
+* prefill/training attention: the flash kernels above the length
+  threshold (K1 forward; K1 with the logsumexp and the K3 / K2 backward
+  when autograd records the call), the dense reference below it;
 * contiguous-cache decode: insert the new token, then K5 flash-decode;
 * paged decode over §6 pages of a shared cache pool, as torch ops (the
   reference has no kernel for it).
@@ -21,12 +22,17 @@ NEG_INF = -1e30
 
 
 def _attn_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                window: int, min_seq: int = 2048) -> torch.Tensor:
-    """Single-shard causal attention: the flash kernel for sequences
-    longer than ``min_seq``, dense reference for short ones."""
+                window: int, min_seq: int = 2048,
+                q_offset: int = 0) -> torch.Tensor:
+    """Single-shard causal attention: the flash kernels for sequences
+    longer than ``min_seq`` (K1 forward; under autograd K1 with the
+    logsumexp and the K3/K2 backward), dense reference for short ones.
+    ``q_offset`` is the global position of q row 0."""
     if q.shape[1] > min_seq:
-        return kernel_ops.flash_attention(q, k, v, causal=True, window=window)
-    return full_attention(q, k, v, causal=True, window=window)
+        return kernel_ops.flash_attention(q, k, v, q_offset, causal=True,
+                                          window=window)
+    return full_attention(q, k, v, causal=True, window=window,
+                          q_offset=q_offset)
 
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

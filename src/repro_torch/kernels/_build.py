@@ -26,10 +26,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: (name, argtypes); each returns a cudaError_t
 _ENTRIES = {
-    # q, k, v, out, B, H, KH, Sq, Sk, hd, q_offset, causal, window,
-    # dtype, stream
-    "repro_flash_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _P),
+    # q, k, v, out, lse (or null), B, H, KH, Sq, Sk, hd, q_offset, causal,
+    # window, dtype, stream
+    "repro_flash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _I, _P),
+    # q, k, v, dout, lse, delta, dq, B, H, KH, Sq, Sk, hd, q_offset,
+    # causal, window, dtype, stream
+    "repro_flash_bwd_dq": (_P,) * 7 + (_I,) * 10 + (_P,),
+    # q, k, v, dout, lse, delta, dk, dv, then as above
+    "repro_flash_bwd_dkv": (_P,) * 8 + (_I,) * 10 + (_P,),
+    # q, k, v, dout, lse, delta, dq_acc (fp32), dk, dv, then as above
+    "repro_flash_bwd_fused": (_P,) * 9 + (_I,) * 10 + (_P,),
     # q, k_cache, v_cache, cur_len, out, B, KH, G, S, hd, window, dtype,
     # stream
     "repro_flash_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

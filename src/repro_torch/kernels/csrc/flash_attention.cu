@@ -14,7 +14,11 @@
 // Numerics follow the reference: scale 1/sqrt(hd) folded into q, masked
 // scores -1e30, exp(s - m) and the rescale exp(m_old - m_new) in fp32,
 // the denominator floored at 1e-37.  Inputs are fp32 or bf16; all
-// arithmetic is fp32 (CUDA-core FMAs, no tensor cores yet).
+// arithmetic is fp32 (CUDA-core FMAs, no tensor cores yet).  With an lse
+// pointer (the reference's with_lse, taken on the differentiated path) the
+// kernel also writes lse = m + log(max(l, 1e-37)) in fp32, one store per
+// row at the end as the reference's _finalize does; the backward kernels
+// (flash_attention_bwd.cu) recompute P from it.
 //
 // Bound on the H100: at the serve shape (B=1, H=15, KH=5, hd=64,
 // Sq=Sk=3008, bf16, causal) the live work is 2*Sq^2*hd*H ~ 17.4 GFLOP
@@ -51,7 +55,8 @@ constexpr size_t fwd_smem_bytes() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int H, int G,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int H, int G,
                  int Sq, int Sk, int q_offset, int causal, int window,
                  float scale) {
   constexpr int LDQ = HD + 1, LDP = BK + 1, NJ = HD / 16;
@@ -164,6 +169,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = q0 + ty * 4 + i;
     if (r >= Sq) continue;
     const float den = fmaxf(l[i], 1e-37f);
+    if (lse != nullptr && tx == 0)
+      lse[(size_t)bh * Sq + r] = m[i] + logf(den);
     T* op = o + ((size_t)bh * Sq + r) * HD;
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
@@ -173,8 +180,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
-                       int B, int H, int KH, int Sq, int Sk, int q_offset,
-                       int causal, int window, cudaStream_t stream) {
+                       float* lse, int B, int H, int KH, int Sq, int Sk,
+                       int q_offset, int causal, int window,
+                       cudaStream_t stream) {
   constexpr size_t smem = fwd_smem_bytes<HD>();
   auto kern = flash_fwd_kernel<T, HD>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -183,7 +191,7 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((Sq + BQ - 1) / BQ, B * H);
   kern<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, H / KH, Sq, Sk,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, H, H / KH, Sq, Sk,
       q_offset, causal, window, 1.0f / sqrtf((float)(HD)));
   return cudaGetLastError();
 }
@@ -192,17 +200,20 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
 }  // namespace repro
 
 // dtype: 0 = float32, 1 = bfloat16.  q (B,H,Sq,hd), k/v (B,KH,Sk,hd),
-// out (B,H,Sq,hd), all contiguous.  Returns the launch's cudaError_t.
+// out (B,H,Sq,hd), all contiguous; lse (B,H,Sq) fp32, or null for the
+// forward without it.  Returns the launch's cudaError_t.
 extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
-                               void* o, int B, int H, int KH, int Sq, int Sk,
-                               int hd, int q_offset, int causal, int window,
-                               int dtype, void* stream) {
+                               void* o, void* lse, int B, int H, int KH,
+                               int Sq, int Sk, int hd, int q_offset,
+                               int causal, int window, int dtype,
+                               void* stream) {
   using namespace repro;
   if (B <= 0 || H <= 0 || Sq <= 0) return cudaSuccess;
   if (KH <= 0 || H % KH || B * H > 65535) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_FWD(T, HD) \
-  launch_fwd<T, HD>(q, k, v, o, B, H, KH, Sq, Sk, q_offset, causal, window, st)
+  launch_fwd<T, HD>(q, k, v, o, static_cast<float*>(lse), B, H, KH, Sq, Sk, \
+                    q_offset, causal, window, st)
   if (dtype == 0 && hd == 64) return REPRO_FWD(float, 64);
   if (dtype == 0 && hd == 128) return REPRO_FWD(float, 128);
   if (dtype == 1 && hd == 64) return REPRO_FWD(__nv_bfloat16, 64);

@@ -14,7 +14,12 @@ from . import flash_decode as _fd
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_offset: int = 0, *, causal: bool = True,
                     window: int = 0) -> torch.Tensor:
-    """Model layout: q (B,S,H,hd), k/v (B,S,KH,hd) → (B,S,H,hd_v)."""
+    """Model layout: q (B,S,H,hd), k/v (B,S,KH,hd) → (B,S,H,hd_v).
+
+    Differentiable: the transposes are torch ops outside the kernels'
+    autograd Function, so gradients come back in model layout.
+    ``q_offset`` is the global position of q row 0 (no gradient).
+    """
     out = _fa.flash_attention(q.transpose(1, 2).contiguous(),
                               k.transpose(1, 2).contiguous(),
                               v.transpose(1, 2).contiguous(), q_offset,

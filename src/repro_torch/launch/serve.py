@@ -7,7 +7,8 @@ sessions spill to disk through the IO queue when ``--resident-budget`` is
 set.  The model runs on ``--device`` (the card by default).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
-      --requests 16 --rate 200 [--smoke] [--device cpu] [--static]
+      --requests 16 --rate 200 [--smoke] [--device cpu] [--static] \\
+      [--ckpt-dir DIR]
 """
 import argparse
 import dataclasses
@@ -16,7 +17,10 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import ckpt
 from repro_torch.configs import get_config
+from repro_torch.convert import state_from_numpy
+from repro_torch.models.layers import cast_params
 from repro_torch.serve.engine import (ModelBackend, ServeEngine, SyntheticBackend,
                                       poisson_workload, run_static)
 
@@ -62,6 +66,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "at --monitor-every virtual-second intervals")
     ap.add_argument("--monitor-every", type=float, default=0.01,
                     metavar="S", help="snapshot interval, virtual seconds")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="serve the parameters of the latest checkpoint "
+                         "there (written by either package's trainer)")
     ap.add_argument("--seed", type=int, default=0)
     return ap.parse_args(argv)
 
@@ -78,8 +85,9 @@ def _print_snap(t: float, snap: dict) -> None:
 
 def build(args: argparse.Namespace):
     """The workload and the engine the CLI runs: (engine, requests).
-    Weights are random, drawn from a ``torch.Generator`` seeded with
-    ``--seed`` on the model's device."""
+    Weights come from the latest checkpoint under ``--ckpt-dir``, else
+    are random, drawn from a ``torch.Generator`` seeded with ``--seed``
+    on the model's device."""
     reqs = poisson_workload(args.requests, args.rate,
                             prompt_len=tuple(args.prompt_len),
                             gen=tuple(args.gen), seed=args.seed)
@@ -92,8 +100,14 @@ def build(args: argparse.Namespace):
             cfg = cfg.reduced()
         cfg = dataclasses.replace(cfg, param_dtype=cfg.dtype)
         model = LanguageModel(cfg, device=args.device)
-        gen = torch.Generator(device=model.device).manual_seed(args.seed)
-        params = model.init(gen)
+        if args.ckpt_dir:
+            tree, step = ckpt.restore(args.ckpt_dir)
+            params = state_from_numpy(tree["params"], model.device)
+            params = cast_params(params, cfg.dtype)
+            print(f"restored step {step}")
+        else:
+            gen = torch.Generator(device=model.device).manual_seed(args.seed)
+            params = model.init(gen)
         pad = args.page_size
         prompt_pad = ((args.prompt_len[1] + pad - 1) // pad) * pad
         backend = ModelBackend(model, params, pool_pages=args.pool_pages,

@@ -1,5 +1,5 @@
 """Dense decoder layer (``kind="dense"`` of ``repro.models.blocks``):
-init plus prefill and decode application.
+init plus train, prefill and decode application.
 
 Pre-norm residual, as ``repro.models.blocks``.  Attention compute routes
 through ``repro_torch.dist.flash``, which picks the kernel.
@@ -16,13 +16,17 @@ from .layers import (Params, _dtype, apply_rope, cast_params, mlp, mlp_init,
                      rmsnorm, rmsnorm_init)
 
 
-def _attn_apply(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor):
-    """Prefill attention; returns (out, head-major cache (B, KH, S, hd))."""
+def _attn_apply(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
+                want_cache: bool = False):
+    """Train / prefill attention; with ``want_cache`` returns (out,
+    head-major cache (B, KH, S, hd))."""
     q, k, v = gqa_qkv(p, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     out = causal_attention(q, k, v, cfg=cfg, window=cfg.sliding_window)
     o = torch.einsum("bshk,hkd->bsd", out, p["w_o"])
+    if not want_cache:
+        return o
     return o, {"k": k.transpose(1, 2).contiguous(),
                "v": v.transpose(1, 2).contiguous()}
 
@@ -47,12 +51,32 @@ def decoder_layer_init(gen: torch.Generator, cfg) -> Params:
             "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dt)}
 
 
+def zero_aux(device=None) -> Dict[str, torch.Tensor]:
+    """Zero MoE aux dict (the schema of ``repro.models.moe.zero_aux``):
+    what a dense layer adds to the backbone's aux sums."""
+    z = torch.zeros((), dtype=torch.float32, device=device)
+    return {"loss": z, "dropped": z, "routed": z, "a2a_bytes": z}
+
+
+def decoder_layer_train(p: Params, x: torch.Tensor, cfg,
+                        positions: torch.Tensor
+                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Returns (x, zero aux).  The fp32 master weights are cast to the
+    compute dtype here, inside the layer (and so inside its checkpointed
+    region), and gradients flow back through the cast to fp32."""
+    p = cast_params(p, cfg.dtype)
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    x = x + _attn_apply(p["attn"], h, cfg, positions)
+    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    return x + mlp(p["mlp"], h), zero_aux(x.device)
+
+
 def decoder_layer_prefill(p: Params, x: torch.Tensor, cfg,
                           positions: torch.Tensor
                           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     p = cast_params(p, cfg.dtype)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    attn, cache = _attn_apply(p["attn"], h, cfg, positions)
+    attn, cache = _attn_apply(p["attn"], h, cfg, positions, want_cache=True)
     x = x + attn
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
     return x + mlp(p["mlp"], h), cache

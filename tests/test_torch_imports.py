@@ -19,8 +19,14 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
-print(len(names), bad)
+print(len(names), " ".join(names), bad)
 """
+
+# the modules of each slice, which the walk must reach
+SLICES = ("repro_torch.kernels.flash_attention", "repro_torch.launch.serve",
+          "repro_torch.optim.adamw", "repro_torch.train.steps",
+          "repro_torch.train.trainer", "repro_torch.data.pipeline",
+          "repro_torch.ckpt.checkpoint", "repro_torch.launch.train")
 
 
 def test_importing_every_module_leaves_jax_and_repro_out():
@@ -28,8 +34,10 @@ def test_importing_every_module_leaves_jax_and_repro_out():
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    count, bad = out.stdout.split(" ", 1)
+    count, rest = out.stdout.split(" ", 1)
+    names, bad = rest.rsplit(" ", 1)
     assert int(count) >= 20, out.stdout          # every subpackage walked
+    assert set(SLICES) <= set(names.split()), out.stdout
     assert bad.strip() == "[]", out.stdout
 
 
