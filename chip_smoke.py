@@ -39,11 +39,22 @@ Phases, in order; any failure raises and the script exits nonzero:
     steps (K5);
 11. one train step of a 2-layer full-width fp32 model on the card (K1
     with lse, K3) against the CPU's plain path: loss, grad norm and the
-    updated parameters.
+    updated parameters;
+12. the §6.3 partition copy: K6, K7 and K8 against their plain versions
+    bit for bit (K6: one 128 MiB range of 256 MiB buffers; K7: 4 MiB
+    and exactly-16 MiB buffers, ragged and 64-range sets; K8: 256 MiB
+    buffers, 64 ragged ranges and the hazard pattern), timed beside
+    their plain versions, ``Tensor.copy_`` (K6) and their bounds; then
+    the paths: ``ops.partition_copy_bytes`` (K6) and a 64-partition §6
+    program under ``Runtime(copy_backend="cuda")`` at 4 MiB (K7) and
+    256 MiB (K8), equal to the numpy backend, one fused copy each, with
+    the split of the fused copy into host→device, kernel and
+    device→host; the overlapping-destination and read-after-write
+    programs take no fused copy.
 
 Counters on the kernel wrappers are zeroed just before each main-path
-phase (5, 6, 8, 9, 10) and read just after: every kernel of the path
-must have launched.  The line before the last is the kernel table as
+phase (5, 6, 8, 9, 10, and each path of 12) and read just after: every
+kernel of the path must have launched.  The line before the last is the kernel table as
 JSON; the last line is ``{"ok": true, "device": {...}}``.  Exits nonzero
 without a CUDA device or without the package beside it.  ``--report
 PATH`` also writes every number of the run as JSON to PATH.
@@ -76,6 +87,10 @@ from repro_torch.data import SyntheticTokens  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
+from repro_torch.kernels import ops as kernel_ops  # noqa: E402
+from repro_torch.kernels import partition_copy as pc  # noqa: E402
+from repro_torch.kernels.autotune import plan_copy_chunk  # noqa: E402
+from repro_torch.core import NULL_GUID, Runtime, spawn_main  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models.model import LanguageModel  # noqa: E402
@@ -247,13 +262,14 @@ def phase_k5(flush):
     q = _randn((b, kh, g, hd), dt, 100)
     kc, vc = _randn((b, kh, s, hd), dt, 101), _randn((b, kh, s, hd), dt, 102)
     worst = 0.0
-    for cur in (2561, 2600):
-        for win in (0, 512):
-            cur_t = torch.full((1,), cur, dtype=torch.int32, device="cuda")
-            got = fd.flash_decode(q, kc, vc, cur_t, window=win)
-            torch.cuda.synchronize()
-            want = fd.flash_decode_plain(q, kc, vc, cur_t, window=win)
-            worst = max(worst, _check(f"cur {cur} window {win}", got, want, dt))
+    # cur s + 1: a decode past the cache end, the window counted from it
+    for cur, win in ((2561, 0), (2561, 512), (2600, 0), (2600, 512),
+                     (s + 1, 512)):
+        cur_t = torch.full((1,), cur, dtype=torch.int32, device="cuda")
+        got = fd.flash_decode(q, kc, vc, cur_t, window=win)
+        torch.cuda.synchronize()
+        want = fd.flash_decode_plain(q, kc, vc, cur_t, window=win)
+        worst = max(worst, _check(f"cur {cur} window {win}", got, want, dt))
     qf = _randn((2, 2, 4, 128), torch.float32, 103)
     kf, vf = (_randn((2, 2, 700, 128), torch.float32, 104),
               _randn((2, 2, 700, 128), torch.float32, 105))
@@ -801,6 +817,346 @@ def phase_train_reference():
             "launches": cg}
 
 
+# --------------------------------------------------- §6.3 partition copy
+
+MIB = 2 ** 20
+COPY_COUNTERS = (pc.partition_copy, pc.multi_partition_copy_tiles,
+                 pc.multi_partition_copy_staged)
+
+
+def _copy_counts():
+    return {"k6": pc.partition_copy.launches,
+            "k7": pc.multi_partition_copy_tiles.launches,
+            "k8": pc.multi_partition_copy_staged.launches}
+
+
+def _zero_copy_counts():
+    for fn in COPY_COUNTERS:
+        fn.launches = 0
+
+
+def _rand_rows(nbytes, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, 256, (nbytes // pc.LANES, pc.LANES),
+                         dtype=torch.uint8, generator=gen, device="cuda")
+
+
+def _ragged_set(size, parts):
+    """``parts`` disjoint lane-aligned byte ranges covering most of a
+    ``size``-byte buffer: ragged starts and lengths, sources permuted."""
+    psize = size // parts
+    return [(i * psize + 128 * (i % 3), ((i + 7) % parts) * psize,
+             psize - 256 - 128 * (i % 5)) for i in range(parts)]
+
+
+def _rows_of(ranges):
+    return tuple((d // pc.LANES, s // pc.LANES, n // pc.LANES)
+                 for d, s, n in ranges)
+
+
+def _hazard_rows(nrows):
+    """The reference's hazard pattern in rows: two ranges gathering the
+    same source rows, adjacent destination ranges (the gap row between
+    the last two), an odd row count, the tails of dst and of src."""
+    return ((0, 1000, 512), (1024, 1000, 512), (1536, 256, 512),
+            (2049, 256, 511), (nrows - 5001, 60_000, 5000),
+            (40_000, nrows - 129, 128), (30_000, 30_000, 257))
+
+
+def _copy_check(name, fn, dst, src, ranges, counter):
+    """One call of a copy kernel against its plain version, bit for bit;
+    the counter must rise by one."""
+    want = pc.multi_partition_copy_plain(dst.clone(), src, ranges)
+    before = counter.launches
+    got = fn(dst.clone(), src, ranges)
+    torch.cuda.synchronize()
+    if counter.launches != before + 1:
+        raise AssertionError(f"{name}: the kernel did not launch once")
+    same = torch.equal(got, want)
+    print(f"  {name}: {len(ranges)} ranges, "
+          f"{sum(r for _, _, r in ranges) * pc.LANES / MIB:.3f} MiB, "
+          f"bit-exact {same}")
+    if not same:
+        raise AssertionError(f"{name}: kernel disagrees with plain version")
+
+
+def _copy_times(kernel, wrapper, plain, reps, flush):
+    """CUDA-event ms of the bare kernel launch (tables already on the
+    card), of the whole wrapper (host tables, their transfer, the launch)
+    and of the plain version, each call after an L2 flush."""
+    return {"ms": _time_ms(kernel, reps, flush),
+            "wrapper_ms": _time_ms(wrapper, reps, flush),
+            "plain_ms": _time_ms(plain, reps, flush)}
+
+
+def _copy_bound(nbytes):
+    """Bytes bound of a copy of ``nbytes``: read once, written once."""
+    return _bound(0, 2 * nbytes, torch.bfloat16)
+
+
+def phase_copy_kernels():
+    """K6, K7 and K8 against their plain versions, then timed."""
+    print("== K6, K7, K8 partition copy: kernels vs plain versions")
+    flush = torch.empty(64 * MIB, dtype=torch.uint8, device="cuda")
+    # K6: one 128 MiB range of 256 MiB buffers, 32 KiB-aligned
+    dst, src = _rand_rows(256 * MIB, 400), _rand_rows(256 * MIB, 401)
+    k6 = (32 * MIB // pc.LANES, 96 * MIB // pc.LANES, 128 * MIB // pc.LANES)
+    want = pc.partition_copy_plain(dst.clone(), src, *k6)
+    got = pc.partition_copy(dst.clone(), src, *k6)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("K6 disagrees with its plain version")
+    print("  K6 128 MiB of 256 MiB: bit-exact True")
+    del got, want
+    d0, s0, rows = k6
+    rows_out = {}
+    k6_call = lambda: pc.partition_copy(dst, src, *k6)  # noqa: E731
+    t = _copy_times(k6_call, k6_call,
+                    lambda: pc.partition_copy_plain(dst, src, *k6), 20, flush)
+    lib_ms = _time_ms(lambda: dst[d0:d0 + rows].copy_(src[s0:s0 + rows]), 20,
+                      flush)
+    bound_ms, bound_by = _copy_bound(rows * pc.LANES)
+    rows_out["k6"] = {**t, "library_ms": lib_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "max_abs_err": 0.0,
+                      "timed_shape": "one 128 MiB range of 256 MiB uint8 "
+                                     "buffers, 32 KiB-aligned"}
+    print(f"  K6: kernel {t['ms']:.4f} ms (wrapper {t['wrapper_ms']:.4f}), "
+          f"plain {t['plain_ms']:.4f} ms, copy_ {lib_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {2 * rows * pc.LANES / 1e6:.1f} "
+          f"MB)")
+
+    # K8: 256 MiB buffers
+    nrows = dst.shape[0]
+    k8_set = _rows_of(_ragged_set(256 * MIB, 64))
+    _copy_check("K8 64 ragged ranges, 256 MiB", pc.multi_partition_copy,
+                dst, src, k8_set, pc.multi_partition_copy_staged)
+    _copy_check("K8 hazard pattern, 256 MiB", pc.multi_partition_copy,
+                dst, src, _hazard_rows(nrows), pc.multi_partition_copy_staged)
+    for chunk in (16, 128):
+        _copy_check(f"K8 hazard pattern, chunk {chunk}",
+                    lambda d, s_, r: pc.multi_partition_copy_staged(
+                        d, s_, r, chunk=chunk),
+                    dst, src, _hazard_rows(nrows),
+                    pc.multi_partition_copy_staged)
+    k8_bytes = sum(r for _, _, r in k8_set) * pc.LANES
+    chunk = plan_copy_chunk(k8_bytes // pc.LANES)
+    tabs = pc.tables(k8_set, chunk, "cuda")
+    t = _copy_times(lambda: pc.launch_staged(dst, src, tabs, chunk),
+                    lambda: pc.multi_partition_copy(dst, src, k8_set),
+                    lambda: pc.multi_partition_copy_plain(dst, src, k8_set),
+                    20, flush)
+    bound_ms, bound_by = _copy_bound(k8_bytes)
+    rows_out["k8"] = {**t, "library_ms": None,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "max_abs_err": 0.0, "chunk_rows": chunk,
+                      "table_entries": tabs.shape[1],
+                      "timed_shape": f"64 ragged ranges, "
+                                     f"{k8_bytes / MIB:.2f} MiB of 256 MiB "
+                                     f"uint8 buffers"}
+    print(f"  K8: kernel {t['ms']:.4f} ms (wrapper {t['wrapper_ms']:.4f}), "
+          f"plain (64 copy_ calls) {t['plain_ms']:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {2 * k8_bytes / 1e6:.1f} MB); no "
+          f"single PyTorch call computes it")
+    del dst, src
+
+    # K7: 4 MiB and exactly-16 MiB buffers
+    dst, src = _rand_rows(4 * MIB, 402), _rand_rows(4 * MIB, 403)
+    k7_set = _rows_of(_ragged_set(4 * MIB, 64))
+    for name, ranges in (
+            ("K7 one range", ((0, 1, 3),)),
+            ("K7 three ranges", ((1, 0, 2), (8, 16, 1), (32, 4, 5))),
+            ("K7 spanning tiles", ((0, 0, 300), (700, 350, 257))),
+            ("K7 64 ranges of 7 rows",
+             tuple((i * 8, ((i + 7) % 64) * 8, 7) for i in range(64))),
+            ("K7 64 ragged ranges, 4 MiB", k7_set)):
+        _copy_check(name, pc.multi_partition_copy, dst, src, ranges,
+                    pc.multi_partition_copy_tiles)
+    k7_bytes = sum(r for _, _, r in k7_set) * pc.LANES
+    tabs = pc.tables(k7_set, pc.BLOCK_ROWS, "cuda")
+    t = _copy_times(lambda: pc.launch_tiles(dst, src, tabs),
+                    lambda: pc.multi_partition_copy(dst, src, k7_set),
+                    lambda: pc.multi_partition_copy_plain(dst, src, k7_set),
+                    50, flush)
+    bound_ms, bound_by = _copy_bound(k7_bytes)
+    rows_out["k7"] = {**t, "library_ms": None,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "max_abs_err": 0.0, "table_entries": tabs.shape[1],
+                      "timed_shape": f"64 ragged ranges, "
+                                     f"{k7_bytes / MIB:.3f} MiB of 4 MiB "
+                                     f"uint8 buffers"}
+    print(f"  K7: kernel {t['ms']:.4f} ms (wrapper {t['wrapper_ms']:.4f}), "
+          f"plain (64 copy_ calls) {t['plain_ms']:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {2 * k7_bytes / 1e6:.2f} MB); no "
+          f"single PyTorch call computes it")
+    dst, src = _rand_rows(16 * MIB, 404), _rand_rows(16 * MIB, 405)
+    _copy_check("K7 64 ragged ranges, exactly 16 MiB", pc.multi_partition_copy,
+                dst, src, _rows_of(_ragged_set(16 * MIB, 64)),
+                pc.multi_partition_copy_tiles)
+    del dst, src, tabs, flush
+    torch.cuda.empty_cache()
+    return rows_out
+
+
+def _partition_program(size, ranges, seed):
+    """The §6 program: one task creates a data block and a shadow block
+    and issues one ``db_copy`` per range at one virtual timestamp."""
+    data = np.frombuffer(np.random.default_rng(seed).bytes(size), np.uint8)
+
+    def body(api, out):
+        block, ptr = api.db_create(size)
+        ptr[:] = data
+        api.db_release(block)
+        shadow, _ = api.db_create(size)
+        api.db_release(shadow)
+        for d_off, s_off, n in ranges:
+            api.db_copy(shadow, d_off, block, s_off, n)
+        out["db"] = shadow
+    return body, data
+
+
+def _overlap_program(api, out):
+    block, ptr = api.db_create(1024)
+    ptr[:512] = 1
+    ptr[512:] = 2
+    api.db_release(block)
+    shadow, _ = api.db_create(1024)
+    api.db_release(shadow)
+    api.db_copy(shadow, 0, block, 0, 512)
+    api.db_copy(shadow, 256, block, 512, 512)   # overlaps the first dst
+    out["db"] = shadow
+
+
+def _read_after_write_program(api, out):
+    b, ptr = api.db_create(4096)
+    ptr[:] = 0
+    ptr[:128] = 1
+    api.db_release(b)
+    api.db_copy(b, 1024, b, 0, 128)
+    api.db_copy(b, 2048, b, 1024, 128)   # reads the first copy's dst
+    out["db"] = b
+
+
+def _run_program(body, backend, walls=None):
+    rt = Runtime(copy_backend=backend)
+    if walls is not None:
+        fused = rt._fused_copy
+
+        def timed(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ok = fused(*a)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+            return ok
+        rt._fused_copy = timed
+    out = {}
+
+    def main(paramv, depv, api):
+        body(api, out)
+        return NULL_GUID
+
+    spawn_main(rt, main)
+    t0 = time.perf_counter()
+    stats = rt.run()
+    run_ms = 1e3 * (time.perf_counter() - t0)
+    return rt.lookup(out["db"]).buffer.copy(), stats, run_ms
+
+
+def _fused_copy_split(data, ranges, want):
+    """The fused copy's three steps replayed on fresh buffers of the
+    program's size, host clock and a sync around each: both blocks to
+    the card, the kernel step (its host tables, their transfer and the
+    launch), dst back into the host buffer.  The result must equal the
+    numpy backend's shadow ``want``."""
+    dbuf, sbuf, split = np.zeros_like(data), data.copy(), {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        split[name] = 1e3 * (time.perf_counter() - t0)
+        return out
+
+    host_dst = torch.from_numpy(dbuf)
+    dst, src = step("h2d_ms", lambda: (host_dst.to("cuda", copy=True),
+                                       torch.from_numpy(sbuf).to("cuda")))
+    step("kernel_ms", lambda: kernel_ops.multi_partition_copy_bytes_(
+        dst, src, ranges))
+    step("d2h_ms", lambda: host_dst.copy_(dst))
+    if not np.array_equal(dbuf, want):
+        raise AssertionError("the replayed fused copy differs")
+    return split
+
+
+def phase_copy_paths():
+    """The paths: ops.partition_copy_bytes (K6), then the §6 program of
+    64 partitions under Runtime(copy_backend="cuda") at 4 MiB (K7) and
+    256 MiB (K8), and two programs that must not fuse."""
+    print("== §6.3 copy paths: ops.partition_copy_bytes, "
+          "Runtime(copy_backend='cuda')")
+    info = {}
+    dst, src = (_rand_rows(256 * MIB, 406).reshape(-1),
+                _rand_rows(256 * MIB, 407).reshape(-1))
+    kw = dict(dst_off=32 * MIB, src_off=96 * MIB, size=128 * MIB)
+    _zero_copy_counts()
+    got = kernel_ops.partition_copy_bytes(dst, src, **kw)
+    torch.cuda.synchronize()
+    counts = _copy_counts()
+    want = dst.clone()
+    want[32 * MIB:160 * MIB] = src[96 * MIB:224 * MIB]
+    print(f"  ops.partition_copy_bytes 128 MiB of 256 MiB: launches {counts},"
+          f" equal to slice assignment {torch.equal(got, want)}")
+    if counts != {"k6": 1, "k7": 0, "k8": 0} or not torch.equal(got, want):
+        raise AssertionError("partition_copy_bytes did not run K6 alone, or "
+                             "its result is wrong")
+    info["ops"] = counts
+    del dst, src, got, want
+    torch.cuda.empty_cache()
+
+    for size, kernel in ((4 * MIB, "k7"), (256 * MIB, "k8")):
+        ranges = _ragged_set(size, 64)
+        body, data = _partition_program(size, ranges, seed=size // MIB)
+        walls = []
+        _zero_copy_counts()
+        got, stats, run_ms = _run_program(body, "cuda", walls)
+        counts = _copy_counts()
+        want, ref_stats, numpy_ms = _run_program(body, "numpy")
+        same = np.array_equal(got, want)
+        expect = {"k6": 0, "k7": 0, "k8": 0, kernel: 1}
+        print(f"  §6 program, 64 partitions of a {size // MIB} MiB block: "
+              f"shadow equal to the numpy backend's {same}; fused_copies "
+              f"{stats.fused_copies}; launches {counts}; bytes_copied "
+              f"{stats.bytes_copied} ({ref_stats.bytes_copied} numpy)")
+        if not (same and stats.fused_copies == 1 and counts == expect
+                and stats.bytes_copied == ref_stats.bytes_copied):
+            raise AssertionError(f"the {size // MIB} MiB program did not "
+                                 f"take one fused {kernel} copy, or differs")
+        split = _fused_copy_split(data, ranges, want)
+        row = {"launches": counts, "fused_copy_ms": walls[0],
+               "run_ms": run_ms, "numpy_run_ms": numpy_ms,
+               "copied_bytes": stats.bytes_copied, "split": split}
+        info[f"runtime_{size // MIB}mib"] = row
+        print(f"    fused copy wall {walls[0]:.3f} ms; replayed: host->device "
+              f"{split['h2d_ms']:.3f} ms, kernel step {split['kernel_ms']:.3f}"
+              f" ms, device->host {split['d2h_ms']:.3f} ms; rt.run() "
+              f"{run_ms:.1f} ms (numpy backend {numpy_ms:.1f} ms)")
+
+    for name, body in (("overlapping destinations", _overlap_program),
+                       ("read after write", _read_after_write_program)):
+        _zero_copy_counts()
+        got, stats, _ = _run_program(body, "cuda")
+        counts = _copy_counts()
+        want, _, _ = _run_program(body, "numpy")
+        same = np.array_equal(got, want)
+        print(f"  {name}: fused_copies {stats.fused_copies}, launches "
+              f"{counts}, equal to the numpy backend {same}")
+        if stats.fused_copies or any(counts.values()) or not same:
+            raise AssertionError(f"{name}: the batch must replay in order")
+    return info
+
+
 def _tree_to(tree, device, copy=False):
     return {k: _tree_to(v, device, copy) if isinstance(v, dict)
             else v.to(device, copy=copy) for k, v in tree.items()}
@@ -850,6 +1206,8 @@ def main() -> int:
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     train_ref = timed("train_reference_s", phase_train_reference)
+    kcopy = timed("copy_kernels_s", phase_copy_kernels)
+    copy_paths = timed("copy_paths_s", phase_copy_paths)
 
     by_phase = {"engine_ample": {"k1": eng_a["k1_launches"],
                                  "k5": eng_a["k5_launches"]},
@@ -883,6 +1241,22 @@ def main() -> int:
                "timed_shape": "B=4 H=15 KH=5 S=4096 hd=64 bf16 causal"}
         row["launches"], row["launches_by_phase"] = launches(key)
         kernels.append(row)
+    src_copy = "src/repro_torch/kernels/csrc/partition_copy.cu"
+    copy_phase = {"ops_partition_copy_bytes": copy_paths["ops"],
+                  "runtime_4mib": copy_paths["runtime_4mib"]["launches"],
+                  "runtime_256mib": copy_paths["runtime_256mib"]["launches"]}
+    for key, name, replaces in (
+            ("k6", "partition_copy (K6)",
+             "src/repro/kernels/partition_copy.py:52"),
+            ("k7", "multi_partition_copy_tiles (K7)",
+             "src/repro/kernels/partition_copy.py:151"),
+            ("k8", "multi_partition_copy_staged (K8)",
+             "src/repro/kernels/partition_copy.py:204")):
+        per = {ph: c[key] for ph, c in copy_phase.items()}
+        kernels.append({"name": name, "route": "cuda", "source": src_copy,
+                        "replaces": replaces, **kcopy[key],
+                        "launches": sum(per.values()),
+                        "launches_by_phase": per})
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} never launched on the path")
@@ -891,7 +1265,7 @@ def main() -> int:
               "engine_tight": eng_t, "contiguous": contig,
               "reference_max_abs_err": ref_err, "train": train,
               "restart": restart, "serve_ckpt": served,
-              "train_reference": train_ref,
+              "train_reference": train_ref, "copy_paths": copy_paths,
               "library_bwd_ms": ktrain["library_bwd_ms"], "phase_s": timings}
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)

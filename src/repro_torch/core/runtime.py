@@ -258,6 +258,7 @@ class Runtime:
         jitter: float = 0.0,
         trace: bool = False,
         copy_backend: str = "numpy",
+        copy_device: str = "cuda",
         reader_batch_bound: int = 8,
         io_mode: str = "async",
         read_ahead: bool = True,
@@ -273,12 +274,16 @@ class Runtime:
         self.jitter = float(jitter)
         self.rng = random.Random(seed)
         self.trace = trace
-        # the fused §6.3 copy kernels (the reference's "pallas" backend)
-        # are not ported yet: only the numpy copy exists here
-        if copy_backend != "numpy":
+        # "numpy" | "cuda" (§6.3 fallback): "cuda" runs batched copies
+        # through the fused partition-copy kernels (the reference's
+        # "pallas") on ``copy_device``; "cpu" takes their plain versions
+        if copy_backend not in ("numpy", "cuda"):
             raise NotImplementedError(
-                f"copy_backend={copy_backend!r}: only 'numpy' is available")
+                f"copy_backend={copy_backend!r}: 'numpy' or 'cuda'")
         self.copy_backend = copy_backend
+        self.copy_device = copy_device
+        if copy_backend == "cuda":
+            self._check_copy_device()
         # §5 file IO discipline: "async" puts chunk reads/writes on the
         # per-node IO queues (overlap with compute, write coalescing);
         # "sync" drives the same latency model blocking, per chunk
@@ -1672,8 +1677,9 @@ class Runtime:
             dbuf = self._materialize(dst)
             dst.version += 1
             ranges = [(m.dst_offset, m.src_offset, m.size) for m in msgs]
-            for (d_off, s_off, size) in ranges:
-                dbuf[d_off: d_off + size] = sbuf[s_off: s_off + size]
+            if not self._fused_copy(dbuf, sbuf, ranges):
+                for (d_off, s_off, size) in ranges:
+                    dbuf[d_off: d_off + size] = sbuf[s_off: s_off + size]
             for m in msgs:
                 if self._san is None:
                     self._copy_done(m)
@@ -1692,6 +1698,53 @@ class Runtime:
         if isinstance(ev, Guid) and not is_null(ev):
             self.send(MSatisfy(target=ev, slot=0, db=NULL_GUID),
                       m.dst_node, ev.node)
+
+    def _check_copy_device(self) -> None:
+        """A "cuda" copy backend needs its device now: no card, or kernels
+        that do not build, raise here instead of at the first copy."""
+        import torch
+
+        from ..kernels import _build
+        dev = torch.device(self.copy_device)
+        if dev.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError("copy_backend='cuda' on copy_device="
+                                   f"{self.copy_device!r}: no CUDA device")
+            _build.load()
+        elif dev.type != "cpu":
+            raise ValueError(f"copy_device={self.copy_device!r}: 'cuda' or "
+                             "'cpu'")
+
+    def _fused_copy(self, dbuf: np.ndarray, sbuf: np.ndarray,
+                    ranges: List[Tuple[int, int, int]]) -> bool:
+        """Route a multi-range copy through the fused partition-copy kernel
+        (K7, or K8 above the staging threshold) in one launch.
+
+        Returns False (caller takes the numpy path) unless the backend is
+        "cuda", the batch is big enough to amortize a launch, every range
+        is lane-aligned (128 B) and non-empty, and destinations are
+        disjoint (overlaps need the sequential last-writer-wins semantics
+        of the numpy path).  Both buffers move to ``copy_device``, the
+        kernel runs, and dst comes back into ``dbuf``.
+        """
+        if self.copy_backend != "cuda" or len(ranges) < 2:
+            return False
+        if any(d % 128 or s % 128 or n % 128 or n <= 0 for d, s, n in ranges):
+            return False
+        if spans_overlap((d, d + n) for d, _, n in ranges):
+            return False
+        import torch
+
+        from ..kernels import ops
+        # copies even on the CPU: a §6 partition's buffer may be a view of
+        # the other block's, and every range must read the original src
+        host_dst = torch.from_numpy(dbuf)
+        dst = host_dst.to(self.copy_device, copy=True)
+        src = torch.from_numpy(sbuf).to(self.copy_device, copy=True)
+        ops.multi_partition_copy_bytes_(dst, src, tuple(ranges))
+        host_dst.copy_(dst)
+        self.stats.fused_copies += 1
+        return True
 
     def _do_db_copy(self, msg: MDbCopy) -> None:
         if self._san is None:

@@ -70,15 +70,13 @@ def decode_update_and_attend(q: torch.Tensor, k_new: torch.Tensor,
     (the reference returns new arrays); returns (out (B, 1, H, hd_v),
     k_cache, v_cache).
 
-    Unlike the reference's ``dynamic_update_slice``, which clamps a start
-    past the end and so overwrites the last slot, a full cache raises.
+    As the reference's ``dynamic_update_slice``, a start at or past the
+    cache end clamps to the last slot, which the new token overwrites;
+    the attention still counts ``cur_len + 1`` valid entries.
     """
-    smax = k_cache.shape[2]
-    if not 0 <= cur_len < smax:
-        raise ValueError(f"decode at position {cur_len} past the cache "
-                         f"length {smax}")
-    k_cache[:, :, cur_len] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[:, :, cur_len] = v_new[:, 0].to(v_cache.dtype)
+    pos = min(max(cur_len, 0), k_cache.shape[2] - 1)
+    k_cache[:, :, pos] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[:, :, pos] = v_new[:, 0].to(v_cache.dtype)
     valid = torch.full((1,), cur_len + 1, dtype=torch.int32,
                        device=q.device)
     out = _decode_local(q, k_cache, v_cache, valid, window)

@@ -41,6 +41,13 @@ _ENTRIES = {
     # stream
     "repro_flash_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _P),
+    # dst, src, dst_row, src_row, rows, block_rows, stream
+    "repro_partition_copy": (_P, _P, _I, _I, _I, _I, _P),
+    # dst, src, tables (3 x n int32: dst rows, src rows, valid rows), n,
+    # stream
+    "repro_multi_partition_copy_tiles": (_P, _P, _P, _I, _P),
+    # dst, src, tables, n, chunk rows, grid, stream
+    "repro_multi_partition_copy_staged": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 

@@ -7,8 +7,8 @@
 // one (batch, kv head): it holds the G query rows of that kv head and
 // loops over the cache in BS-row blocks, with (m, l) in shared memory
 // and the accumulators in registers.  cur_len is read from device
-// memory, so the host never waits on it; blocks at or past cur_len and,
-// with a window, blocks wholly before cur_len - window are skipped (the
+// memory, so the host never waits on it; blocks at or past min(cur_len, S)
+// and, with a window, blocks wholly before cur_len - window are skipped (the
 // TPU kernel's pl.when stripe skip), and the ragged edge inside the last
 // block is masked by index.
 //
@@ -66,7 +66,11 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const T* kp = kc + (size_t)bkv * S * HD;
   const T* vp = vc + (size_t)bkv * S * HD;
-  const int cur = min(*cur_len, S);
+  // the window counts back from cur_len itself, which may exceed S after
+  // a decode past the cache end (as in the reference's mask); only the
+  // loop stops at S
+  const int cur = *cur_len;
+  const int end = min(cur, S);
 
   load_rows<T, HD, MAX_G, HD, NT>(sQ, q + (size_t)bkv * G * HD, G, 1.f);
   if (tid < G) {
@@ -78,7 +82,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   for (int p = 0; p < MAXP; ++p) acc[p] = 0.f;
 
   const int start = window > 0 ? max(0, cur - window) : 0;
-  for (int base = (start / BS) * BS; base < cur; base += BS) {
+  for (int base = (start / BS) * BS; base < end; base += BS) {
     __syncthreads();   // sQ/sM/sL written; previous block's reads done
     const int rows = min(BS, S - base);
     load_rows<T, HD, BS, LDK, NT>(sK, kp + (size_t)base * HD, rows, 1.f);
@@ -91,7 +95,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll 16
       for (int d = 0; d < HD; ++d) dot = fmaf(sQ[g * HD + d], sK[t * LDK + d], dot);
       const int pos = base + t;
-      const bool live = pos < cur && (window <= 0 || pos >= cur - window);
+      const bool live = pos < end && (window <= 0 || pos >= cur - window);
       sS[g * BS + t] = live ? dot * scale : NEG_INF;
     }
     __syncthreads();

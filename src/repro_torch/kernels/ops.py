@@ -1,7 +1,8 @@
 """Layout adapters from model conventions to the kernels' conventions.
 
 Model layout (B, S, H, hd) becomes the kernels' head-major (B, H, S, hd)
-here, not in model code, as in ``repro.kernels.ops``.
+here, not in model code, as in ``repro.kernels.ops``; flat byte buffers
+become the copy kernels' (rows, 128) views.
 """
 from __future__ import annotations
 
@@ -9,6 +10,8 @@ import torch
 
 from . import flash_attention as _fa
 from . import flash_decode as _fd
+from . import partition_copy as _pc
+from ..core.objects import spans_overlap
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -40,3 +43,87 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     qg = q.reshape(b, kh, h // kh, hd).contiguous()
     out = _fd.flash_decode(qg, k_cache, v_cache, cur_len, window=window)
     return out.reshape(b, 1, h, out.shape[-1])
+
+
+# ---------------------------------------------------------- §6.3 copies
+
+def _rows(buf: torch.Tensor, what: str) -> torch.Tensor:
+    """The (rows, 128) view of a flat uint8 buffer's whole rows (a
+    lane-aligned range never reaches the ragged tail)."""
+    if buf.dtype != torch.uint8 or buf.dim() != 1:
+        raise TypeError(f"{what}: want flat uint8 buffers, got {buf.dtype} "
+                        f"{tuple(buf.shape)}")
+    lanes = _pc.LANES
+    return buf[:buf.numel() - buf.numel() % lanes].view(-1, lanes)
+
+
+def _row_ranges(ranges, nd: int, ns: int):
+    """Validate ``(dst_off, src_off, size)`` byte triples as the reference
+    does and turn them into row triples."""
+    lanes = _pc.LANES
+    row_ranges = []
+    for (d_off, s_off, size) in ranges:
+        if size <= 0:
+            raise ValueError(f"empty copy range ({d_off},{s_off},{size})")
+        if d_off % lanes or s_off % lanes or size % lanes:
+            raise ValueError(
+                f"range ({d_off},{s_off},{size}) not 128-byte aligned")
+        if d_off + size > nd or s_off + size > ns or d_off < 0 or s_off < 0:
+            raise ValueError(
+                f"range ({d_off},{s_off},{size}) out of bounds "
+                f"(dst {nd}, src {ns})")
+        row_ranges.append((d_off // lanes, s_off // lanes, size // lanes))
+    if spans_overlap((d, d + n) for d, _, n in row_ranges):
+        raise ValueError("destination ranges overlap")
+    return tuple(row_ranges)
+
+
+def partition_copy_bytes(dst: torch.Tensor, src: torch.Tensor, *,
+                         dst_off: int, src_off: int,
+                         size: int) -> torch.Tensor:
+    """§6.3 copy of one range on flat uint8 buffers; returns the new dst
+    (``dst`` itself is not written) with ``src[src_off:src_off+size]`` at
+    ``dst_off``.  Offsets and size need only be lane-aligned (128 B):
+    32 KiB-aligned copies take the tile-per-block kernel (K6), anything
+    else the multi-range kernel (K7, or K8 above the staging threshold)
+    with one range."""
+    ((d_row, s_row, rows),) = _row_ranges(((dst_off, src_off, size),),
+                                          dst.numel(), src.numel())
+    out = dst.clone()
+    d2, s2 = _rows(out, "partition_copy_bytes"), _rows(src,
+                                                       "partition_copy_bytes")
+    tile = _pc.BLOCK_ROWS
+    if d_row % tile == 0 and s_row % tile == 0 and rows % tile == 0:
+        _pc.partition_copy(d2, s2, d_row, s_row, rows)
+    else:
+        _pc.multi_partition_copy(d2, s2, ((d_row, s_row, rows),))
+    return out
+
+
+def multi_partition_copy_bytes(dst: torch.Tensor, src: torch.Tensor, ranges,
+                               *, block_rows: int = _pc.BLOCK_ROWS
+                               ) -> torch.Tensor:
+    """Fused §6.3 copy of a whole partition set in one kernel launch.
+
+    dst/src: flat uint8 buffers.  ``ranges`` is a sequence of ``(dst_off,
+    src_off, size)`` byte triples, each a multiple of 128 (lane
+    granularity).  Destination ranges must be mutually disjoint (overlap
+    raises ``ValueError``); sources may overlap (a gather).  Returns the
+    new dst; ``dst`` is not written and every range reads the original
+    ``src``.
+    """
+    out = dst.clone()
+    return multi_partition_copy_bytes_(out, src, ranges,
+                                       block_rows=block_rows)
+
+
+def multi_partition_copy_bytes_(dst: torch.Tensor, src: torch.Tensor, ranges,
+                                *, block_rows: int = _pc.BLOCK_ROWS
+                                ) -> torch.Tensor:
+    """:func:`multi_partition_copy_bytes` in place on ``dst`` (returned);
+    ``src`` must not share memory with it."""
+    row_ranges = _row_ranges(ranges, dst.numel(), src.numel())
+    what = "multi_partition_copy_bytes"
+    _pc.multi_partition_copy(_rows(dst, what), _rows(src, what), row_ranges,
+                             block_rows=block_rows)
+    return dst

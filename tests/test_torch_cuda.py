@@ -1,6 +1,8 @@
 """Card-only checks: the CUDA kernels K1 (with and without its
-logsumexp), K2, K3 and K5 against their plain PyTorch versions on the
-same inputs, and a reduced train step on the card against the CPU.
+logsumexp), K2, K3, K5 and the partition copies K6, K7, K8 against their
+plain PyTorch versions on the same inputs, a reduced train step on the
+card against the CPU, and the runtime's fused copy on the card against
+its numpy backend.
 They skip (from inside the fixture) where torch sees no CUDA device; on
 a machine with the card run
 
@@ -12,6 +14,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
+from repro_torch.kernels import partition_copy as pc
 
 pytestmark = pytest.mark.cuda
 
@@ -64,6 +67,7 @@ def test_flash_attention_kernel_matches_plain(cuda, b, h, kh, sq, sk, hd,
     (2, 2, 4, 300, 128, 1, 0, torch.float32),
     (2, 2, 8, 256, 64, 256, 16, torch.float32),
     (1, 3, 1, 1000, 128, 777, 0, torch.bfloat16),
+    (2, 2, 4, 256, 64, 257, 40, torch.float32),     # past the cache end
 ])
 def test_flash_decode_kernel_matches_plain(cuda, b, kh, g, s, hd, cur,
                                            window, dtype):
@@ -239,3 +243,134 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
 def _tree_to(tree, device):
     return {k: _tree_to(v, device) if isinstance(v, dict)
             else v.to(device, copy=True) for k, v in tree.items()}
+
+
+# ------------------------------------------------ partition copies (K6-K8)
+
+def _bytes(rows, seed, device):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, 256, (rows, pc.LANES),
+                                         dtype=np.uint8)).to(device)
+
+
+@pytest.mark.parametrize("nd,ns,d0,s0,rows", [
+    (1024, 1024, 256, 512, 256),      # one tile
+    (2048, 2048, 0, 1024, 512),       # two tiles
+    (512, 1536, 256, 0, 256),
+    (300, 300, 100, 200, 100),        # a range shorter than a tile
+])
+def test_partition_copy_kernel_matches_plain(cuda, nd, ns, d0, s0, rows):
+    dst, src = _bytes(nd, 0, cuda), _bytes(ns, 1, cuda)
+    want = pc.partition_copy_plain(dst.clone(), src, d0, s0, rows)
+    before = pc.partition_copy.launches
+    got = pc.partition_copy(dst, src, d0, s0, rows)
+    torch.cuda.synchronize()
+    assert pc.partition_copy.launches == before + 1
+    assert torch.equal(got, want)
+
+
+# (dst_row, src_row, rows): ragged edges, adjacent destinations, two
+# ranges gathering the same source rows, both buffers' tails
+HAZARD = ((0, 1000, 512), (1024, 1000, 512), (1536, 256, 512),
+          (2049, 256, 511), (4095 - 129, 4095 - 129, 129))
+
+
+@pytest.mark.parametrize("ranges", [
+    ((0, 1, 3),),
+    ((1, 0, 2), (8, 16, 1), (32, 4, 5)),
+    ((0, 0, 300), (700, 350, 257)),
+    tuple((i * 8, ((i + 7) % 64) * 8, 7) for i in range(64)),
+    HAZARD,
+])
+def test_multi_partition_copy_tiles_matches_plain(cuda, ranges):
+    dst, src = _bytes(4095, 2, cuda), _bytes(4095, 3, cuda)
+    want = pc.multi_partition_copy_plain(dst.clone(), src, ranges)
+    before = pc.multi_partition_copy_tiles.launches
+    got = pc.multi_partition_copy_tiles(dst, src, ranges)
+    torch.cuda.synchronize()
+    assert pc.multi_partition_copy_tiles.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("chunk", [16, 64, 512])
+@pytest.mark.parametrize("ranges", [
+    HAZARD,
+    tuple((i * 60, ((i + 7) % 64) * 60, 59 - i % 3) for i in range(64)),
+])
+def test_multi_partition_copy_staged_matches_plain(cuda, chunk, ranges):
+    dst, src = _bytes(4095, 4, cuda), _bytes(4095, 5, cuda)
+    want = pc.multi_partition_copy_plain(dst.clone(), src, ranges)
+    before = pc.multi_partition_copy_staged.launches
+    got = pc.multi_partition_copy_staged(dst, src, ranges, chunk=chunk)
+    torch.cuda.synchronize()
+    assert pc.multi_partition_copy_staged.launches == before + 1
+    assert torch.equal(got, want)
+
+
+def test_multi_partition_copy_routes_past_the_threshold(cuda):
+    rows = pc.DMA_STAGE_BYTES // pc.LANES
+    ranges = ((0, 128, 3000), (50_000, 0, 7000), (rows - 4000, 60_000, 3999))
+    counts = lambda: (pc.multi_partition_copy_tiles.launches,  # noqa: E731
+                      pc.multi_partition_copy_staged.launches)
+    for extra, want_counts in ((0, (1, 0)), (1, (0, 1))):
+        dst, src = _bytes(rows + extra, 6, cuda), _bytes(rows, 7, cuda)
+        want = pc.multi_partition_copy_plain(dst.clone(), src, ranges)
+        before = counts()
+        got = pc.multi_partition_copy(dst, src, ranges)
+        torch.cuda.synchronize()
+        assert tuple(b - a for a, b in zip(before, counts())) == want_counts
+        assert torch.equal(got, want)
+
+
+def test_copy_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    dst, src = _bytes(64, 8, cuda), _bytes(64, 9, cuda)
+    with pytest.raises(ValueError, match="overlap"):
+        pc.multi_partition_copy_tiles(dst, src, ((0, 0, 8), (4, 16, 8)))
+    with pytest.raises(ValueError, match="out of bounds"):
+        pc.multi_partition_copy_staged(dst, src, ((60, 0, 8),))
+    with pytest.raises(ValueError, match="shares memory"):
+        pc.multi_partition_copy_tiles(dst[:32], dst[16:48], ((0, 0, 8),))
+    with pytest.raises(TypeError):
+        pc.multi_partition_copy_tiles(dst.float(), src.float(), ((0, 0, 8),))
+    with pytest.raises(ValueError, match="multiples"):
+        pc.partition_copy(dst, src, 3, 0, 8)
+    with pytest.raises(ValueError, match="aligned"):
+        flat = dst.reshape(-1)
+        pc.multi_partition_copy_tiles(flat[1:1 + 32 * 128].view(-1, 128),
+                                      src, ((0, 0, 8),))
+    with pytest.raises(ValueError):
+        pc.multi_partition_copy_tiles(dst, src.cpu(), ((0, 0, 8),))
+
+
+def test_runtime_fused_copy_on_the_card_matches_numpy(cuda):
+    from repro_torch.core import NULL_GUID, Runtime, spawn_main
+
+    def run(**kw):
+        rt = Runtime(**kw)
+        out = {}
+        size, psize = 64 * 1024, 1024
+
+        def main(paramv, depv, api):
+            block, ptr = api.db_create(size)
+            ptr[:] = np.frombuffer(np.random.default_rng(7).bytes(size),
+                                   np.uint8)
+            api.db_release(block)
+            shadow, _ = api.db_create(size)
+            api.db_release(shadow)
+            for i in range(64):
+                api.db_copy(shadow, i * psize + 128 * (i % 3),
+                            block, ((i + 7) % 64) * psize, psize - 256)
+            out["shadow"] = shadow
+            return NULL_GUID
+
+        spawn_main(rt, main)
+        stats = rt.run()
+        return rt.lookup(out["shadow"]).buffer.copy(), stats
+
+    before = pc.multi_partition_copy_tiles.launches
+    got, stats = run(copy_backend="cuda")
+    assert pc.multi_partition_copy_tiles.launches == before + 1
+    want, ref = run(copy_backend="numpy")
+    assert np.array_equal(got, want)
+    assert (stats.fused_copies, ref.fused_copies) == (1, 0)
+    assert stats.bytes_copied == ref.bytes_copied

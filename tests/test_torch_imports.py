@@ -26,7 +26,8 @@ print(len(names), " ".join(names), bad)
 SLICES = ("repro_torch.kernels.flash_attention", "repro_torch.launch.serve",
           "repro_torch.optim.adamw", "repro_torch.train.steps",
           "repro_torch.train.trainer", "repro_torch.data.pipeline",
-          "repro_torch.ckpt.checkpoint", "repro_torch.launch.train")
+          "repro_torch.ckpt.checkpoint", "repro_torch.launch.train",
+          "repro_torch.kernels.partition_copy", "repro_torch.kernels.autotune")
 
 
 def test_importing_every_module_leaves_jax_and_repro_out():

@@ -65,7 +65,7 @@ def test_flash_decode_plain_vs_pallas(cur, window, block_s):
                                    rtol=TOL)
 
 
-@pytest.mark.parametrize("cur", [0, 5, 15])
+@pytest.mark.parametrize("cur", [0, 5, 15, 16, 17])   # 16 = S: at the end
 @pytest.mark.parametrize("window", [0, 6])
 def test_decode_update_and_attend(cur, window):
     b, kh, g, hd, s = 2, 2, 2, 16, 16
@@ -84,10 +84,16 @@ def test_decode_update_and_attend(cur, window):
 
 
 def test_decode_past_the_cache_raises():
-    kc = torch.zeros(1, 1, 4, 16)
-    x = torch.zeros(1, 1, 1, 16)
-    with pytest.raises(ValueError):
-        tflash.decode_update_and_attend(x, x, x, kc, kc.clone(), 4)
+    """A decode at or past the cache end no longer raises: as the
+    reference's ``dynamic_update_slice``, the write clamps to the last
+    slot and the slots before it keep their contents."""
+    for cur in (4, 5):
+        kc = torch.zeros(1, 1, 4, 16)
+        x = torch.full((1, 1, 1, 16), float(cur))
+        out, kc, vc = tflash.decode_update_and_attend(x, x, x, kc, kc.clone(),
+                                                      cur)
+        assert (kc[0, 0, :3] == 0).all() and (kc[0, 0, 3] == cur).all()
+        assert torch.equal(kc, vc) and torch.isfinite(out).all()
 
 
 @pytest.mark.parametrize("npages,window", [(10, 0), (10, 5), (3, 0)])

@@ -100,8 +100,10 @@ def test_spill_pressure_tokens_exact_and_spills():
         assert r.out == exp
 
 
-@pytest.mark.parametrize("backend", ["pallas", "cuda", ""])
+@pytest.mark.parametrize("backend", ["pallas", "tpu", ""])
 def test_runtime_rejects_unported_copy_backends(backend):
+    """Only "numpy" and "cuda" (the ported fused copy) exist in the port;
+    the reference's "pallas" and any other name raise."""
     with pytest.raises(NotImplementedError):
         Runtime(copy_backend=backend)
     assert Runtime(copy_backend="numpy").copy_backend == "numpy"
