@@ -36,7 +36,11 @@ def params_from_numpy(tree: Dict[str, Any], cfg, device="cuda") -> Dict[str, Any
     """Nested dict of numpy arrays → the same nested dict of tensors.
 
     ``cfg`` names the model the tree belongs to; the tree must carry the
-    stacked decoder layers of a dense model of that width and depth.
+    stacked layers of that family at that width and depth: the decoder
+    layers' ``layers.attn.w_q`` (L, D, H, hd) for dense and vlm, the
+    Mamba layers' ``layers.mixer.w_x`` (L, D, d_inner) for ssm and
+    hybrid, and for hybrid also the one shared block's
+    ``shared_attn.attn.w_q`` (D, H, hd).  A mismatch raises.
     """
     dev = resolve_device(device)
 
@@ -46,11 +50,24 @@ def params_from_numpy(tree: Dict[str, Any], cfg, device="cuda") -> Dict[str, Any
         return _tensor(np.asarray(node), dev)
 
     out = conv(tree)
-    w_q = out["layers"]["attn"]["w_q"]
-    want = (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.head_dim)
-    if tuple(w_q.shape) != want:
-        raise ValueError(f"layers.attn.w_q is {tuple(w_q.shape)}, config "
-                         f"{cfg.name} wants {want}")
+    L, D = cfg.num_layers, cfg.d_model
+    attn = (cfg.num_heads, cfg.head_dim)
+    if cfg.family in ("ssm", "hybrid"):
+        checks = [(("layers", "mixer", "w_x"), (L, D, cfg.d_inner))]
+        if cfg.family == "hybrid":
+            checks.append((("shared_attn", "attn", "w_q"), (D, *attn)))
+    else:
+        checks = [(("layers", "attn", "w_q"), (L, D, *attn))]
+    for path, want in checks:
+        node = out
+        for key in path:
+            if not isinstance(node, dict) or key not in node:
+                raise ValueError(f"{'.'.join(path)} is missing: config "
+                                 f"{cfg.name} ({cfg.family}) wants {want}")
+            node = node[key]
+        if tuple(node.shape) != want:
+            raise ValueError(f"{'.'.join(path)} is {tuple(node.shape)}, "
+                             f"config {cfg.name} wants {want}")
     return out
 
 

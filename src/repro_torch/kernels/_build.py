@@ -23,7 +23,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points: (name, argtypes); each returns a cudaError_t
 _ENTRIES = {
     # q, k, v, out, lse (or null), B, H, KH, Sq, Sk, hd, q_offset, causal,
@@ -48,6 +48,9 @@ _ENTRIES = {
     "repro_multi_partition_copy_tiles": (_P, _P, _P, _I, _P),
     # dst, src, tables, n, chunk rows, grid, stream
     "repro_multi_partition_copy_staged": (_P, _P, _P, _I, _I, _I, _P),
+    # x, dt, A, B, C, y, state, B, H, S, P, N, chunk, strides of x, y, dt
+    # (b, h, s), of B, C (b, s), dtype, stream
+    "repro_ssd_scan": (_P,) * 7 + (_I,) * 6 + (_L,) * 13 + (_I, _P),
 }
 
 

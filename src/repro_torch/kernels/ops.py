@@ -11,6 +11,7 @@ import torch
 from . import flash_attention as _fa
 from . import flash_decode as _fd
 from . import partition_copy as _pc
+from . import ssd_scan as _ssd
 from ..core.objects import spans_overlap
 
 
@@ -43,6 +44,19 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     qg = q.reshape(b, kh, h // kh, hd).contiguous()
     out = _fd.flash_decode(qg, k_cache, v_cache, cur_len, window=window)
     return out.reshape(b, 1, h, out.shape[-1])
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, *, chunk: int = 128):
+    """Model layout: x (B,S,H,P), dt (B,S,H), B/C (B,S,N).
+
+    Returns (y (B,S,H,P), state (B,H,P,N)).  The kernel reads the
+    transposed views through their strides and writes y into a buffer
+    laid out as (B,S,H,P), so neither transpose copies.
+    """
+    y, st = _ssd.ssd_scan(x.transpose(1, 2), dt.transpose(1, 2), A, B, C,
+                          chunk=chunk)
+    return y.transpose(1, 2), st
 
 
 # ---------------------------------------------------------- §6.3 copies

@@ -1,5 +1,5 @@
-"""Dense decoder layer (``kind="dense"`` of ``repro.models.blocks``):
-init plus train, prefill and decode application.
+"""Dense decoder layer (``kind="dense"`` of ``repro.models.blocks``) and
+the Mamba2 layer: init plus train, prefill and decode application.
 
 Pre-norm residual, as ``repro.models.blocks``.  Attention compute routes
 through ``repro_torch.dist.flash``, which picks the kernel.
@@ -14,6 +14,7 @@ from repro_torch.dist.flash import causal_attention, decode_update_and_attend
 from .attention import gqa_init, gqa_qkv
 from .layers import (Params, _dtype, apply_rope, cast_params, mlp, mlp_init,
                      rmsnorm, rmsnorm_init)
+from .mamba import mamba_decode, mamba_init, mamba_prefill, mamba_train
 
 
 def _attn_apply(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
@@ -91,3 +92,34 @@ def decoder_layer_decode(p: Params, x: torch.Tensor, cfg,
     x = x + attn
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
     return x + mlp(p["mlp"], h), cache
+
+
+# ----------------------------------------------------------------- mamba layer
+
+def mamba_layer_init(gen: torch.Generator, cfg) -> Params:
+    dt = _dtype(cfg.param_dtype)
+    return {"ln": rmsnorm_init(cfg.d_model, dt, gen.device),
+            "mixer": mamba_init(gen, cfg)}
+
+
+def mamba_layer_train(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    p = cast_params(p, cfg.dtype)
+    h = rmsnorm(p["ln"], x, cfg.norm_eps)
+    return x + mamba_train(p["mixer"], h, cfg)
+
+
+def mamba_layer_prefill(p: Params, x: torch.Tensor, cfg
+                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    p = cast_params(p, cfg.dtype)
+    h = rmsnorm(p["ln"], x, cfg.norm_eps)
+    y, cache = mamba_prefill(p["mixer"], h, cfg)
+    return x + y, cache
+
+
+def mamba_layer_decode(p: Params, x: torch.Tensor, cfg,
+                       cache: Dict[str, torch.Tensor]
+                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    p = cast_params(p, cfg.dtype)
+    h = rmsnorm(p["ln"], x, cfg.norm_eps)
+    y, cache = mamba_decode(p["mixer"], h, cfg, cache)
+    return x + y, cache

@@ -1,0 +1,177 @@
+"""Mamba2 (state-space duality) block: chunked scan, prefill and O(1)
+decode, as ``repro.models.mamba``.
+
+The SSD scan splits the sequence into chunks of ``ssm_chunk``: the
+intra-chunk contribution is a masked matmul, the inter-chunk state a
+short loop over chunks.  Prefill and training run it through
+``ops.ssd_scan`` — K9 on the card, its plain version on the CPU
+(``repro_torch.kernels.ssd_scan``); the reference's jnp
+``ssd_chunked`` computes the same function.  Decode is the
+recurrent form: the state (B, H, P, N) and the conv tails are updated in
+place per token, so the cache does not grow with the sequence.
+
+Parameter names and shapes match the reference's, so one weight set
+feeds both packages.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kernel_ops
+from .layers import Params, _dtype, dense_init, rmsnorm, rmsnorm_init
+
+
+def mamba_init(gen: torch.Generator, cfg) -> Params:
+    """Projections stored separately per component (z, x, B, C, dt), as
+    the reference keeps them for sharding."""
+    d, di, n = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    h, ck = cfg.ssm_heads, cfg.conv_kernel
+    dt = _dtype(cfg.param_dtype)
+    dev = gen.device
+
+    def conv(width):
+        w = torch.randn((ck, width), generator=gen, device=dev)
+        return (w / np.sqrt(ck)).to(dt)
+
+    return {
+        "w_z": dense_init(gen, d, (di,), dt),
+        "w_x": dense_init(gen, d, (di,), dt),
+        "w_B": dense_init(gen, d, (n,), dt),
+        "w_C": dense_init(gen, d, (n,), dt),
+        "w_dt": dense_init(gen, d, (h,), dt),
+        "conv_x": conv(di),
+        "conv_b_x": torch.zeros((di,), dtype=dt, device=dev),
+        "conv_B": conv(n),
+        "conv_b_B": torch.zeros((n,), dtype=dt, device=dev),
+        "conv_C": conv(n),
+        "conv_b_C": torch.zeros((n,), dtype=dt, device=dev),
+        "A_log": torch.zeros((h,), dtype=torch.float32, device=dev),
+        "D": torch.ones((h,), dtype=torch.float32, device=dev),
+        "dt_bias": torch.zeros((h,), dtype=torch.float32, device=dev),
+        "norm": rmsnorm_init(di, dt, dev),
+        "out_proj": dense_init(gen, di, (d,), dt),
+    }
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.softplus, log(1 + e^x) with no threshold (F.softplus turns
+    linear above 20)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv1d then silu, in fp32.  xbc: (B, S, C);
+    w: (K, C)."""
+    k, s = w.shape[0], xbc.shape[1]
+    pad = F.pad(xbc, (0, 0, k - 1, 0))
+    out = torch.zeros(xbc.shape, dtype=torch.float32, device=xbc.device)
+    for i in range(k):
+        out = out + pad[:, i: i + s].float() * w[i].float()
+    out = out + b.float()
+    return F.silu(out).to(xbc.dtype)
+
+
+def _mamba_proj(params: Params, x: torch.Tensor, cfg):
+    """Shared projection + conv for the train and prefill paths."""
+    z = x @ params["w_z"]
+    xr = x @ params["w_x"]
+    Br = x @ params["w_B"]
+    Cr = x @ params["w_C"]
+    dt_raw = x @ params["w_dt"]
+    xs = _causal_conv(xr, params["conv_x"], params["conv_b_x"])
+    B = _causal_conv(Br, params["conv_B"], params["conv_b_B"])
+    C = _causal_conv(Cr, params["conv_C"], params["conv_b_C"])
+    dt = _softplus(dt_raw.float() + params["dt_bias"])
+    A = -torch.exp(params["A_log"])
+    return z, xs, B, C, dt, A, (xr, Br, Cr)
+
+
+def _mamba_out(params: Params, y_heads: torch.Tensor, xh: torch.Tensor,
+               z: torch.Tensor, cfg, lead_shape) -> torch.Tensor:
+    y = y_heads.float() + params["D"].float()[:, None] * xh.float()
+    y = y.reshape(*lead_shape, cfg.d_inner).to(z.dtype)
+    y = y * F.silu(z.float()).to(z.dtype)
+    y = rmsnorm(params["norm"], y, cfg.norm_eps)
+    return y @ params["out_proj"]
+
+
+def mamba_train(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Full-sequence Mamba2 block.  The scan is ``ops.ssd_scan``: K9 on
+    a CUDA tensor (whose backward is not ported yet and raises), its
+    plain chunked version on a CPU tensor, which autograd
+    differentiates."""
+    h, pdim = cfg.ssm_heads, cfg.ssm_head_dim
+    z, xs, B, C, dt, A, _ = _mamba_proj(params, x, cfg)
+    xh = xs.reshape(*xs.shape[:-1], h, pdim)
+    y, _ = kernel_ops.ssd_scan(xh, dt, A, B, C, chunk=cfg.ssm_chunk)
+    return _mamba_out(params, y, xh, z, cfg, xs.shape[:-1])
+
+
+def mamba_prefill(params: Params, x: torch.Tensor, cfg
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Prefill returning the recurrent cache (conv tails + SSD state).
+    The scan goes through ``ops.ssd_scan``: K9 on the card, whose final
+    state is the cache (the reference runs ``ssd_chunked`` here)."""
+    h, pdim, ck = cfg.ssm_heads, cfg.ssm_head_dim, cfg.conv_kernel
+    z, xs, B, C, dt, A, (xr, Br, Cr) = _mamba_proj(params, x, cfg)
+    xh = xs.reshape(*xs.shape[:-1], h, pdim)
+    y, state = kernel_ops.ssd_scan(xh, dt, A, B, C, chunk=cfg.ssm_chunk)
+    out = _mamba_out(params, y, xh, z, cfg, xs.shape[:-1])
+    # pre-activation conv tails, copied: a view would keep the whole
+    # (B, S, C) projection alive for as long as the cache lives
+    cache = {
+        "conv_x": xr[:, -(ck - 1):, :].clone(),
+        "conv_B": Br[:, -(ck - 1):, :].clone(),
+        "conv_C": Cr[:, -(ck - 1):, :].clone(),
+        "state": state.float(),
+    }
+    return out, cache
+
+
+def _conv_step(tail: torch.Tensor, new: torch.Tensor, w: torch.Tensor,
+               b: torch.Tensor):
+    """One-token causal conv: tail (B, K-1, C), new (B, 1, C) → (out
+    (B, C), new tail (B, K-1, C))."""
+    win = torch.cat([tail, new], dim=1)                        # (B, K, C)
+    out = torch.einsum("bkc,kc->bc", win.float(), w.float())
+    out = F.silu(out + b.float())
+    return out.to(new.dtype), win[:, 1:, :]
+
+
+def mamba_decode(params: Params, x: torch.Tensor, cfg,
+                 cache: Dict[str, torch.Tensor]
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token recurrent step.  x: (B, 1, D).  The cache's tensors are
+    updated in place (the reference returns new arrays) and returned."""
+    h, pdim = cfg.ssm_heads, cfg.ssm_head_dim
+    z = x @ params["w_z"]
+    xr = x @ params["w_x"]
+    Br = x @ params["w_B"]
+    Cr = x @ params["w_C"]
+    dt_raw = x @ params["w_dt"]
+
+    xs, conv_x = _conv_step(cache["conv_x"], xr, params["conv_x"],
+                            params["conv_b_x"])
+    B1, conv_B = _conv_step(cache["conv_B"], Br, params["conv_B"],
+                            params["conv_b_B"])
+    C1, conv_C = _conv_step(cache["conv_C"], Cr, params["conv_C"],
+                            params["conv_b_C"])
+
+    dt = _softplus(dt_raw.float() + params["dt_bias"])[:, 0]  # (B, H)
+    A = -torch.exp(params["A_log"])
+    xh = xs.reshape(xs.shape[0], h, pdim)                      # (B, H, P)
+    dA = torch.exp(dt * A)
+    dBx = torch.einsum("bh,bn,bhp->bhpn", dt, B1.float(), xh.float())
+    state = cache["state"]
+    state.mul_(dA[:, :, None, None]).add_(dBx)
+    y = torch.einsum("bhpn,bn->bhp", state, C1.float())[:, None]  # (B,1,H,P)
+    out = _mamba_out(params, y, xh[:, None], z, cfg, (x.shape[0], 1))
+    for name, tail in (("conv_x", conv_x), ("conv_B", conv_B),
+                       ("conv_C", conv_C)):
+        cache[name].copy_(tail)
+    return out, cache

@@ -1,4 +1,4 @@
-"""Language model for the dense and VLM (text-only) families.
+"""Language model for the dense, VLM (text-only), SSM and hybrid families.
 
 ``LanguageModel(cfg, device)`` exposes:
   init(generator)                              -> params
@@ -8,11 +8,17 @@
   alloc_cache(batch, seq, init=None)           -> zeroed decode cache
 
 Parameters keep the reference's tree names and stacked shapes
-(``layers.attn.w_q`` is (L, D, H, hd)), so one weight set feeds both
-packages; layers run as a Python loop over the stack.  Caches are
-head-major, (L, B, KH, S, hd).  Training follows the reference's
-``cfg.remat`` with ``torch.utils.checkpoint`` and its sequence-chunked
-cross entropy, which never materializes the full (B, S, V) logits.
+(``layers.attn.w_q`` is (L, D, H, hd), ``layers.mixer.w_x`` (L, D,
+d_inner)), so one weight set feeds both packages; layers run as a Python
+loop over the stack.  The hybrid family (zamba2) applies one shared
+attention + MLP block (``params["shared_attn"]``, a single copy) before
+each group of ``attn_every`` Mamba layers, then the remainder layers.
+Caches follow the reference's ``cache_spec``: head-major attention
+caches (…, B, KH, S, hd), Mamba conv tails (…, B, K-1, C) and fp32
+states (…, B, H, P, N); decode updates them in place.  Training follows
+the reference's ``cfg.remat`` with ``torch.utils.checkpoint`` and its
+sequence-chunked cross entropy, which never materializes the full
+(B, S, V) logits.
 """
 from __future__ import annotations
 
@@ -86,9 +92,10 @@ def _stack(trees):
 
 class LanguageModel:
     def __init__(self, cfg, device="cuda"):
-        if cfg.family not in ("dense", "vlm") or cfg.use_mla:
+        if cfg.family not in ("dense", "vlm", "ssm", "hybrid") or cfg.use_mla:
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (dense, vlm only)")
+                f"family {cfg.family!r} is not ported yet (dense, vlm, ssm, "
+                f"hybrid only)")
         self.cfg = cfg
         self.device = resolve_device(device)
 
@@ -107,9 +114,23 @@ class LanguageModel:
             w = torch.randn((cfg.d_model, cfg.vocab_size), generator=generator,
                             device=generator.device)
             p["lm_head"] = (w / np.sqrt(cfg.d_model)).to(dt)
-        p["layers"] = _stack([blocks.decoder_layer_init(generator, cfg)
-                              for _ in range(cfg.num_layers)])
+        if cfg.family in ("ssm", "hybrid"):
+            p["layers"] = _stack([blocks.mamba_layer_init(generator, cfg)
+                                  for _ in range(cfg.num_layers)])
+        else:
+            p["layers"] = _stack([blocks.decoder_layer_init(generator, cfg)
+                                  for _ in range(cfg.num_layers)])
+        if cfg.family == "hybrid":
+            p["shared_attn"] = blocks.decoder_layer_init(generator, cfg)
         return _to(p, self.device)
+
+    def _hybrid_segments(self) -> Tuple[int, int]:
+        """(groups, remainder layers): the shared attention block runs
+        before each of the ``groups`` groups of ``attn_every`` Mamba
+        layers; the ``remainder`` layers follow with no attention."""
+        cfg = self.cfg
+        g = cfg.num_layers // cfg.attn_every
+        return g, cfg.num_layers - g * cfg.attn_every
 
     # ------------------------------------------------------------ embedding
 
@@ -134,12 +155,30 @@ class LanguageModel:
         cfg = self.cfg
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         aux = blocks.zero_aux(x.device)
+        layers = unstack_layers(params["layers"], cfg.num_layers)
+
+        if cfg.family in ("ssm", "hybrid"):
+            mstep = _remat(lambda xx, p_l: blocks.mamba_layer_train(
+                p_l, xx, cfg), cfg)
+            start = 0
+            if cfg.family == "hybrid":
+                g, _ = self._hybrid_segments()
+                per = cfg.attn_every
+                for gi in range(g):
+                    x, _ = blocks.decoder_layer_train(
+                        params["shared_attn"], x, cfg, positions)
+                    for p_l in layers[gi * per:(gi + 1) * per]:
+                        x = mstep(x, p_l)
+                start = g * per
+            for p_l in layers[start:]:
+                x = mstep(x, p_l)
+            return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
         def body(xx, p_l):
             return blocks.decoder_layer_train(p_l, xx, cfg, positions)
 
         step = _remat(body, cfg)
-        for p_l in unstack_layers(params["layers"], cfg.num_layers):
+        for p_l in layers:
             x, a = step(x, p_l)
             aux = {k: aux[k] + a[k] for k in aux}
         return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
@@ -204,21 +243,49 @@ class LanguageModel:
     # --------------------------------------------------------------- prefill
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor]):
-        """batch["tokens"]: (B, S) int → (last logits (B, V) fp32,
-        {"layers": {"k", "v"}} caches (L, B, KH, S, hd))."""
+        """batch["tokens"]: (B, S) int → (last logits (B, V) fp32, cache):
+        {"layers": {"k", "v"}} (L, B, KH, S, hd) for dense models,
+        {"layers": mamba} for ssm, {"groups": {"attn", "mamba"},
+        "remainder": mamba} for hybrid (see :meth:`alloc_cache`)."""
         cfg = self.cfg
         if "patches" in batch:
             raise NotImplementedError("VLM patch prefixes are not ported yet")
         x = self._embed(params, batch["tokens"])
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        ks, vs = [], []
-        for i in range(cfg.num_layers):
-            x, c = blocks.decoder_layer_prefill(
-                layer_params(params["layers"], i), x, cfg, positions)
-            ks.append(c["k"])
-            vs.append(c["v"])
+        fam = cfg.family
+
+        def mamba_run(x, lo, hi):
+            caches = []
+            for i in range(lo, hi):
+                x, c = blocks.mamba_layer_prefill(
+                    layer_params(params["layers"], i), x, cfg)
+                caches.append(c)
+            return x, _stack(caches)
+
+        if fam == "ssm":
+            x, layers = mamba_run(x, 0, cfg.num_layers)
+            cache = {"layers": layers}
+        elif fam == "hybrid":
+            g, rem = self._hybrid_segments()
+            per = cfg.attn_every
+            attn, mamba = [], []
+            for gi in range(g):
+                x, c = blocks.decoder_layer_prefill(
+                    params["shared_attn"], x, cfg, positions)
+                attn.append(c)
+                x, c = mamba_run(x, gi * per, (gi + 1) * per)
+                mamba.append(c)
+            cache = {"groups": {"attn": _stack(attn), "mamba": _stack(mamba)}}
+            if rem:
+                x, cache["remainder"] = mamba_run(x, g * per, cfg.num_layers)
+        else:
+            kv = []
+            for i in range(cfg.num_layers):
+                x, c = blocks.decoder_layer_prefill(
+                    layer_params(params["layers"], i), x, cfg, positions)
+                kv.append(c)
+            cache = {"layers": _stack(kv)}
         h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-        cache = {"layers": {"k": torch.stack(ks), "v": torch.stack(vs)}}
         return self._logits(params, h[:, -1]), cache
 
     # ---------------------------------------------------------------- decode
@@ -230,11 +297,34 @@ class LanguageModel:
         cfg = self.cfg
         cur = int(cur_len)
         x = self._embed(params, token)
-        kc, vc = cache["layers"]["k"], cache["layers"]["v"]
-        for i in range(cfg.num_layers):
-            x, _ = blocks.decoder_layer_decode(
-                layer_params(params["layers"], i), x, cfg,
-                {"k": kc[i], "v": vc[i]}, cur)
+        fam = cfg.family
+
+        def mamba_run(x, lo, hi, caches):
+            for i in range(lo, hi):
+                x, _ = blocks.mamba_layer_decode(
+                    layer_params(params["layers"], i), x, cfg,
+                    layer_params(caches, i - lo))
+            return x
+
+        if fam == "ssm":
+            x = mamba_run(x, 0, cfg.num_layers, cache["layers"])
+        elif fam == "hybrid":
+            g, rem = self._hybrid_segments()
+            per = cfg.attn_every
+            groups = cache["groups"]
+            for gi in range(g):
+                x, _ = blocks.decoder_layer_decode(
+                    params["shared_attn"], x, cfg,
+                    layer_params(groups["attn"], gi), cur)
+                x = mamba_run(x, gi * per, (gi + 1) * per,
+                              layer_params(groups["mamba"], gi))
+            if rem:
+                x = mamba_run(x, g * per, cfg.num_layers, cache["remainder"])
+        else:
+            for i in range(cfg.num_layers):
+                x, _ = blocks.decoder_layer_decode(
+                    layer_params(params["layers"], i), x, cfg,
+                    layer_params(cache["layers"], i), cur)
         h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return self._logits(params, h[:, -1]), cache
 
@@ -242,19 +332,58 @@ class LanguageModel:
 
     def alloc_cache(self, batch: int, seq: int,
                     init: Optional[Any] = None) -> Any:
-        """Zeroed head-major decode cache {"layers": {"k", "v"}} of shape
-        (L, batch, KH, seq, hd) in the compute dtype; ``init`` (a prefill
-        cache of S ≤ seq positions) is copied into the first S."""
+        """Zeroed decode cache in the reference's ``cache_spec`` layout:
+        attention k/v (n, batch, KH, seq, hd) in the compute dtype; Mamba
+        conv tails (…, batch, K-1, C) in the compute dtype and states
+        (…, batch, H, P, N) in fp32, both independent of ``seq``.  Dense:
+        {"layers": kv}; ssm: {"layers": mamba}; hybrid: {"groups":
+        {"attn": kv (g, …), "mamba": mamba (g, per, …)}, "remainder":
+        mamba (rem, …)}.  ``init`` (a prefill cache of S ≤ seq positions)
+        is copied in: attention caches into their first S positions,
+        Mamba caches whole."""
         cfg = self.cfg
-        shape = (cfg.num_layers, batch, cfg.num_kv_heads, seq, cfg.head_dim)
-        out = {}
-        for name in ("k", "v"):
-            buf = torch.zeros(shape, dtype=_dtype(cfg.dtype), device=self.device)
-            if init is not None:
-                src = init["layers"][name]
-                buf[..., : src.shape[-2], :] = src
-            out[name] = buf
-        return {"layers": out}
+        cdt = _dtype(cfg.dtype)
+        dev = self.device
+
+        def kv(n):
+            shape = (n, batch, cfg.num_kv_heads, seq, cfg.head_dim)
+            return {name: torch.zeros(shape, dtype=cdt, device=dev)
+                    for name in ("k", "v")}
+
+        def mamba(*lead):
+            ck = cfg.conv_kernel - 1
+            z = functools.partial(torch.zeros, device=dev)
+            return {"conv_x": z((*lead, batch, ck, cfg.d_inner), dtype=cdt),
+                    "conv_B": z((*lead, batch, ck, cfg.ssm_state), dtype=cdt),
+                    "conv_C": z((*lead, batch, ck, cfg.ssm_state), dtype=cdt),
+                    "state": z((*lead, batch, cfg.ssm_heads,
+                                cfg.ssm_head_dim, cfg.ssm_state),
+                               dtype=torch.float32)}
+
+        if cfg.family == "ssm":
+            out = {"layers": mamba(cfg.num_layers)}
+        elif cfg.family == "hybrid":
+            g, rem = self._hybrid_segments()
+            out = {"groups": {"attn": kv(g), "mamba": mamba(g, cfg.attn_every)}}
+            if rem:
+                out["remainder"] = mamba(rem)
+        else:
+            out = {"layers": kv(cfg.num_layers)}
+        if init is not None:
+            _fill(out, init)
+        return out
+
+
+def _fill(buf: Any, src: Any) -> None:
+    """Copy a prefill cache into an allocated one: k/v into their first
+    S positions along seq, every other leaf whole."""
+    for name, b in buf.items():
+        if isinstance(b, dict):
+            _fill(b, src[name])
+        elif name in ("k", "v"):
+            b[..., : src[name].shape[-2], :] = src[name]
+        else:
+            b.copy_(src[name])
 
 
 def _to(tree: Params, device: torch.device) -> Params:

@@ -1,8 +1,8 @@
 """Card-only checks: the CUDA kernels K1 (with and without its
-logsumexp), K2, K3, K5 and the partition copies K6, K7, K8 against their
-plain PyTorch versions on the same inputs, a reduced train step on the
-card against the CPU, and the runtime's fused copy on the card against
-its numpy backend.
+logsumexp), K2, K3, K5, the partition copies K6, K7, K8 and the SSD scan
+K9 against their plain PyTorch versions on the same inputs, a reduced
+train step and reduced SSM / hybrid serving on the card against the CPU,
+and the runtime's fused copy on the card against its numpy backend.
 They skip (from inside the fixture) where torch sees no CUDA device; on
 a machine with the card run
 
@@ -15,6 +15,7 @@ import torch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import partition_copy as pc
+from repro_torch.kernels import ssd_scan as ssd
 
 pytestmark = pytest.mark.cuda
 
@@ -374,3 +375,115 @@ def test_runtime_fused_copy_on_the_card_matches_numpy(cuda):
     assert np.array_equal(got, want)
     assert (stats.fused_copies, ref.fused_copies) == (1, 0)
     assert stats.bytes_copied == ref.bytes_copied
+
+
+# ------------------------------------------------------- SSD scan (K9)
+
+def _ssd_inputs(b, h, s, p, n, dtype, device, seed):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(b, h, s, p).astype(np.float32))
+    dt = torch.from_numpy(np.log1p(np.exp(rng.randn(b, h, s))).astype(
+        np.float32))
+    A = torch.from_numpy((-np.exp(rng.randn(h) * 0.5)).astype(np.float32))
+    B = torch.from_numpy(rng.randn(b, s, n).astype(np.float32))
+    C = torch.from_numpy(rng.randn(b, s, n).astype(np.float32))
+    return (x.to(device, dtype), dt.to(device), A.to(device),
+            B.to(device, dtype), C.to(device, dtype))
+
+
+@pytest.mark.parametrize("b,h,s,p,n,chunk,dtype", [
+    (1, 2, 64, 16, 8, 16, torch.float32),
+    (2, 4, 128, 32, 16, 32, torch.float32),
+    (2, 8, 64, 8, 64, 64, torch.float32),
+    (1, 3, 65, 32, 16, 16, torch.float32),       # ragged, reduced shape
+    (2, 3, 30, 8, 8, 10, torch.float32),         # chunk not a multiple of 16
+    (1, 4, 300, 64, 128, 128, torch.bfloat16),   # mamba2's P, N; ragged
+    (2, 4, 256, 64, 64, 128, torch.bfloat16),    # zamba2's N
+    # prompts shorter than the chunk, Q = S not a whole number of strips
+    (1, 4, 40, 64, 128, 128, torch.bfloat16),
+    (1, 4, 70, 64, 128, 128, torch.bfloat16),
+    (1, 4, 100, 64, 128, 128, torch.bfloat16),
+    (2, 3, 100, 32, 16, 40, torch.float32),      # chunk 40, ragged
+])
+def test_ssd_scan_kernel_matches_plain(cuda, b, h, s, p, n, chunk, dtype):
+    """y: fp32 in another summation order (1e-4 of max|y|), bf16 one
+    rounding of y apart (2^-7 relative); state fp32, 1e-4 of max|state|
+    (the decays exp(total - cum) carry the cumsum's rounding)."""
+    args = _ssd_inputs(b, h, s, p, n, dtype, cuda, s + n)
+    before = ssd.ssd_scan.launches
+    y, st = ssd.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan.launches == before + 1
+    yw, sw = ssd.ssd_scan_plain(*args, chunk=chunk)
+    assert y.dtype == dtype and st.dtype == torch.float32
+    assert torch.isfinite(y.float()).all() and torch.isfinite(st).all()
+    d = (y.float() - yw.float()).abs()
+    top = yw.float().abs()
+    rel = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-4
+    assert (d <= rel * top + 1e-4 * top.max()).all()
+    assert (st - sw).abs().max().item() <= 1e-4 * sw.abs().max().item()
+
+
+def test_ssd_scan_reads_the_model_layout_through_strides(cuda):
+    from repro_torch.kernels import ops
+    x, dt, A, B, C = _ssd_inputs(2, 8, 200, 64, 128, torch.bfloat16, cuda, 5)
+    y1, s1 = ops.ssd_scan(x.transpose(1, 2).contiguous(),
+                          dt.transpose(1, 2).contiguous(), A, B, C)
+    y2, s2 = ssd.ssd_scan(x, dt, A, B, C)
+    assert y1.is_contiguous()
+    assert torch.equal(y1.transpose(1, 2), y2) and torch.equal(s1, s2)
+
+
+def test_ssd_scan_rejects_what_the_kernel_does_not_take(cuda):
+    x, dt, A, B, C = _ssd_inputs(1, 2, 64, 16, 8, torch.float32, cuda, 0)
+    with pytest.raises(ValueError, match="P="):
+        ssd.ssd_scan(x[..., :12], dt, A, B, C, chunk=16)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd.ssd_scan(x, dt, A, B, C, chunk=0)
+    with pytest.raises(TypeError):
+        ssd.ssd_scan(x.bfloat16(), dt, A, B, C, chunk=16)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ssd.ssd_scan(x, dt.cpu(), A, B, C, chunk=16)
+    xb, dtb, Ab, Bb, Cb = _ssd_inputs(1, 2, 256, 16, 8, torch.float32, cuda, 1)
+    with pytest.raises(ValueError, match="chunk 256"):
+        ssd.ssd_scan(xb, dtb, Ab, Bb, Cb, chunk=256)
+
+
+def test_ssd_scan_backward_raises_on_the_card(cuda):
+    x, dt, A, B, C = _ssd_inputs(1, 2, 64, 16, 8, torch.float32, cuda, 2)
+    x.requires_grad_()
+    y, _ = ssd.ssd_scan(x, dt, A, B, C, chunk=16)
+    with pytest.raises(NotImplementedError, match="K9 backward"):
+        y.sum().backward()
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-1.2b"])
+def test_ssm_serving_on_the_card_matches_the_cpu(cuda, arch):
+    """Reduced fp32 mamba2 / zamba2 (head_dim 64, K5's width): prefill
+    (K9 on every Mamba layer) and three decode steps on the card against
+    the CPU's plain path from the same weights; logits 1e-3 (fp32, O(1))."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LanguageModel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch).reduced(), head_dim=64)
+    gpu, cpu = LanguageModel(cfg, device=cuda), LanguageModel(cfg, "cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    params_gpu = _tree_to(params, cuda)
+    rng = np.random.RandomState(0)
+    s = 45
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, s)))
+    before = ssd.ssd_scan.launches
+    lg, cg = gpu.prefill(params_gpu, {"tokens": tokens.to(cuda)})
+    assert ssd.ssd_scan.launches == before + cfg.num_layers
+    lc, cc = cpu.prefill(params, {"tokens": tokens})
+    assert (lg.cpu() - lc).abs().max().item() <= 1e-3
+    cg, cc = gpu.alloc_cache(2, s + 3, init=cg), cpu.alloc_cache(2, s + 3,
+                                                                  init=cc)
+    for i in range(3):
+        tok = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 1)))
+        lg, cg = gpu.decode_step(params_gpu, cg, tok.to(cuda), s + i)
+        lc, cc = cpu.decode_step(params, cc, tok, s + i)
+        assert (lg.cpu() - lc).abs().max().item() <= 1e-3
