@@ -23,6 +23,13 @@ Phases, in order; any failure raises and the script exits nonzero:
    K3 against K2, then timed at the training shape beside the plain
    versions, the forward and backward of one
    ``scaled_dot_product_attention`` call, and their bounds;
+4a. K4f and K4b (the whole-sequence megakernels) against their plain
+   versions at the short-sequence training shape (B=64, H=15, KH=5,
+   S=256, hd 64, bf16) and at ragged / window / q_offset / G=1 / hd 128
+   / fp32 variants; K4b deterministic and against K2; K3 fed K4f's lse;
+   timed beside K1, K1-lse, K3, the plain versions, one
+   ``scaled_dot_product_attention`` forward and forward+backward, and
+   their bounds;
 5. the engine: ``repro_torch.launch.serve`` builds ServeEngine +
    ModelBackend for smollm-360m at full width (bf16, seeded random
    weights) and serves 12 Poisson requests with 2100-3000-token prompts
@@ -49,6 +56,15 @@ Phases, in order; any failure raises and the script exits nonzero:
    weights, remat per layer); the cross entropy must fall, and K1 with
    lse must launch twice a layer and K3 once a layer per step; a
    ``torch.profiler`` breakdown of one step;
+8a. short-sequence training: smollm-360m at full width with
+   ``attn_flash_min_seq=128``, 8 steps of 64 x 256 tokens through the
+   port's Trainer; exactly 64 K4f-lse and 32 K4b launches a step and no
+   K1/K2/K3; the cross entropy must fall; a profiled step;
+8b. short-sequence serving: the same model in bf16, prefill 32 x 256
+   (32 K4f launches), 16 decode steps (K5), prefill(S) + decode against
+   prefill(S + 1) (fp32 argmax agreement >= 0.95, through K4f; the bf16
+   logit gap printed), and the paged engine's plan (one request a
+   prefill, B·KH = 5: K1 by the occupancy rule);
 9. restart in deterministic mode (K2 backward): 8 uninterrupted steps
    against a run that checkpoints at step 4 and fail-stops at 6, resumed
    from the checkpoint — the final parameters must be equal bit for bit;
@@ -69,9 +85,16 @@ Phases, in order; any failure raises and the script exits nonzero:
     device→host; the overlapping-destination and read-after-write
     programs take no fused copy.
 
+Phase 7 also runs a reduced fp32 smollm (head_dim 64,
+``attn_flash_min_seq=32``, B 72 x S 96: B·KH = 144) on the card against
+the CPU: prefill logits through K4f and one step's gradients through K4f
+and K4b.
+
 Counters on the kernel wrappers are zeroed just before each main-path
-phase (5, 6, 6a, 6b, 8, 9, 10, and each path of 12) and read just after: every
-kernel of the path must have launched.  The line before the last is the kernel table as
+phase (5, 6, 6a, 6b, 8, 8a, 8b, 9, 10 and each path of 12) and read just
+after: every kernel of the path must have launched.  The kernel line's
+launches are those counts alone; the reduced model of phase 7 and the
+fp32 consistency check of 8b keep theirs in their own results.  The line before the last is the kernel table as
 JSON; the last line is ``{"ok": true, "device": {...}}``.  Exits nonzero
 without a CUDA device or without the package beside it.  ``--report
 PATH`` also writes every number of the run as JSON to PATH.
@@ -107,6 +130,7 @@ from repro_torch.kernels import flash_decode as fd  # noqa: E402
 from repro_torch.kernels import ops as kernel_ops  # noqa: E402
 from repro_torch.kernels import partition_copy as pc  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
+from repro_torch.kernels import autotune  # noqa: E402
 from repro_torch.kernels.autotune import plan_copy_chunk  # noqa: E402
 from repro_torch.core import NULL_GUID, Runtime, spawn_main  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
@@ -462,19 +486,78 @@ def phase_reference():
     print(f"  logits max_abs_err {worst:.3e} (limit 1e-3; fp32, logits O(1))")
     if not worst <= 1e-3:
         raise AssertionError("card and CPU disagree")
-    return {"dense_max_abs_err": worst, **_ssm_reference()}
+    return {"dense_max_abs_err": worst, **_ssm_reference(),
+            "megakernels": _mega_reference()}
+
+
+def _mega_reference():
+    """A reduced fp32 smollm with head_dim 64 and ``attn_flash_min_seq=32``
+    at B 72 x S 96 (B·KH = 144 blocks, so the planner takes K4f and K4b)
+    on the card against the CPU's plain path: prefill logits (K4f once a
+    layer), then one ``train_loss`` and its gradients (K4f with lse twice
+    a layer under remat="layer", K4b once a layer, no K1/K2/K3)."""
+    print("  reduced fp32 smollm, hd 64, B 72 x S 96: K4f / K4b, card vs CPU")
+    cfg = dataclasses.replace(get_config("smollm-360m").reduced(),
+                              head_dim=64, attn_flash_min_seq=32)
+    gpu, cpu = LanguageModel(cfg, device="cuda"), LanguageModel(cfg, "cpu")
+    params = cpu.init(torch.Generator().manual_seed(42))
+    params_gpu = _tree_to(params, "cuda", copy=True)
+    rng = np.random.RandomState(43)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (72, 97)))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    layers = cfg.num_layers
+    _zero_counts()
+    with torch.no_grad():
+        lg, _ = gpu.prefill(params_gpu, {"tokens": batch["tokens"].cuda()})
+    torch.cuda.synchronize()
+    serve_counts = _counts()
+    lc, _ = cpu.prefill(params, {"tokens": batch["tokens"]})
+    logit_err = (lg.cpu() - lc).abs().max().item()
+
+    def grads(model, p, dev):
+        leaves = [x.requires_grad_() for _p, x in iter_leaves(p)]
+        loss, _ = model.train_loss(p, {k: v.to(dev) for k, v in batch.items()})
+        return loss.item(), torch.autograd.grad(loss, leaves)
+
+    _zero_counts()
+    loss_g, g_gpu = grads(gpu, params_gpu, "cuda")
+    torch.cuda.synchronize()
+    train_counts = _counts()
+    loss_c, g_cpu = grads(cpu, params, "cpu")
+    grad_err = max((a.cpu() - c).abs().max().item()
+                   / max(c.abs().max().item(), 1e-30)
+                   for a, c in zip(g_gpu, g_cpu))
+    loss_err = abs(loss_g - loss_c) / abs(loss_c)
+    want_serve = {**{k: 0 for k in serve_counts}, "k4f": layers}
+    want_train = {**{k: 0 for k in train_counts}, "k4f": 2 * layers,
+                  "k4f_lse": 2 * layers, "k4b": layers}
+    print(f"  prefill logits max_abs_err {logit_err:.3e} (limit 1e-4; fp32, "
+          f"logits O(1)); loss rel err {loss_err:.2e} (limit 1e-5), "
+          f"gradients {grad_err:.2e} of each leaf's max (limit 1e-4: fp32 "
+          f"in another summation order); launches prefill {serve_counts}, "
+          f"train {train_counts}")
+    if serve_counts != want_serve or train_counts != want_train:
+        raise AssertionError(f"launches {serve_counts} / {train_counts}, "
+                             f"want {want_serve} / {want_train}")
+    if not (logit_err <= 1e-4 and loss_err <= 1e-5 and grad_err <= 1e-4):
+        raise AssertionError("K4f / K4b: card and CPU disagree")
+    return {"prefill_logits": logit_err, "loss_rel": loss_err,
+            "grad_rel": grad_err, "launches_prefill": serve_counts,
+            "launches_train": train_counts}
 
 
 # ------------------------------------------------------- training phases
 
 COUNTERS = (fa.flash_attention, fa.flash_attention_fwd,
             fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv,
-            fa.flash_attention_bwd_fused, fd.flash_decode, ssd.ssd_scan)
+            fa.flash_attention_bwd_fused, fa.flash_attention_mega_fwd,
+            fa.flash_attention_mega_bwd, fd.flash_decode, ssd.ssd_scan)
 
 
 def _zero_counts():
     for fn in COUNTERS:
         fn.launches = 0
+    fa.flash_attention_mega_fwd.lse_launches = 0
 
 
 def _counts():
@@ -483,6 +566,9 @@ def _counts():
             "k2_dq": fa.flash_attention_bwd_dq.launches,
             "k2_dkv": fa.flash_attention_bwd_dkv.launches,
             "k3": fa.flash_attention_bwd_fused.launches,
+            "k4f": fa.flash_attention_mega_fwd.launches,
+            "k4f_lse": fa.flash_attention_mega_fwd.lse_launches,
+            "k4b": fa.flash_attention_mega_bwd.launches,
             "k5": fd.flash_decode.launches,
             "k9": ssd.ssd_scan.launches}
 
@@ -606,6 +692,303 @@ def phase_k_train(flush):
     return rows
 
 
+def phase_k4(flush):
+    """K4f (with and without lse) and K4b against their plain versions,
+    K4b's determinism and agreement with K2, K3 fed K4f's lse, then K4f,
+    K4f-lse and K4b timed at the short-sequence training shape beside
+    K1, K1-lse and K3 at the same shape."""
+    print("== K4f, K4b: whole-sequence kernels vs plain versions")
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [  # name, B, H, KH, Sq, Sk, hd, dtype, window, q_offset
+        ("train 64x256 bf16 causal", 64, 15, 5, 256, 256, 64, bf, 0, 0),
+        ("ragged S 200", 64, 15, 5, 200, 200, 64, bf, 0, 0),
+        ("ragged S 100", 64, 15, 5, 100, 100, 64, bf, 0, 0),
+        ("window 64", 64, 15, 5, 256, 256, 64, bf, 64, 0),
+        ("q_offset 128, Sq 256, Sk 384", 32, 15, 5, 256, 384, 64, bf, 0, 128),
+        ("q_offset 64, Sq 192, Sk 256", 32, 15, 5, 192, 256, 64, bf, 0, 64),
+        ("G = 1", 32, 5, 5, 256, 256, 64, bf, 0, 0),
+        ("hd 128 at S 128", 32, 15, 5, 128, 128, 128, bf, 0, 0),
+        ("fp32 S 128", 32, 15, 5, 128, 128, 64, f32, 0, 0),
+    ]
+    worst = {k: [0.0, 0.0] for k in ("k4f", "k4f_lse", "k4b")}
+
+    def note(key, err):
+        worst[key] = [max(worst[key][0], err[0]), max(worst[key][1], err[1])]
+
+    for i, (name, b, h, kh, sq, sk, hd, dt, win, off) in enumerate(cases):
+        q = _randn((b, h, sq, hd), dt, 700 + 10 * i)
+        k = _randn((b, kh, sk, hd), dt, 701 + 10 * i)
+        v = _randn((b, kh, sk, hd), dt, 702 + 10 * i)
+        do = _randn((b, h, sq, hd), dt, 703 + 10 * i)
+        kw = dict(causal=True, window=win)
+        out = fa.flash_attention_mega_fwd(q, k, v, off, **kw)
+        out_l, lse = fa.flash_attention_mega_fwd(q, k, v, off, with_lse=True,
+                                                 **kw)
+        torch.cuda.synchronize()
+        want_o, want_lse = fa.flash_attention_plain(q, k, v, off,
+                                                    with_lse=True, **kw)
+        note("k4f", (_check(f"{name} K4f out", out, want_o, dt), 0.0))
+        note("k4f_lse", (_check(f"{name} K4f-lse out", out_l, want_o, dt),
+                         0.0))
+        note("k4f_lse", _errors(lse, want_lse))
+        _check(f"{name} K4f-lse lse", lse, want_lse, torch.float32)
+        rows = autotune.mega_rows(True, sk, hd, q.element_size())
+        if rows == 0:
+            print(f"  {name}: K4b not run — its block does not fit at Sk "
+                  f"{sk}, hd {hd}, {dt} (the planner's gate)")
+            continue
+        delta = (do.float() * out_l.float()).sum(-1)
+        got = fa.flash_attention_mega_bwd(q, k, v, do, lse, delta, off, **kw)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_bwd_plain(q, k, v, out_l, lse, do, off,
+                                            causal=True, window=win)
+        errs = [_check_rel(f"{name} K4b {n} ({rows}-row strips)", g, w, dt)
+                for n, g, w in zip(("dq", "dk", "dv"), got, want)]
+        note("k4b", (max(e[0] for e in errs), max(e[1] for e in errs)))
+        del got, want, out, out_l, want_o
+        torch.cuda.empty_cache()
+
+    # the training shape: determinism, K2, K3 fed K4f's lse
+    b, h, kh, s, hd, dt = 64, 15, 5, 256, 64, bf
+    q, k, v, do = (_randn((b, h, s, hd), dt, 800),
+                   _randn((b, kh, s, hd), dt, 801),
+                   _randn((b, kh, s, hd), dt, 802),
+                   _randn((b, h, s, hd), dt, 803))
+    out, lse = fa.flash_attention_mega_fwd(q, k, v, with_lse=True)
+    delta = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, do, lse, delta)
+    first, second = fa.flash_attention_mega_bwd(*args), \
+        fa.flash_attention_mega_bwd(*args)
+    same = all(torch.equal(a, c) for a, c in zip(first, second))
+    print(f"  K4b run twice on the same inputs: same bits {same}")
+    if not same:
+        raise AssertionError("K4b is not deterministic")
+    ref2 = (fa.flash_attention_bwd_dq(*args),
+            *fa.flash_attention_bwd_dkv(*args))
+    for n, a, c in zip(("dq", "dk", "dv"), first, ref2):
+        d = (a.float() - c.float()).abs()
+        lim = 2.0 ** -7 * c.float().abs() + 1e-4 * c.float().abs().max()
+        print(f"  K4b vs K2 {n}: max_abs_diff {d.max().item():.3e} (limit "
+              f"2^-7|x| + 1e-4 max|x|: one bf16 rounding of two fp32 sums)")
+        if (d > lim).any():
+            raise AssertionError(f"K4b {n} differs from K2's")
+    qf, kf, vf, dof = (x.float() for x in (q[:32, :, :128], k[:32, :, :128],
+                                           v[:32, :, :128], do[:32, :, :128]))
+    qf, kf, vf, dof = (x.contiguous() for x in (qf, kf, vf, dof))
+    of, lsef = fa.flash_attention_mega_fwd(qf, kf, vf, with_lse=True)
+    argsf = (qf, kf, vf, dof, lsef, (dof * of).sum(-1))
+    for n, a, c in zip(("dq", "dk", "dv"), fa.flash_attention_mega_bwd(*argsf),
+                       (fa.flash_attention_bwd_dq(*argsf),
+                        *fa.flash_attention_bwd_dkv(*argsf))):
+        d = (a - c).abs()
+        print(f"  K4b vs K2 {n}, fp32 32x128: max_abs_diff "
+              f"{d.max().item():.3e} (limit 1e-5|x| + 1e-5 max|x|: fp32 "
+              f"summation order)")
+        if (d > 1e-5 * c.abs() + 1e-5 * c.abs().max()).any():
+            raise AssertionError(f"K4b {n} differs from K2's in fp32")
+    _, lse1 = fa.flash_attention_fwd(q, k, v)
+    _check("K4f lse vs K1-lse lse (one convention)", lse, lse1, torch.float32)
+    dq3, dk3, dv3 = fa.flash_attention_bwd_fused(*args)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do)
+    for n, g, w in zip(("dq", "dk", "dv"), (dq3, dk3, dv3), want):
+        _check_rel(f"mixed plan: K3 {n} from K4f's lse", g, w, dt)
+    del first, second, ref2, dq3, dk3, dv3, want, qf, kf, vf, dof, of, lsef
+    torch.cuda.empty_cache()
+
+    # times at the training shape
+    pinned = dict(block_q=64)    # a pinned tile: the K1 route
+    ms = {"k4f": _time_ms(lambda: fa.flash_attention_mega_fwd(q, k, v), 20,
+                          flush),
+          "k4f_lse": _time_ms(lambda: fa.flash_attention_mega_fwd(
+              q, k, v, with_lse=True), 20, flush),
+          "k4b": _time_ms(lambda: fa.flash_attention_mega_bwd(*args), 10,
+                          flush),
+          "k1": _time_ms(lambda: fa.flash_attention(q, k, v, **pinned), 20,
+                         flush),
+          "k1_lse": _time_ms(lambda: fa.flash_attention_fwd(q, k, v), 20,
+                             flush),
+          "k3": _time_ms(lambda: fa.flash_attention_bwd_fused(*args), 10,
+                         flush),
+          "k2": _time_ms(lambda: (fa.flash_attention_bwd_dq(*args),
+                                  fa.flash_attention_bwd_dkv(*args)), 10,
+                         flush)}
+    plain_fwd = _time_ms(lambda: fa.flash_attention_plain(q, k, v), 3, flush)
+    plain_fwd_lse = _time_ms(lambda: fa.flash_attention_plain(
+        q, k, v, with_lse=True), 3, flush)
+    plain_bwd = _time_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, out, lse, do), 3, flush)
+    lib_fwd = _time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 20, flush)
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                        enable_gqa=True)
+    lib_bwd = _time_ms(lambda: lo.backward(do, retain_graph=True), 20, flush)
+    lib_fwd_bwd = _time_ms(lambda: F.scaled_dot_product_attention(
+        ql, kl, vl, is_causal=True, enable_gqa=True).backward(do), 20, flush)
+    del ql, kl, vl, lo
+    live = b * h * _live_pairs(s, s, 0, True, 0)
+    el = q.element_size()
+    qb, kb, rowb = q.numel() * el, k.numel() * el, b * h * s * 4
+    work = {"k4f": (4 * hd * live, 2 * qb + 2 * kb),
+            "k4f_lse": (4 * hd * live, 2 * qb + 2 * kb + rowb),
+            "k4b": (10 * hd * live, 3 * qb + 4 * kb + 2 * rowb)}
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = autotune.plan_attention(s, hd, hd, kh, b, 16, sm_count=sm)
+    out_rows = {}
+    names = {"k4f": "K4f", "k4f_lse": "K4f with lse", "k4b": "K4b"}
+    for key, (flops, nbytes) in work.items():
+        bound_ms, bound_by = _bound(flops, nbytes, dt)
+        # blocks per SM from the CUDA runtime's occupancy calculator
+        rows, smem, per_sm = fa.mega_occupancy(key == "k4b", s, hd, dt)
+        waves = b * kh / (sm * per_sm)
+        plain = {"k4f": plain_fwd, "k4f_lse": plain_fwd_lse,
+                 "k4b": plain_bwd}[key]
+        lib = lib_bwd if key == "k4b" else lib_fwd
+        out_rows[key] = {"ms": ms[key], "plain_ms": plain, "library_ms": lib,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "max_abs_err": worst[key][0],
+                         "mean_abs_err": worst[key][1],
+                         "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+                         "strip_rows": rows, "smem_bytes": smem,
+                         "blocks": b * kh, "blocks_per_sm": per_sm,
+                         "waves": waves,
+                         "tiled_ms": ms[{"k4f": "k1", "k4f_lse": "k1_lse",
+                                         "k4b": "k3"}[key]]}
+        print(f"  {names[key]}: kernel {ms[key]:.4f} ms, plain {plain:.4f} "
+              f"ms, sdpa {lib:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
+              f"{rows}-row strips, {smem} B shared, {b * kh} blocks at "
+              f"{per_sm} an SM (occupancy calculator) = {waves:.2f} waves")
+    print(f"  same shape, tiled kernels: K1 {ms['k1']:.4f} ms, K1-lse "
+          f"{ms['k1_lse']:.4f} ms, K3 {ms['k3']:.4f} ms, K2 pair "
+          f"{ms['k2']:.4f} ms; sdpa forward {lib_fwd:.4f} ms, backward "
+          f"{lib_bwd:.4f} ms, forward+backward {lib_fwd_bwd:.4f} ms")
+    out_rows["tiled_ms"] = {k: ms[k] for k in ("k1", "k1_lse", "k3", "k2")}
+    out_rows["library_ms"] = {"sdpa_fwd": lib_fwd, "sdpa_bwd": lib_bwd,
+                              "sdpa_fwd_bwd": lib_fwd_bwd}
+    out_rows["plan"] = plan.describe()
+    del q, k, v, do, out, lse, delta, args
+    torch.cuda.empty_cache()
+    return out_rows
+
+
+SHORT_ARGS = ["--arch", "smollm-360m", "--data", "markov", "--batch", "64",
+              "--seq", "256", "--steps", "8", "--lr", "1e-3",
+              "--device", "cuda"]
+SHORT_MIN_SEQ = {"attn_flash_min_seq": 128}     # 256 > 128: flash
+
+
+def phase_short_train():
+    """smollm-360m at full width on 64 x 256-token sequences (16,384
+    tokens a step, as the 4 x 4096 phase), 8 steps through the Trainer:
+    exactly 64 K4f-lse and 32 K4b launches a step and no K1/K2/K3."""
+    print("== short train: smollm-360m full width, attn_flash_min_seq=128, "
+          "64 x 256, 8 steps")
+    cfg = dataclasses.replace(get_config("smollm-360m"), **SHORT_MIN_SEQ)
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = autotune.plan_attention(256, cfg.head_dim, cfg.head_dim,
+                                   cfg.num_kv_heads, 64, 16, sm_count=sm)
+    print(f"  plan at B=64 S=256 bf16 on {sm} SMs: {plan.describe()}")
+    tr = _trainer(cfg, TrainerConfig(), SHORT_ARGS)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    state = tr.run(tr.init_or_restore(
+        torch.Generator(device="cuda").manual_seed(0)), 8)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    layers, steps = cfg.num_layers, len(tr.history)
+    for hst in tr.history:
+        print(f"  step {hst['step']}: ce_loss {hst['ce_loss']:.4f} grad_norm "
+              f"{hst['grad_norm']:.3f} {hst['step_time'] * 1e3:.1f} ms")
+    want = {**{k: 0 for k in counts}, "k4f": 2 * layers * steps,
+            "k4f_lse": 2 * layers * steps, "k4b": layers * steps}
+    print(f"  launches {counts} over {steps} steps (want {want}: 64 K4f-lse "
+          f"and 32 K4b a step, remat='layer' runs each forward twice)")
+    if steps != 8 or counts != want:
+        raise AssertionError("the short train run did not launch K4 alone")
+    first, last = tr.history[0]["ce_loss"], tr.history[-1]["ce_loss"]
+    if not (np.isfinite(last) and last < first):
+        raise AssertionError(f"ce_loss {first} -> {last}: did not descend")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = [1e3 * hst["step_time"] for hst in tr.history]
+    print(f"  {steps} steps in {wall:.1f} s wall; step median "
+          f"{np.median(step_ms):.1f} ms (steps 2-8 mean "
+          f"{np.mean(step_ms[1:]):.1f}); peak memory {peak_gb:.2f} GB")
+    step_fn = tr._build()
+    batch = {k: torch.from_numpy(v).cuda() for k, v in tr.data.get(0).items()}
+    prof = _profile(lambda: step_fn(state, batch), 1)
+    _print_profile("short train step (B=64 x 256; idle share against the "
+                   "unprofiled step median)", prof, float(np.median(step_ms)))
+    info = {"wall_s": wall, "step_ms": step_ms,
+            "step_ms_median": float(np.median(step_ms)),
+            "ce_loss": [hst["ce_loss"] for hst in tr.history],
+            "peak_memory_gb": peak_gb, "launches": counts,
+            "plan": plan.describe(), "step_profile": prof}
+    del tr, state, step_fn, batch
+    torch.cuda.empty_cache()
+    return info
+
+
+def phase_short_serve():
+    """The same model in bf16: prefill 32 x 256 (K4f, B·KH = 160), 16
+    decode steps (K5); consistency in fp32 through K4f; the paged
+    engine's plan."""
+    print("== short serve: smollm-360m full width, bf16, prefill 32 x 256")
+    cfg = dataclasses.replace(get_config("smollm-360m"),
+                              param_dtype="bfloat16", **SHORT_MIN_SEQ)
+    model = LanguageModel(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(50))
+    b, s, steps = 32, 256, 16
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), device="cuda",
+                           generator=torch.Generator(
+                               device="cuda").manual_seed(51))
+    with torch.no_grad():
+        _zero_counts()
+        prefill_ms, step_ms, cache, tok = _serve_run(model, params, tokens,
+                                                     steps)
+        counts = _counts()
+    layers = cfg.num_layers
+    want = {**{k: 0 for k in counts}, "k4f": layers, "k5": layers * steps}
+    print(f"  prefill {prefill_ms:.1f} ms (B=32 x 256), decode step "
+          f"{step_ms:.3f} ms (B=32); launches {counts}")
+    if counts != want:
+        raise AssertionError(f"launches {counts}, want {want}")
+    prof = _profile(lambda: model.prefill(params, {"tokens": tokens}), 2)
+    _print_profile("short prefill (B=32 x 256)", prof,
+                   prof["profiled_wall_ms"])
+    del model, params, cache
+    torch.cuda.empty_cache()
+    _zero_counts()
+    f32 = _consistency("smollm-360m", b, s, "float32", 52, **SHORT_MIN_SEQ)
+    cons_counts = _counts()
+    bf16 = _consistency("smollm-360m", b, s, "bfloat16", 52, **SHORT_MIN_SEQ)
+    print(f"  consistency, prefill({s}) + decode vs prefill({s + 1}), B={b}:"
+          f" fp32 argmax agreement {f32['argmax_agreement']:.3f} (limit >= "
+          f"0.95), max logit diff {f32['max_logit_diff']:.3e}; bf16 max "
+          f"logit diff {bf16['max_logit_diff']:.3e}, RMS "
+          f"{bf16['rms_logit_diff']:.3e}, argmax agreement "
+          f"{bf16['argmax_agreement']:.3f} (reported); fp32 launches "
+          f"{cons_counts}")
+    if not (f32["argmax_agreement"] >= 0.95
+            and cons_counts["k4f"] == 2 * layers):
+        raise AssertionError("short serve: decode disagrees with prefill, "
+                             "or the fp32 prefills did not run K4f")
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    paged = autotune.plan_attention(s, cfg.head_dim, cfg.head_dim,
+                                    cfg.num_kv_heads, 1, 16, sm_count=sm)
+    print(f"  the paged engine prefills one request at a time: B·KH = "
+          f"{cfg.num_kv_heads} blocks < {sm} SMs, plan: {paged.describe()}")
+    if paged.mega_fwd:
+        raise AssertionError("a one-request prefill planned K4f")
+    return {"prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+            "launches": counts, "prefill_profile": prof,
+            "consistency": {"fp32": f32, "bf16": bf16},
+            "consistency_launches": cons_counts,
+            "paged_plan": paged.describe()}
+
+
 TRAIN_ARGS = ["--arch", "smollm-360m", "--data", "markov", "--batch", "4",
               "--seq", "4096", "--steps", "8", "--lr", "1e-3",
               "--device", "cuda"]
@@ -627,8 +1010,8 @@ def phase_train():
         print(f"  step {h['step']}: ce_loss {h['ce_loss']:.4f} loss "
               f"{h['loss']:.4f} grad_norm {h['grad_norm']:.3f} "
               f"{h['step_time'] * 1e3:.1f} ms")
-    want = {"k1": 0, "k1_lse": 2 * layers * steps, "k2_dq": 0, "k2_dkv": 0,
-            "k3": layers * steps, "k5": 0, "k9": 0}
+    want = {**{k: 0 for k in counts}, "k1_lse": 2 * layers * steps,
+            "k3": layers * steps}
     print(f"  launches {counts} (want {want}: with remat='layer' K1 with "
           f"lse runs twice a layer, K3 once)")
     if counts != want:
@@ -657,8 +1040,9 @@ def phase_train():
     return info
 
 
-def _trainer(cfg, tc):
-    args = train_cli.parse_args(TRAIN_ARGS)
+def _trainer(cfg, tc, argv=TRAIN_ARGS):
+    """The port's Trainer as ``launch.train`` builds it from ``argv``."""
+    args = train_cli.parse_args(argv)
     oc = OptimizerConfig(peak_lr=args.lr,
                          warmup_steps=max(args.steps // 20, 5),
                          total_steps=args.steps)
@@ -949,12 +1333,12 @@ def _serve_run(model, params, tokens, steps, cache_len=None):
     return prefill_ms, step_ms, cache, tok
 
 
-def _consistency(arch, b, s, dtype, seed):
+def _consistency(arch, b, s, dtype, seed, **over):
     """prefill(S) then decode(token S) against prefill(S + 1)'s last
-    logits on a full-width model in ``dtype``: argmax agreement and the
-    largest logit difference."""
+    logits on a full-width model in ``dtype`` (config fields ``over``
+    replaced): argmax agreement and the largest logit difference."""
     cfg = dataclasses.replace(get_config(arch), param_dtype=dtype,
-                              dtype=dtype)
+                              dtype=dtype, **over)
     model = LanguageModel(cfg, device="cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(seed))
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
@@ -1518,6 +1902,7 @@ def main() -> int:
     k5 = timed("k5_s", phase_k5, flush)
     k9 = timed("k9_s", phase_k9, flush)
     ktrain = timed("k_train_s", phase_k_train, flush)
+    k4 = timed("k4_s", phase_k4, flush)
     del flush
     eng_a, eng_t = timed("engine_s", phase_engine)
     contig = timed("contiguous_s", phase_contiguous)
@@ -1525,6 +1910,8 @@ def main() -> int:
     hybrid = timed("hybrid_serve_s", phase_hybrid_serve)
     ref_err = timed("reference_s", phase_reference)
     train = timed("train_s", phase_train)
+    short_train = timed("short_train_s", phase_short_train)
+    short_serve = timed("short_serve_s", phase_short_serve)
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         restart = timed("restart_s", phase_restart, ckpt_dir)
@@ -1545,7 +1932,9 @@ def main() -> int:
                 "ssm_serve_16384": ssm["launches_16384"],
                 "hybrid_serve": hybrid["launches"],
                 "train": train["launches"], "restart": restart["launches"],
-                "serve_ckpt": served["launches"]}
+                "serve_ckpt": served["launches"],
+                "short_train": short_train["launches"],
+                "short_serve": short_serve["launches"]}
 
     def launches(*keys):
         per = {ph: sum(c.get(k, 0) for k in keys)
@@ -1588,6 +1977,20 @@ def main() -> int:
                         "launches_by_phase": per})
     k9["launches"], k9["launches_by_phase"] = launches("k9")
     kernels.append(k9)
+    src_mega = "src/repro_torch/kernels/csrc/flash_attention_mega.cu"
+    for key, name, replaces, counter in (
+            ("k4f", "flash_attention_mega_fwd (K4f)",
+             "src/repro/kernels/flash_attention.py:243", "k4f"),
+            ("k4b", "flash_attention_mega_bwd (K4b)",
+             "src/repro/kernels/flash_attention.py:312", "k4b")):
+        row = {"name": name, "route": "cuda", "source": src_mega,
+               "replaces": replaces, **k4[key],
+               "timed_shape": "B=64 H=15 KH=5 S=256 hd=64 bf16 causal"}
+        row["launches"], row["launches_by_phase"] = launches(counter)
+        if key == "k4f":
+            row["launches_with_lse"] = launches("k4f_lse")[0]
+            row["lse"] = k4["k4f_lse"]
+        kernels.append(row)
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} never launched on the path")
@@ -1598,6 +2001,8 @@ def main() -> int:
               "reference": ref_err, "train": train,
               "restart": restart, "serve_ckpt": served,
               "train_reference": train_ref, "copy_paths": copy_paths,
+              "k4": k4, "short_train": short_train,
+              "short_serve": short_serve,
               "library_bwd_ms": ktrain["library_bwd_ms"], "phase_s": timings}
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)

@@ -1,8 +1,9 @@
 """Attention dispatch, single-device branches of ``repro.dist.flash``.
 
 * prefill/training attention: the flash kernels above the length
-  threshold (K1 forward; K1 with the logsumexp and the K3 / K2 backward
-  when autograd records the call), the dense reference below it;
+  threshold (K4f or K1 forward; with the logsumexp and the K4b, K3 or K2
+  backward when autograd records the call), the dense reference below
+  it;
 * contiguous-cache decode: insert the new token, then K5 flash-decode;
 * paged decode over §6 pages of a shared cache pool, as torch ops (the
   reference has no kernel for it).
@@ -11,6 +12,8 @@ The mesh branches (head-, context-parallel, lse-combine decode) come with
 the multi-device slice.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -22,15 +25,18 @@ NEG_INF = -1e30
 
 
 def _attn_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                window: int, min_seq: int = 2048,
+                window: int, block_q: Optional[int] = None,
+                block_k: Optional[int] = None, min_seq: int = 2048,
                 q_offset: int = 0) -> torch.Tensor:
     """Single-shard causal attention: the flash kernels for sequences
-    longer than ``min_seq`` (K1 forward; under autograd K1 with the
-    logsumexp and the K3/K2 backward), dense reference for short ones.
-    ``q_offset`` is the global position of q row 0."""
+    longer than ``min_seq`` (K4f or K1 forward; under autograd with the
+    logsumexp and the K4b, K3 or K2 backward, as the planner says; pinned
+    tiles keep it off K4), dense reference for short ones.  ``q_offset``
+    is the global position of q row 0."""
     if q.shape[1] > min_seq:
         return kernel_ops.flash_attention(q, k, v, q_offset, causal=True,
-                                          window=window)
+                                          window=window, block_q=block_q,
+                                          block_k=block_k)
     return full_attention(q, k, v, causal=True, window=window,
                           q_offset=q_offset)
 
@@ -39,9 +45,14 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      cfg=None, window: int = 0) -> torch.Tensor:
     """Causal (optionally sliding-window) attention.
 
-    q: (B, S, H, hd); k, v: (B, S, KH, hd) → (B, S, H, hd_v).
+    q: (B, S, H, hd); k, v: (B, S, KH, hd) → (B, S, H, hd_v).  The
+    config's tile pins (``attn_block_q`` / ``attn_block_k``) ride to the
+    planner, as the reference's ``_blocks`` carries them.
     """
-    return _attn_local(q, k, v, window=window, min_seq=flash_min_seq(cfg))
+    return _attn_local(q, k, v, window=window,
+                       block_q=getattr(cfg, "attn_block_q", None),
+                       block_k=getattr(cfg, "attn_block_k", None),
+                       min_seq=flash_min_seq(cfg))
 
 
 # ------------------------------------------------------------------- decode

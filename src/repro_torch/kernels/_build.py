@@ -37,6 +37,13 @@ _ENTRIES = {
     "repro_flash_bwd_dkv": (_P,) * 8 + (_I,) * 10 + (_P,),
     # q, k, v, dout, lse, delta, dq_acc (fp32), dk, dv, then as above
     "repro_flash_bwd_fused": (_P,) * 9 + (_I,) * 10 + (_P,),
+    # q, k, v, out, lse (or null), B, H, KH, Sq, Sk, hd, q_offset, causal,
+    # window, dtype, strip rows, shared-memory bytes, stream
+    "repro_flash_mega_fwd": (_P,) * 5 + (_I,) * 12 + (_P,),
+    # q, k, v, dout, lse, delta, dq, dk, dv, then as above
+    "repro_flash_mega_bwd": (_P,) * 9 + (_I,) * 12 + (_P,),
+    # bwd, hd, dtype, strip rows, shared-memory bytes, out: blocks per SM
+    "repro_flash_mega_occupancy": (_I,) * 5 + (_P,),
     # q, k_cache, v_cache, cur_len, out, B, KH, G, S, hd, window, dtype,
     # stream
     "repro_flash_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

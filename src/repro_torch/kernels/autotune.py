@@ -1,18 +1,37 @@
-"""Block sizes of the Hopper kernels that the TPU planner sized from VMEM.
+"""Plans of the Hopper kernels that the TPU planner sized from VMEM.
 
-Only the staged partition copy (K8) needs a plan here.  The reference's
-``repro.kernels.autotune.plan_copy_chunk`` sizes its chunk from a VMEM
-budget and TPU constants; on the H100 the budget is the shared memory one
-block may opt into, 227 KB (232,448 B), and the stage holds two source
-slots (the current chunk and the prefetched next one).
+* :func:`plan_copy_chunk`, the staged partition copy's (K8) chunk.  The
+  reference's ``repro.kernels.autotune.plan_copy_chunk`` sizes its chunk
+  from a VMEM budget and TPU constants; on the H100 the budget is the
+  shared memory one block may opt into, 227 KB (232,448 B), and the
+  stage holds two source slots (the current chunk and the prefetched
+  next one).
+* :func:`plan_attention`, whether an attention call takes the
+  whole-sequence megakernels K4f / K4b (``csrc/flash_attention_mega.cu``)
+  or the tiled K1 / K2 / K3, and the strip of query rows each K4 kernel
+  holds.  The reference's planner (``repro/kernels/autotune.py:291``)
+  weighs VMEM footprints against TPU step costs; none of its budgets or
+  constants carry over.  Here the rule is the card's: the kv head's
+  whole K and V (and, for K4b, its fp32 dK and dV) must sit in one
+  block's shared memory, and one block per (batch, kv head) must fill
+  the SMs.
+
+Both are pure functions of ints, cached, with no device query: callers
+pass the SM count.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 LANES = 128
 SMEM_OPTIN_BYTES = 232_448     # H100 per-block opt-in shared memory
 MIN_CHUNK = 16                 # rows; the reference planner's MIN_BLOCK
+SM_COUNT = 132                 # H100 SXM streaming multiprocessors
+HEAD_DIMS = (64, 128)          # the head widths the attention kernels take
+# query rows per strip of K4f / K4b, largest first: 8 warps of 4, 2 or 1
+# rows each (``csrc/flash_attention_mega.cu``'s RPT)
+MEGA_ROWS = (32, 16, 8)
 
 
 @functools.lru_cache(maxsize=64)
@@ -28,3 +47,111 @@ def plan_copy_chunk(total_rows: int, smem_budget: int | None = None) -> int:
     while chunk * 2 <= cap and chunk * 4 <= max(total_rows, MIN_CHUNK * 4):
         chunk *= 2
     return chunk
+
+
+# --------------------------------------------------------------- attention
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def mega_smem_bytes(bwd: bool, rows: int, sk: int, hd: int,
+                    itemsize: int) -> int:
+    """Dynamic shared memory of one K4f (``bwd=False``) or K4b block with
+    a ``rows``-row strip.  The launch allocates this sum as it is, and
+    each block of ``csrc/flash_attention_mega.cu`` traps if it is less
+    than the block's layout needs.
+
+    Every array starts on a 16-byte boundary.  K and V keep the input
+    dtype, rows padded by one 32-bit word (hd + 2 bf16, hd + 1 fp32
+    values) so that lanes reading one column each hit distinct banks.
+    K4f adds the strip's pre-scaled q (rows × hd fp32) and its scores
+    (rows × sk fp32); K4b adds fp32 dK and dV (sk × hd each), q and dO
+    (rows × hd fp32 each), P and dS (rows × sk fp32 each) and the strip's
+    lse and delta (rows fp32 each).
+    """
+    ldk = hd + (2 if itemsize == 2 else 1)
+    total = 2 * _align16(sk * ldk * itemsize)
+    if bwd:
+        total += 2 * _align16(sk * hd * 4)
+        total += 2 * _align16(rows * hd * 4)
+        total += 2 * _align16(rows * sk * 4)
+        total += 2 * _align16(rows * 4)
+    else:
+        total += _align16(rows * hd * 4) + _align16(rows * sk * 4)
+    return total
+
+
+@functools.lru_cache(maxsize=1024)
+def mega_rows(bwd: bool, sk: int, hd: int, itemsize: int) -> int:
+    """The largest strip of ``MEGA_ROWS`` whose block fits the opt-in
+    shared memory, or 0 when not even 8 rows do (no K4 for this shape)."""
+    for rows in MEGA_ROWS:
+        if mega_smem_bytes(bwd, rows, sk, hd, itemsize) <= SMEM_OPTIN_BYTES:
+            return rows
+    return 0
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnPlan:
+    """Which kernels one attention shape takes.  ``mega_fwd`` / ``mega_bwd``
+    keep the reference plan's names; its batch-tiled ``_bt`` variants
+    fold into them (one block per (b, kh) is batch-tiled already).  The
+    K4 strips are :func:`mega_rows` of the shape, which the kernels'
+    wrappers read; K1–K3 choose their own tiles, so the reference's tile
+    fields have no counterpart."""
+    mega_fwd: bool = False
+    mega_bwd: bool = False
+
+    def describe(self) -> str:
+        return (f"forward {'K4f' if self.mega_fwd else 'K1'}, backward "
+                f"{'K4b' if self.mega_bwd else 'K3/K2'}")
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_attention(sk: int, hd: int, hd_v: int, kh: int, batch: int,
+                   dtype_bits: int, *, block_q: int | None = None,
+                   block_k: int | None = None,
+                   sm_count: int = SM_COUNT) -> AttnPlan:
+    """Choose K4f / K4b or K1 / K3 (K2) for one attention shape.
+
+    ``block_q`` / ``block_k`` are the config's tile pins
+    (``cfg.attn_block_q`` / ``attn_block_k``): a pinned tile turns both
+    megakernels off, as in the reference.  Otherwise each K4 kernel is
+    its own gate (K4f with K3 is a legal plan):
+
+    * the block fits: the kv head's K and V for the whole ``sk`` in the
+      input dtype, plus a strip of at least 8 query rows, fit the
+      232,448 B of shared memory an H100 block may opt into —
+      :func:`mega_smem_bytes` has the sum.  At hd 64, bf16,
+      sk 256: K and V take 2 · 256 · 66 · 2 = 67,584 B; K4f's 32-row
+      strip adds 8,192 B of q and 32,768 B of scores (108,544 B in all,
+      two blocks an SM); K4b adds fp32 dK and dV, 131,072 B, and an
+      8-row strip of q, dO, P, dS, lse and delta, 20,544 B (219,200 B,
+      one block an SM; 16 rows would need 239,744 B).  The longest sk
+      each kernel takes (bf16 / fp32): K4f 778 / 417 at hd 64, 413 / 214
+      at hd 128; K4b 271 / 208 at hd 64, 139 / 105 at hd 128;
+    * one block per (batch, kv head) fills the card:
+      ``batch · kh ≥ sm_count`` (the caller passes the device's
+      ``multi_processor_count``; 132 on an H100 SXM);
+    * the kernels take the shape: hd in ``HEAD_DIMS``, ``hd_v == hd``,
+      and ``dtype_bits`` 16 (bf16) or 32 (fp32); callers pass 0 for any
+      other dtype.
+
+    The query length and the group size do not enter: the strip loop
+    covers any number of query rows.  Pure and cached; no device query.
+
+    The rule is not tuned: where it takes K4 the route may be slower than
+    the tiled kernels it replaces.  At B=64, H=15, KH=5, S=256, hd 64,
+    bf16 causal on an H100 80GB HBM3 at 700 W, K4f took 0.71 ms against
+    K1-lse's 0.40 and K4b 3.44 ms against K3's 1.08 (``chip_smoke.py``
+    phase 4a, PERF.md), so lowering ``attn_flash_min_seq`` to reach K4
+    costs time there until K4b is reworked.
+    """
+    if (block_q is not None or block_k is not None or hd not in HEAD_DIMS
+            or hd_v != hd or dtype_bits not in (16, 32)
+            or batch * kh < sm_count):
+        return AttnPlan()
+    itemsize = dtype_bits // 8
+    return AttnPlan(mega_fwd=mega_rows(False, sk, hd, itemsize) > 0,
+                    mega_bwd=mega_rows(True, sk, hd, itemsize) > 0)

@@ -1,5 +1,5 @@
-"""K1, K2, K3: causal / sliding-window GQA flash attention on Hopper,
-forward and backward.
+"""K1, K2, K3, K4f, K4b: causal / sliding-window GQA flash attention on
+Hopper, forward and backward.
 
 Replaces the Pallas TPU kernels of ``repro/kernels/flash_attention.py``:
 
@@ -10,7 +10,13 @@ Replaces the Pallas TPU kernels of ``repro/kernels/flash_attention.py``:
   and dk/dv per kv tile with the GQA group sum inside one block — no
   atomics, bit-reproducible;
 * K3 ``_bwd_fused_kernel`` (same source): dq, dk and dv on one tile
-  visit, dq summed into an fp32 buffer with atomics.
+  visit, dq summed into an fp32 buffer with atomics;
+* K4f ``_fwd_mega_kernel`` and K4b ``_bwd_mega_kernel`` (and their
+  batch-tiled ``_bt`` variants; ``csrc/flash_attention_mega.cu``): the
+  same functions for short sequences, one block per (batch, kv head)
+  holding the whole K and V — a softmax over whole rows, and a backward
+  that owns every query row of its kv head, so it writes whole dq rows
+  and sums dk/dv in a fixed order without atomics.
 
 The CUDA sources' headers say how the TPU grids' sequential axes became
 loops inside one thread block and how the tiles fit the card.  Each
@@ -18,29 +24,37 @@ kernel has a wrapper with a ``launches`` counter and a plain PyTorch
 version, which the wrapper takes for CPU tensors; a CUDA tensor launches
 the kernel or raises.
 
-:func:`flash_attention` is differentiable.  The reference's custom VJP
-becomes an autograd Function: its forward runs K1 with the logsumexp and
-saves q, k, v, o and lse (never the S × S matrix); its backward computes
-``delta = rowsum(dO · O)`` in fp32 and runs K3, or K2 when
+:func:`flash_attention` is differentiable and plans each call from its
+shapes, dtype and tile pins (``kernels/autotune.plan_attention``), as the
+reference plans inside its ``flash_attention``: K4f where the plan says
+``mega_fwd``, else K1; K4b where it says ``mega_bwd``, else K3 or K2.
+The reference's custom VJP becomes an autograd Function: its forward
+runs K4f or K1 with the logsumexp and saves q, k, v, o and lse (never
+the S × S matrix); its backward computes ``delta = rowsum(dO · O)`` in
+fp32 and runs K4b, or K3, or K2 when
 ``torch.are_deterministic_algorithms_enabled()`` (or when the caller pins
-``fused_bwd``, the counterpart of the reference plan's field).  Without
-autograd (serving, ``torch.no_grad``) K1 runs without the logsumexp.
+``fused_bwd``, the counterpart of the reference plan's field).  K4b is
+deterministic, so it stays in deterministic mode.  Without autograd
+(serving, ``torch.no_grad``) K4f or K1 runs without the logsumexp.
 
 Conventions kept from the reference so results match: scale 1/√hd folded
 into q, masked scores −1e30, denominator floor 1e-37,
-``lse = m + log(max(l, 1e-37))``, ``P = exp(s − lse)``,
+``lse = m + log(max(l, 1e-37))`` (one convention for K1 and K4f, so
+either forward feeds any backward), ``P = exp(s − lse)``,
 ``dS = P·(dP − delta)·scale``, ``q_offset`` the global position of q row
 0 (the causal and window masks compare global positions; it takes no
 gradient), ragged lengths masked by index.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, autotune
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -79,8 +93,10 @@ def _plain_tiles(q, k, q_offset, causal, window):
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           q_offset: int = 0, *, causal: bool = True,
                           window: int = 0, with_lse: bool = False):
-    """K1's function in plain PyTorch, fp32 throughout: the CPU path of
-    the forward and its reference on the card.
+    """K1's and K4f's function in plain PyTorch, fp32 throughout: the CPU
+    path of both forwards and their reference on the card.  It takes
+    K4f's form — a softmax over whole score rows, blocks of query rows —
+    and K1's online softmax computes the same function.
 
     q: (B, H, Sq, hd); k, v: (B, KH, Sk, hd) → out (B, H, Sq, hd_v), and
     with ``with_lse`` also lse (B, H, Sq) fp32.
@@ -120,7 +136,7 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
 
 def _bwd_plain(q, k, v, do, lse, delta, q_offset, causal, window):
     """:func:`flash_attention_bwd_plain` from ``delta``: the CPU path of
-    the K2 and K3 wrappers.  dK takes ``P·(dP − delta)`` against the
+    the K2, K3 and K4b wrappers.  dK takes ``P·(dP − delta)`` against the
     pre-scaled q, as the kernels do; the reference's ``dS·q`` is the same
     product."""
     b, h, sq, hd = q.shape
@@ -277,68 +293,195 @@ def flash_attention_bwd_fused(q, k, v, do, lse, delta, q_offset: int = 0, *,
     return dq_acc.to(q.dtype), dk, dv
 
 
+def _mega_block(name, bwd, sk, hd, dtype):
+    """(strip rows, shared-memory bytes) of the K4 block: the planner's
+    gate, ``autotune.mega_rows`` and ``mega_smem_bytes``, which the launch
+    takes as they are.  Raises where no strip fits the shared memory."""
+    rows = autotune.mega_rows(bwd, sk, hd, dtype.itemsize)
+    if rows == 0:
+        raise ValueError(f"{name}: Sk {sk} at head_dim {hd} {dtype} does "
+                         "not fit one block's shared memory")
+    return rows, autotune.mega_smem_bytes(bwd, rows, sk, hd, dtype.itemsize)
+
+
+def flash_attention_mega_fwd(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, q_offset: int = 0, *,
+                             causal: bool = True, window: int = 0,
+                             with_lse: bool = False):
+    """K4f: K1's function with one block per (batch, kv head) over the
+    whole sequence.  Returns out (B, H, Sq, hd), and with ``with_lse``
+    also lse (B, H, Sq) fp32.
+
+    CUDA tensors launch K4f (``flash_attention_mega_fwd.launches`` counts
+    every launch, ``.lse_launches`` those with the logsumexp); CPU tensors
+    take :func:`flash_attention_plain`, which computes K4f's function in
+    K4f's own form, a softmax over whole rows.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, q_offset, causal=causal,
+                                     window=window, with_lse=with_lse)
+    name = "flash_attention_mega_fwd"
+    _check(name, q, k, v)
+    rows, smem = _mega_block(name, False, k.shape[2], q.shape[3], q.dtype)
+    out = torch.empty_like(q)
+    lse = (torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    *dims, stream = _dims(q, k, q_offset, causal, window)
+    err = _build.load().repro_flash_mega_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), *dims, rows, smem, stream)
+    _build.check(err, f"{name} launch")
+    flash_attention_mega_fwd.launches += 1
+    if not with_lse:
+        return out
+    flash_attention_mega_fwd.lse_launches += 1
+    return out, lse
+
+
+def flash_attention_mega_bwd(q, k, v, do, lse, delta, q_offset: int = 0, *,
+                             causal: bool = True, window: int = 0
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """K4b: (dq like q, dk and dv like k) in one launch, one block per
+    (batch, kv head).  Whole dq rows are written once and dk/dv are summed
+    in fp32 in a fixed order: no atomics, the same bits on every run.
+    ``delta`` is rowsum(do · out) in fp32, (B, H, Sq).  CPU tensors take
+    the plain backward, which is K4b's function in its own form (the
+    whole-row P of each block of query rows)."""
+    if q.device.type == "cpu":
+        return _bwd_plain(q, k, v, do, lse, delta, q_offset, causal, window)
+    name = "flash_attention_mega_bwd"
+    _check_bwd(name, q, k, v, do, lse, delta)
+    rows, smem = _mega_block(name, True, k.shape[2], q.shape[3], q.dtype)
+    dq = torch.empty_like(q)
+    # no query rows: no block runs, and dk, dv are zero
+    alloc = torch.zeros_like if q.shape[2] == 0 else torch.empty_like
+    dk, dv = alloc(k), alloc(v)
+    *dims, stream = _dims(q, k, q_offset, causal, window)
+    err = _build.load().repro_flash_mega_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), *dims, rows, smem, stream)
+    _build.check(err, f"{name} launch")
+    flash_attention_mega_bwd.launches += 1
+    return dq, dk, dv
+
+
+def mega_occupancy(bwd: bool, sk: int, hd: int,
+                   dtype: torch.dtype) -> Tuple[int, int, int]:
+    """(strip rows, shared-memory bytes, blocks per SM) of the K4f
+    (``bwd=False``) or K4b block at this Sk, head_dim and dtype, the last
+    from the CUDA runtime's occupancy calculator for the compiled kernel
+    on the current device; builds the kernels.  Raises where no strip
+    fits."""
+    rows, smem = _mega_block("mega_occupancy", bwd, sk, hd, dtype)
+    blocks = ctypes.c_int(0)
+    err = _build.load().repro_flash_mega_occupancy(
+        int(bwd), hd, _DTYPES[dtype], rows, smem, ctypes.byref(blocks))
+    _build.check(err, "mega_occupancy")
+    return rows, smem, blocks.value
+
+
 for _fn in (flash_attention_fwd, flash_attention_bwd_dq,
-            flash_attention_bwd_dkv, flash_attention_bwd_fused):
+            flash_attention_bwd_dkv, flash_attention_bwd_fused,
+            flash_attention_mega_fwd, flash_attention_mega_bwd):
     _fn.launches = 0
+flash_attention_mega_fwd.lse_launches = 0
+
+
+# ------------------------------------------------------------- planning
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def attention_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   block_q: Optional[int] = None,
+                   block_k: Optional[int] = None) -> autotune.AttnPlan:
+    """``autotune.plan_attention`` for these tensors: their shapes and
+    dtype, the tile pins, and the SM count of q's card (read once per
+    device; an H100's 132 for CPU tensors, so the CPU takes the routes
+    the card would)."""
+    b, _h, _sq, hd = q.shape
+    _, kh, sk, _ = k.shape
+    sm = (_sm_count(q.device.index) if q.device.type == "cuda"
+          else autotune.SM_COUNT)
+    bits = {torch.bfloat16: 16, torch.float32: 32}.get(q.dtype, 0)
+    return autotune.plan_attention(sk, hd, v.shape[-1], kh, b, bits,
+                                   block_q=block_q, block_k=block_k,
+                                   sm_count=sm)
 
 
 # ---------------------------------------------------- autograd and public
 
 class _FlashAttention(torch.autograd.Function):
-    """The reference's ``_flash`` custom VJP: forward K1 with lse, saving
-    (q, k, v, o, lse); backward K3 or K2 (plain versions for CPU)."""
+    """The reference's ``_flash`` custom VJP: forward K4f or K1 with lse,
+    saving (q, k, v, o, lse); backward K4b, K3 or K2 (plain versions for
+    CPU), as ``plan`` says."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_offset, causal, window, fused_bwd):
-        out, lse = flash_attention_fwd(q, k, v, q_offset, causal=causal,
-                                       window=window)
+    def forward(ctx, q, k, v, q_offset, causal, window, fused_bwd, plan):
+        kw = dict(causal=causal, window=window)
+        if plan.mega_fwd:
+            out, lse = flash_attention_mega_fwd(q, k, v, q_offset,
+                                                with_lse=True, **kw)
+        else:
+            out, lse = flash_attention_fwd(q, k, v, q_offset, **kw)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.opts = (q_offset, causal, window, fused_bwd)
+        ctx.opts = (q_offset, causal, window, fused_bwd, plan)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        q_offset, causal, window, fused_bwd = ctx.opts
+        q_offset, causal, window, fused_bwd, plan = ctx.opts
         do = do.contiguous()
-        if q.device.type == "cpu":
+        if q.device.type == "cpu" and not plan.mega_bwd:
             dq, dk, dv = flash_attention_bwd_plain(
                 q, k, v, out, lse, do, q_offset, causal, window)
+            return dq, dk, dv, None, None, None, None, None
+        delta = (do.float() * out.float()).sum(-1)
+        args = (q, k, v, do, lse, delta, q_offset)
+        kw = dict(causal=causal, window=window)
+        if plan.mega_bwd:          # deterministic: kept in that mode too
+            dq, dk, dv = flash_attention_mega_bwd(*args, **kw)
+        elif (not torch.are_deterministic_algorithms_enabled()
+              if fused_bwd is None else fused_bwd):
+            dq, dk, dv = flash_attention_bwd_fused(*args, **kw)
         else:
-            delta = (do.float() * out.float()).sum(-1)
-            fused = (not torch.are_deterministic_algorithms_enabled()
-                     if fused_bwd is None else fused_bwd)
-            if fused:
-                dq, dk, dv = flash_attention_bwd_fused(
-                    q, k, v, do, lse, delta, q_offset, causal=causal,
-                    window=window)
-            else:
-                dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, q_offset,
-                                            causal=causal, window=window)
-                dk, dv = flash_attention_bwd_dkv(
-                    q, k, v, do, lse, delta, q_offset, causal=causal,
-                    window=window)
-        return dq, dk, dv, None, None, None, None
+            dq = flash_attention_bwd_dq(*args, **kw)
+            dk, dv = flash_attention_bwd_dkv(*args, **kw)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_offset: int = 0, *, causal: bool = True,
-                    window: int = 0, fused_bwd: Optional[bool] = None
-                    ) -> torch.Tensor:
+                    window: int = 0, fused_bwd: Optional[bool] = None,
+                    block_q: Optional[int] = None,
+                    block_k: Optional[int] = None) -> torch.Tensor:
     """q: (B, H, Sq, hd); k, v: (B, KH, Sk, hd) → (B, H, Sq, hd).
 
-    Differentiable in q, k, v.  When autograd records this call, the
-    forward is K1 with the logsumexp (counted by
-    ``flash_attention_fwd.launches``) and the backward K3 by default, K2
-    in deterministic mode or with ``fused_bwd=False``.  Otherwise CUDA
-    tensors launch K1 alone (counted by ``flash_attention.launches``)
+    Differentiable in q, k, v.  Each call is planned by
+    :func:`attention_plan`; ``block_q`` / ``block_k`` are the config's
+    tile pins, which turn K4 off (K1–K3 keep their own tiles).  When
+    autograd records this call, the forward is K4f or K1 with the
+    logsumexp (``flash_attention_mega_fwd.lse_launches``,
+    ``flash_attention_fwd.launches``) and the backward K4b, else K3 by
+    default and K2 in deterministic mode or with ``fused_bwd=False``.
+    Otherwise CUDA tensors launch K4f or K1 alone (counted by
+    ``flash_attention_mega_fwd.launches`` / ``flash_attention.launches``)
     and CPU tensors take :func:`flash_attention_plain`.
     """
+    plan = attention_plan(q, k, v, block_q=block_q, block_k=block_k)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         # decided here: autograd is off inside Function.forward
         return _FlashAttention.apply(q, k, v, int(q_offset), bool(causal),
-                                     int(window), fused_bwd)
+                                     int(window), fused_bwd, plan)
+    if plan.mega_fwd:
+        return flash_attention_mega_fwd(q, k, v, q_offset, causal=causal,
+                                        window=window)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, q_offset, causal=causal,
                                      window=window)

@@ -6,6 +6,8 @@ become the copy kernels' (rows, 128) views.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from . import flash_attention as _fa
@@ -17,17 +19,21 @@ from ..core.objects import spans_overlap
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_offset: int = 0, *, causal: bool = True,
-                    window: int = 0) -> torch.Tensor:
+                    window: int = 0, block_q: Optional[int] = None,
+                    block_k: Optional[int] = None) -> torch.Tensor:
     """Model layout: q (B,S,H,hd), k/v (B,S,KH,hd) → (B,S,H,hd_v).
 
     Differentiable: the transposes are torch ops outside the kernels'
     autograd Function, so gradients come back in model layout.
     ``q_offset`` is the global position of q row 0 (no gradient).
+    ``block_q``/``block_k`` default to the planner; ints pin the tiles,
+    which keeps the call off the K4 megakernels (as in the reference).
     """
     out = _fa.flash_attention(q.transpose(1, 2).contiguous(),
                               k.transpose(1, 2).contiguous(),
                               v.transpose(1, 2).contiguous(), q_offset,
-                              causal=causal, window=window)
+                              causal=causal, window=window, block_q=block_q,
+                              block_k=block_k)
     return out.transpose(1, 2)
 
 

@@ -1,8 +1,9 @@
 """Card-only checks: the CUDA kernels K1 (with and without its
-logsumexp), K2, K3, K5, the partition copies K6, K7, K8 and the SSD scan
-K9 against their plain PyTorch versions on the same inputs, a reduced
-train step and reduced SSM / hybrid serving on the card against the CPU,
-and the runtime's fused copy on the card against its numpy backend.
+logsumexp), K2, K3, K4f, K4b, K5, the partition copies K6, K7, K8 and the
+SSD scan K9 against their plain PyTorch versions on the same inputs, a
+reduced train step (tiled and megakernel routes) and reduced SSM /
+hybrid serving on the card against the CPU, and the runtime's fused copy
+on the card against its numpy backend.
 They skip (from inside the fixture) where torch sees no CUDA device; on
 a machine with the card run
 
@@ -12,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import autotune
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import partition_copy as pc
@@ -487,3 +489,211 @@ def test_ssm_serving_on_the_card_matches_the_cpu(cuda, arch):
         lg, cg = gpu.decode_step(params_gpu, cg, tok.to(cuda), s + i)
         lc, cc = cpu.decode_step(params, cc, tok, s + i)
         assert (lg.cpu() - lc).abs().max().item() <= 1e-3
+
+
+# ------------------------------------- whole-sequence attention (K4f, K4b)
+
+MEGA_CASES = [  # b, h, kh, sq, sk, hd, dtype, window, q_offset
+    (64, 15, 5, 256, 256, 64, torch.bfloat16, 0, 0),    # the training shape
+    (8, 15, 5, 200, 200, 64, torch.bfloat16, 0, 0),     # ragged
+    (8, 15, 5, 100, 100, 64, torch.bfloat16, 0, 0),
+    (8, 15, 5, 256, 256, 64, torch.bfloat16, 64, 0),    # window
+    (8, 15, 5, 256, 384, 64, torch.bfloat16, 0, 128),   # q stripe (K4f)
+    (8, 15, 5, 192, 256, 64, torch.bfloat16, 0, 64),    # q stripe (both)
+    (8, 5, 5, 256, 256, 64, torch.bfloat16, 0, 0),      # G = 1
+    (8, 8, 2, 128, 128, 128, torch.bfloat16, 0, 0),     # hd 128
+    (8, 15, 5, 128, 128, 64, torch.float32, 0, 0),      # fp32
+]
+
+
+def _mega_inputs(cuda, b, h, kh, sq, sk, hd, dtype, seed=0):
+    return (_randn((b, h, sq, hd), dtype, cuda, seed),
+            _randn((b, kh, sk, hd), dtype, cuda, seed + 1),
+            _randn((b, kh, sk, hd), dtype, cuda, seed + 2),
+            _randn((b, h, sq, hd), dtype, cuda, seed + 3))
+
+
+@pytest.mark.parametrize("b,h,kh,sq,sk,hd,dtype,window,q_offset",
+                         MEGA_CASES)
+def test_mega_kernels_match_plain(cuda, b, h, kh, sq, sk, hd, dtype, window,
+                                  q_offset):
+    q, k, v, do = _mega_inputs(cuda, b, h, kh, sq, sk, hd, dtype)
+    kw = dict(causal=True, window=window)
+    before = (fa.flash_attention_mega_fwd.launches,
+              fa.flash_attention_mega_fwd.lse_launches,
+              fa.flash_attention_mega_bwd.launches)
+    out = fa.flash_attention_mega_fwd(q, k, v, q_offset, **kw)
+    out_l, lse = fa.flash_attention_mega_fwd(q, k, v, q_offset,
+                                             with_lse=True, **kw)
+    torch.cuda.synchronize()
+    want_out, want_lse = fa.flash_attention_plain(q, k, v, q_offset,
+                                                  with_lse=True, **kw)
+    for got in (out, out_l):
+        assert (got.float() - want_out.float()).abs().max().item() \
+            <= TOL[dtype]
+    _close(lse, want_lse, (1e-5, 1e-4))
+    takes_bwd = autotune.mega_rows(True, sk, hd, q.element_size()) > 0
+    if takes_bwd:
+        delta = (do.float() * out_l.float()).sum(-1)
+        got = fa.flash_attention_mega_bwd(q, k, v, do, lse, delta, q_offset,
+                                          **kw)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_bwd_plain(q, k, v, out_l, lse, do,
+                                            q_offset, **kw)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            _close(g, w, BWD_TOL[dtype])
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            fa.flash_attention_mega_bwd(q, k, v, do, lse, lse, q_offset,
+                                        **kw)
+    assert (fa.flash_attention_mega_fwd.launches - before[0],
+            fa.flash_attention_mega_fwd.lse_launches - before[1],
+            fa.flash_attention_mega_bwd.launches - before[2]) == \
+        (2, 1, int(takes_bwd))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_mega_backward_is_deterministic_and_matches_k2(cuda, dtype):
+    """Two K4b runs give the same bits (no atomics); its dk/dv agree with
+    K2's, which sum the same products in another order: fp32 rounding
+    (1e-5 relative) in fp32, one bf16 rounding apart in bf16."""
+    b, s = (64, 256) if dtype == torch.bfloat16 else (32, 128)
+    q, k, v, do = _mega_inputs(cuda, b, 15, 5, s, s, 64, dtype, seed=10)
+    out, lse = fa.flash_attention_mega_fwd(q, k, v, with_lse=True)
+    delta = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, do, lse, delta)
+    first = fa.flash_attention_mega_bwd(*args)
+    second = fa.flash_attention_mega_bwd(*args)
+    assert all(torch.equal(a, b_) for a, b_ in zip(first, second))
+    dk2, dv2 = fa.flash_attention_bwd_dkv(*args)
+    dq2 = fa.flash_attention_bwd_dq(*args)
+    tol = (2.0 ** -7, 1e-4) if dtype == torch.bfloat16 else (1e-5, 1e-5)
+    for got, want in zip(first, (dq2, dk2, dv2)):
+        _close(got, want, tol)
+
+
+def test_mixed_plan_feeds_k4f_lse_to_k3(cuda, monkeypatch):
+    """K4f's forward with K3's backward (the plan's two gates apart): K3
+    reads K4f's lse, and the gradients match the plain backward."""
+    q, k, v, do = _mega_inputs(cuda, 64, 15, 5, 256, 256, 64,
+                               torch.bfloat16, seed=20)
+    monkeypatch.setattr(fa, "attention_plan", lambda *a, **kw: (
+        autotune.AttnPlan(mega_fwd=True)))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = (fa.flash_attention_mega_fwd.lse_launches,
+              fa.flash_attention_bwd_fused.launches,
+              fa.flash_attention_mega_bwd.launches)
+    out = fa.flash_attention(*leaves)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_mega_fwd.lse_launches - before[0],
+            fa.flash_attention_bwd_fused.launches - before[1],
+            fa.flash_attention_mega_bwd.launches - before[2]) == (1, 1, 0)
+    _out, lse = fa.flash_attention_plain(q, k, v, with_lse=True)
+    want = fa.flash_attention_bwd_plain(q, k, v, out.detach(), lse, do)
+    for g, w in zip(grads, want):
+        _close(g, w, BWD_TOL[torch.bfloat16])
+
+
+def _longest_sk(bwd, hd, itemsize):
+    sk = 1
+    while autotune.mega_rows(bwd, sk + 1, hd, itemsize):
+        sk += 1
+    return sk
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_mega_runs_at_the_planners_longest_sk(cuda, hd, dtype):
+    """At the longest Sk the planner gives each kernel, the launch's
+    shared memory (the planner's sum) holds the block's layout — a block
+    traps otherwise — and the results match the plain versions; the
+    occupancy calculator finds room for at least one block an SM."""
+    for bwd in (False, True):
+        sk = _longest_sk(bwd, hd, dtype.itemsize)
+        q, k, v, do = _mega_inputs(cuda, 2, 4, 2, sk, sk, hd, dtype, 30)
+        out, lse = fa.flash_attention_mega_fwd(q, k, v, with_lse=True)
+        want_out, want_lse = fa.flash_attention_plain(q, k, v, with_lse=True)
+        assert (out.float() - want_out.float()).abs().max().item() \
+            <= TOL[dtype]
+        _close(lse, want_lse, (1e-5, 1e-4))
+        if bwd:
+            delta = (do.float() * out.float()).sum(-1)
+            got = fa.flash_attention_mega_bwd(q, k, v, do, lse, delta)
+            want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do)
+            for g, w in zip(got, want):
+                _close(g, w, BWD_TOL[dtype])
+        rows, smem, per_sm = fa.mega_occupancy(bwd, sk, hd, dtype)
+        assert rows == autotune.mega_rows(bwd, sk, hd, dtype.itemsize)
+        assert smem <= autotune.SMEM_OPTIN_BYTES and per_sm >= 1
+
+
+def test_mega_backward_without_query_rows_gives_zero_dk_dv(cuda):
+    """Sq = 0 launches no block; dk and dv are the zero gradient."""
+    q, k, v, do = _mega_inputs(cuda, 2, 4, 2, 0, 16, 64, torch.bfloat16)
+    lse = torch.zeros((2, 4, 0), device=cuda)
+    dq, dk, dv = fa.flash_attention_mega_bwd(q, k, v, do, lse, lse)
+    assert dq.shape == q.shape
+    assert not dk.any() and not dv.any()
+
+
+def test_mega_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros((1, 3, 16, 64), device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros((1, 1, 2049, 64), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="shared memory"):
+        fa.flash_attention_mega_fwd(q, k, k)
+    q = torch.zeros((1, 2, 8, 32), device=cuda)              # head_dim 32
+    with pytest.raises(ValueError):
+        fa.flash_attention_mega_fwd(q, q, q)
+
+
+def test_megakernel_train_steps_on_the_card_match_the_cpu(cuda):
+    """The reduced fp32 smollm with head_dim 64, ``attn_flash_min_seq=32``,
+    B 72 x S 96 (B·KH = 144 blocks): two train steps on the card, whose
+    attention is K4f with lse (twice a layer under remat="layer") and K4b
+    (once a layer) and no K1/K2/K3, against the CPU's plain path from the
+    same weights.  Loss and grad norm 1e-5 relative (fp32, summation
+    order)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LanguageModel
+    from repro_torch.optim import OptimizerConfig, init_opt_state
+    from repro_torch.train.steps import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("smollm-360m").reduced(),
+                              head_dim=64, attn_flash_min_seq=32)
+    oc = OptimizerConfig(peak_lr=1e-3, warmup_steps=1, total_steps=10)
+    gpu, cpu = LanguageModel(cfg, device=cuda), LanguageModel(cfg, "cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(0)
+    toks = rng.randint(0, cfg.vocab_size, (2, 72, 97))
+    counters = (fa.flash_attention, fa.flash_attention_fwd,
+                fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv,
+                fa.flash_attention_bwd_fused, fa.flash_attention_mega_bwd)
+    metrics = []
+    for model in (gpu, cpu):
+        p = _tree_to(params, model.device)
+        state = {"params": p, "opt": init_opt_state(p, oc)}
+        step = make_train_step(model, oc)
+        before = [c.launches for c in counters]
+        lse_before = fa.flash_attention_mega_fwd.lse_launches
+        ms = []
+        for t in toks:
+            batch = {"tokens": torch.from_numpy(t[:, :-1]),
+                     "targets": torch.from_numpy(t[:, 1:])}
+            state, m = step(state, {k: v.to(model.device)
+                                    for k, v in batch.items()})
+            ms.append({k: float(v) for k, v in m.items()})
+        if model is gpu:
+            torch.cuda.synchronize()
+            got = [c.launches - b for c, b in zip(counters, before)]
+            assert got == [0, 0, 0, 0, 0, 2 * cfg.num_layers]
+            assert fa.flash_attention_mega_fwd.lse_launches - lse_before \
+                == 2 * 2 * cfg.num_layers
+        metrics.append(ms)
+    for mg, mc in zip(*metrics):
+        for k in ("loss", "grad_norm"):
+            assert mg[k] == pytest.approx(mc[k], rel=1e-5), k
