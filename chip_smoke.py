@@ -8,20 +8,27 @@ Phases, in order; any failure raises and the script exits nonzero:
 1. the card's name and power limit; build the CUDA kernels from
    ``src/repro_torch/kernels/csrc`` and print the compiler's report;
 2. K1 (flash-attention forward) against its plain PyTorch version at the
-   serve shape and at ragged / windowed / offset / fp32 variants, timed
-   beside its plain version, ``scaled_dot_product_attention`` and its
-   bound;
-3. K5 (flash-decode) the same way at the contiguous-decode shape;
+   serve shape and at ragged / windowed / offset / fp32 variants and at
+   head widths 120 (h2o-danube3-4b, window 4096) and 32 (the reduced
+   configs), timed (median and min-max of 20 cold-L2 samples) beside its
+   plain version, ``scaled_dot_product_attention`` (the backend that
+   served it printed) and its bound, at hd 64 and at danube's 1 x 6000;
+3. K5 (flash-decode) the same way at the contiguous-decode shape and at
+   danube's (hd 120, window 4096);
 3a. K9 (the Mamba2 SSD scan) against its plain version at mamba2's
    serve shape (B=4, S=4096, H=64, P=64, N=128, bf16), zamba2's (N=64,
    B=1 x 3000), B=1 x 16384, a ragged 4 x 3000, the reduced fp32 shape
    (P=32, N=16, chunk 16) and prompts of 40, 70 and 100 tokens (the
    chunk is the prompt), timed beside its plain version and its bound;
-4. K1 with its logsumexp, K2 (dq; dk/dv) and K3 (fused backward) against
-   their plain versions at the training shape (B=4, H=15, KH=5, S=4096,
-   hd 64, bf16) and at ragged / window / q_offset / fp32-hd128 variants,
-   K3 against K2, then timed at the training shape beside the plain
-   versions, the forward and backward of one
+4. K1 with its logsumexp, K2 (dq; dk/dv) and K3 (fused backward; bf16
+   on tensor cores) against their plain versions at the training shape
+   (B=4, H=15, KH=5, S=4096, hd 64, bf16) and at ragged / window /
+   q_offset / fp32-hd128 / bf16-hd128 / hd 120 window 4096 (bf16, fp32)
+   / hd 32 variants, K3 against K2, K2 twice the same bits; the HMMA
+   instructions ``cuobjdump -sass`` finds in the bf16 kernels and their
+   blocks per SM; then timed at the training shape (median and min-max
+   of 10 cold-L2 samples) beside the plain versions, the forward and the
+   backward (``torch.autograd.grad``) of one
    ``scaled_dot_product_attention`` call, and their bounds;
 4a. K4f and K4b (the whole-sequence megakernels) against their plain
    versions at the short-sequence training shape (B=64, H=15, KH=5,
@@ -47,6 +54,13 @@ Phases, in order; any failure raises and the script exits nonzero:
    shared attention block applied 6 times), prefill 1 x 3000 (K9 38
    times, K1 6 times), 16 decode steps (K5 6 times a step), the same
    consistency check;
+6c. h2o-danube3-4b at full width (24 layers, hd 120, window 4096), bf16:
+   prefill 1 x 6000 (24 K1), 16 contiguous decodes (24 K5 a step), both
+   profiled, and 3 requests with 4200-5000-token prompts through
+   ``ServeEngine``;
+6d. one depth-cut danube train step (2 layers, full width, fp32, 1 x
+   4352) on the card through K1-lse and K3, and through K2 in
+   deterministic mode, against the CPU: loss and gradients;
 7. a 2-layer full-width fp32 model on the card against the same weights
    on the CPU (plain versions), prefill plus 3 decode steps, then reduced
    fp32 mamba2 and zamba2 the same way (K9 at the reduced shape, at
@@ -58,13 +72,16 @@ Phases, in order; any failure raises and the script exits nonzero:
    ``torch.profiler`` breakdown of one step;
 8a. short-sequence training: smollm-360m at full width with
    ``attn_flash_min_seq=128``, 8 steps of 64 x 256 tokens through the
-   port's Trainer; exactly 64 K4f-lse and 32 K4b launches a step and no
-   K1/K2/K3; the cross entropy must fall; a profiled step;
+   port's Trainer on the default plan: exactly 64 K1-lse and 32 K3
+   launches a step and no K4 (the card's times have K4 slower there);
+   the cross entropy must fall; a profiled step; then 2 steps on the K4
+   route, forced by patching the planner's measured table in-process
+   (64 K4f-lse and 32 K4b a step), both step medians printed;
 8b. short-sequence serving: the same model in bf16, prefill 32 x 256
-   (32 K4f launches), 16 decode steps (K5), prefill(S) + decode against
-   prefill(S + 1) (fp32 argmax agreement >= 0.95, through K4f; the bf16
+   (32 K1 launches), 16 decode steps (K5), prefill(S) + decode against
+   prefill(S + 1) (fp32 argmax agreement >= 0.95, through K1; the bf16
    logit gap printed), and the paged engine's plan (one request a
-   prefill, B·KH = 5: K1 by the occupancy rule);
+   prefill: K1);
 9. restart in deterministic mode (K2 backward): 8 uninterrupted steps
    against a run that checkpoints at step 4 and fail-stops at 6, resumed
    from the checkpoint — the final parameters must be equal bit for bit;
@@ -86,13 +103,15 @@ Phases, in order; any failure raises and the script exits nonzero:
     programs take no fused copy.
 
 Phase 7 also runs a reduced fp32 smollm (head_dim 64,
-``attn_flash_min_seq=32``, B 72 x S 96: B·KH = 144) on the card against
-the CPU: prefill logits through K4f and one step's gradients through K4f
-and K4b.
+``attn_flash_min_seq=32``, B 72 x S 96: B·KH = 144) on the forced K4
+route on the card against the CPU: prefill logits through K4f and one
+step's gradients through K4f and K4b; and the reduced smollm as it is
+(head_dim 32) through K1, K5, K1-lse and K3.
 
 Counters on the kernel wrappers are zeroed just before each main-path
-phase (5, 6, 6a, 6b, 8, 8a, 8b, 9, 10 and each path of 12) and read just
-after: every kernel of the path must have launched.  The kernel line's
+phase (5, 6, 6a, 6b, 6c, 6d, 8, 8a and its K4 route, 8b, 9, 10 and each
+path of 12) and read just after: every kernel of the path must have
+launched.  The kernel line's
 launches are those counts alone; the reduced model of phase 7 and the
 fp32 consistency check of 8b keep theirs in their own results.  The line before the last is the kernel table as
 JSON; the last line is ``{"ok": true, "device": {...}}``.  Exits nonzero
@@ -100,6 +119,7 @@ without a CUDA device or without the package beside it.  ``--report
 PATH`` also writes every number of the run as JSON to PATH.
 """
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -160,9 +180,10 @@ def _randn(shape, dtype, seed):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
 
-def _time_ms(fn, reps, flush):
-    """Mean device time of ``fn`` over ``reps`` calls, each after a write
-    of a buffer larger than L2 so every call starts with a cold cache."""
+def _time_stats(fn, reps, flush):
+    """Device time of ``fn`` over ``reps`` calls, each after a write of a
+    buffer larger than L2 so every call starts with a cold cache:
+    {"median", "min", "max"} in ms."""
     for _ in range(2):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
@@ -173,7 +194,54 @@ def _time_ms(fn, reps, flush):
         fn()
         e.record()
     torch.cuda.synchronize()
-    return float(np.mean([s.elapsed_time(e) for s, e in zip(starts, ends)]))
+    ms = [s.elapsed_time(e) for s, e in zip(starts, ends)]
+    return {"median": float(np.median(ms)), "min": float(np.min(ms)),
+            "max": float(np.max(ms))}
+
+
+def _time_ms(fn, reps, flush):
+    """Median of :func:`_time_stats`."""
+    return _time_stats(fn, reps, flush)["median"]
+
+
+def _fmt(st):
+    return f"{st['median']:.4f} ms ({st['min']:.4f}-{st['max']:.4f})"
+
+
+def _sdpa_backend(fn):
+    """The ATen op that served ``scaled_dot_product_attention`` in ``fn``
+    (flash, efficient, cuDNN or math), from the profiler's op names."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()}
+    for backend in ("flash", "efficient", "cudnn"):
+        if any(f"_scaled_dot_product_{backend}_attention" in n
+               for n in names):
+            return backend
+    return "math" if any("attention_math" in n for n in names) else \
+        "unknown: " + ", ".join(sorted(n for n in names if "dot_product" in n))
+
+
+def _sass_counts(pattern):
+    """Per kernel whose mangled name contains ``pattern``: the count of
+    tensor-core (HMMA / HGMMA) instructions ``cuobjdump -sass`` finds in
+    the built library."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path())],
+                          capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            if pattern not in name:
+                name = None
+            else:
+                counts[name] = 0
+        elif name is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[name] += 1
+    return counts
 
 
 def _errors(got, want):
@@ -257,6 +325,14 @@ def _live_pairs(sq, sk, q_offset, causal, window):
 
 # ------------------------------------------------------------------- phases
 
+def _window_mask(sq, sk, q_offset, window, device="cuda"):
+    """The causal sliding-window mask as sdpa's boolean attn_mask (True:
+    attend)."""
+    rows = q_offset + torch.arange(sq, device=device)[:, None]
+    cols = torch.arange(sk, device=device)[None, :]
+    return (cols <= rows) & (rows - cols < window)
+
+
 def phase_k1(flush):
     print("== K1 flash_attention: kernel vs plain version")
     cases = [  # name, B, H, KH, Sq, Sk, hd, dtype, window, q_offset
@@ -265,6 +341,13 @@ def phase_k1(flush):
         ("window 512", 1, 15, 5, 3008, 3008, 64, torch.bfloat16, 512, 0),
         ("q_offset 1024", 1, 15, 5, 1984, 3008, 64, torch.bfloat16, 0, 1024),
         ("fp32 hd128", 2, 8, 2, 1100, 1100, 128, torch.float32, 0, 0),
+        ("danube hd120 window 4096", 1, 32, 8, 6000, 6000, 120,
+         torch.bfloat16, 4096, 0),
+        ("hd120 fp32 q_offset 512", 1, 8, 2, 1000, 1512, 120, torch.float32,
+         700, 512),
+        ("reduced hd32 bf16", 2, 4, 2, 600, 600, 32, torch.bfloat16, 0, 0),
+        ("reduced hd32 fp32 window 64", 2, 4, 2, 600, 600, 32, torch.float32,
+         64, 0),
     ]
     worst = 0.0
     for i, (name, b, h, kh, sq, sk, hd, dt, win, off) in enumerate(cases):
@@ -276,26 +359,48 @@ def phase_k1(flush):
         want = fa.flash_attention_plain(q, k, v, off, causal=True, window=win)
         worst = max(worst, _check(name, got, want, dt))
 
-    b, h, kh, s, hd, dt = 1, 15, 5, 3008, 64, torch.bfloat16
-    q, k, v = (_randn((b, h, s, hd), dt, 0), _randn((b, kh, s, hd), dt, 1),
-               _randn((b, kh, s, hd), dt, 2))
-    ms = _time_ms(lambda: fa.flash_attention(q, k, v), 20, flush)
-    plain_ms = _time_ms(lambda: fa.flash_attention_plain(q, k, v), 5, flush)
-    lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), 20, flush)
-    flops = 4 * hd * h * b * _live_pairs(s, s, 0, True, 0)
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    bound_ms, bound_by = _bound(flops, nbytes, dt)
-    print(f"  serve shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-          f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
+    def timed(b, h, kh, s, hd, win, seed):
+        dt = torch.bfloat16
+        q, k, v = (_randn((b, h, s, hd), dt, seed),
+                   _randn((b, kh, s, hd), dt, seed + 1),
+                   _randn((b, kh, s, hd), dt, seed + 2))
+        st = _time_stats(lambda: fa.flash_attention(q, k, v, window=win), 20,
+                         flush)
+        plain_ms = _time_ms(lambda: fa.flash_attention_plain(
+            q, k, v, window=win), 3, flush)
+        if win:
+            mask = _window_mask(s, s, 0, win)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, attn_mask=mask, enable_gqa=True)
+        else:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=True, enable_gqa=True)
+        lib_st = _time_stats(lib, 20, flush)
+        flops = 4 * hd * h * b * _live_pairs(s, s, 0, True, win)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        bound_ms, bound_by = _bound(flops, nbytes, dt)
+        row = {"ms": st["median"], "ms_min": st["min"], "ms_max": st["max"],
+               "plain_ms": plain_ms, "library_ms": lib_st["median"],
+               "library_min": lib_st["min"], "library_max": lib_st["max"],
+               "library_backend": _sdpa_backend(lib), "bound_ms": bound_ms,
+               "bound_by": bound_by, "gflop": flops / 1e9,
+               "tflops": flops / st["median"] / 1e9}
+        print(f"  B={b} H={h} KH={kh} S={s} hd={hd} window {win}: kernel "
+              f"{_fmt(st)}, plain {plain_ms:.4f} ms, sdpa {_fmt(lib_st)} "
+              f"[{row['library_backend']}], bound {bound_ms:.4f} ms "
+              f"({bound_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
+        return row
+
+    main = timed(1, 15, 5, 3008, 64, 0, 0)
+    danube = timed(1, 32, 8, 6000, 120, 4096, 40)
+    torch.cuda.empty_cache()
     return {"name": "flash_attention (K1)", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:134",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_us": bound_ms * 1e3,
-            "bound_by": bound_by, "library_ms": lib_ms,
-            "timed_shape": "B=1 H=15 KH=5 Sq=Sk=3008 hd=64 bf16 causal"}
+            "max_abs_err": worst, **main, "bound_us": main["bound_ms"] * 1e3,
+            "timed_shape": "B=1 H=15 KH=5 Sq=Sk=3008 hd=64 bf16 causal",
+            "hd120": {**danube, "timed_shape": "B=1 H=32 KH=8 Sq=Sk=6000 "
+                      "hd=120 bf16 causal window 4096 (h2o-danube3-4b)"}}
 
 
 def phase_k5(flush):
@@ -312,35 +417,63 @@ def phase_k5(flush):
         torch.cuda.synchronize()
         want = fd.flash_decode_plain(q, kc, vc, cur_t, window=win)
         worst = max(worst, _check(f"cur {cur} window {win}", got, want, dt))
-    qf = _randn((2, 2, 4, 128), torch.float32, 103)
-    kf, vf = (_randn((2, 2, 700, 128), torch.float32, 104),
-              _randn((2, 2, 700, 128), torch.float32, 105))
-    cur_t = torch.full((1,), 641, dtype=torch.int32, device="cuda")
-    _check("fp32 hd128 cur 641", fd.flash_decode(qf, kf, vf, cur_t),
-           fd.flash_decode_plain(qf, kf, vf, cur_t), torch.float32)
+    for name, (bb, kk, gg, ss, hh, dd, cur, win) in {
+            "fp32 hd128 cur 641": (2, 2, 4, 700, 128, torch.float32, 641, 0),
+            "danube hd120 bf16 cur 6001 window 4096":
+                (1, 8, 4, 6016, 120, dt, 6001, 4096),
+            "hd120 fp32 cur 5000 window 4096":
+                (2, 2, 4, 5008, 120, torch.float32, 5000, 4096),
+            "reduced hd32 bf16 cur 301": (2, 2, 2, 320, 32, dt, 301, 0),
+            "reduced hd32 fp32 cur 300 window 16":
+                (2, 2, 2, 320, 32, torch.float32, 300, 16)}.items():
+        qx = _randn((bb, kk, gg, hh), dd, 103 + ss)
+        kx, vx = (_randn((bb, kk, ss, hh), dd, 104 + ss),
+                  _randn((bb, kk, ss, hh), dd, 105 + ss))
+        cur_t = torch.full((1,), cur, dtype=torch.int32, device="cuda")
+        worst = max(worst, _check(
+            name, fd.flash_decode(qx, kx, vx, cur_t, window=win),
+            fd.flash_decode_plain(qx, kx, vx, cur_t, window=win), dd))
 
-    cur = 2600
-    cur_t = torch.full((1,), cur, dtype=torch.int32, device="cuda")
-    ms = _time_ms(lambda: fd.flash_decode(q, kc, vc, cur_t), 50, flush)
-    plain_ms = _time_ms(lambda: fd.flash_decode_plain(q, kc, vc, cur_t), 20,
-                        flush)
-    q4 = q.reshape(b, kh * g, 1, hd)
-    k_live, v_live = kc[:, :, :cur], vc[:, :, :cur]
-    lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-        q4, k_live, v_live, enable_gqa=True), 50, flush)
-    flops = 4 * b * kh * g * cur * hd
-    nbytes = (2 * q.numel() + 2 * b * kh * cur * hd) * q.element_size()
-    bound_ms, bound_by = _bound(flops, nbytes, dt)
-    print(f"  decode shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-          f"{nbytes / 1e6:.2f} MB)")
+    def timed(q, kc, vc, cur, win):
+        b, kh, g, hd = q.shape
+        cur_t = torch.full((1,), cur, dtype=torch.int32, device="cuda")
+        st = _time_stats(lambda: fd.flash_decode(q, kc, vc, cur_t,
+                                                 window=win), 50, flush)
+        plain_ms = _time_ms(lambda: fd.flash_decode_plain(
+            q, kc, vc, cur_t, window=win), 20, flush)
+        lo = max(0, cur - win) if win else 0
+        q4 = q.reshape(b, kh * g, 1, hd)
+        k_live, v_live = kc[:, :, lo:cur], vc[:, :, lo:cur]
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q4, k_live, v_live, enable_gqa=True)
+        lib_st = _time_stats(lib, 50, flush)
+        flops = 4 * b * kh * g * (cur - lo) * hd
+        nbytes = (2 * q.numel() + 2 * b * kh * (cur - lo) * hd) \
+            * q.element_size()
+        bound_ms, bound_by = _bound(flops, nbytes, q.dtype)
+        row = {"ms": st["median"], "ms_min": st["min"], "ms_max": st["max"],
+               "plain_ms": plain_ms, "library_ms": lib_st["median"],
+               "library_min": lib_st["min"], "library_max": lib_st["max"],
+               "library_backend": _sdpa_backend(lib), "bound_ms": bound_ms,
+               "bound_by": bound_by}
+        print(f"  B={b} KH={kh} G={g} hd={hd} cur {cur} window {win}: kernel "
+              f"{_fmt(st)}, plain {plain_ms:.4f} ms, sdpa {_fmt(lib_st)} "
+              f"[{row['library_backend']}], bound {bound_ms:.4f} ms "
+              f"({bound_by}: {nbytes / 1e6:.2f} MB)")
+        return row
+
+    main = timed(q, kc, vc, 2600, 0)
+    qd = _randn((1, 8, 4, 120), dt, 110)
+    kd, vd = (_randn((1, 8, 6016, 120), dt, 111),
+              _randn((1, 8, 6016, 120), dt, 112))
+    danube = timed(qd, kd, vd, 6001, 4096)
     return {"name": "flash_decode (K5)", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
             "replaces": "src/repro/kernels/flash_decode.py:34",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_us": bound_ms * 1e3,
-            "bound_by": bound_by, "library_ms": lib_ms,
-            "timed_shape": "B=4 KH=5 G=3 S=2624 cur=2600 hd=64 bf16"}
+            "max_abs_err": worst, **main, "bound_us": main["bound_ms"] * 1e3,
+            "timed_shape": "B=4 KH=5 G=3 S=2624 cur=2600 hd=64 bf16",
+            "hd120": {**danube, "timed_shape": "B=1 KH=8 G=4 S=6016 "
+                      "cur=6001 hd=120 bf16 window 4096 (h2o-danube3-4b)"}}
 
 
 SERVE_ARGS = ["--arch", "smollm-360m", "--device", "cuda", "--requests", "12",
@@ -349,9 +482,9 @@ SERVE_ARGS = ["--arch", "smollm-360m", "--device", "cuda", "--requests", "12",
               "--seed", "0"]
 
 
-def _engine_run(pool_pages, budget, profile=False):
-    args = serve_cli.parse_args(SERVE_ARGS + ["--pool-pages", str(pool_pages),
-                                              "--resident-budget", str(budget)])
+def _engine_run(pool_pages, budget, profile=False, argv=SERVE_ARGS):
+    args = serve_cli.parse_args(argv + ["--pool-pages", str(pool_pages),
+                                        "--resident-budget", str(budget)])
     eng, reqs = serve_cli.build(args)
     bk = eng.backend
     walls = {"prefill": [], "decode": []}
@@ -487,15 +620,80 @@ def phase_reference():
     if not worst <= 1e-3:
         raise AssertionError("card and CPU disagree")
     return {"dense_max_abs_err": worst, **_ssm_reference(),
-            "megakernels": _mega_reference()}
+            "megakernels": _mega_reference(), "hd32": _reduced_reference()}
+
+
+def _grads(model, params, batch, device):
+    """(loss, gradients of every leaf) of ``model.train_loss``."""
+    leaves = [x.requires_grad_() for _p, x in iter_leaves(params)]
+    loss, _ = model.train_loss(params, {k: v.to(device)
+                                        for k, v in batch.items()})
+    return loss.item(), torch.autograd.grad(loss, leaves)
+
+
+def _reduced_reference():
+    """The reduced smollm as it is (head_dim 32, run by the kernels at
+    their compiled width 64) with ``attn_flash_min_seq=32``, fp32, B 2 x
+    S 96, on the card against the CPU's plain path: prefill logits (K1
+    once a layer), two decode steps (K5), one ``train_loss`` and its
+    gradients (K1-lse twice a layer, K3 once)."""
+    print("  reduced fp32 smollm, hd 32, B 2 x S 96: K1 / K5 / K1-lse / K3, "
+          "card vs CPU")
+    cfg = dataclasses.replace(get_config("smollm-360m").reduced(),
+                              attn_flash_min_seq=32)
+    gpu, cpu = LanguageModel(cfg, device="cuda"), LanguageModel(cfg, "cpu")
+    params = cpu.init(torch.Generator().manual_seed(44))
+    params_gpu = _tree_to(params, "cuda", copy=True)
+    rng = np.random.RandomState(45)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 99)))
+    batch = {"tokens": toks[:, :96], "targets": toks[:, 1:97]}
+    _zero_counts()
+    with torch.no_grad():
+        lg, cg = gpu.prefill(params_gpu, {"tokens": batch["tokens"].cuda()})
+        lc, cc = cpu.prefill(params, {"tokens": batch["tokens"]})
+        err = (lg.cpu() - lc).abs().max().item()
+        cg, cc = gpu.alloc_cache(2, 98, init=cg), cpu.alloc_cache(2, 98,
+                                                                  init=cc)
+        for i in range(2):
+            tok = toks[:, 96 + i:97 + i]
+            lg, cg = gpu.decode_step(params_gpu, cg, tok.cuda(), 96 + i)
+            lc, cc = cpu.decode_step(params, cc, tok, 96 + i)
+            err = max(err, (lg.cpu() - lc).abs().max().item())
+    torch.cuda.synchronize()
+    serve_counts = _counts()
+    _zero_counts()
+    loss_g, g_gpu = _grads(gpu, params_gpu, batch, "cuda")
+    torch.cuda.synchronize()
+    train_counts = _counts()
+    loss_c, g_cpu = _grads(cpu, params, batch, "cpu")
+    grad_err = max((a.cpu() - c).abs().max().item()
+                   / max(c.abs().max().item(), 1e-30)
+                   for a, c in zip(g_gpu, g_cpu))
+    loss_err = abs(loss_g - loss_c) / abs(loss_c)
+    layers = cfg.num_layers
+    want_serve = {**{k: 0 for k in serve_counts}, "k1": layers,
+                  "k5": 2 * layers}
+    want_train = {**{k: 0 for k in train_counts}, "k1_lse": 2 * layers,
+                  "k3": layers}
+    print(f"  logits max_abs_err {err:.3e} (limit 1e-4; fp32, logits O(1)); "
+          f"loss rel err {loss_err:.2e} (limit 1e-5), gradients "
+          f"{grad_err:.2e} of each leaf's max (limit 1e-4); launches serve "
+          f"{serve_counts}, train {train_counts}")
+    if serve_counts != want_serve or train_counts != want_train:
+        raise AssertionError(f"launches {serve_counts} / {train_counts}, "
+                             f"want {want_serve} / {want_train}")
+    if not (err <= 1e-4 and loss_err <= 1e-5 and grad_err <= 1e-4):
+        raise AssertionError("head_dim 32: card and CPU disagree")
+    return {"logits": err, "loss_rel": loss_err, "grad_rel": grad_err,
+            "launches_serve": serve_counts, "launches_train": train_counts}
 
 
 def _mega_reference():
     """A reduced fp32 smollm with head_dim 64 and ``attn_flash_min_seq=32``
-    at B 72 x S 96 (B·KH = 144 blocks, so the planner takes K4f and K4b)
-    on the card against the CPU's plain path: prefill logits (K4f once a
-    layer), then one ``train_loss`` and its gradients (K4f with lse twice
-    a layer under remat="layer", K4b once a layer, no K1/K2/K3)."""
+    at B 72 x S 96 (B·KH = 144 blocks) on the forced K4 route, against
+    the CPU's plain path: prefill logits (K4f once a layer), then one
+    ``train_loss`` and its gradients (K4f with lse twice a layer under
+    remat="layer", K4b once a layer, no K1/K2/K3)."""
     print("  reduced fp32 smollm, hd 64, B 72 x S 96: K4f / K4b, card vs CPU")
     cfg = dataclasses.replace(get_config("smollm-360m").reduced(),
                               head_dim=64, attn_flash_min_seq=32)
@@ -506,24 +704,20 @@ def _mega_reference():
     toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (72, 97)))
     batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
     layers = cfg.num_layers
-    _zero_counts()
-    with torch.no_grad():
-        lg, _ = gpu.prefill(params_gpu, {"tokens": batch["tokens"].cuda()})
-    torch.cuda.synchronize()
-    serve_counts = _counts()
+    with _k4_wins(96, 64, 32, 72, cfg.num_kv_heads):
+        _zero_counts()
+        with torch.no_grad():
+            lg, _ = gpu.prefill(params_gpu,
+                                {"tokens": batch["tokens"].cuda()})
+        torch.cuda.synchronize()
+        serve_counts = _counts()
+        _zero_counts()
+        loss_g, g_gpu = _grads(gpu, params_gpu, batch, "cuda")
+        torch.cuda.synchronize()
+        train_counts = _counts()
     lc, _ = cpu.prefill(params, {"tokens": batch["tokens"]})
     logit_err = (lg.cpu() - lc).abs().max().item()
-
-    def grads(model, p, dev):
-        leaves = [x.requires_grad_() for _p, x in iter_leaves(p)]
-        loss, _ = model.train_loss(p, {k: v.to(dev) for k, v in batch.items()})
-        return loss.item(), torch.autograd.grad(loss, leaves)
-
-    _zero_counts()
-    loss_g, g_gpu = grads(gpu, params_gpu, "cuda")
-    torch.cuda.synchronize()
-    train_counts = _counts()
-    loss_c, g_cpu = grads(cpu, params, "cpu")
+    loss_c, g_cpu = _grads(cpu, params, batch, "cpu")
     grad_err = max((a.cpu() - c).abs().max().item()
                    / max(c.abs().max().item(), 1e-30)
                    for a, c in zip(g_gpu, g_cpu))
@@ -544,6 +738,125 @@ def _mega_reference():
     return {"prefill_logits": logit_err, "loss_rel": loss_err,
             "grad_rel": grad_err, "launches_prefill": serve_counts,
             "launches_train": train_counts}
+
+
+# ------------------------------------------------------------ danube
+
+DANUBE = "h2o-danube-3-4b"
+DANUBE_SERVE_ARGS = ["--arch", DANUBE, "--device", "cuda", "--requests", "3",
+                     "--rate", "200", "--prompt-len", "4200", "5000",
+                     "--gen", "8", "16", "--page-size", "64", "--max-pages",
+                     "80", "--b-cap", "4", "--seed", "1"]
+
+
+def phase_danube():
+    """h2o-danube3-4b at full width (24 layers, d_model 3840, 32 heads over
+    8 kv heads of width 120, sliding window 4096), bf16, seeded random
+    weights: prefill 1 x 6000 through ``LanguageModel.prefill`` (24 K1,
+    the window biting on rows past 4096), 16 contiguous decodes (24 K5 a
+    step, the window active), each profiled; then a few requests with
+    prompts of 4200-5000 tokens through ``ServeEngine``."""
+    print("== danube: h2o-danube3-4b full width, bf16, prefill 1 x 6000, "
+          "16 decodes, the paged engine")
+    cfg = dataclasses.replace(get_config(DANUBE), param_dtype="bfloat16")
+    if not (cfg.head_dim == 120 and cfg.sliding_window == 4096):
+        raise AssertionError("the config is not danube's")
+    model = LanguageModel(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(60))
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    b, s, steps = 1, 6000, 16
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), device="cuda",
+                           generator=torch.Generator(
+                               device="cuda").manual_seed(61))
+    layers = cfg.num_layers
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        prefill_ms, step_ms, cache, tok = _serve_run(model, params, tokens,
+                                                     steps)
+        counts = _counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = {**{k: 0 for k in counts}, "k1": layers, "k5": layers * steps}
+        print(f"  weights {weights_gb:.2f} GB; prefill {prefill_ms:.1f} ms "
+              f"(B=1 x {s}, window {cfg.sliding_window}), decode step "
+              f"{step_ms:.3f} ms (cache {s + steps}); launches {counts}; peak "
+              f"device memory {peak_gb:.2f} GB")
+        if counts != want:
+            raise AssertionError(f"launches {counts}, want {want}")
+        prof_pre = _profile(lambda: model.prefill(params, {"tokens": tokens}),
+                            1)
+        _print_profile(f"danube prefill (1 x {s})", prof_pre,
+                       prof_pre["profiled_wall_ms"])
+        prof_dec = _profile(lambda: model.decode_step(params, cache, tok,
+                                                      s + steps - 1), 3)
+        _print_profile("danube decode step (B=1)", prof_dec, step_ms)
+    info = {"weights_gb": weights_gb, "prefill_ms": prefill_ms,
+            "decode_step_ms": step_ms, "launches": counts,
+            "peak_gb": peak_gb, "prefill_profile": prof_pre,
+            "decode_profile": prof_dec}
+    del model, params, cache, tokens
+    torch.cuda.empty_cache()
+
+    _, eng = _engine_run(240, 0, argv=DANUBE_SERVE_ARGS)
+    info["engine"] = eng
+    return info
+
+
+def phase_danube_train():
+    """One depth-cut train step of h2o-danube3-4b: 2 layers at full width,
+    fp32, 1 x 4352 tokens (the 4096 window bites on the last 256 rows):
+    loss and gradients on the card through K1-lse and K3, and in
+    deterministic mode through K1-lse and K2, against the CPU's plain
+    path from the same weights."""
+    print("== danube train: 2 layers full width, fp32, 1 x 4352, card (K3; "
+          "K2 in deterministic mode) vs CPU")
+    cfg = dataclasses.replace(get_config(DANUBE), num_layers=2,
+                              dtype="float32", param_dtype="float32")
+    cpu = LanguageModel(cfg, "cpu")
+    params = cpu.init(torch.Generator().manual_seed(62))
+    gpu = LanguageModel(cfg, "cuda")
+    params_gpu = _tree_to(params, "cuda", copy=True)
+    toks = np.random.RandomState(63).randint(0, cfg.vocab_size, (1, 4353))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+             "targets": torch.from_numpy(toks[:, 1:])}
+    runs = {}
+    for mode in ("default", "deterministic"):
+        torch.use_deterministic_algorithms(mode == "deterministic")
+        try:
+            _zero_counts()
+            t0 = time.perf_counter()
+            loss, grads = _grads(gpu, params_gpu, batch, "cuda")
+            torch.cuda.synchronize()
+            runs[mode] = (loss, [g.cpu() for g in grads], _counts(),
+                          time.perf_counter() - t0)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        del grads
+    t0 = time.perf_counter()
+    loss_c, g_cpu = _grads(cpu, params, batch, "cpu")
+    cpu_s = time.perf_counter() - t0
+    info = {"cpu_s": cpu_s}
+    want = {"default": {"k1_lse": 4, "k3": 2},
+            "deterministic": {"k1_lse": 4, "k2_dq": 2, "k2_dkv": 2}}
+    for mode, (loss, grads, counts, card_s) in runs.items():
+        loss_err = abs(loss - loss_c) / abs(loss_c)
+        grad_err = max((a - c).abs().max().item()
+                       / max(c.abs().max().item(), 1e-30)
+                       for a, c in zip(grads, g_cpu))
+        print(f"  {mode}: loss {loss:.6f} vs CPU {loss_c:.6f} (rel err "
+              f"{loss_err:.2e}, limit 1e-5), gradients {grad_err:.2e} of "
+              f"each leaf's max (limit 1e-4: fp32 in another summation "
+              f"order); launches {counts}; card {card_s:.1f} s, CPU "
+              f"{cpu_s:.1f} s")
+        if counts != {**{k: 0 for k in counts}, **want[mode]}:
+            raise AssertionError(f"{mode}: launches {counts}")
+        if not (loss_err <= 1e-5 and grad_err <= 1e-4):
+            raise AssertionError(f"danube {mode}: card and CPU disagree")
+        info[mode] = {"loss_rel_err": loss_err, "grad_rel_err": grad_err,
+                      "launches": counts, "card_s": card_s}
+    del gpu, params_gpu, runs
+    torch.cuda.empty_cache()
+    return info
 
 
 # ------------------------------------------------------- training phases
@@ -575,15 +888,24 @@ def _counts():
 
 def phase_k_train(flush):
     """K1 with lse, K2 (dq, dk/dv) and K3 against their plain versions,
-    then timed at the training shape."""
+    then timed at the training shape; the tensor-core instructions and
+    blocks per SM of the bf16 K2/K3."""
     print("== K1-lse, K2, K3: kernels vs plain versions")
+    bf, f32 = torch.bfloat16, torch.float32
     cases = [  # name, B, H, KH, Sq, Sk, hd, dtype, window, q_offset
-        ("train 4x4096 bf16 causal", 4, 15, 5, 4096, 4096, 64,
-         torch.bfloat16, 0, 0),
-        ("ragged 4097", 1, 15, 5, 4097, 4097, 64, torch.bfloat16, 0, 0),
-        ("window 512", 1, 15, 5, 4096, 4096, 64, torch.bfloat16, 512, 0),
-        ("q_offset 1024", 1, 15, 5, 3072, 4096, 64, torch.bfloat16, 0, 1024),
-        ("fp32 hd128", 2, 8, 2, 1100, 1100, 128, torch.float32, 0, 0),
+        ("train 4x4096 bf16 causal", 4, 15, 5, 4096, 4096, 64, bf, 0, 0),
+        ("ragged 4097", 1, 15, 5, 4097, 4097, 64, bf, 0, 0),
+        ("window 512", 1, 15, 5, 4096, 4096, 64, bf, 512, 0),
+        ("q_offset 1024", 1, 15, 5, 3072, 4096, 64, bf, 0, 1024),
+        ("fp32 hd128", 2, 8, 2, 1100, 1100, 128, f32, 0, 0),
+        ("bf16 hd128 ragged 1100 q_offset 300", 2, 8, 2, 1100, 1400, 128, bf,
+         0, 300),
+        ("danube hd120 window 4096, Sq 4352", 1, 32, 8, 4352, 4352, 120, bf,
+         4096, 0),
+        ("hd120 fp32 window 4096, Sq 4352", 1, 8, 2, 4352, 4352, 120, f32,
+         4096, 0),
+        ("reduced hd32 bf16 ragged 601", 2, 4, 2, 601, 601, 32, bf, 0, 0),
+        ("reduced hd32 fp32 window 64", 2, 4, 2, 600, 600, 32, f32, 64, 0),
     ]
     worst = {k: [0.0, 0.0] for k in ("k1_lse", "k2_dq", "k2_dkv", "k3")}
 
@@ -623,42 +945,66 @@ def phase_k_train(flush):
         # one code path for dk/dv; dq summed with atomics in another order
         if not (torch.equal(dk2, dk3) and torch.equal(dv2, dv3)):
             raise AssertionError(f"{name}: K3 dk/dv differ from K2's")
+        again = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, off, **kw)
+        if not (torch.equal(again, dq2) and all(torch.equal(a, c) for a, c in
+                zip(fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, off,
+                                               **kw), (dk2, dv2)))):
+            raise AssertionError(f"{name}: K2 run twice gave other bits")
         d = (dq3.float() - dq2.float()).abs()
         lim = ((2.0 ** -7 if dt == torch.bfloat16 else 1e-5)
                * dq2.float().abs() + 1e-4 * dq2.float().abs().max())
-        print(f"  {name} K3 vs K2: dk, dv bit-equal; dq max_abs_diff "
-              f"{d.max().item():.3e} (limit 2^-7|dq| + 1e-4 max|dq| in "
-              f"bf16, 1e-5|dq| + 1e-4 max|dq| in fp32)")
+        print(f"  {name} K3 vs K2: dk, dv bit-equal; K2 twice the same "
+              f"bits; dq max_abs_diff {d.max().item():.3e} (limit 2^-7|dq| "
+              f"+ 1e-4 max|dq| in bf16, 1e-5|dq| + 1e-4 max|dq| in fp32)")
         if (d > lim).any():
             raise AssertionError(f"{name}: K3 dq differs from K2's")
-        del want, dq2, dk2, dv2, dq3, dk3, dv3
+        del want, dq2, dk2, dv2, dq3, dk3, dv3, again
         torch.cuda.empty_cache()
 
+    # the tensor cores: HMMA instructions in the bf16 kernels' SASS, and
+    # the blocks per SM the occupancy calculator gives
+    hmma = {name: n for name, n in _sass_counts("tc_bwd").items()}
+    for name, n in hmma.items():
+        print(f"  SASS {name[-60:]}: {n} HMMA/HGMMA instructions")
+    if not hmma or min(hmma.values()) == 0:
+        raise AssertionError("the bf16 K2/K3 kernels hold no HMMA")
+    occupancy = {f"{w} hd{hd} {dt}": fa.bwd_occupancy(w, hd, dt)
+                 for w in ("dq", "dkv", "fused") for hd in (64, 128)
+                 for dt in (bf, f32)}
+    print(f"  blocks per SM (occupancy calculator): {occupancy}")
+
     # timing at the training shape
-    b, h, kh, s, hd, dt = 4, 15, 5, 4096, 64, torch.bfloat16
+    b, h, kh, s, hd, dt = 4, 15, 5, 4096, 64, bf
     q, k, v, do = (_randn((b, h, s, hd), dt, 300), _randn((b, kh, s, hd), dt, 301),
                    _randn((b, kh, s, hd), dt, 302), _randn((b, h, s, hd), dt, 303))
     out, lse = fa.flash_attention_fwd(q, k, v)
     delta = (do.float() * out.float()).sum(-1)
     args = (q, k, v, do, lse, delta)
-    ms = {"k1_lse": _time_ms(lambda: fa.flash_attention_fwd(q, k, v), 10,
-                             flush),
-          "k2_dq": _time_ms(lambda: fa.flash_attention_bwd_dq(*args), 5,
-                            flush),
-          "k2_dkv": _time_ms(lambda: fa.flash_attention_bwd_dkv(*args), 5,
-                             flush),
-          "k3": _time_ms(lambda: fa.flash_attention_bwd_fused(*args), 5,
-                         flush)}
+    st = {"k1_lse": _time_stats(lambda: fa.flash_attention_fwd(q, k, v), 10,
+                                flush),
+          "k2_dq": _time_stats(lambda: fa.flash_attention_bwd_dq(*args), 10,
+                               flush),
+          "k2_dkv": _time_stats(lambda: fa.flash_attention_bwd_dkv(*args), 10,
+                                flush),
+          "k3": _time_stats(lambda: fa.flash_attention_bwd_fused(*args), 10,
+                            flush)}
     plain_fwd = _time_ms(lambda: fa.flash_attention_plain(
         q, k, v, with_lse=True), 3, flush)
     plain_bwd = _time_ms(lambda: fa.flash_attention_bwd_plain(
         q, k, v, out, lse, do), 3, flush)
-    lib_fwd = _time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), 10, flush)
+    lib_f = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, is_causal=True, enable_gqa=True)
+    lib_fwd = _time_stats(lib_f, 10, flush)
     ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
     lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
                                         enable_gqa=True)
-    lib_bwd = _time_ms(lambda: lo.backward(do, retain_graph=True), 10, flush)
+    # autograd.grad: the backward alone, nothing added into .grad
+    lib_b = lambda: torch.autograd.grad(  # noqa: E731
+        lo, (ql, kl, vl), do, retain_graph=True)
+    lib_bwd = _time_stats(lib_b, 10, flush)
+    backend = {"forward": _sdpa_backend(lib_f), "backward": _sdpa_backend(
+        lambda: torch.autograd.grad(F.scaled_dot_product_attention(
+            ql, kl, vl, is_causal=True, enable_gqa=True), (ql, kl, vl), do))}
     del ql, kl, vl, lo
     live = b * h * _live_pairs(s, s, 0, True, 0)
     el = q.element_size()
@@ -669,6 +1015,9 @@ def phase_k_train(flush):
         "k2_dkv": (8 * hd * live, 2 * qb + 4 * kb + 2 * rowb),
         "k3": (10 * hd * live, 3 * qb + 4 * kb + 2 * rowb),
     }
+    occ = {"k1_lse": None, "k2_dq": occupancy[f"dq hd64 {bf}"],
+           "k2_dkv": occupancy[f"dkv hd64 {bf}"],
+           "k3": occupancy[f"fused hd64 {bf}"]}
     rows = {}
     names = {"k1_lse": "K1 with lse", "k2_dq": "K2 dq", "k2_dkv": "K2 dk/dv",
              "k3": "K3 fused"}
@@ -677,18 +1026,32 @@ def phase_k_train(flush):
         plain = plain_fwd if key == "k1_lse" else plain_bwd
         lib = lib_fwd if key == "k1_lse" else (lib_bwd if key == "k3"
                                                else None)
-        rows[key] = {"ms": ms[key], "plain_ms": plain, "library_ms": lib,
+        rows[key] = {"ms": st[key]["median"], "ms_min": st[key]["min"],
+                     "ms_max": st[key]["max"], "plain_ms": plain,
+                     "library_ms": None if lib is None else lib["median"],
+                     "library_min": None if lib is None else lib["min"],
+                     "library_max": None if lib is None else lib["max"],
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "max_abs_err": worst[key][0],
                      "mean_abs_err": worst[key][1],
-                     "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
-        print(f"  {names[key]}: kernel {ms[key]:.4f} ms, plain {plain:.4f} "
-              f"ms, library {lib if lib is None else round(lib, 4)} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.1f} "
-              f"GFLOP, {nbytes / 1e6:.1f} MB)")
-    print(f"  sdpa backward (dq, dk, dv: the K2 pair's work) "
-          f"{lib_bwd:.4f} ms; K2 pair {ms['k2_dq'] + ms['k2_dkv']:.4f} ms")
-    rows["library_bwd_ms"] = lib_bwd
+                     "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+                     "tflops": flops / st[key]["median"] / 1e9,
+                     "blocks_per_sm": occ[key]}
+        print(f"  {names[key]}: kernel {_fmt(st[key])}, plain {plain:.4f} "
+              f"ms, library {'none' if lib is None else _fmt(lib)}, bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.1f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB), {rows[key]['tflops']:.1f} TFLOP/s, "
+              f"{occ[key]} blocks an SM")
+    pair = st["k2_dq"]["median"] + st["k2_dkv"]["median"]
+    print(f"  sdpa forward [{backend['forward']}] {_fmt(lib_fwd)}; sdpa "
+          f"backward via autograd.grad [{backend['backward']}] "
+          f"{_fmt(lib_bwd)}; K2 pair {pair:.4f} ms, K3 "
+          f"{st['k3']['median']:.4f} ms")
+    rows["library_bwd_ms"] = lib_bwd["median"]
+    rows["library_bwd"] = lib_bwd
+    rows["library_backend"] = backend
+    rows["hmma"] = hmma
+    rows["occupancy"] = occupancy
     return rows
 
 
@@ -822,9 +1185,12 @@ def phase_k4(flush):
     ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
     lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
                                         enable_gqa=True)
-    lib_bwd = _time_ms(lambda: lo.backward(do, retain_graph=True), 20, flush)
-    lib_fwd_bwd = _time_ms(lambda: F.scaled_dot_product_attention(
-        ql, kl, vl, is_causal=True, enable_gqa=True).backward(do), 20, flush)
+    lib_bwd = _time_ms(lambda: torch.autograd.grad(
+        lo, (ql, kl, vl), do, retain_graph=True), 20, flush)
+    lib_fwd_bwd = _time_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                       enable_gqa=True), (ql, kl, vl), do),
+        20, flush)
     del ql, kl, vl, lo
     live = b * h * _live_pairs(s, s, 0, True, 0)
     el = q.element_size()
@@ -878,41 +1244,72 @@ SHORT_ARGS = ["--arch", "smollm-360m", "--data", "markov", "--batch", "64",
 SHORT_MIN_SEQ = {"attn_flash_min_seq": 128}     # 256 > 128: flash
 
 
+@contextlib.contextmanager
+def _k4_wins(sk, hd, dtype_bits, batch, kh):
+    """The planner as if the card's times said K4f and K4b beat the tiled
+    kernels at this shape: the forced K4 route, made by patching the
+    planner's measured table in this process (no config field or
+    environment variable of the package changes)."""
+    saved = autotune.MEGA_TIMINGS
+    autotune.MEGA_TIMINGS = (autotune.MegaTiming(
+        sk, hd, dtype_bits, batch, kh, k4f_ms=0.0, k1_ms=1.0, k4b_ms=0.0,
+        k3_ms=1.0, card="forced by chip_smoke.py"),) + saved
+    try:
+        yield
+    finally:
+        autotune.MEGA_TIMINGS = saved
+
+
+def _short_run(cfg, steps):
+    """``steps`` steps of the short-sequence Trainer from seed 0: (the
+    trainer, the state, host wall s, launch counts, step ms)."""
+    tr = _trainer(cfg, TrainerConfig(), SHORT_ARGS)
+    _zero_counts()
+    t0 = time.perf_counter()
+    state = tr.run(tr.init_or_restore(
+        torch.Generator(device="cuda").manual_seed(0)), steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    for hst in tr.history:
+        print(f"  step {hst['step']}: ce_loss {hst['ce_loss']:.4f} grad_norm "
+              f"{hst['grad_norm']:.3f} {hst['step_time'] * 1e3:.1f} ms")
+    if len(tr.history) != steps:
+        raise AssertionError(f"{len(tr.history)} of {steps} steps ran")
+    return tr, state, wall, counts, [1e3 * h["step_time"] for h in tr.history]
+
+
 def phase_short_train():
     """smollm-360m at full width on 64 x 256-token sequences (16,384
-    tokens a step, as the 4 x 4096 phase), 8 steps through the Trainer:
-    exactly 64 K4f-lse and 32 K4b launches a step and no K1/K2/K3."""
+    tokens a step, as the 4 x 4096 phase), 8 steps through the Trainer on
+    the default plan: exactly 64 K1-lse and 32 K3 launches a step and no
+    K4 (the card's times have K4 slower there); then 2 steps on the
+    forced K4 route (64 K4f-lse and 32 K4b a step), both step medians
+    printed."""
     print("== short train: smollm-360m full width, attn_flash_min_seq=128, "
           "64 x 256, 8 steps")
     cfg = dataclasses.replace(get_config("smollm-360m"), **SHORT_MIN_SEQ)
     sm = torch.cuda.get_device_properties(0).multi_processor_count
+    shape = (256, cfg.head_dim, 16, 64, cfg.num_kv_heads)
     plan = autotune.plan_attention(256, cfg.head_dim, cfg.head_dim,
                                    cfg.num_kv_heads, 64, 16, sm_count=sm)
     print(f"  plan at B=64 S=256 bf16 on {sm} SMs: {plan.describe()}")
-    tr = _trainer(cfg, TrainerConfig(), SHORT_ARGS)
+    if plan.mega_fwd or plan.mega_bwd:
+        raise AssertionError("the default plan took K4 where it is slower")
     torch.cuda.reset_peak_memory_stats()
-    _zero_counts()
-    t0 = time.perf_counter()
-    state = tr.run(tr.init_or_restore(
-        torch.Generator(device="cuda").manual_seed(0)), 8)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = _counts()
+    tr, state, wall, counts, step_ms = _short_run(cfg, 8)
     layers, steps = cfg.num_layers, len(tr.history)
-    for hst in tr.history:
-        print(f"  step {hst['step']}: ce_loss {hst['ce_loss']:.4f} grad_norm "
-              f"{hst['grad_norm']:.3f} {hst['step_time'] * 1e3:.1f} ms")
-    want = {**{k: 0 for k in counts}, "k4f": 2 * layers * steps,
-            "k4f_lse": 2 * layers * steps, "k4b": layers * steps}
-    print(f"  launches {counts} over {steps} steps (want {want}: 64 K4f-lse "
-          f"and 32 K4b a step, remat='layer' runs each forward twice)")
-    if steps != 8 or counts != want:
-        raise AssertionError("the short train run did not launch K4 alone")
+    want = {**{k: 0 for k in counts}, "k1_lse": 2 * layers * steps,
+            "k3": layers * steps}
+    print(f"  launches {counts} over {steps} steps (want {want}: 64 K1-lse "
+          f"and 32 K3 a step, remat='layer' runs each forward twice)")
+    if counts != want:
+        raise AssertionError("the short train run did not launch K1-lse and "
+                             "K3 alone")
     first, last = tr.history[0]["ce_loss"], tr.history[-1]["ce_loss"]
     if not (np.isfinite(last) and last < first):
         raise AssertionError(f"ce_loss {first} -> {last}: did not descend")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    step_ms = [1e3 * hst["step_time"] for hst in tr.history]
     print(f"  {steps} steps in {wall:.1f} s wall; step median "
           f"{np.median(step_ms):.1f} ms (steps 2-8 mean "
           f"{np.mean(step_ms[1:]):.1f}); peak memory {peak_gb:.2f} GB")
@@ -928,13 +1325,36 @@ def phase_short_train():
             "plan": plan.describe(), "step_profile": prof}
     del tr, state, step_fn, batch
     torch.cuda.empty_cache()
+
+    print("  the forced K4 route, 2 steps from the same seed")
+    with _k4_wins(*shape):
+        forced = autotune.plan_attention(
+            256, cfg.head_dim, cfg.head_dim, cfg.num_kv_heads, 64, 16,
+            sm_count=sm, timings=autotune.MEGA_TIMINGS)
+        tr, state, wall, counts, k4_ms = _short_run(cfg, 2)
+    want = {**{k: 0 for k in counts}, "k4f": 2 * layers * 2,
+            "k4f_lse": 2 * layers * 2, "k4b": layers * 2}
+    print(f"  plan {forced.describe()}; launches {counts} (want {want}); "
+          f"step median {np.median(k4_ms):.1f} ms on K4 (second step "
+          f"{k4_ms[-1]:.1f}) against {info['step_ms_median']:.1f} ms on "
+          f"K1-lse + K3")
+    if counts != want:
+        raise AssertionError("the forced K4 route did not launch K4 alone")
+    if not all(np.isfinite(h["ce_loss"]) for h in tr.history):
+        raise AssertionError("the forced K4 route gave a non-finite loss")
+    info["k4_route"] = {"step_ms": k4_ms,
+                        "step_ms_median": float(np.median(k4_ms)),
+                        "launches": counts, "plan": forced.describe(),
+                        "ce_loss": [h["ce_loss"] for h in tr.history]}
+    del tr, state
+    torch.cuda.empty_cache()
     return info
 
 
 def phase_short_serve():
-    """The same model in bf16: prefill 32 x 256 (K4f, B·KH = 160), 16
-    decode steps (K5); consistency in fp32 through K4f; the paged
-    engine's plan."""
+    """The same model in bf16: prefill 32 x 256 (K1: no time measured on
+    the card says K4f wins at B·KH = 160), 16 decode steps (K5);
+    consistency in fp32 through K1; the paged engine's plan."""
     print("== short serve: smollm-360m full width, bf16, prefill 32 x 256")
     cfg = dataclasses.replace(get_config("smollm-360m"),
                               param_dtype="bfloat16", **SHORT_MIN_SEQ)
@@ -950,7 +1370,7 @@ def phase_short_serve():
                                                      steps)
         counts = _counts()
     layers = cfg.num_layers
-    want = {**{k: 0 for k in counts}, "k4f": layers, "k5": layers * steps}
+    want = {**{k: 0 for k in counts}, "k1": layers, "k5": layers * steps}
     print(f"  prefill {prefill_ms:.1f} ms (B=32 x 256), decode step "
           f"{step_ms:.3f} ms (B=32); launches {counts}")
     if counts != want:
@@ -972,9 +1392,9 @@ def phase_short_serve():
           f"{bf16['argmax_agreement']:.3f} (reported); fp32 launches "
           f"{cons_counts}")
     if not (f32["argmax_agreement"] >= 0.95
-            and cons_counts["k4f"] == 2 * layers):
+            and cons_counts["k1"] == 2 * layers):
         raise AssertionError("short serve: decode disagrees with prefill, "
-                             "or the fp32 prefills did not run K4f")
+                             "or the fp32 prefills did not run K1")
     sm = torch.cuda.get_device_properties(0).multi_processor_count
     paged = autotune.plan_attention(s, cfg.head_dim, cfg.head_dim,
                                     cfg.num_kv_heads, 1, 16, sm_count=sm)
@@ -1487,8 +1907,8 @@ def _ssm_reference():
     worst = {}
     for arch, s, chunk in (("mamba2-1.3b", 300, 16), ("zamba2-1.2b", 300, 16),
                            ("mamba2-1.3b", 70, 128), ("zamba2-1.2b", 70, 128)):
-        # head_dim 64: the width K5 takes (the reduced config has 32)
-        cfg = dataclasses.replace(get_config(arch).reduced(), head_dim=64,
+        # the reduced config as it is: head_dim 32, K5 at width 64
+        cfg = dataclasses.replace(get_config(arch).reduced(),
                                   ssm_chunk=chunk)
         gpu, cpu = LanguageModel(cfg, device="cuda"), LanguageModel(cfg, "cpu")
         params = cpu.init(torch.Generator().manual_seed(40))
@@ -1908,6 +2328,8 @@ def main() -> int:
     contig = timed("contiguous_s", phase_contiguous)
     ssm = timed("ssm_serve_s", phase_ssm_serve)
     hybrid = timed("hybrid_serve_s", phase_hybrid_serve)
+    danube = timed("danube_s", phase_danube)
+    danube_train = timed("danube_train_s", phase_danube_train)
     ref_err = timed("reference_s", phase_reference)
     train = timed("train_s", phase_train)
     short_train = timed("short_train_s", phase_short_train)
@@ -1931,9 +2353,16 @@ def main() -> int:
                 "ssm_serve": ssm["launches"],
                 "ssm_serve_16384": ssm["launches_16384"],
                 "hybrid_serve": hybrid["launches"],
+                "danube": danube["launches"],
+                "danube_engine": {"k1": danube["engine"]["k1_launches"],
+                                  "k5": danube["engine"]["k5_launches"]},
+                "danube_train": danube_train["default"]["launches"],
+                "danube_train_deterministic":
+                    danube_train["deterministic"]["launches"],
                 "train": train["launches"], "restart": restart["launches"],
                 "serve_ckpt": served["launches"],
                 "short_train": short_train["launches"],
+                "short_train_k4": short_train["k4_route"]["launches"],
                 "short_serve": short_serve["launches"]}
 
     def launches(*keys):
@@ -1997,7 +2426,8 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     report = {"device": smi, "kernels": kernels, "engine_ample": eng_a,
               "engine_tight": eng_t, "contiguous": contig,
-              "ssm_serve": ssm, "hybrid_serve": hybrid,
+              "ssm_serve": ssm, "hybrid_serve": hybrid, "danube": danube,
+              "danube_train": danube_train,
               "reference": ref_err, "train": train,
               "restart": restart, "serve_ckpt": served,
               "train_reference": train_ref, "copy_paths": copy_paths,

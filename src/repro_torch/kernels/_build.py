@@ -23,20 +23,22 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
 # C entry points: (name, argtypes); each returns a cudaError_t
 _ENTRIES = {
     # q, k, v, out, lse (or null), B, H, KH, Sq, Sk, hd, q_offset, causal,
-    # window, dtype, stream
-    "repro_flash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _I, _P),
+    # window, dtype, scale, stream
+    "repro_flash_fwd": (_P,) * 5 + (_I,) * 10 + (_F, _P),
     # q, k, v, dout, lse, delta, dq, B, H, KH, Sq, Sk, hd, q_offset,
-    # causal, window, dtype, stream
-    "repro_flash_bwd_dq": (_P,) * 7 + (_I,) * 10 + (_P,),
+    # causal, window, dtype, scale, stream
+    "repro_flash_bwd_dq": (_P,) * 7 + (_I,) * 10 + (_F, _P),
     # q, k, v, dout, lse, delta, dk, dv, then as above
-    "repro_flash_bwd_dkv": (_P,) * 8 + (_I,) * 10 + (_P,),
+    "repro_flash_bwd_dkv": (_P,) * 8 + (_I,) * 10 + (_F, _P),
     # q, k, v, dout, lse, delta, dq_acc (fp32), dk, dv, then as above
-    "repro_flash_bwd_fused": (_P,) * 9 + (_I,) * 10 + (_P,),
+    "repro_flash_bwd_fused": (_P,) * 9 + (_I,) * 10 + (_F, _P),
+    # which (0 dq, 1 dk/dv, 2 fused), hd, dtype, out: blocks per SM
+    "repro_flash_bwd_occupancy": (_I,) * 3 + (_P,),
     # q, k, v, out, lse (or null), B, H, KH, Sq, Sk, hd, q_offset, causal,
     # window, dtype, strip rows, shared-memory bytes, stream
     "repro_flash_mega_fwd": (_P,) * 5 + (_I,) * 12 + (_P,),
@@ -45,9 +47,8 @@ _ENTRIES = {
     # bwd, hd, dtype, strip rows, shared-memory bytes, out: blocks per SM
     "repro_flash_mega_occupancy": (_I,) * 5 + (_P,),
     # q, k_cache, v_cache, cur_len, out, B, KH, G, S, hd, window, dtype,
-    # stream
-    "repro_flash_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                           _P),
+    # scale, stream
+    "repro_flash_decode": (_P,) * 5 + (_I,) * 7 + (_F, _P),
     # dst, src, dst_row, src_row, rows, block_rows, stream
     "repro_partition_copy": (_P, _P, _I, _I, _I, _I, _P),
     # dst, src, tables (3 x n int32: dst rows, src rows, valid rows), n,

@@ -10,13 +10,16 @@
   whole-sequence megakernels K4f / K4b (``csrc/flash_attention_mega.cu``)
   or the tiled K1 / K2 / K3, and the strip of query rows each K4 kernel
   holds.  The reference's planner (``repro/kernels/autotune.py:291``)
-  weighs VMEM footprints against TPU step costs; none of its budgets or
-  constants carry over.  Here the rule is the card's: the kv head's
-  whole K and V (and, for K4b, its fp32 dK and dV) must sit in one
-  block's shared memory, and one block per (batch, kv head) must fill
-  the SMs.
+  takes a megakernel only where its cost model says it beats the tiled
+  grid; its VMEM budgets and TPU step costs do not carry over.  Here the
+  costs are times measured on the card (:data:`MEGA_TIMINGS`), and the
+  fits are the card's: the kv head's whole K and V (and, for K4b, its
+  fp32 dK and dV) must sit in one block's shared memory, and one block
+  per (batch, kv head) must fill the SMs;
+* :func:`kernel_head_dim`, the compiled width at which the tiled kernels
+  K1, K2, K3 and the decode kernel K5 run a head.
 
-Both are pure functions of ints, cached, with no device query: callers
+All are pure functions of ints, cached, with no device query: callers
 pass the SM count.
 """
 from __future__ import annotations
@@ -28,7 +31,7 @@ LANES = 128
 SMEM_OPTIN_BYTES = 232_448     # H100 per-block opt-in shared memory
 MIN_CHUNK = 16                 # rows; the reference planner's MIN_BLOCK
 SM_COUNT = 132                 # H100 SXM streaming multiprocessors
-HEAD_DIMS = (64, 128)          # the head widths the attention kernels take
+HEAD_DIMS = (64, 128)          # the head widths K4f / K4b take
 # query rows per strip of K4f / K4b, largest first: 8 warps of 4, 2 or 1
 # rows each (``csrc/flash_attention_mega.cu``'s RPT)
 MEGA_ROWS = (32, 16, 8)
@@ -50,6 +53,19 @@ def plan_copy_chunk(total_rows: int, smem_budget: int | None = None) -> int:
 
 
 # --------------------------------------------------------------- attention
+
+def kernel_head_dim(hd: int) -> int:
+    """The compiled width (64 or 128) at which K1, K2, K3 and K5 run a
+    head of width ``hd``: the next one at or above it.  The kernels load
+    hd columns and zero-fill the rest in shared memory, so the tensors
+    stay unpadded.  ``hd`` must be a multiple of 8 (whole 16-byte
+    vectors a row in bf16) from 8 to 128; raises ``ValueError`` for any
+    other width."""
+    if hd % 8 or not 8 <= hd <= 128:
+        raise ValueError(f"head_dim {hd}: the attention kernels take a "
+                         "multiple of 8 from 8 to 128")
+    return 64 if hd <= 64 else 128
+
 
 def _align16(n: int) -> int:
     return (n + 15) // 16 * 16
@@ -93,6 +109,35 @@ def mega_rows(bwd: bool, sk: int, hd: int, itemsize: int) -> int:
 
 
 @dataclasses.dataclass(frozen=True)
+class MegaTiming:
+    """K4f and K4b against the tiled kernels at one shape (kv length,
+    head width, dtype bits, batch, kv heads), each timed on the card in
+    one process: K4f with its logsumexp against K1 with it, K4b against
+    K3.  ``card`` names the card and its power limit."""
+    sk: int
+    hd: int
+    dtype_bits: int
+    batch: int
+    kh: int
+    k4f_ms: float
+    k1_ms: float
+    k4b_ms: float
+    k3_ms: float
+    card: str
+
+
+# Every shape at which K4 has been timed against the tiled kernels, from
+# chip_smoke.py's phase 4a (B=64, H=15, KH=5, S=256, hd 64, bf16 causal,
+# K3 on tensor cores).  The planner takes a megakernel only at a shape
+# listed here where it won.
+MEGA_TIMINGS = (
+    MegaTiming(256, 64, 16, 64, 5, k4f_ms=0.7556, k1_ms=0.4126,
+               k4b_ms=3.6584, k3_ms=0.3476,
+               card="NVIDIA H100 80GB HBM3, 700.00 W"),
+)
+
+
+@dataclasses.dataclass(frozen=True)
 class AttnPlan:
     """Which kernels one attention shape takes.  ``mega_fwd`` / ``mega_bwd``
     keep the reference plan's names; its batch-tiled ``_bt`` variants
@@ -111,14 +156,35 @@ class AttnPlan:
 @functools.lru_cache(maxsize=4096)
 def plan_attention(sk: int, hd: int, hd_v: int, kh: int, batch: int,
                    dtype_bits: int, *, block_q: int | None = None,
-                   block_k: int | None = None,
-                   sm_count: int = SM_COUNT) -> AttnPlan:
+                   block_k: int | None = None, sm_count: int = SM_COUNT,
+                   timings: tuple | None = None) -> AttnPlan:
     """Choose K4f / K4b or K1 / K3 (K2) for one attention shape.
 
     ``block_q`` / ``block_k`` are the config's tile pins
     (``cfg.attn_block_q`` / ``attn_block_k``): a pinned tile turns both
     megakernels off, as in the reference.  Otherwise each K4 kernel is
-    its own gate (K4f with K3 is a legal plan):
+    its own gate (K4f with K3 is a legal plan), and takes the shape only
+    where all of these hold:
+
+    * a time measured on the card says it wins there: ``timings``
+      (default :data:`MEGA_TIMINGS`; the cache keys on the tuple passed)
+      has an entry at this (sk, hd, dtype_bits, batch, kh) with K4f
+      faster than K1 (for ``mega_fwd``) or K4b faster than K3 (for
+      ``mega_bwd``), as the reference takes its megakernels only where
+      its cost model says they beat the tiled grid
+      (``repro/kernels/autotune.py:433-454``).  The one shape measured so
+      far is smollm-360m's short training shape, B=64, H=15, KH=5,
+      S=256, hd 64, bf16 causal, on an NVIDIA H100 80GB HBM3 at 700 W
+      (``chip_smoke.py`` phase 4a, K3 on tensor cores):
+
+      =========  =================  ===========================
+      pass       K4                 tiled kernel
+      =========  =================  ===========================
+      forward    K4f-lse 0.7556 ms  K1-lse 0.4126 ms
+      backward   K4b 3.6584 ms      K3 0.3476 ms
+      =========  =================  ===========================
+
+      so no shape takes K4 today, and that shape plans K1 + K3;
 
     * the block fits: the kv head's K and V for the whole ``sk`` in the
       input dtype, plus a strip of at least 8 query rows, fit the
@@ -140,18 +206,17 @@ def plan_attention(sk: int, hd: int, hd_v: int, kh: int, batch: int,
 
     The query length and the group size do not enter: the strip loop
     covers any number of query rows.  Pure and cached; no device query.
-
-    The rule is not tuned: where it takes K4 the route may be slower than
-    the tiled kernels it replaces.  At B=64, H=15, KH=5, S=256, hd 64,
-    bf16 causal on an H100 80GB HBM3 at 700 W, K4f took 0.71 ms against
-    K1-lse's 0.40 and K4b 3.44 ms against K3's 1.08 (``chip_smoke.py``
-    phase 4a, PERF.md), so lowering ``attn_flash_min_seq`` to reach K4
-    costs time there until K4b is reworked.
     """
     if (block_q is not None or block_k is not None or hd not in HEAD_DIMS
             or hd_v != hd or dtype_bits not in (16, 32)
             or batch * kh < sm_count):
         return AttnPlan()
-    itemsize = dtype_bits // 8
-    return AttnPlan(mega_fwd=mega_rows(False, sk, hd, itemsize) > 0,
-                    mega_bwd=mega_rows(True, sk, hd, itemsize) > 0)
+    key = (sk, hd, dtype_bits, batch, kh)
+    won = [t for t in (MEGA_TIMINGS if timings is None else timings)
+           if (t.sk, t.hd, t.dtype_bits, t.batch, t.kh) == key]
+    if not won:
+        return AttnPlan()
+    t, itemsize = won[0], dtype_bits // 8
+    return AttnPlan(
+        mega_fwd=t.k4f_ms < t.k1_ms and mega_rows(False, sk, hd, itemsize) > 0,
+        mega_bwd=t.k4b_ms < t.k3_ms and mega_rows(True, sk, hd, itemsize) > 0)

@@ -1,7 +1,10 @@
 // Shared helpers of the attention kernels: dtype conversion and the
-// vectorised tile loader.  Every tensor is row-major with rows of HD
-// elements, so each row starts on a 16-byte boundary (the wrappers check
-// the base pointers) and a row loads as HD*sizeof(T)/16 vectors of 16 B.
+// vectorised tile loader.  Every tensor is row-major with rows of hd
+// elements, hd a multiple of 8, so each row starts on a 16-byte boundary
+// (the wrappers check the base pointers) and a row loads as
+// hd*sizeof(T)/16 vectors of 16 B.  A kernel is compiled for a width HD
+// of 64 or 128 and runs any hd <= HD: the loaders zero-fill columns
+// hd..HD in shared memory and the stores write the hd real columns only.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -26,21 +29,25 @@ from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);   // round to nearest even, as torch's .to()
 }
 
-// Copy rows [0, ROWS) of a (rows, HD) tile into shared memory as fp32
-// with row stride LDS, times `mul`; rows at or past `valid_rows` (the
-// ragged edge) are written as zeros and never read from global memory.
+// Copy rows [0, ROWS) of a (rows, hd) tile into shared memory as fp32
+// with row stride LDS, times `mul`.  hd, the tensor's row length, is at
+// most the compiled width HD and a multiple of 16 / sizeof(T) elements,
+// so every row starts on a 16-byte boundary; columns hd..HD (a head
+// narrower than HD) and rows at or past `valid_rows` (the ragged edge)
+// are written as zeros and never read from global memory.
 template <typename T, int HD, int ROWS, int LDS, int NT>
 __device__ __forceinline__ void load_rows(float* dst, const T* src,
-                                          int valid_rows, float mul) {
+                                          int valid_rows, float mul,
+                                          int hd = HD) {
   constexpr int V = 16 / sizeof(T);
   constexpr int PER_ROW = HD / V;
   for (int idx = threadIdx.x; idx < ROWS * PER_ROW; idx += NT) {
     const int r = idx / PER_ROW;
     const int c = (idx % PER_ROW) * V;
     float x[V];
-    if (r < valid_rows) {
+    if (r < valid_rows && c < hd) {
       const uint4 raw =
-          *reinterpret_cast<const uint4*>(src + (size_t)r * HD + c);
+          *reinterpret_cast<const uint4*>(src + (size_t)r * hd + c);
       const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
       for (int i = 0; i < V; ++i) x[i] = to_float(e[i]) * mul;
@@ -51,6 +58,119 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src,
 #pragma unroll
     for (int i = 0; i < V; ++i) dst[r * LDS + c + i] = x[i];
   }
+}
+
+// ---------------------------------------------------- tensor-core helpers
+//
+// bf16 operands for mma.sync.m16n8k16 (fp32 accumulators), loaded from
+// shared memory with ldmatrix, and cp.async copies global -> shared.
+// Fragment layout of one m16n8k16 product (g = lane / 4, t = lane % 4):
+//   A (16 x 16, row-major)  a0: (g, 2t..2t+1)   a1: (g+8, 2t..)
+//                           a2: (g, 2t+8..)     a3: (g+8, 2t+8..)
+//   B (16 x 8, col-major)   b0: (2t..2t+1, g)   b1: (2t+8.., g)
+//   C (16 x 8)              c0,c1: (g, 2t..2t+1)  c2,c3: (g+8, 2t..)
+// so the C fragments of two neighbouring n8 tiles, packed to bf16 pairs,
+// are the A fragment of one k16 step (FlashAttention-2's layout trick).
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; with ok false nothing is read
+// and the 16 bytes are zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes, as above
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8 x 8 bf16 matrices; lanes 8i..8i+7 give the row addresses of
+// matrix i.  Plain: lane gets (row g, cols 2t, 2t+1) of each; trans: (rows
+// 2t, 2t+1, col g).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c += a . b on the tensor cores, bf16 in, fp32 sums
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bf16_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (x0, x1) as a bf16 pair hi plus a bf16 pair lo with x = hi + lo to
+// about 2^-16 relative: hi = bf16(x), lo = bf16(x - hi).  x0 takes the
+// low half, the lower column of a fragment.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bf16_bits(h);
+  lo = bf16_bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+}
+
+// Rows [0, ROWS) of a bf16 (rows, hd) tile into shared memory with row
+// stride LD by 16-byte cp.async; rows at or past valid_rows and columns
+// hd..HD are zero-filled (nothing is read for them).
+template <int HD, int ROWS, int LD, int NT>
+__device__ __forceinline__ void cp_tile(bf16* dst, const bf16* src,
+                                        int valid_rows, int hd) {
+  constexpr int CH = HD / 8;
+  for (int idx = threadIdx.x; idx < ROWS * CH; idx += NT) {
+    const int r = idx / CH, c = (idx % CH) * 8;
+    const bool ok = r < valid_rows && c < hd;
+    cp_async16(dst + r * LD + c, ok ? src + (size_t)r * hd + c : src, ok);
+  }
+}
+
+// N fp32 values (a tile's lse or delta) by 4-byte cp.async, zeros at or
+// past `valid`
+template <int N, int NT>
+__device__ __forceinline__ void cp_vals(float* dst, const float* src,
+                                        int valid) {
+  for (int i = threadIdx.x; i < N; i += NT)
+    cp_async4(dst + i, i < valid ? src + i : src, i < valid);
 }
 
 }  // namespace repro

@@ -11,6 +11,13 @@
 // TPU kernel's pl.when skips); the ragged Sk edge is masked by index, the
 // host pads nothing.
 //
+// Head widths: the kernel is compiled for HD = 64 and 128 and runs any
+// hd that is a multiple of 8 up to 128 at the next compiled width (hd 32
+// at 64; hd 120, h2o-danube3-4b's, at 128).  The tiles load hd columns
+// and zero-fill the rest in shared memory, so the padded columns add
+// zeros to every score and yield zeros that the store skips; the tensors
+// stay unpadded.  The wrapper passes hd and the scale 1/sqrt(hd).
+//
 // Numerics follow the reference: scale 1/sqrt(hd) folded into q, masked
 // scores -1e30, exp(s - m) and the rescale exp(m_old - m_new) in fp32,
 // the denominator floored at 1e-37.  Inputs are fp32 or bf16; all
@@ -57,8 +64,8 @@ __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int H, int G,
-                 int Sq, int Sk, int q_offset, int causal, int window,
-                 float scale) {
+                 int Sq, int Sk, int hd, int q_offset, int causal,
+                 int window, float scale) {
   constexpr int LDQ = HD + 1, LDP = BK + 1, NJ = HD / 16;
   extern __shared__ float smem[];
   float* sQ = smem;                 // BQ x LDQ, pre-scaled
@@ -70,11 +77,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * BQ;
   const int bh = blockIdx.y;                       // b * H + h
   const int bkv = (bh / H) * (H / G) + (bh % H) / G;  // b * KH + h / G
-  const T* kp = k + (size_t)bkv * Sk * HD;
-  const T* vp = v + (size_t)bkv * Sk * HD;
+  const T* kp = k + (size_t)bkv * Sk * hd;
+  const T* vp = v + (size_t)bkv * Sk * hd;
 
-  load_rows<T, HD, BQ, LDQ, NT>(sQ, q + ((size_t)bh * Sq + q0) * HD,
-                                min(BQ, Sq - q0), scale);
+  load_rows<T, HD, BQ, LDQ, NT>(sQ, q + ((size_t)bh * Sq + q0) * hd,
+                                min(BQ, Sq - q0), scale, hd);
 
   const int row0 = q_offset + q0;   // global position of tile row 0
   int kv_begin = 0, kv_end = Sk;
@@ -93,8 +100,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int k0 = (kv_begin / BK) * BK; k0 < kv_end; k0 += BK) {
     __syncthreads();   // sQ written; previous tile's sK/sV/sP reads done
     const int kv_rows = min(BK, Sk - k0);
-    load_rows<T, HD, BK, LDQ, NT>(sK, kp + (size_t)k0 * HD, kv_rows, 1.f);
-    load_rows<T, HD, BK, HD, NT>(sV, vp + (size_t)k0 * HD, kv_rows, 1.f);
+    load_rows<T, HD, BK, LDQ, NT>(sK, kp + (size_t)k0 * hd, kv_rows, 1.f,
+                                  hd);
+    load_rows<T, HD, BK, HD, NT>(sV, vp + (size_t)k0 * hd, kv_rows, 1.f, hd);
     __syncthreads();
 
     float s[4][4];
@@ -171,18 +179,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float den = fmaxf(l[i], 1e-37f);
     if (lse != nullptr && tx == 0)
       lse[(size_t)bh * Sq + r] = m[i] + logf(den);
-    T* op = o + ((size_t)bh * Sq + r) * HD;
+    T* op = o + ((size_t)bh * Sq + r) * hd;
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
-      op[tx + 16 * j] = from_float<T>(acc[i][j] / den);
+      if (tx + 16 * j < hd) op[tx + 16 * j] = from_float<T>(acc[i][j] / den);
   }
 }
 
 template <typename T, int HD>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        float* lse, int B, int H, int KH, int Sq, int Sk,
-                       int q_offset, int causal, int window,
-                       cudaStream_t stream) {
+                       int hd, int q_offset, int causal, int window,
+                       float scale, cudaStream_t stream) {
   constexpr size_t smem = fwd_smem_bytes<HD>();
   auto kern = flash_fwd_kernel<T, HD>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -192,7 +200,7 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
   kern<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, H, H / KH, Sq, Sk,
-      q_offset, causal, window, 1.0f / sqrtf((float)(HD)));
+      hd, q_offset, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -200,24 +208,26 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
 }  // namespace repro
 
 // dtype: 0 = float32, 1 = bfloat16.  q (B,H,Sq,hd), k/v (B,KH,Sk,hd),
-// out (B,H,Sq,hd), all contiguous; lse (B,H,Sq) fp32, or null for the
-// forward without it.  Returns the launch's cudaError_t.
+// out (B,H,Sq,hd), all contiguous, hd a multiple of 8 up to 128; lse
+// (B,H,Sq) fp32, or null for the forward without it; scale 1/sqrt(hd).
+// Returns the launch's cudaError_t.
 extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
                                void* o, void* lse, int B, int H, int KH,
                                int Sq, int Sk, int hd, int q_offset,
                                int causal, int window, int dtype,
-                               void* stream) {
+                               float scale, void* stream) {
   using namespace repro;
   if (B <= 0 || H <= 0 || Sq <= 0) return cudaSuccess;
-  if (KH <= 0 || H % KH || B * H > 65535) return cudaErrorInvalidValue;
+  if (KH <= 0 || H % KH || B * H > 65535 || hd % 8 || hd < 8 || hd > 128)
+    return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_FWD(T, HD) \
   launch_fwd<T, HD>(q, k, v, o, static_cast<float*>(lse), B, H, KH, Sq, Sk, \
-                    q_offset, causal, window, st)
-  if (dtype == 0 && hd == 64) return REPRO_FWD(float, 64);
-  if (dtype == 0 && hd == 128) return REPRO_FWD(float, 128);
-  if (dtype == 1 && hd == 64) return REPRO_FWD(__nv_bfloat16, 64);
-  if (dtype == 1 && hd == 128) return REPRO_FWD(__nv_bfloat16, 128);
+                    hd, q_offset, causal, window, scale, st)
+  if (dtype == 0 && hd <= 64) return REPRO_FWD(float, 64);
+  if (dtype == 0) return REPRO_FWD(float, 128);
+  if (dtype == 1 && hd <= 64) return REPRO_FWD(__nv_bfloat16, 64);
+  if (dtype == 1) return REPRO_FWD(__nv_bfloat16, 128);
 #undef REPRO_FWD
   return cudaErrorInvalidValue;
 }

@@ -6,18 +6,17 @@
 //       pallas_call :760), the split backward of _bwd_call (:621);
 //   K3  _bwd_fused_kernel (:541, pallas_call :669), the fused backward.
 // Both recompute the probabilities from the forward's logsumexp:
-// s = (q * scale) . k, masked scores -1e30, P = exp(s - lse),
+// s = (q . k) * scale, masked scores -1e30, P = exp(s - lse),
 // dP = dO . v, dS = P * (dP - delta) * scale, delta = rowsum(dO * O)
 // computed by the caller in fp32 (the reference computes it outside the
-// kernel too).  Inputs are fp32 or bf16; all arithmetic is fp32 (CUDA-core
-// FMAs from shared memory, no tensor cores yet).
+// kernel too); dV = sum P^T dO, dK = sum dS^T q, dQ = sum dS k.
 //
 // The TPU kernels carry dq, dk and dv in VMEM scratch across sequential
 // grid axes; CUDA blocks run in no order, so the carries become loops
 // inside one block:
-//   dq   one block per (64-row q tile, b*H + h); it loops over the live kv
-//        tiles and keeps its dq tile in registers, so each element of dq
-//        is written by one block.
+//   dq   one block per (q tile, b*H + h); it loops over the live kv tiles
+//        and keeps its dq tile in registers, so each element of dq is
+//        written by one block.
 //   dkv  one block per (64-row kv tile, b*KH + kh); it loops over the G
 //        query heads of kv head kh and their live q tiles, and keeps dk
 //        and dv in fp32 registers.  The GQA group sum stays inside the
@@ -33,6 +32,12 @@
 // tile skips), shifted by q_offset, the global position of q row 0.
 // Ragged Sq and Sk are masked by index; nothing is padded on the host.
 //
+// Head widths: compiled for HD = 64 and 128, the kernels run any hd that
+// is a multiple of 8 up to 128 at the next compiled width (hd 32 at 64,
+// h2o-danube3-4b's 120 at 128).  Loads zero-fill columns hd..HD in shared
+// memory, which add nothing to any product, and stores write hd columns.
+// The wrapper passes hd and scale = 1/sqrt(hd).
+//
 // Bound on the H100 at the training shape (B=4, H=15, KH=5, S=4096,
 // hd=64, bf16, causal; 8.39M live (query, key) pairs per head): the
 // reference's arithmetic is 2 products per live pair and head dimension
@@ -41,31 +46,66 @@
 // 989 TFLOP/s; K2 recomputes them in both passes: 14 * hd = 451 GFLOP,
 // 0.46 ms.  Bytes (q, k, v, dO, lse, delta read once, dq, dk, dv written
 // once) are ~138 MB, 0.041 ms at 3.35 TB/s, so both are compute-bound.
-// These kernels run their products on the fp32 CUDA cores (67 TFLOP/s
-// peak) with shared-memory operands, far above that bound; mma/wgmma
-// tiles are later work.
 //
+// bf16 inputs: tensor cores (the tc_bwd_* kernels below).  All five
+// products of a tile are bf16 mma.sync.m16n8k16 with fp32 sums, operands
+// from ldmatrix; 128 threads, four warps.
+//   dkv  BK = 64 kv rows a block, 16 a warp; q tiles of BQ = 64 rows at
+//        hd 64 and 32 at hd 128.  Each warp keeps its 16 rows of dK and dV
+//        (HD/2 fp32 each a thread) in registers across the G heads and the
+//        q tiles.  S^T = K Q^T and dP^T = V dO^T come out as accumulator
+//        fragments; P^T and dS^T are computed in place and re-packed as
+//        the A operands of dV += P^T dO and dK += dS^T Q without a trip
+//        through shared memory.  K3 also writes dS^T (bf16) to shared
+//        memory, and the four warps then compute the tile's dQ = dS K,
+//        16 q rows by HD/(4*16/BQ) columns each, and add it into dq_acc.
+//   dq   BQ = 64 q rows a block, 16 a warp; kv tiles of BK = 64 rows at
+//        hd 64 and 32 at hd 128.  S = Q K^T and dP = dO V^T as fragments,
+//        dS in place, then dQ += dS K from registers.
+// Rounding: the mma operands are bf16.  q, k, v and dO are bf16 already;
+// P and dS are not.  Rounding them once to bf16 (2^-8 relative) moves dV,
+// dK and dQ by about 2^-8 / sqrt(3) of the typical entry, which puts
+// entries near zero outside the one-bf16-rounding limits that K2 is held
+// to against K4b (2^-7 |x| + 1e-4 max|x|).  So P and dS enter each of
+// their products as a bf16 pair hi + lo (hi = bf16(x), lo = bf16(x - hi),
+// about 2^-16 relative): dV, dK and dQ take two mma each, eight products
+// a tile in K3 instead of five.
+// Asynchronous copies: the dkv block double-buffers the q, dO, lse and
+// delta tiles, the dq block the k and v tiles, with 16-byte (4-byte for
+// lse and delta) cp.async, so the next tile loads while this one
+// computes.  Shared-memory rows are padded by 16 B (stride HD + 8 bf16),
+// so the eight rows an ldmatrix phase reads fall in distinct banks.
+// Shared memory: dkv 56,320 B (hd 64; +18,432 for K3's dS^T) and
+// 70,144 B (hd 128; +10,240); dq 55,296 B (hd 64) and 69,632 B (hd 128),
+// all under the 232,448 B (227 KB) a block may use.  Registers (ptxas,
+// sm_90a) and blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// through repro_flash_bwd_occupancy) on an H100:
+//   dq   hd 64: 168 registers, 3 blocks an SM; hd 128: 191, 2
+//   dkv  hd 64: 180 (K3 239), 2 blocks an SM; hd 128: 255 with 12 B
+//        (K3 28 B) of spill stores, 2 blocks an SM
+// so the SM's 65,536 registers, not shared memory, bound the residency.
+// At the training shape the bf16 K3 runs at 90 TFLOP/s of the reference
+// count (3.57 ms; 144 TFLOP/s counting the lo halves' products),
+// the K2 pair at 128 (1.17 + 2.35 ms); chip_smoke.py prints both.
+//
+// fp32 inputs keep the CUDA-core kernels (flash_bwd_* below): the
+// card's fp32 comparisons hold the backward to 1e-4 / 1e-5 of the plain
+// version, and TF32 tensor cores (10-bit mantissa) would not meet them.
 // Tiles: BQ = BK = 64, 256 threads as a 16 x 16 grid (ty, tx).
 //   dq   thread owns q rows 4ty..4ty+3, score columns tx+16j (j < 4) and
-//        dq columns tx+16j (j < hd/16).  Shared memory: q (pre-scaled),
-//        dO, k, v with rows padded to hd+1 floats (the 16 column-owners of
-//        a warp hit 16 banks) and the dS tile (64 x 65): (4*64(hd+1) +
-//        64*65)*4 B = 83,200 B at hd 64, 148,736 B at hd 128.
+//        dq columns tx+16j (j < HD/16).  Shared memory: q (pre-scaled),
+//        dO, k, v with rows padded to HD+1 floats and the dS tile
+//        (64 x 65): 83,200 B at HD 64, 148,736 B at HD 128.
 //   dkv  thread owns kv rows 4ty..4ty+3 and, of the transposed score
 //        tile, q columns tx+16j (j < 4); dk/dv columns tx+16j.  Shared
-//        memory: k, v, q (pre-scaled), dO padded to hd+1, P^T and dS^T
+//        memory: k, v, q (pre-scaled), dO padded to HD+1, P^T and dS^T
 //        tiles (64 x 65 each), lse and delta of the q tile: 100,352 B at
-//        hd 64, 165,888 B at hd 128.
-// All inside the 232,448 B (227 KB) a block may use.  Registers: dkv
-// keeps 2 * 4 * hd/16 accumulators (64 at hd 128) plus 32 scores and
-// products, under the 255 a thread may hold at 256 threads a block.
+//        HD 64, 165,888 B at HD 128.
 
 #include "common.cuh"
 
 namespace repro {
 namespace {
-
-constexpr int BQ = 64, BK = 64, NT = 256;
 
 // The reference's _tile_mask for one (query row, key column), both global
 // positions; col < Sk masks the ragged kv edge.
@@ -74,6 +114,10 @@ __device__ __forceinline__ bool is_live(int row, int col, int Sk, int causal,
   return col < Sk && (!causal || col <= row) &&
          (window <= 0 || row - col < window);
 }
+
+// ---------------------------------------------------- fp32: CUDA cores
+
+constexpr int BQ = 64, BK = 64, NT = 256;
 
 template <int HD>
 constexpr size_t dq_smem_bytes() {
@@ -86,16 +130,14 @@ constexpr size_t dkv_smem_bytes() {
          sizeof(float);
 }
 
-// ------------------------------------------------------------------ K2: dq
-
 template <typename T, int HD>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
-                    int H, int G, int Sq, int Sk, int q_offset, int causal,
-                    int window, float scale) {
+                    int H, int G, int Sq, int Sk, int hd, int q_offset,
+                    int causal, int window, float scale) {
   constexpr int LD = HD + 1, LDS = BK + 1, NJ = HD / 16;
   extern __shared__ float smem[];
   float* sQ = smem;                 // BQ x LD, pre-scaled
@@ -108,14 +150,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * BQ;
   const int bh = blockIdx.y;                          // b * H + h
   const int bkv = (bh / H) * (H / G) + (bh % H) / G;  // b * KH + h / G
-  const T* kp = k + (size_t)bkv * Sk * HD;
-  const T* vp = v + (size_t)bkv * Sk * HD;
+  const T* kp = k + (size_t)bkv * Sk * hd;
+  const T* vp = v + (size_t)bkv * Sk * hd;
   const int q_rows = min(BQ, Sq - q0);
 
-  load_rows<T, HD, BQ, LD, NT>(sQ, q + ((size_t)bh * Sq + q0) * HD, q_rows,
-                               scale);
-  load_rows<T, HD, BQ, LD, NT>(sO, dout + ((size_t)bh * Sq + q0) * HD,
-                               q_rows, 1.f);
+  load_rows<T, HD, BQ, LD, NT>(sQ, q + ((size_t)bh * Sq + q0) * hd, q_rows,
+                               scale, hd);
+  load_rows<T, HD, BQ, LD, NT>(sO, dout + ((size_t)bh * Sq + q0) * hd,
+                               q_rows, 1.f, hd);
   float rl[4], rd[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -138,8 +180,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int k0 = (kv_begin / BK) * BK; k0 < kv_end; k0 += BK) {
     __syncthreads();   // sQ/sO written; previous tile's sK/sV/sS reads done
     const int kv_rows = min(BK, Sk - k0);
-    load_rows<T, HD, BK, LD, NT>(sK, kp + (size_t)k0 * HD, kv_rows, 1.f);
-    load_rows<T, HD, BK, LD, NT>(sV, vp + (size_t)k0 * HD, kv_rows, 1.f);
+    load_rows<T, HD, BK, LD, NT>(sK, kp + (size_t)k0 * hd, kv_rows, 1.f, hd);
+    load_rows<T, HD, BK, LD, NT>(sV, vp + (size_t)k0 * hd, kv_rows, 1.f, hd);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -200,9 +242,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty * 4 + i;
     if (r >= Sq) continue;
-    T* out = dq + ((size_t)bh * Sq + r) * HD;
+    T* out = dq + ((size_t)bh * Sq + r) * hd;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) out[tx + 16 * j] = from_float<T>(acc[i][j]);
+    for (int j = 0; j < NJ; ++j)
+      if (tx + 16 * j < hd) out[tx + 16 * j] = from_float<T>(acc[i][j]);
   }
 }
 
@@ -215,7 +258,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, float* __restrict__ dq_acc, int H,
-                     int G, int Sq, int Sk, int q_offset, int causal,
+                     int G, int Sq, int Sk, int hd, int q_offset, int causal,
                      int window, float scale) {
   constexpr int LD = HD + 1, LDT = BQ + 1, NJ = HD / 16;
   extern __shared__ float smem[];
@@ -234,10 +277,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int KH = H / G;
   const int bh0 = (bkv / KH) * H + (bkv % KH) * G;    // b * H + kh * G
   const int kv_rows = min(BK, Sk - k0);
-  load_rows<T, HD, BK, LD, NT>(sK, k + ((size_t)bkv * Sk + k0) * HD,
-                               kv_rows, 1.f);
-  load_rows<T, HD, BK, LD, NT>(sV, v + ((size_t)bkv * Sk + k0) * HD,
-                               kv_rows, 1.f);
+  load_rows<T, HD, BK, LD, NT>(sK, k + ((size_t)bkv * Sk + k0) * hd,
+                               kv_rows, 1.f, hd);
+  load_rows<T, HD, BK, LD, NT>(sV, v + ((size_t)bkv * Sk + k0) * hd,
+                               kv_rows, 1.f, hd);
 
   // q rows whose masks keep some column of this kv tile
   const int k_last = k0 + kv_rows - 1;
@@ -256,10 +299,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int q0 = (q_lo / BQ) * BQ; q0 < q_hi; q0 += BQ) {
       __syncthreads();   // previous tile's reads of sQ/sO/sP/sD/sL done
       const int q_rows = min(BQ, Sq - q0);
-      load_rows<T, HD, BQ, LD, NT>(sQ, q + ((size_t)bh * Sq + q0) * HD,
-                                   q_rows, scale);
-      load_rows<T, HD, BQ, LD, NT>(sO, dout + ((size_t)bh * Sq + q0) * HD,
-                                   q_rows, 1.f);
+      load_rows<T, HD, BQ, LD, NT>(sQ, q + ((size_t)bh * Sq + q0) * hd,
+                                   q_rows, scale, hd);
+      load_rows<T, HD, BQ, LD, NT>(sO, dout + ((size_t)bh * Sq + q0) * hd,
+                                   q_rows, 1.f, hd);
       for (int r = tid; r < BQ; r += NT) {
         sL[r] = r < q_rows ? lse[(size_t)bh * Sq + q0 + r] : 0.f;
         sDl[r] = r < q_rows ? delta[(size_t)bh * Sq + q0 + r] : 0.f;
@@ -358,9 +401,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int i = 0; i < 4; ++i) {
           const int r = ty * 4 + i;
           if (r >= q_rows) continue;
-          float* out = dq_acc + ((size_t)bh * Sq + q0 + r) * HD;
+          float* out = dq_acc + ((size_t)bh * Sq + q0 + r) * hd;
 #pragma unroll
-          for (int j = 0; j < NJ; ++j) atomicAdd(out + tx + 16 * j, part[i][j]);
+          for (int j = 0; j < NJ; ++j)
+            if (tx + 16 * j < hd) atomicAdd(out + tx + 16 * j, part[i][j]);
         }
       }
     }
@@ -370,11 +414,430 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int r = ty * 4 + i;
     if (r >= kv_rows) continue;
-    const size_t off = ((size_t)bkv * Sk + k0 + r) * HD;
+    const size_t off = ((size_t)bkv * Sk + k0 + r) * hd;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
+      if (tx + 16 * j >= hd) continue;
       dk[off + tx + 16 * j] = from_float<T>(adk[i][j]);
       dv[off + tx + 16 * j] = from_float<T>(adv[i][j]);
+    }
+  }
+}
+
+// -------------------------------------------------- bf16: tensor cores
+
+constexpr int TC_NT = 128;   // four warps
+
+template <int HD>
+struct TcTiles {
+  static constexpr int LD = HD + 8;               // smem row stride (bf16)
+  static constexpr int DKV_BK = 64;               // kv rows of a dkv block
+  static constexpr int DKV_BQ = HD == 64 ? 64 : 32;
+  static constexpr int DQ_BQ = 64;                // q rows of a dq block
+  static constexpr int DQ_BK = HD == 64 ? 64 : 32;
+  static constexpr int LDS = DKV_BQ + 8;          // K3's dS^T row stride
+  static constexpr size_t dkv_bytes(bool fused) {
+    return (size_t)(2 * DKV_BK * LD + 4 * DKV_BQ * LD) * 2 +
+           4 * DKV_BQ * sizeof(float) +
+           (fused ? (size_t)2 * DKV_BK * LDS * 2 : 0);
+  }
+  static constexpr size_t dq_bytes() {
+    return (size_t)(2 * DQ_BQ * LD + 4 * DQ_BK * LD) * 2;
+  }
+};
+
+// The A operand of one k16 step from the accumulators of two n8 tiles,
+// as a hi + lo pair of bf16 fragments.
+__device__ __forceinline__ void split_frag(const float (&c0)[4],
+                                           const float (&c1)[4],
+                                           uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+  split_bf16(c0[0], c0[1], hi[0], lo[0]);
+  split_bf16(c0[2], c0[3], hi[1], lo[1]);
+  split_bf16(c1[0], c1[1], hi[2], lo[2]);
+  split_bf16(c1[2], c1[3], hi[3], lo[3]);
+}
+
+// c += (hi + lo) . b for the two n8 tiles whose B fragments b holds
+__device__ __forceinline__ void mma_pair(float (&c0)[4], float (&c1)[4],
+                                         const uint32_t (&hi)[4],
+                                         const uint32_t (&lo)[4],
+                                         const uint32_t (&b)[4]) {
+  mma_bf16(c0, hi, b[0], b[1]);
+  mma_bf16(c0, lo, b[0], b[1]);
+  mma_bf16(c1, hi, b[2], b[3]);
+  mma_bf16(c1, lo, b[2], b[3]);
+}
+
+// ldmatrix addresses, for one 16 x 16 step at (r0, c0) of a tile with row
+// stride ld: A from a row-major [m][k] tile, B from an [n][k] tile (two
+// n8 tiles), and their transposed forms from [k][m] and [k][n] tiles.
+__device__ __forceinline__ const bf16* a_addr(const bf16* s, int ld, int r0,
+                                              int c0, int lane) {
+  return s + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + c0 +
+         (lane >> 4) * 8;
+}
+__device__ __forceinline__ const bf16* b_addr(const bf16* s, int ld, int r0,
+                                              int c0, int lane) {
+  return s + (r0 + (lane & 7) + (lane >> 4) * 8) * ld + c0 +
+         ((lane >> 3) & 1) * 8;
+}
+__device__ __forceinline__ const bf16* at_addr(const bf16* s, int ld, int k0,
+                                               int m0, int lane) {
+  return s + (k0 + (lane & 7) + (lane >> 4) * 8) * ld + m0 +
+         ((lane >> 3) & 1) * 8;
+}
+__device__ __forceinline__ const bf16* bt_addr(const bf16* s, int ld, int k0,
+                                               int n0, int lane) {
+  return s + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 +
+         (lane >> 4) * 8;
+}
+
+// K2 dq on tensor cores: one block per (DQ_BQ-row q tile, b*H + h)
+template <int HD>
+__global__ void __launch_bounds__(TC_NT)
+tc_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, bf16* __restrict__ dq,
+                 int H, int G, int Sq, int Sk, int hd, int q_offset,
+                 int causal, int window, float scale) {
+  using C = TcTiles<HD>;
+  constexpr int TQ = C::DQ_BQ, TK = C::DQ_BK, LD = C::LD;
+  constexpr int KS = HD / 16, NK = TK / 8, ND = HD / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // TQ x LD
+  bf16* sO = sQ + TQ * LD;                         // TQ x LD, dO
+  bf16* sK = sO + TQ * LD;                         // 2 stages of TK x LD
+  bf16* sV = sK + 2 * TK * LD;                     // 2 stages of TK x LD
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3, w0 = warp * 16;
+  const int q0 = blockIdx.x * TQ;
+  const int bh = blockIdx.y;                          // b * H + h
+  const int bkv = (bh / H) * (H / G) + (bh % H) / G;  // b * KH + h / G
+  const bf16* kp = k + (size_t)bkv * Sk * hd;
+  const bf16* vp = v + (size_t)bkv * Sk * hd;
+  const int q_rows = min(TQ, Sq - q0);
+  const int row0 = q_offset + q0;   // global position of tile row 0
+  int kv_begin = 0, kv_end = Sk;
+  if (causal) kv_end = min(Sk, row0 + TQ);
+  if (window > 0) kv_begin = max(0, row0 - window + 1);
+  const int kt0 = (kv_begin / TK) * TK;
+  const int n_it = kv_end > kt0 ? (kv_end - kt0 + TK - 1) / TK : 0;
+
+  cp_tile<HD, TQ, LD, TC_NT>(sQ, q + ((size_t)bh * Sq + q0) * hd, q_rows, hd);
+  cp_tile<HD, TQ, LD, TC_NT>(sO, dout + ((size_t)bh * Sq + q0) * hd, q_rows,
+                             hd);
+  if (n_it > 0) {
+    cp_tile<HD, TK, LD, TC_NT>(sK, kp + (size_t)kt0 * hd, Sk - kt0, hd);
+    cp_tile<HD, TK, LD, TC_NT>(sV, vp + (size_t)kt0 * hd, Sk - kt0, hd);
+  }
+  cp_async_commit();
+
+  // this thread's rows of the warp's 16: w0 + g and w0 + g + 8
+  float rl[2], rd[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = w0 + g + 8 * i;
+    rl[i] = r < q_rows ? lse[(size_t)bh * Sq + q0 + r] : 0.f;
+    rd[i] = r < q_rows ? delta[(size_t)bh * Sq + q0 + r] : 0.f;
+  }
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it & 1, kk0 = kt0 + it * TK;
+    if (it + 1 < n_it) {   // prefetch the next kv tile into the other stage
+      const int nk0 = kk0 + TK;
+      cp_tile<HD, TK, LD, TC_NT>(sK + (st ^ 1) * TK * LD,
+                                 kp + (size_t)nk0 * hd, Sk - nk0, hd);
+      cp_tile<HD, TK, LD, TC_NT>(sV + (st ^ 1) * TK * LD,
+                                 vp + (size_t)nk0 * hd, Sk - nk0, hd);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* Ks = sK + st * TK * LD;
+    const bf16* Vs = sV + st * TK * LD;
+
+    float s[NK][4], dp[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t aq[4], ao[4];
+      ldsm_x4(aq, a_addr(sQ, LD, w0, ks * 16, lane));
+      ldsm_x4(ao, a_addr(sO, LD, w0, ks * 16, lane));
+#pragma unroll
+      for (int np = 0; np < NK / 2; ++np) {
+        uint32_t b[4];
+        ldsm_x4(b, b_addr(Ks, LD, np * 16, ks * 16, lane));
+        mma_bf16(s[2 * np], aq, b[0], b[1]);
+        mma_bf16(s[2 * np + 1], aq, b[2], b[3]);
+        ldsm_x4(b, b_addr(Vs, LD, np * 16, ks * 16, lane));
+        mma_bf16(dp[2 * np], ao, b[0], b[1]);
+        mma_bf16(dp[2 * np + 1], ao, b[2], b[3]);
+      }
+    }
+    // P = exp(s - lse), dS = P (dP - delta), the scale applied at the end
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const int row = row0 + w0 + g + 8 * i;
+        const int col = kk0 + n * 8 + 2 * t + (e & 1);
+        const float sv =
+            is_live(row, col, Sk, causal, window) ? s[n][e] * scale : NEG_INF;
+        dp[n][e] = expf(sv - rl[i]) * (dp[n][e] - rd[i]);
+      }
+    // dQ += dS K: dS from registers (hi + lo), K^T by ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < TK / 16; ++kk) {
+      uint32_t hi[4], lo[4];
+      split_frag(dp[2 * kk], dp[2 * kk + 1], hi, lo);
+#pragma unroll
+      for (int np = 0; np < ND / 2; ++np) {
+        uint32_t b[4];
+        ldsm_x4_t(b, bt_addr(Ks, LD, kk * 16, np * 16, lane));
+        mma_pair(acc[2 * np], acc[2 * np + 1], hi, lo, b);
+      }
+    }
+    __syncthreads();   // this stage is read; the next prefetch may land
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = w0 + g + 8 * i;
+    if (r >= q_rows) continue;
+    bf16* out = dq + ((size_t)bh * Sq + q0 + r) * hd;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      const int c = n * 8 + 2 * t;
+      if (c < hd)
+        *reinterpret_cast<__nv_bfloat162*>(out + c) = __floats2bfloat162_rn(
+            acc[n][2 * i] * scale, acc[n][2 * i + 1] * scale);
+    }
+  }
+}
+
+// K2 dk/dv (FUSED = false) and K3 (FUSED = true) on tensor cores: one
+// block per (64-row kv tile, b*KH + kh)
+template <int HD, bool FUSED>
+__global__ void __launch_bounds__(TC_NT)
+tc_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, bf16* __restrict__ dk,
+                  bf16* __restrict__ dv, float* __restrict__ dq_acc, int H,
+                  int G, int Sq, int Sk, int hd, int q_offset, int causal,
+                  int window, float scale) {
+  using C = TcTiles<HD>;
+  constexpr int TK = C::DKV_BK, TQ = C::DKV_BQ, LD = C::LD, LDS = C::LDS;
+  constexpr int KS = HD / 16, NQ = TQ / 8, ND = HD / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);   // TK x LD
+  bf16* sV = sK + TK * LD;                         // TK x LD
+  bf16* sQ = sV + TK * LD;                         // 2 stages of TQ x LD
+  bf16* sO = sQ + 2 * TQ * LD;                     // 2 stages of TQ x LD
+  float* sL = reinterpret_cast<float*>(sO + 2 * TQ * LD);   // 2 x TQ lse
+  float* sD = sL + 2 * TQ;                                   // 2 x TQ delta
+  bf16* sSh = reinterpret_cast<bf16*>(sD + 2 * TQ);  // TK x LDS dS^T hi
+  bf16* sSl = sSh + TK * LDS;                        // TK x LDS dS^T lo
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3, w0 = warp * 16;
+  const int k0 = blockIdx.x * TK;
+  const int bkv = blockIdx.y;                         // b * KH + kh
+  const int KH = H / G;
+  const int bh0 = (bkv / KH) * H + (bkv % KH) * G;    // b * H + kh * G
+  const int kv_rows = min(TK, Sk - k0);
+
+  // q rows whose masks keep some column of this kv tile
+  const int k_last = k0 + kv_rows - 1;
+  int q_lo = 0, q_hi = Sq;
+  if (causal) q_lo = max(0, k0 - q_offset);
+  if (window > 0) q_hi = min(Sq, k_last + window - q_offset);
+  const int qt0 = (q_lo / TQ) * TQ;
+  const int n_qt = q_hi > qt0 ? (q_hi - qt0 + TQ - 1) / TQ : 0;
+  const int n_it = G * n_qt;
+
+  cp_tile<HD, TK, LD, TC_NT>(sK, k + ((size_t)bkv * Sk + k0) * hd, kv_rows,
+                             hd);
+  cp_tile<HD, TK, LD, TC_NT>(sV, v + ((size_t)bkv * Sk + k0) * hd, kv_rows,
+                             hd);
+  // iteration it: head bh0 + it / n_qt, q tile qt0 + (it % n_qt) * TQ
+  auto prefetch = [&](int it, int stage) {
+    const int bh = bh0 + it / n_qt, q0 = qt0 + (it % n_qt) * TQ;
+    const size_t row = (size_t)bh * Sq + q0;
+    cp_tile<HD, TQ, LD, TC_NT>(sQ + stage * TQ * LD, q + row * hd, Sq - q0,
+                               hd);
+    cp_tile<HD, TQ, LD, TC_NT>(sO + stage * TQ * LD, dout + row * hd,
+                               Sq - q0, hd);
+    cp_vals<TQ, TC_NT>(sL + stage * TQ, lse + row, Sq - q0);
+    cp_vals<TQ, TC_NT>(sD + stage * TQ, delta + row, Sq - q0);
+  };
+  if (n_it > 0) prefetch(0, 0);
+  cp_async_commit();
+
+  float adk[ND][4], adv[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adk[n][e] = adv[n][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it & 1;
+    if (it + 1 < n_it) {
+      prefetch(it + 1, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int bh = bh0 + it / n_qt, q0 = qt0 + (it % n_qt) * TQ;
+    const int q_rows = min(TQ, Sq - q0);
+    const bf16* Qs = sQ + st * TQ * LD;
+    const bf16* Os = sO + st * TQ * LD;
+    const float* Ls = sL + st * TQ;
+    const float* Ds = sD + st * TQ;
+
+    // transposed tiles: s[n][e] = S[q col n*8 + 2t + (e&1)][kv row w0 + g
+    // + 8(e>>1)]
+    float s[NQ][4], dp[NQ][4];
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t ak[4], av[4];
+      ldsm_x4(ak, a_addr(sK, LD, w0, ks * 16, lane));
+      ldsm_x4(av, a_addr(sV, LD, w0, ks * 16, lane));
+#pragma unroll
+      for (int np = 0; np < NQ / 2; ++np) {
+        uint32_t b[4];
+        ldsm_x4(b, b_addr(Qs, LD, np * 16, ks * 16, lane));
+        mma_bf16(s[2 * np], ak, b[0], b[1]);
+        mma_bf16(s[2 * np + 1], ak, b[2], b[3]);
+        ldsm_x4(b, b_addr(Os, LD, np * 16, ks * 16, lane));
+        mma_bf16(dp[2 * np], av, b[0], b[1]);
+        mma_bf16(dp[2 * np + 1], av, b[2], b[3]);
+      }
+    }
+    // P^T and dS^T = P^T (dP^T - delta), unscaled, in place
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qr = n * 8 + 2 * t + (e & 1);
+        const int col = k0 + w0 + g + 8 * (e >> 1);
+        const bool live = qr < q_rows && is_live(q_offset + q0 + qr, col, Sk,
+                                                 causal, window);
+        const float p = expf((live ? s[n][e] * scale : NEG_INF) - Ls[qr]);
+        s[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - Ds[qr]);
+      }
+    // dV += P^T dO, dK += dS^T Q: A from registers (hi + lo), B by
+    // ldmatrix.trans from the [q][d] tiles
+#pragma unroll
+    for (int kq = 0; kq < TQ / 16; ++kq) {
+      uint32_t ph[4], pl[4], dh[4], dl[4];
+      split_frag(s[2 * kq], s[2 * kq + 1], ph, pl);
+      split_frag(dp[2 * kq], dp[2 * kq + 1], dh, dl);
+      if (FUSED) {   // dS^T to shared memory for the tile's dQ
+        uint32_t* rh = reinterpret_cast<uint32_t*>(sSh + (w0 + g) * LDS +
+                                                   kq * 16 + 2 * t);
+        uint32_t* rlo = reinterpret_cast<uint32_t*>(sSl + (w0 + g) * LDS +
+                                                    kq * 16 + 2 * t);
+        rh[0] = dh[0];
+        rh[8 * LDS / 2] = dh[1];
+        rh[4] = dh[2];
+        rh[8 * LDS / 2 + 4] = dh[3];
+        rlo[0] = dl[0];
+        rlo[8 * LDS / 2] = dl[1];
+        rlo[4] = dl[2];
+        rlo[8 * LDS / 2 + 4] = dl[3];
+      }
+#pragma unroll
+      for (int np = 0; np < ND / 2; ++np) {
+        uint32_t b[4];
+        ldsm_x4_t(b, bt_addr(Os, LD, kq * 16, np * 16, lane));
+        mma_pair(adv[2 * np], adv[2 * np + 1], ph, pl, b);
+        ldsm_x4_t(b, bt_addr(Qs, LD, kq * 16, np * 16, lane));
+        mma_pair(adk[2 * np], adk[2 * np + 1], dh, dl, b);
+      }
+    }
+
+    if (FUSED) {
+      // dQ tile = dS K over this block's kv rows: warp (rg, cg) takes q
+      // rows rg*16.. and CW head columns from cg*CW; A = dS from the
+      // [kv][q] dS^T tile by ldmatrix.trans, B = K from [kv][d]
+      constexpr int RG = TQ / 16, CG = 4 / RG, CW = HD / CG;
+      const int rg = warp % RG, cg = warp / RG;
+      __syncthreads();   // every warp's dS^T is in shared memory
+#pragma unroll
+      for (int nc = 0; nc < CW / 32; ++nc) {
+        const int c0 = cg * CW + nc * 32;
+        float part[4][4];
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < TK / 16; ++kk) {
+          uint32_t hi[4], lo[4], b[4];
+          ldsm_x4_t(hi, at_addr(sSh, LDS, kk * 16, rg * 16, lane));
+          ldsm_x4_t(lo, at_addr(sSl, LDS, kk * 16, rg * 16, lane));
+#pragma unroll
+          for (int np = 0; np < 2; ++np) {
+            ldsm_x4_t(b, bt_addr(sK, LD, kk * 16, c0 + np * 16, lane));
+            mma_pair(part[2 * np], part[2 * np + 1], hi, lo, b);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = rg * 16 + g + 8 * i;
+          if (r >= q_rows) continue;
+          float* out = dq_acc + ((size_t)bh * Sq + q0 + r) * hd;
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            const int c = c0 + n * 8 + 2 * t;
+            if (c >= hd) continue;
+            atomicAdd(out + c, part[n][2 * i] * scale);
+            atomicAdd(out + c + 1, part[n][2 * i + 1] * scale);
+          }
+        }
+      }
+    }
+    __syncthreads();   // this stage is read; the next prefetch may land
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = w0 + g + 8 * i;
+    if (r >= kv_rows) continue;
+    const size_t off = ((size_t)bkv * Sk + k0 + r) * hd;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      const int c = n * 8 + 2 * t;
+      if (c >= hd) continue;
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + c) =
+          __floats2bfloat162_rn(adk[n][2 * i] * scale,
+                                adk[n][2 * i + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + c) =
+          __floats2bfloat162_rn(adv[n][2 * i], adv[n][2 * i + 1]);
     }
   }
 }
@@ -382,78 +845,120 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 struct BwdArgs {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
-  int B, H, KH, Sq, Sk, q_offset, causal, window;
+  int B, H, KH, Sq, Sk, hd, q_offset, causal, window;
+  float scale;
+  int* occupancy;   // non-null: report blocks per SM instead of launching
 };
 
-template <typename T, int HD>
-cudaError_t launch_dq(const BwdArgs& a, void* dq, cudaStream_t stream) {
-  constexpr size_t smem = dq_smem_bytes<HD>();
-  auto kern = flash_bwd_dq_kernel<T, HD>;
+// Set the kernel's shared-memory limit, then either report its blocks
+// per SM (a.occupancy) or launch it on `grid`.
+template <typename Kern, typename... Args>
+cudaError_t run(Kern kern, const BwdArgs& a, dim3 grid, int threads,
+                size_t smem, cudaStream_t stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Sq + BQ - 1) / BQ, a.B * a.H);
-  kern<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, static_cast<T*>(dq), a.H, a.H / a.KH, a.Sq, a.Sk, a.q_offset,
-      a.causal, a.window, 1.0f / sqrtf((float)HD));
+  if (a.occupancy != nullptr)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(a.occupancy, kern,
+                                                         threads, smem);
+  kern<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
-template <typename T, int HD, bool FUSED>
-cudaError_t launch_dkv(const BwdArgs& a, void* dk, void* dv, float* dq_acc,
-                       cudaStream_t stream) {
-  constexpr size_t smem = dkv_smem_bytes<HD>();
-  auto kern = flash_bwd_dkv_kernel<T, HD, FUSED>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
+template <int HD>
+cudaError_t launch_f32(int which, const BwdArgs& a, void* dq, void* dk,
+                       void* dv, cudaStream_t st) {
+  const float *q = static_cast<const float*>(a.q),
+              *k = static_cast<const float*>(a.k),
+              *v = static_cast<const float*>(a.v),
+              *dout = static_cast<const float*>(a.dout);
+  const int G = a.H / a.KH;
+  if (which == 0)
+    return run(flash_bwd_dq_kernel<float, HD>, a,
+               dim3((a.Sq + BQ - 1) / BQ, a.B * a.H), NT,
+               dq_smem_bytes<HD>(), st, q, k, v, dout, a.lse, a.delta,
+               static_cast<float*>(dq), a.H, G, a.Sq, a.Sk, a.hd,
+               a.q_offset, a.causal, a.window, a.scale);
   const dim3 grid((a.Sk + BK - 1) / BK, a.B * a.KH);
-  kern<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, static_cast<T*>(dk), static_cast<T*>(dv), dq_acc, a.H,
-      a.H / a.KH, a.Sq, a.Sk, a.q_offset, a.causal, a.window,
-      1.0f / sqrtf((float)HD));
-  return cudaGetLastError();
+  auto kern = which == 1 ? flash_bwd_dkv_kernel<float, HD, false>
+                         : flash_bwd_dkv_kernel<float, HD, true>;
+  return run(kern, a, grid, NT, dkv_smem_bytes<HD>(), st, q, k, v, dout,
+             a.lse, a.delta, static_cast<float*>(dk),
+             static_cast<float*>(dv),
+             which == 2 ? static_cast<float*>(dq) : nullptr, a.H, G, a.Sq,
+             a.Sk, a.hd, a.q_offset, a.causal, a.window, a.scale);
+}
+
+template <int HD>
+cudaError_t launch_tc(int which, const BwdArgs& a, void* dq, void* dk,
+                      void* dv, cudaStream_t st) {
+  using C = TcTiles<HD>;
+  const bf16 *q = static_cast<const bf16*>(a.q),
+             *k = static_cast<const bf16*>(a.k),
+             *v = static_cast<const bf16*>(a.v),
+             *dout = static_cast<const bf16*>(a.dout);
+  const int G = a.H / a.KH;
+  if (which == 0)
+    return run(tc_bwd_dq_kernel<HD>, a,
+               dim3((a.Sq + C::DQ_BQ - 1) / C::DQ_BQ, a.B * a.H), TC_NT,
+               C::dq_bytes(), st, q, k, v, dout, a.lse, a.delta,
+               static_cast<bf16*>(dq), a.H, G, a.Sq, a.Sk, a.hd, a.q_offset,
+               a.causal, a.window, a.scale);
+  const dim3 grid((a.Sk + C::DKV_BK - 1) / C::DKV_BK, a.B * a.KH);
+  auto kern = which == 1 ? tc_bwd_dkv_kernel<HD, false>
+                         : tc_bwd_dkv_kernel<HD, true>;
+  return run(kern, a, grid, TC_NT, C::dkv_bytes(which == 2), st, q, k, v,
+             dout, a.lse, a.delta, static_cast<bf16*>(dk),
+             static_cast<bf16*>(dv),
+             which == 2 ? static_cast<float*>(dq) : nullptr, a.H, G, a.Sq,
+             a.Sk, a.hd, a.q_offset, a.causal, a.window, a.scale);
 }
 
 // 0: dq (K2), 1: dk/dv (K2), 2: fused (K3)
 cudaError_t dispatch(int which, const BwdArgs& a, void* dq, void* dk,
-                     void* dv, int hd, int dtype, cudaStream_t st) {
-  if (a.B <= 0 || a.H <= 0 || a.Sq <= 0 || a.Sk <= 0) return cudaSuccess;
-  if (a.KH <= 0 || a.H % a.KH || a.B * a.H > 65535)
+                     void* dv, int dtype, cudaStream_t st) {
+  if (a.hd % 8 || a.hd < 8 || a.hd > 128 || which < 0 || which > 2)
     return cudaErrorInvalidValue;
-  float* acc = static_cast<float*>(dq);
-#define REPRO_BWD(T, HD)                                           \
-  (which == 0   ? launch_dq<T, HD>(a, dq, st)                      \
-   : which == 1 ? launch_dkv<T, HD, false>(a, dk, dv, nullptr, st) \
-                : launch_dkv<T, HD, true>(a, dk, dv, acc, st))
-  if (dtype == 0 && hd == 64) return REPRO_BWD(float, 64);
-  if (dtype == 0 && hd == 128) return REPRO_BWD(float, 128);
-  if (dtype == 1 && hd == 64) return REPRO_BWD(__nv_bfloat16, 64);
-  if (dtype == 1 && hd == 128) return REPRO_BWD(__nv_bfloat16, 128);
-#undef REPRO_BWD
+  if (a.occupancy == nullptr) {
+    if (a.B <= 0 || a.H <= 0 || a.Sq <= 0 || a.Sk <= 0) return cudaSuccess;
+    if (a.KH <= 0 || a.H % a.KH || a.B * a.H > 65535)
+      return cudaErrorInvalidValue;
+  }
+  if (dtype == 0)
+    return a.hd <= 64 ? launch_f32<64>(which, a, dq, dk, dv, st)
+                      : launch_f32<128>(which, a, dq, dk, dv, st);
+  if (dtype == 1)
+    return a.hd <= 64 ? launch_tc<64>(which, a, dq, dk, dv, st)
+                      : launch_tc<128>(which, a, dq, dk, dv, st);
   return cudaErrorInvalidValue;
+}
+
+BwdArgs args(const void* q, const void* k, const void* v, const void* dout,
+             const void* lse, const void* delta, int B, int H, int KH,
+             int Sq, int Sk, int hd, int q_offset, int causal, int window,
+             float scale) {
+  return BwdArgs{q, k, v, dout, static_cast<const float*>(lse),
+                 static_cast<const float*>(delta), B, H, KH, Sq, Sk, hd,
+                 q_offset, causal, window, scale, nullptr};
 }
 
 }  // namespace
 }  // namespace repro
 
 // dtype: 0 = float32, 1 = bfloat16.  q, dout (B,H,Sq,hd) and k, v
-// (B,KH,Sk,hd) in that dtype; lse, delta (B,H,Sq) fp32; all contiguous.
-// dq (B,H,Sq,hd) in q's dtype.  Returns the launch's cudaError_t.
+// (B,KH,Sk,hd) in that dtype, hd a multiple of 8 up to 128; lse, delta
+// (B,H,Sq) fp32; all contiguous; scale 1/sqrt(hd).  dq (B,H,Sq,hd) in
+// q's dtype.  Returns the launch's cudaError_t.
 extern "C" int repro_flash_bwd_dq(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse,
                                   const void* delta, void* dq, int B, int H,
                                   int KH, int Sq, int Sk, int hd,
                                   int q_offset, int causal, int window,
-                                  int dtype, void* stream) {
-  const repro::BwdArgs a{q, k, v, dout, static_cast<const float*>(lse),
-                         static_cast<const float*>(delta), B, H, KH, Sq, Sk,
-                         q_offset, causal, window};
-  return repro::dispatch(0, a, dq, nullptr, nullptr, hd, dtype,
+                                  int dtype, float scale, void* stream) {
+  return repro::dispatch(0,
+                         repro::args(q, k, v, dout, lse, delta, B, H, KH, Sq,
+                                     Sk, hd, q_offset, causal, window, scale),
+                         dq, nullptr, nullptr, dtype,
                          static_cast<cudaStream_t>(stream));
 }
 
@@ -464,11 +969,11 @@ extern "C" int repro_flash_bwd_dkv(const void* q, const void* k,
                                    void* dk, void* dv, int B, int H, int KH,
                                    int Sq, int Sk, int hd, int q_offset,
                                    int causal, int window, int dtype,
-                                   void* stream) {
-  const repro::BwdArgs a{q, k, v, dout, static_cast<const float*>(lse),
-                         static_cast<const float*>(delta), B, H, KH, Sq, Sk,
-                         q_offset, causal, window};
-  return repro::dispatch(1, a, nullptr, dk, dv, hd, dtype,
+                                   float scale, void* stream) {
+  return repro::dispatch(1,
+                         repro::args(q, k, v, dout, lse, delta, B, H, KH, Sq,
+                                     Sk, hd, q_offset, causal, window, scale),
+                         nullptr, dk, dv, dtype,
                          static_cast<cudaStream_t>(stream));
 }
 
@@ -480,10 +985,22 @@ extern "C" int repro_flash_bwd_fused(const void* q, const void* k,
                                      void* dq_acc, void* dk, void* dv, int B,
                                      int H, int KH, int Sq, int Sk, int hd,
                                      int q_offset, int causal, int window,
-                                     int dtype, void* stream) {
-  const repro::BwdArgs a{q, k, v, dout, static_cast<const float*>(lse),
-                         static_cast<const float*>(delta), B, H, KH, Sq, Sk,
-                         q_offset, causal, window};
-  return repro::dispatch(2, a, dq_acc, dk, dv, hd, dtype,
+                                     int dtype, float scale, void* stream) {
+  return repro::dispatch(2,
+                         repro::args(q, k, v, dout, lse, delta, B, H, KH, Sq,
+                                     Sk, hd, q_offset, causal, window, scale),
+                         dq_acc, dk, dv, dtype,
                          static_cast<cudaStream_t>(stream));
+}
+
+// *blocks = the blocks of the dq (which 0), dk/dv (1) or fused (2) kernel
+// that one SM holds at once for this head width and dtype, as the CUDA
+// runtime's occupancy calculator gives it for the compiled kernel.
+extern "C" int repro_flash_bwd_occupancy(int which, int hd, int dtype,
+                                         int* blocks) {
+  repro::BwdArgs a = repro::args(nullptr, nullptr, nullptr, nullptr, nullptr,
+                                 nullptr, 1, 1, 1, 1, 1, hd, 0, 0, 0, 1.f);
+  a.occupancy = blocks;
+  return repro::dispatch(which, a, nullptr, nullptr, nullptr, dtype,
+                         nullptr);
 }

@@ -12,6 +12,12 @@
 // TPU kernel's pl.when stripe skip), and the ragged edge inside the last
 // block is masked by index.
 //
+// Head widths: compiled for HD = 64 and 128, the kernel runs any hd that
+// is a multiple of 8 up to 128 at the next compiled width; the loads
+// zero-fill columns hd..HD in shared memory and the store writes hd
+// columns, so the caches stay unpadded.  The wrapper passes hd and the
+// scale 1/sqrt(hd).
+//
 // Numerics follow the reference: s = (q . k) * 1/sqrt(hd) in fp32,
 // masked scores -1e30, denominator floored at 1e-37.
 //
@@ -50,7 +56,7 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(NT)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                     const T* __restrict__ vc, const int* __restrict__ cur_len,
-                    T* __restrict__ o, int G, int S, int window,
+                    T* __restrict__ o, int G, int S, int hd, int window,
                     float scale) {
   constexpr int LDK = HD + 1, MAXP = MAX_G * HD / NT, NW = NT / 32;
   extern __shared__ float smem[];
@@ -64,15 +70,15 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 
   const int bkv = blockIdx.x;       // b * KH + kv head
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const T* kp = kc + (size_t)bkv * S * HD;
-  const T* vp = vc + (size_t)bkv * S * HD;
+  const T* kp = kc + (size_t)bkv * S * hd;
+  const T* vp = vc + (size_t)bkv * S * hd;
   // the window counts back from cur_len itself, which may exceed S after
   // a decode past the cache end (as in the reference's mask); only the
   // loop stops at S
   const int cur = *cur_len;
   const int end = min(cur, S);
 
-  load_rows<T, HD, MAX_G, HD, NT>(sQ, q + (size_t)bkv * G * HD, G, 1.f);
+  load_rows<T, HD, MAX_G, HD, NT>(sQ, q + (size_t)bkv * G * hd, G, 1.f, hd);
   if (tid < G) {
     sM[tid] = NEG_INF;
     sL[tid] = 0.f;
@@ -85,8 +91,8 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   for (int base = (start / BS) * BS; base < end; base += BS) {
     __syncthreads();   // sQ/sM/sL written; previous block's reads done
     const int rows = min(BS, S - base);
-    load_rows<T, HD, BS, LDK, NT>(sK, kp + (size_t)base * HD, rows, 1.f);
-    load_rows<T, HD, BS, HD, NT>(sV, vp + (size_t)base * HD, rows, 1.f);
+    load_rows<T, HD, BS, LDK, NT>(sK, kp + (size_t)base * hd, rows, 1.f, hd);
+    load_rows<T, HD, BS, HD, NT>(sV, vp + (size_t)base * hd, rows, 1.f, hd);
     __syncthreads();
 
     for (int idx = tid; idx < G * BS; idx += NT) {
@@ -140,19 +146,21 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   }
   __syncthreads();
 
-  T* op = o + (size_t)bkv * G * HD;
+  T* op = o + (size_t)bkv * G * hd;
 #pragma unroll
   for (int p = 0; p < MAXP; ++p) {
     const int idx = tid + p * NT;
-    if (idx < G * HD)
-      op[idx] = from_float<T>(acc[p] / fmaxf(sL[idx / HD], 1e-37f));
+    const int g = idx / HD, d = idx % HD;
+    if (idx < G * HD && d < hd)
+      op[g * hd + d] = from_float<T>(acc[p] / fmaxf(sL[g], 1e-37f));
   }
 }
 
 template <typename T, int HD>
 cudaError_t launch_decode(const void* q, const void* kc, const void* vc,
                           const void* cur, void* o, int B, int KH, int G,
-                          int S, int window, cudaStream_t stream) {
+                          int S, int hd, int window, float scale,
+                          cudaStream_t stream) {
   constexpr size_t smem = decode_smem_bytes<HD>();
   auto kern = flash_decode_kernel<T, HD>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -161,7 +169,7 @@ cudaError_t launch_decode(const void* q, const void* kc, const void* vc,
   kern<<<B * KH, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc),
       static_cast<const T*>(vc), static_cast<const int*>(cur),
-      static_cast<T*>(o), G, S, window, 1.0f / sqrtf((float)(HD)));
+      static_cast<T*>(o), G, S, hd, window, scale);
   return cudaGetLastError();
 }
 
@@ -169,22 +177,25 @@ cudaError_t launch_decode(const void* q, const void* kc, const void* vc,
 }  // namespace repro
 
 // dtype: 0 = float32, 1 = bfloat16.  q (B,KH,G,hd), caches (B,KH,S,hd),
-// cur_len one int32 on the device, out (B,KH,G,hd), all contiguous.
-// Returns the launch's cudaError_t.
+// cur_len one int32 on the device, out (B,KH,G,hd), all contiguous, hd a
+// multiple of 8 up to 128; scale 1/sqrt(hd).  Returns the launch's
+// cudaError_t.
 extern "C" int repro_flash_decode(const void* q, const void* kc,
                                   const void* vc, const void* cur, void* o,
                                   int B, int KH, int G, int S, int hd,
-                                  int window, int dtype, void* stream) {
+                                  int window, int dtype, float scale,
+                                  void* stream) {
   using namespace repro;
   if (B <= 0 || KH <= 0) return cudaSuccess;
-  if (G < 1 || G > MAX_G || S <= 0) return cudaErrorInvalidValue;
+  if (G < 1 || G > MAX_G || S <= 0 || hd % 8 || hd < 8 || hd > 128)
+    return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_DEC(T, HD) \
-  launch_decode<T, HD>(q, kc, vc, cur, o, B, KH, G, S, window, st)
-  if (dtype == 0 && hd == 64) return REPRO_DEC(float, 64);
-  if (dtype == 0 && hd == 128) return REPRO_DEC(float, 128);
-  if (dtype == 1 && hd == 64) return REPRO_DEC(__nv_bfloat16, 64);
-  if (dtype == 1 && hd == 128) return REPRO_DEC(__nv_bfloat16, 128);
+  launch_decode<T, HD>(q, kc, vc, cur, o, B, KH, G, S, hd, window, scale, st)
+  if (dtype == 0 && hd <= 64) return REPRO_DEC(float, 64);
+  if (dtype == 0) return REPRO_DEC(float, 128);
+  if (dtype == 1 && hd <= 64) return REPRO_DEC(__nv_bfloat16, 64);
+  if (dtype == 1) return REPRO_DEC(__nv_bfloat16, 128);
 #undef REPRO_DEC
   return cudaErrorInvalidValue;
 }

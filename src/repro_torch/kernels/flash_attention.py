@@ -44,6 +44,14 @@ either forward feeds any backward), ``P = exp(s − lse)``,
 ``dS = P·(dP − delta)·scale``, ``q_offset`` the global position of q row
 0 (the causal and window masks compare global positions; it takes no
 gradient), ragged lengths masked by index.
+
+Head widths: K1, K2 and K3 take any hd that is a multiple of 8 up to 128
+(``autotune.kernel_head_dim``; 32 for the ``reduced()`` configs, 120 for
+h2o-danube3-4b).  They are compiled at 64 and 128 and zero-fill the
+columns past hd in shared memory, so the tensors stay unpadded; the
+wrapper passes the scale 1/√hd of the true width.  K4f and K4b take hd
+64 and 128 only (``autotune.HEAD_DIMS``): the planner keeps other widths
+off them, and a K4 wrapper given another width on the card raises.
 """
 from __future__ import annotations
 
@@ -58,7 +66,6 @@ from . import _build, autotune
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
 # rows of q per block of the plain versions: bounds their (rows × Sk)
 # score tiles
 _PLAIN_ROWS = 1024
@@ -173,15 +180,27 @@ def _check(name, q, k, v, *rest):
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
         raise TypeError(f"{name}: dtype {q.dtype} (want one of "
                         f"{list(_DTYPES)} on all of q, k, v)")
-    if hd not in _HEAD_DIMS or k.shape[-1] != hd or v.shape != k.shape:
-        raise ValueError(f"{name}: head_dim {hd} (want one of "
-                         f"{_HEAD_DIMS}, equal for q, k, v)")
+    check_head_dim(name, q, k, v)
     if h % kh or k.shape[0] != b:
         raise ValueError(f"{name}: {h} q heads over {kh} kv heads")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
                for t in tensors):
         raise ValueError(f"{name}: tensors must be contiguous and 16-byte "
                          "aligned")
+
+
+def check_head_dim(name, q, k, v):
+    """Raise ``ValueError`` unless q, k and v share a head width the
+    tiled kernels take (``autotune.kernel_head_dim``): a multiple of 8
+    up to 128.  A pure function of the shapes."""
+    hd = q.shape[-1]
+    try:
+        autotune.kernel_head_dim(hd)
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
+    if k.shape[-1] != hd or v.shape != k.shape:
+        raise ValueError(f"{name}: head_dim {hd}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}: equal widths, v shaped as k")
 
 
 def _check_bwd(name, q, k, v, do, lse, delta):
@@ -198,16 +217,26 @@ def _dims(q, k, q_offset, causal, window):
     b, h, sq, hd = q.shape
     _, kh, sk, _ = k.shape
     return (b, h, kh, sq, sk, hd, int(q_offset), int(causal), int(window),
-            _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+            _DTYPES[q.dtype])
+
+
+def _scale(q):
+    """1/√hd of the true head width: the tiled kernels may run it at a
+    wider compiled one."""
+    return 1.0 / np.sqrt(q.shape[-1])
+
+
+def _stream(q):
+    return torch.cuda.current_stream(q.device).cuda_stream
 
 
 def _fwd_kernel(q, k, v, q_offset, causal, window, lse):
     _check("flash_attention", q, k, v)
     out = torch.empty_like(q)
-    dims = _dims(q, k, q_offset, causal, window)
     err = _build.load().repro_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), *dims)
+        None if lse is None else lse.data_ptr(),
+        *_dims(q, k, q_offset, causal, window), _scale(q), _stream(q))
     _build.check(err, "flash_attention launch")
     return out
 
@@ -245,7 +274,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, q_offset: int = 0, *,
     err = _build.load().repro_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        *_dims(q, k, q_offset, causal, window))
+        *_dims(q, k, q_offset, causal, window), _scale(q), _stream(q))
     _build.check(err, "flash_attention_bwd_dq launch")
     flash_attention_bwd_dq.launches += 1
     return dq
@@ -264,7 +293,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, q_offset: int = 0, *,
     err = _build.load().repro_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_dims(q, k, q_offset, causal, window))
+        *_dims(q, k, q_offset, causal, window), _scale(q), _stream(q))
     _build.check(err, "flash_attention_bwd_dkv launch")
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
@@ -287,7 +316,8 @@ def flash_attention_bwd_fused(q, k, v, do, lse, delta, q_offset: int = 0, *,
     err = _build.load().repro_flash_bwd_fused(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), *_dims(q, k, q_offset, causal, window))
+        dv.data_ptr(), *_dims(q, k, q_offset, causal, window), _scale(q),
+        _stream(q))
     _build.check(err, "flash_attention_bwd_fused launch")
     flash_attention_bwd_fused.launches += 1
     return dq_acc.to(q.dtype), dk, dv
@@ -296,7 +326,12 @@ def flash_attention_bwd_fused(q, k, v, do, lse, delta, q_offset: int = 0, *,
 def _mega_block(name, bwd, sk, hd, dtype):
     """(strip rows, shared-memory bytes) of the K4 block: the planner's
     gate, ``autotune.mega_rows`` and ``mega_smem_bytes``, which the launch
-    takes as they are.  Raises where no strip fits the shared memory."""
+    takes as they are.  Raises where the head width is not one K4 is
+    compiled for (``autotune.HEAD_DIMS``) or no strip fits the shared
+    memory."""
+    if hd not in autotune.HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {hd} (K4 takes "
+                         f"{autotune.HEAD_DIMS})")
     rows = autotune.mega_rows(bwd, sk, hd, dtype.itemsize)
     if rows == 0:
         raise ValueError(f"{name}: Sk {sk} at head_dim {hd} {dtype} does "
@@ -326,10 +361,10 @@ def flash_attention_mega_fwd(q: torch.Tensor, k: torch.Tensor,
     out = torch.empty_like(q)
     lse = (torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
            if with_lse else None)
-    *dims, stream = _dims(q, k, q_offset, causal, window)
     err = _build.load().repro_flash_mega_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), *dims, rows, smem, stream)
+        None if lse is None else lse.data_ptr(),
+        *_dims(q, k, q_offset, causal, window), rows, smem, _stream(q))
     _build.check(err, f"{name} launch")
     flash_attention_mega_fwd.launches += 1
     if not with_lse:
@@ -357,11 +392,11 @@ def flash_attention_mega_bwd(q, k, v, do, lse, delta, q_offset: int = 0, *,
     # no query rows: no block runs, and dk, dv are zero
     alloc = torch.zeros_like if q.shape[2] == 0 else torch.empty_like
     dk, dv = alloc(k), alloc(v)
-    *dims, stream = _dims(q, k, q_offset, causal, window)
     err = _build.load().repro_flash_mega_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), *dims, rows, smem, stream)
+        dv.data_ptr(), *_dims(q, k, q_offset, causal, window), rows, smem,
+        _stream(q))
     _build.check(err, f"{name} launch")
     flash_attention_mega_bwd.launches += 1
     return dq, dk, dv
@@ -382,6 +417,19 @@ def mega_occupancy(bwd: bool, sk: int, hd: int,
     return rows, smem, blocks.value
 
 
+def bwd_occupancy(which: str, hd: int, dtype: torch.dtype) -> int:
+    """Blocks per SM of the backward kernel ``which`` ("dq", "dkv" or
+    "fused") at this head width and dtype, from the CUDA runtime's
+    occupancy calculator for the compiled kernel on the current device;
+    builds the kernels."""
+    blocks = ctypes.c_int(0)
+    err = _build.load().repro_flash_bwd_occupancy(
+        ("dq", "dkv", "fused").index(which), autotune.kernel_head_dim(hd),
+        _DTYPES[dtype], ctypes.byref(blocks))
+    _build.check(err, "bwd_occupancy")
+    return blocks.value
+
+
 for _fn in (flash_attention_fwd, flash_attention_bwd_dq,
             flash_attention_bwd_dkv, flash_attention_bwd_fused,
             flash_attention_mega_fwd, flash_attention_mega_bwd):
@@ -400,9 +448,10 @@ def attention_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    block_q: Optional[int] = None,
                    block_k: Optional[int] = None) -> autotune.AttnPlan:
     """``autotune.plan_attention`` for these tensors: their shapes and
-    dtype, the tile pins, and the SM count of q's card (read once per
-    device; an H100's 132 for CPU tensors, so the CPU takes the routes
-    the card would)."""
+    dtype, the tile pins, the SM count of q's card (read once per device;
+    an H100's 132 for CPU tensors, so the CPU takes the routes the card
+    would) and the card's measured K4 times, ``autotune.MEGA_TIMINGS``
+    as it stands at the call."""
     b, _h, _sq, hd = q.shape
     _, kh, sk, _ = k.shape
     sm = (_sm_count(q.device.index) if q.device.type == "cuda"
@@ -410,7 +459,8 @@ def attention_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bits = {torch.bfloat16: 16, torch.float32: 32}.get(q.dtype, 0)
     return autotune.plan_attention(sk, hd, v.shape[-1], kh, b, bits,
                                    block_q=block_q, block_k=block_k,
-                                   sm_count=sm)
+                                   sm_count=sm,
+                                   timings=autotune.MEGA_TIMINGS)
 
 
 # ---------------------------------------------------- autograd and public

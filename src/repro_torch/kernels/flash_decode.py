@@ -6,18 +6,19 @@ Replaces the Pallas TPU kernel ``repro/kernels/flash_decode.py``
 token included) stays on the device, so a decode loop never waits on the
 host; the kernel skips cache blocks at or past ``cur_len`` and, with a
 window, blocks wholly before ``cur_len − window``, and masks the ragged
-edge by index.
+edge by index.  It takes any head width that is a multiple of 8 up to
+128 (``autotune.kernel_head_dim``): compiled at 64 and 128, it zero-fills
+the columns past hd in shared memory, and the wrapper passes 1/√hd.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, autotune
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
 MAX_GROUP = 8          # query heads per kv head one block holds
 
 
@@ -46,6 +47,24 @@ def flash_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
     return out.to(q.dtype)
 
 
+def check_shapes(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless the caches are (B, KH, S, hd) under q's
+    (B, KH, G, hd) with a head width K5 takes (a multiple of 8 up to
+    128) and 1 ≤ G ≤ ``MAX_GROUP``.  A pure function of the shapes."""
+    b, kh, g, hd = q.shape
+    try:
+        autotune.kernel_head_dim(hd)
+    except ValueError as e:
+        raise ValueError(f"flash_decode: {e}") from None
+    if k_cache.shape[:2] != (b, kh) or k_cache.shape[3] != hd \
+            or v_cache.shape != k_cache.shape:
+        raise ValueError(f"flash_decode: q {tuple(q.shape)} vs caches "
+                         f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
+    if not 1 <= g <= MAX_GROUP:
+        raise ValueError(f"flash_decode: group {g} outside 1..{MAX_GROUP}")
+
+
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, cur_len: torch.Tensor, *,
                  window: int = 0) -> torch.Tensor:
@@ -69,12 +88,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                         f"{list(_DTYPES)} on q and both caches)")
     if cur_len.dtype != torch.int32 or cur_len.numel() != 1:
         raise TypeError("flash_decode: cur_len must be one int32 element")
-    if hd not in _HEAD_DIMS or k_cache.shape != (b, kh, s, hd) \
-            or v_cache.shape != k_cache.shape:
-        raise ValueError(f"flash_decode: q {tuple(q.shape)} vs caches "
-                         f"{tuple(k_cache.shape)}; head_dim in {_HEAD_DIMS}")
-    if not 1 <= g <= MAX_GROUP:
-        raise ValueError(f"flash_decode: group {g} outside 1..{MAX_GROUP}")
+    check_shapes(q, k_cache, v_cache)
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
                for t in (q, k_cache, v_cache)):
         raise ValueError("flash_decode: q and caches must be contiguous and "
@@ -84,7 +98,8 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     err = lib.repro_flash_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         cur_len.data_ptr(), out.data_ptr(), b, kh, g, s, hd, int(window),
-        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        _DTYPES[q.dtype], 1.0 / np.sqrt(hd),
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_decode launch")
     flash_decode.launches += 1
     return out

@@ -1,5 +1,6 @@
 """Card-only checks: the CUDA kernels K1 (with and without its
-logsumexp), K2, K3, K4f, K4b, K5, the partition copies K6, K7, K8 and the
+logsumexp), K2, K3 (on tensor cores in bf16), K4f, K4b, K5 — at head
+widths 32, 64, 120 and 128 — the partition copies K6, K7, K8 and the
 SSD scan K9 against their plain PyTorch versions on the same inputs, a
 reduced train step (tiled and megakernel routes) and reduced SSM /
 hybrid serving on the card against the CPU, and the runtime's fused copy
@@ -88,9 +89,15 @@ def test_flash_decode_kernel_matches_plain(cuda, b, kh, g, s, hd, cur,
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
-    q = torch.zeros((1, 2, 8, 32), device=cuda)          # head_dim 32
+    q = torch.zeros((1, 2, 8, 100), device=cuda)    # not a multiple of 8
     with pytest.raises(ValueError):
         fa.flash_attention(q, q, q)
+    q = torch.zeros((1, 2, 8, 136), device=cuda)    # wider than 128
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q, q)
+    with pytest.raises(ValueError):
+        fd.flash_decode(q[:, :, :1].reshape(1, 2, 1, 136), q, q,
+                        torch.ones(1, dtype=torch.int32, device=cuda))
     q = torch.zeros((1, 2, 8, 64), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
         fa.flash_attention(q, q, q)
@@ -154,6 +161,152 @@ def test_flash_backward_kernels_match_plain(cuda, b, h, kh, sq, sk, hd,
     assert torch.equal(dk2, dk3) and torch.equal(dv2, dv3)
     _close(dq3, dq2, (2.0 ** -7, 1e-4) if dtype == torch.bfloat16
            else (1e-5, 1e-5))
+
+
+# head widths the kernels run at a wider compiled one: h2o-danube3-4b's
+# 120 (at 128) with its 4096 window biting on the last 256 rows of 4352,
+# and the reduced configs' 32 (at 64)
+WIDTH_CASES = [  # b, h, kh, s, hd, dtype, window
+    (1, 8, 2, 4352, 120, torch.bfloat16, 4096),
+    (1, 8, 2, 4352, 120, torch.float32, 4096),
+    (2, 4, 2, 300, 32, torch.bfloat16, 0),
+    (2, 4, 2, 300, 32, torch.float32, 64),
+]
+
+
+@pytest.mark.parametrize("b,h,kh,s,hd,dtype,window", WIDTH_CASES)
+def test_kernels_at_narrow_head_widths_match_plain(cuda, b, h, kh, s, hd,
+                                                   dtype, window):
+    """K1, K1-lse, K2, K3 and K5 at a head width narrower than the
+    compiled one, against their plain versions (tolerances as above)."""
+    q = _randn((b, h, s, hd), dtype, cuda, 10)
+    k = _randn((b, kh, s, hd), dtype, cuda, 11)
+    v = _randn((b, kh, s, hd), dtype, cuda, 12)
+    do = _randn((b, h, s, hd), dtype, cuda, 13)
+    kw = dict(causal=True, window=window)
+    counts = lambda: (fa.flash_attention.launches,           # noqa: E731
+                      fa.flash_attention_fwd.launches,
+                      fa.flash_attention_bwd_dq.launches,
+                      fa.flash_attention_bwd_dkv.launches,
+                      fa.flash_attention_bwd_fused.launches,
+                      fd.flash_decode.launches)
+    before = counts()
+    with torch.no_grad():
+        served = fa.flash_attention(q, k, v, **kw)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    want_out, want_lse = fa.flash_attention_plain(q, k, v, with_lse=True,
+                                                  **kw)
+    for got in (served, out):
+        assert got.shape == q.shape
+        assert (got.float() - want_out.float()).abs().max().item() \
+            <= TOL[dtype]
+    _close(lse, want_lse, (1e-5, 1e-4))
+    delta = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, do, lse, delta)
+    dq2 = fa.flash_attention_bwd_dq(*args, **kw)
+    dk2, dv2 = fa.flash_attention_bwd_dkv(*args, **kw)
+    dq3, dk3, dv3 = fa.flash_attention_bwd_fused(*args, **kw)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+    for got2, got3, w in zip((dq2, dk2, dv2), (dq3, dk3, dv3), want):
+        _close(got2, w, BWD_TOL[dtype])
+        _close(got3, w, BWD_TOL[dtype])
+    assert torch.equal(dk2, dk3) and torch.equal(dv2, dv3)
+    # decode the last position against the whole cache, window counted
+    # from cur_len
+    qd = q[:, :, -1].reshape(b, kh, h // kh, hd).contiguous()
+    cur = torch.full((1,), s, dtype=torch.int32, device=cuda)
+    dec = fd.flash_decode(qd, k, v, cur, window=window)
+    want_dec = fd.flash_decode_plain(qd, k, v, cur, window=window)
+    assert (dec.float() - want_dec.float()).abs().max().item() <= TOL[dtype]
+    assert [a - b_ for a, b_ in zip(counts(), before)] == [1, 1, 1, 1, 1, 1]
+
+
+@pytest.mark.parametrize("hd", [64, 120, 128])
+def test_tensor_core_backward_matches_plain(cuda, hd):
+    """The bf16 K2 and K3 (tensor cores) at each compiled width and at
+    120, with a ragged Sq against both tile heights, a q stripe at offset
+    128 and a window: against the plain backward, K2 twice the same bits,
+    K3's dk/dv equal to K2's, K3's dq within one bf16 rounding of K2's."""
+    b, h, kh, sq, off, window = 2, 6, 2, 333, 128, 200
+    sk = sq + off
+    q = _randn((b, h, sq, hd), torch.bfloat16, cuda, 20)
+    k = _randn((b, kh, sk, hd), torch.bfloat16, cuda, 21)
+    v = _randn((b, kh, sk, hd), torch.bfloat16, cuda, 22)
+    do = _randn((b, h, sq, hd), torch.bfloat16, cuda, 23)
+    kw = dict(causal=True, window=window)
+    out, lse = fa.flash_attention_fwd(q, k, v, off, **kw)
+    delta = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, off)
+    first = (fa.flash_attention_bwd_dq(*args, **kw),
+             *fa.flash_attention_bwd_dkv(*args, **kw))
+    second = (fa.flash_attention_bwd_dq(*args, **kw),
+              *fa.flash_attention_bwd_dkv(*args, **kw))
+    fused = fa.flash_attention_bwd_fused(*args, **kw)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, off, **kw)
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+    for got2, got3, w in zip(first, fused, want):
+        _close(got2, w, BWD_TOL[torch.bfloat16])
+        _close(got3, w, BWD_TOL[torch.bfloat16])
+    assert torch.equal(first[1], fused[1]) and torch.equal(first[2], fused[2])
+    _close(fused[0], first[0], (2.0 ** -7, 1e-4))
+    for which in ("dq", "dkv", "fused"):
+        assert fa.bwd_occupancy(which, hd, torch.bfloat16) >= 1
+
+
+def test_reduced_config_runs_the_kernels_at_head_dim_32(cuda):
+    """The reduced smollm as it is (head_dim 32) with
+    ``attn_flash_min_seq=32``, fp32, B 2 x S 96: prefill (K1) and two
+    decode steps (K5) and the train loss's gradients (K1-lse, K3) on the
+    card against the CPU's plain path.  Logits 1e-4 (fp32, O(1));
+    gradients 1e-4 of each leaf's largest entry."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LanguageModel
+    from repro_torch.optim.adamw import iter_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("smollm-360m").reduced(),
+                              attn_flash_min_seq=32)
+    assert cfg.head_dim == 32
+    gpu, cpu = LanguageModel(cfg, device=cuda), LanguageModel(cfg, "cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    params_gpu = _tree_to(params, cuda)
+    rng = np.random.RandomState(1)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 97)))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    k1, k5 = fa.flash_attention.launches, fd.flash_decode.launches
+    with torch.no_grad():
+        lg, cg = gpu.prefill(params_gpu, {"tokens": batch["tokens"].to(cuda)})
+        lc, cc = cpu.prefill(params, {"tokens": batch["tokens"]})
+        assert (lg.cpu() - lc).abs().max().item() <= 1e-4
+        cg = gpu.alloc_cache(2, 98, init=cg)
+        cc = cpu.alloc_cache(2, 98, init=cc)
+        for i in range(2):
+            tok = toks[:, i:i + 1]
+            lg, cg = gpu.decode_step(params_gpu, cg, tok.to(cuda), 96 + i)
+            lc, cc = cpu.decode_step(params, cc, tok, 96 + i)
+            assert (lg.cpu() - lc).abs().max().item() <= 1e-4
+    assert fa.flash_attention.launches - k1 == cfg.num_layers
+    assert fd.flash_decode.launches - k5 == 2 * cfg.num_layers
+
+    def grads(model, p, dev):
+        leaves = [x.requires_grad_() for _p, x in iter_leaves(p)]
+        loss, _ = model.train_loss(p, {k: v.to(dev) for k, v in batch.items()})
+        return loss.item(), torch.autograd.grad(loss, leaves)
+
+    before = (fa.flash_attention_fwd.launches,
+              fa.flash_attention_bwd_fused.launches)
+    loss_g, g_gpu = grads(gpu, params_gpu, cuda)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_fwd.launches - before[0],
+            fa.flash_attention_bwd_fused.launches - before[1]) == \
+        (2 * cfg.num_layers, cfg.num_layers)
+    loss_c, g_cpu = grads(cpu, params, "cpu")
+    assert loss_g == pytest.approx(loss_c, rel=1e-5)
+    for a, c in zip(g_gpu, g_cpu):
+        assert (a.cpu() - c).abs().max().item() \
+            <= 1e-4 * c.abs().max().item()
 
 
 def test_autograd_picks_k3_then_k2_in_deterministic_mode(cuda):
@@ -643,14 +796,19 @@ def test_mega_wrappers_reject_what_the_kernels_do_not_take(cuda):
     k = torch.zeros((1, 1, 2049, 64), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="shared memory"):
         fa.flash_attention_mega_fwd(q, k, k)
-    q = torch.zeros((1, 2, 8, 32), device=cuda)              # head_dim 32
-    with pytest.raises(ValueError):
-        fa.flash_attention_mega_fwd(q, q, q)
+    for hd in (32, 120):              # K4 takes only 64 and 128
+        q = torch.zeros((1, 2, 8, hd), device=cuda)
+        with pytest.raises(ValueError, match="K4 takes"):
+            fa.flash_attention_mega_fwd(q, q, q)
+        with pytest.raises(ValueError, match="K4 takes"):
+            lse = q[..., 0].contiguous()
+            fa.flash_attention_mega_bwd(q, q, q, q, lse, lse)
 
 
-def test_megakernel_train_steps_on_the_card_match_the_cpu(cuda):
+def test_megakernel_train_steps_on_the_card_match_the_cpu(cuda, monkeypatch):
     """The reduced fp32 smollm with head_dim 64, ``attn_flash_min_seq=32``,
-    B 72 x S 96 (B·KH = 144 blocks): two train steps on the card, whose
+    B 72 x S 96 (B·KH = 144 blocks), with the card's measured table
+    saying K4 wins at that shape: two train steps on the card, whose
     attention is K4f with lse (twice a layer under remat="layer") and K4b
     (once a layer) and no K1/K2/K3, against the CPU's plain path from the
     same weights.  Loss and grad norm 1e-5 relative (fp32, summation
@@ -665,6 +823,8 @@ def test_megakernel_train_steps_on_the_card_match_the_cpu(cuda):
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(get_config("smollm-360m").reduced(),
                               head_dim=64, attn_flash_min_seq=32)
+    monkeypatch.setattr(autotune, "MEGA_TIMINGS", (autotune.MegaTiming(
+        96, 64, 32, 72, cfg.num_kv_heads, 0.1, 1.0, 0.1, 1.0, "test"),))
     oc = OptimizerConfig(peak_lr=1e-3, warmup_steps=1, total_steps=10)
     gpu, cpu = LanguageModel(cfg, device=cuda), LanguageModel(cfg, "cpu")
     params = cpu.init(torch.Generator().manual_seed(0))

@@ -11,9 +11,12 @@ K4 (CPU).
     CPU tensors.  Forward, lse and ``torch.autograd.grad`` against
     ``jax.vjp``: causal, window, q_offset, ragged Sq against the plan's
     block, G in {1, 2, 4}, hd 32 and 64.
-(b) ``kernels/autotune.plan_attention``'s gates and budget arithmetic,
-    and that ``flash_attention`` (and its autograd Function) call the K4
-    wrappers exactly when the plan says so, pinned tiles included.
+(b) ``kernels/autotune.plan_attention``'s rule — K4 only at a shape
+    where a time measured on the card says it wins, which no shape does
+    today — its gates and budget arithmetic (held with a measured table
+    in which K4 wins, so that each gate is what refuses), and that
+    ``flash_attention`` (and its autograd Function) call the K4 wrappers
+    exactly when the plan says so, pinned tiles included.
 (c) A reduced smollm with ``attn_flash_min_seq=32`` at B 2, S 64, where
     the reference's interpret planner picks ``mega_fwd`` and
     ``mega_bwd``: ``train_loss`` gradients against ``jax.grad``, prefill
@@ -149,15 +152,49 @@ def test_mega_matches_reference_kernels(case, batch_tiled, monkeypatch):
 
 # -------------------------------------------- (b) the Hopper planner
 
+def _wins(sk, hd, kh, b, bits):
+    """A measured table in which K4f and K4b beat K1 and K3 at this shape
+    (and only there)."""
+    return (autotune.MegaTiming(sk, hd, bits, b, kh, k4f_ms=0.1, k1_ms=1.0,
+                                k4b_ms=0.1, k3_ms=1.0, card="test"),)
+
+
 def _plan(sk, hd, kh, b, bits, **kw):
-    return autotune.plan_attention(sk, hd, hd, kh, b, bits, **kw)
+    """The plan where the card's times say K4 wins at this shape: what
+    remains are the gates."""
+    return autotune.plan_attention(sk, hd, hd, kh, b, bits,
+                                   timings=_wins(sk, hd, kh, b, bits), **kw)
+
+
+@pytest.fixture
+def k4_wins(monkeypatch):
+    """The card's table says K4 wins at MEGA_SHAPE (fp32), as
+    ``attention_plan`` reads it."""
+    b, s, _h, kh, hd = MEGA_SHAPE
+    monkeypatch.setattr(autotune, "MEGA_TIMINGS", _wins(s, hd, kh, b, 32))
 
 
 def test_plan_training_shape_takes_both_megakernels():
-    """smollm-360m at 64 x 256 tokens: B·KH = 320 blocks, bf16, hd 64."""
+    """smollm-360m at 64 x 256 tokens: B·KH = 320 blocks, bf16, hd 64.
+    The card's times there have K4f slower than K1 and K4b slower than
+    K3, so the default plan is the tiled route; the megakernels take
+    both passes only where a measured time says they win."""
+    default = autotune.plan_attention(256, 64, 64, 5, 64, 16)
+    assert not default.mega_fwd and not default.mega_bwd
+    assert default.describe() == "forward K1, backward K3/K2"
+    measured = [t for t in autotune.MEGA_TIMINGS
+                if (t.sk, t.hd, t.dtype_bits, t.batch, t.kh)
+                == (256, 64, 16, 64, 5)]
+    assert measured and measured[0].k4f_ms > measured[0].k1_ms \
+        and measured[0].k4b_ms > measured[0].k3_ms
+    assert "H100" in measured[0].card
+    # where K4 is measured faster, both passes take it
     plan = _plan(256, 64, 5, 64, 16)
     assert plan.mega_fwd and plan.mega_bwd
     assert plan.describe() == "forward K4f, backward K4b"
+    # a measured win at another shape does not carry over
+    assert not autotune.plan_attention(
+        256, 64, 64, 5, 64, 16, timings=_wins(384, 64, 5, 64, 16)).mega_fwd
     # the strips the wrappers take at that shape
     assert (autotune.mega_rows(False, 256, 64, 2),
             autotune.mega_rows(True, 256, 64, 2)) == (32, 8)
@@ -233,7 +270,7 @@ def _mega_tensors(seed=0, requires_grad=False):
     return q, k, v, do
 
 
-def test_flash_attention_routes_by_the_plan(monkeypatch):
+def test_flash_attention_routes_by_the_plan(monkeypatch, k4_wins):
     """CPU tensors at a shape the planner sends to K4: the serving
     forward calls K4f without lse; under autograd the Function calls K4f
     with lse and K4b; pinned tiles call neither and give the same
@@ -261,7 +298,7 @@ def test_flash_attention_routes_by_the_plan(monkeypatch):
         torch.testing.assert_close(a, b_, rtol=TOL, atol=TOL)
 
 
-def test_deterministic_mode_keeps_k4b(monkeypatch):
+def test_deterministic_mode_keeps_k4b(monkeypatch, k4_wins):
     """K4b sums in a fixed order, so deterministic mode, which moves the
     tiled backward from K3 to K2, keeps the plan's K4b."""
     bwd = _spy(monkeypatch, "flash_attention_mega_bwd")
@@ -294,7 +331,7 @@ def test_mixed_plan_feeds_k4f_lse_to_the_k3_route(monkeypatch):
         torch.testing.assert_close(a, b_, rtol=0, atol=0)
 
 
-def test_pinned_config_plans_no_megakernel(monkeypatch):
+def test_pinned_config_plans_no_megakernel(monkeypatch, k4_wins):
     """The tile pins ride from the config to the planner
     (``dist/flash.causal_attention``), as the reference's ``_blocks``
     carries them, and a pinned config takes no K4 — in both packages'
