@@ -12,9 +12,17 @@ Phases, in order; any failure raises and the script exits nonzero:
    head widths 120 (h2o-danube3-4b, window 4096) and 32 (the reduced
    configs), timed (median and min-max of 20 cold-L2 samples) beside its
    plain version, ``scaled_dot_product_attention`` (the backend that
-   served it printed) and its bound, at hd 64 and at danube's 1 x 6000;
-3. K5 (flash-decode) the same way at the contiguous-decode shape and at
-   danube's (hd 120, window 4096);
+   served it printed) and its bound, at hd 64 and at danube's 1 x 6000,
+   then the kernel and sdpa once more after a ~0.5 ms device spin each
+   (their device work alone, without the host work the device waits on);
+   the HMMA instructions ``cuobjdump -sass`` finds in each K1 kernel (the
+   bf16 ones run on tensor cores and must hold some) and K1's blocks per
+   SM;
+3. K5 (flash-decode, split across blocks, then combined) the same way
+   at the contiguous-decode shape and at danube's (hd 120, window 4096),
+   each case twice for the same bits; the split count and the blocks
+   launched at each timed shape (at least one per SM), and the host work
+   a call of K5's wrapper and of sdpa takes;
 3a. K9 (the Mamba2 SSD scan) against its plain version at mamba2's
    serve shape (B=4, S=4096, H=64, P=64, N=128, bf16), zamba2's (N=64,
    B=1 x 3000), B=1 x 16384, a ragged 4 x 3000, the reduced fp32 shape
@@ -25,8 +33,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    (B=4, H=15, KH=5, S=4096, hd 64, bf16) and at ragged / window /
    q_offset / fp32-hd128 / bf16-hd128 / hd 120 window 4096 (bf16, fp32)
    / hd 32 variants, K3 against K2, K2 twice the same bits; the HMMA
-   instructions ``cuobjdump -sass`` finds in the bf16 kernels and their
-   blocks per SM; then timed at the training shape (median and min-max
+   instructions ``cuobjdump -sass`` finds in the bf16 K1, K2 and K3
+   kernels and their blocks per SM; then timed at the training shape (median and min-max
    of 10 cold-L2 samples) beside the plain versions, the forward and the
    backward (``torch.autograd.grad``) of one
    ``scaled_dot_product_attention`` call, and their bounds;
@@ -180,16 +188,37 @@ def _randn(shape, dtype, seed):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
 
-def _time_stats(fn, reps, flush):
-    """Device time of ``fn`` over ``reps`` calls, each after a write of a
-    buffer larger than L2 so every call starts with a cold cache:
-    {"median", "min", "max"} in ms."""
+# the timed attention shapes, bf16 (scripts/torch_attention_ab.py times
+# the same): K1 (B, H, KH, S, hd, window), K1-lse (B, H, KH, S, hd; the
+# second is phase_k4's training shape), K5 (B, KH, G, S, hd, cur_len,
+# window)
+K1_TIMED = {"serve": (1, 15, 5, 3008, 64, 0),
+            "danube": (1, 32, 8, 6000, 120, 4096)}
+K1_LSE_TIMED = {"train": (4, 15, 5, 4096, 64), "short": (64, 15, 5, 256, 64)}
+K5_TIMED = {"smollm": (4, 5, 3, 2624, 64, 2600, 0),
+            "danube": (1, 8, 4, 6016, 120, 6001, 4096)}
+
+# cycles the device spins before a call timed with ``spin`` (~0.5 ms)
+SPIN_CYCLES = 1_000_000
+
+
+def _time_stats(fn, reps, flush, spin=False):
+    """Time of ``fn`` by CUDA events over ``reps`` calls, each after a
+    write of a buffer larger than L2 so every call starts with a cold
+    cache: {"median", "min", "max"} in ms.  The span from the start to
+    the end event holds the call's device work and whatever of its host
+    work the device waits on (the timer of every kernel row).  With
+    ``spin`` the device first spins ~0.5 ms, so the host has enqueued the
+    call before its start event runs: the device work alone (read beside
+    :func:`_host_us` for a short kernel)."""
     for _ in range(2):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     for s, e in zip(starts, ends):
         flush.zero_()
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         s.record()
         fn()
         e.record()
@@ -202,6 +231,23 @@ def _time_stats(fn, reps, flush):
 def _time_ms(fn, reps, flush):
     """Median of :func:`_time_stats`."""
     return _time_stats(fn, reps, flush)["median"]
+
+
+def _host_us(fn, reps=100, batches=5):
+    """Host µs per call of ``fn``, the calls enqueued behind a long device
+    spin so that none waits on the device: the wrapper's own host work.
+    Median over ``batches`` batches of ``reps`` calls."""
+    fn()
+    per = []
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100 * SPIN_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        per.append((time.perf_counter() - t0) / reps * 1e6)
+    torch.cuda.synchronize()
+    return float(np.median(per))
 
 
 def _fmt(st):
@@ -333,6 +379,21 @@ def _window_mask(sq, sk, q_offset, window, device="cuda"):
     return (cols <= rows) & (rows - cols < window)
 
 
+def _fwd_hmma():
+    """The tensor-core instructions in each K1 kernel's SASS (the bf16
+    ones must hold some) and K1's blocks per SM, printed."""
+    hmma = _sass_counts("flash_fwd")
+    for name, n in hmma.items():
+        print(f"  SASS {name[-60:]}: {n} HMMA/HGMMA instructions")
+    tc = [n for name, n in hmma.items() if "tc_kernel" in name]
+    if len(tc) != 2 or min(tc) == 0:
+        raise AssertionError("the bf16 K1 kernels hold no HMMA")
+    occupancy = {f"hd{hd} {dt}": fa.fwd_occupancy(hd, dt) for hd in (64, 128)
+                 for dt in (torch.bfloat16, torch.float32)}
+    print(f"  K1 blocks per SM (occupancy calculator): {occupancy}")
+    return hmma, occupancy
+
+
 def phase_k1(flush):
     print("== K1 flash_attention: kernel vs plain version")
     cases = [  # name, B, H, KH, Sq, Sk, hd, dtype, window, q_offset
@@ -364,8 +425,9 @@ def phase_k1(flush):
         q, k, v = (_randn((b, h, s, hd), dt, seed),
                    _randn((b, kh, s, hd), dt, seed + 1),
                    _randn((b, kh, s, hd), dt, seed + 2))
-        st = _time_stats(lambda: fa.flash_attention(q, k, v, window=win), 20,
-                         flush)
+        kern = lambda: fa.flash_attention(q, k, v, window=win)  # noqa: E731
+        st = _time_stats(kern, 20, flush)
+        dev = _time_stats(kern, 20, flush, spin=True)
         plain_ms = _time_ms(lambda: fa.flash_attention_plain(
             q, k, v, window=win), 3, flush)
         if win:
@@ -376,6 +438,7 @@ def phase_k1(flush):
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 q, k, v, is_causal=True, enable_gqa=True)
         lib_st = _time_stats(lib, 20, flush)
+        lib_dev = _time_stats(lib, 20, flush, spin=True)
         flops = 4 * hd * h * b * _live_pairs(s, s, 0, True, win)
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         bound_ms, bound_by = _bound(flops, nbytes, dt)
@@ -384,20 +447,25 @@ def phase_k1(flush):
                "library_min": lib_st["min"], "library_max": lib_st["max"],
                "library_backend": _sdpa_backend(lib), "bound_ms": bound_ms,
                "bound_by": bound_by, "gflop": flops / 1e9,
-               "tflops": flops / st["median"] / 1e9}
+               "tflops": flops / st["median"] / 1e9, "device_ms": dev,
+               "library_device_ms": lib_dev}
         print(f"  B={b} H={h} KH={kh} S={s} hd={hd} window {win}: kernel "
               f"{_fmt(st)}, plain {plain_ms:.4f} ms, sdpa {_fmt(lib_st)} "
               f"[{row['library_backend']}], bound {bound_ms:.4f} ms "
-              f"({bound_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
+              f"({bound_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB);"
+              f" after a device spin: kernel {_fmt(dev)}, sdpa "
+              f"{_fmt(lib_dev)}")
         return row
 
-    main = timed(1, 15, 5, 3008, 64, 0, 0)
-    danube = timed(1, 32, 8, 6000, 120, 4096, 40)
+    main = timed(*K1_TIMED["serve"], 0)
+    danube = timed(*K1_TIMED["danube"], 40)
     torch.cuda.empty_cache()
+    hmma, occupancy = _fwd_hmma()
     return {"name": "flash_attention (K1)", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:134",
             "max_abs_err": worst, **main, "bound_us": main["bound_ms"] * 1e3,
+            "hmma": hmma, "blocks_per_sm": occupancy,
             "timed_shape": "B=1 H=15 KH=5 Sq=Sk=3008 hd=64 bf16 causal",
             "hd120": {**danube, "timed_shape": "B=1 H=32 KH=8 Sq=Sk=6000 "
                       "hd=120 bf16 causal window 4096 (h2o-danube3-4b)"}}
@@ -405,7 +473,8 @@ def phase_k1(flush):
 
 def phase_k5(flush):
     print("== K5 flash_decode: kernel vs plain version")
-    b, kh, g, s, hd, dt = 4, 5, 3, 2624, 64, torch.bfloat16
+    b, kh, g, s, hd, cur_main, win_main = K5_TIMED["smollm"]
+    dt = torch.bfloat16
     q = _randn((b, kh, g, hd), dt, 100)
     kc, vc = _randn((b, kh, s, hd), dt, 101), _randn((b, kh, s, hd), dt, 102)
     worst = 0.0
@@ -414,7 +483,10 @@ def phase_k5(flush):
                      (s + 1, 512)):
         cur_t = torch.full((1,), cur, dtype=torch.int32, device="cuda")
         got = fd.flash_decode(q, kc, vc, cur_t, window=win)
+        again = fd.flash_decode(q, kc, vc, cur_t, window=win)
         torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"K5 cur {cur}: two runs gave other bits")
         want = fd.flash_decode_plain(q, kc, vc, cur_t, window=win)
         worst = max(worst, _check(f"cur {cur} window {win}", got, want, dt))
     for name, (bb, kk, gg, ss, hh, dd, cur, win) in {
@@ -430,15 +502,22 @@ def phase_k5(flush):
         kx, vx = (_randn((bb, kk, ss, hh), dd, 104 + ss),
                   _randn((bb, kk, ss, hh), dd, 105 + ss))
         cur_t = torch.full((1,), cur, dtype=torch.int32, device="cuda")
+        got = fd.flash_decode(qx, kx, vx, cur_t, window=win)
+        if not torch.equal(got, fd.flash_decode(qx, kx, vx, cur_t,
+                                                window=win)):
+            raise AssertionError(f"K5 {name}: two runs gave other bits")
         worst = max(worst, _check(
-            name, fd.flash_decode(qx, kx, vx, cur_t, window=win),
-            fd.flash_decode_plain(qx, kx, vx, cur_t, window=win), dd))
+            name, got, fd.flash_decode_plain(qx, kx, vx, cur_t, window=win),
+            dd))
 
     def timed(q, kc, vc, cur, win):
         b, kh, g, hd = q.shape
         cur_t = torch.full((1,), cur, dtype=torch.int32, device="cuda")
-        st = _time_stats(lambda: fd.flash_decode(q, kc, vc, cur_t,
-                                                 window=win), 50, flush)
+        kern = lambda: fd.flash_decode(q, kc, vc, cur_t,  # noqa: E731
+                                       window=win)
+        st = _time_stats(kern, 50, flush)
+        dev = _time_stats(kern, 50, flush, spin=True)
+        host_us = _host_us(kern)
         plain_ms = _time_ms(lambda: fd.flash_decode_plain(
             q, kc, vc, cur_t, window=win), 20, flush)
         lo = max(0, cur - win) if win else 0
@@ -447,26 +526,39 @@ def phase_k5(flush):
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q4, k_live, v_live, enable_gqa=True)
         lib_st = _time_stats(lib, 50, flush)
+        lib_dev = _time_stats(lib, 50, flush, spin=True)
+        lib_host_us = _host_us(lib)
         flops = 4 * b * kh * g * (cur - lo) * hd
         nbytes = (2 * q.numel() + 2 * b * kh * (cur - lo) * hd) \
             * q.element_size()
         bound_ms, bound_by = _bound(flops, nbytes, q.dtype)
+        splits = fd.flash_decode.last_splits    # of the timed launches
+        blocks = b * kh * splits
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
         row = {"ms": st["median"], "ms_min": st["min"], "ms_max": st["max"],
                "plain_ms": plain_ms, "library_ms": lib_st["median"],
                "library_min": lib_st["min"], "library_max": lib_st["max"],
                "library_backend": _sdpa_backend(lib), "bound_ms": bound_ms,
-               "bound_by": bound_by}
+               "bound_by": bound_by, "splits": splits, "blocks": blocks,
+               "device_ms": dev, "library_device_ms": lib_dev,
+               "host_us": host_us, "library_host_us": lib_host_us}
         print(f"  B={b} KH={kh} G={g} hd={hd} cur {cur} window {win}: kernel "
               f"{_fmt(st)}, plain {plain_ms:.4f} ms, sdpa {_fmt(lib_st)} "
               f"[{row['library_backend']}], bound {bound_ms:.4f} ms "
-              f"({bound_by}: {nbytes / 1e6:.2f} MB)")
+              f"({bound_by}: {nbytes / 1e6:.2f} MB); {splits} splits, "
+              f"{blocks} blocks on {sms} SMs; after a device spin: kernel "
+              f"{_fmt(dev)}, sdpa {_fmt(lib_dev)}; host work a call: "
+              f"kernel's wrapper {host_us:.1f} us, sdpa {lib_host_us:.1f} us")
+        if blocks < sms:
+            raise AssertionError(f"K5 launched {blocks} blocks on {sms} SMs")
         return row
 
-    main = timed(q, kc, vc, 2600, 0)
-    qd = _randn((1, 8, 4, 120), dt, 110)
-    kd, vd = (_randn((1, 8, 6016, 120), dt, 111),
-              _randn((1, 8, 6016, 120), dt, 112))
-    danube = timed(qd, kd, vd, 6001, 4096)
+    main = timed(q, kc, vc, cur_main, win_main)
+    bd, khd, gd, sd, hdd, cur_d, win_d = K5_TIMED["danube"]
+    qd = _randn((bd, khd, gd, hdd), dt, 110)
+    kd, vd = (_randn((bd, khd, sd, hdd), dt, 111),
+              _randn((bd, khd, sd, hdd), dt, 112))
+    danube = timed(qd, kd, vd, cur_d, win_d)
     return {"name": "flash_decode (K5)", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
             "replaces": "src/repro/kernels/flash_decode.py:34",
@@ -972,9 +1064,10 @@ def phase_k_train(flush):
                  for w in ("dq", "dkv", "fused") for hd in (64, 128)
                  for dt in (bf, f32)}
     print(f"  blocks per SM (occupancy calculator): {occupancy}")
+    fwd_hmma, fwd_occ = _fwd_hmma()
 
     # timing at the training shape
-    b, h, kh, s, hd, dt = 4, 15, 5, 4096, 64, bf
+    (b, h, kh, s, hd), dt = K1_LSE_TIMED["train"], bf
     q, k, v, do = (_randn((b, h, s, hd), dt, 300), _randn((b, kh, s, hd), dt, 301),
                    _randn((b, kh, s, hd), dt, 302), _randn((b, h, s, hd), dt, 303))
     out, lse = fa.flash_attention_fwd(q, k, v)
@@ -995,6 +1088,9 @@ def phase_k_train(flush):
     lib_f = lambda: F.scaled_dot_product_attention(  # noqa: E731
         q, k, v, is_causal=True, enable_gqa=True)
     lib_fwd = _time_stats(lib_f, 10, flush)
+    k1_dev = _time_stats(lambda: fa.flash_attention_fwd(q, k, v), 10, flush,
+                         spin=True)
+    lib_fwd_dev = _time_stats(lib_f, 10, flush, spin=True)
     ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
     lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
                                         enable_gqa=True)
@@ -1015,7 +1111,8 @@ def phase_k_train(flush):
         "k2_dkv": (8 * hd * live, 2 * qb + 4 * kb + 2 * rowb),
         "k3": (10 * hd * live, 3 * qb + 4 * kb + 2 * rowb),
     }
-    occ = {"k1_lse": None, "k2_dq": occupancy[f"dq hd64 {bf}"],
+    occ = {"k1_lse": fwd_occ[f"hd64 {bf}"],
+           "k2_dq": occupancy[f"dq hd64 {bf}"],
            "k2_dkv": occupancy[f"dkv hd64 {bf}"],
            "k3": occupancy[f"fused hd64 {bf}"]}
     rows = {}
@@ -1047,11 +1144,16 @@ def phase_k_train(flush):
           f"backward via autograd.grad [{backend['backward']}] "
           f"{_fmt(lib_bwd)}; K2 pair {pair:.4f} ms, K3 "
           f"{st['k3']['median']:.4f} ms")
+    print(f"  after a device spin: K1 with lse {_fmt(k1_dev)}, sdpa forward "
+          f"{_fmt(lib_fwd_dev)}")
+    rows["k1_lse"]["device_ms"] = k1_dev
+    rows["k1_lse"]["library_device_ms"] = lib_fwd_dev
     rows["library_bwd_ms"] = lib_bwd["median"]
     rows["library_bwd"] = lib_bwd
     rows["library_backend"] = backend
-    rows["hmma"] = hmma
-    rows["occupancy"] = occupancy
+    rows["hmma"] = {**hmma, **fwd_hmma}
+    rows["occupancy"] = {**occupancy, **{f"k1 {k}": n
+                                         for k, n in fwd_occ.items()}}
     return rows
 
 

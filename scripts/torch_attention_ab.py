@@ -1,0 +1,96 @@
+"""Time the attention kernels K1, K1-lse and K5 of whichever
+``repro_torch`` is first on ``sys.path``, so that two trees can be
+compared on one card in one run.
+
+    PYTHONPATH=<tree>/src python scripts/torch_attention_ab.py LABEL OUT
+        [--zamba2]
+
+Appends one JSON line to OUT: LABEL, the package's path, and per timed
+shape of ``chip_smoke.py`` (``K1_TIMED``, ``K1_LSE_TIMED``,
+``K5_TIMED``, bf16) the kernel's [median, min, max] ms over 20 (K1) or
+50 (K5) calls under both of ``chip_smoke._time_stats``'s timers: the
+events around the call (``events``, every kernel row's timer) and the
+same after a ~0.5 ms device spin (``device``, the device work alone).
+Per shape also the largest |difference| from the plain version, and per
+K5 shape the host µs a call of the wrapper takes (``host_us``).  With
+``--zamba2``, also chip_smoke's bf16 prefill/decode consistency of
+zamba2-1.2b at full width (B=4, S=2100): the largest and RMS logit gap.
+The timer, the shapes and the consistency check are chip_smoke's own,
+imported after the tree's ``repro_torch``, so chip_smoke runs on that
+tree.  To compare a change with its parent, unpack the parent's ``src``
+into a directory that git ignores and run parent, change, change,
+parent in one command; each tree builds its kernels into its own
+``build/``.  Needs a CUDA card.
+"""
+import json
+import sys
+from pathlib import Path
+
+import torch
+
+import repro_torch  # noqa: F401  (the tree under test, before chip_smoke)
+from repro_torch.kernels import _build
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_decode as fd
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke as cs  # noqa: E402
+
+
+def _both(fn, reps, flush):
+    return {"events": [cs._time_stats(fn, reps, flush)[k]
+                       for k in ("median", "min", "max")],
+            "device": [cs._time_stats(fn, reps, flush, spin=True)[k]
+                       for k in ("median", "min", "max")]}
+
+
+def _err(got, want):
+    return (got.float() - want.float()).abs().max().item()
+
+
+def main() -> int:
+    label, out = sys.argv[1], sys.argv[2]
+    if not torch.cuda.is_available():
+        print("torch_attention_ab: no CUDA device", file=sys.stderr)
+        return 1
+    _build.load()
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    bf = torch.bfloat16
+    res = {"label": label, "src": fa.__file__}
+    shapes = {**{f"k1_{n}": (*v, False) for n, v in cs.K1_TIMED.items()},
+              **{f"k1_lse_{n}": (*v, 0, True)
+                 for n, v in cs.K1_LSE_TIMED.items()}}
+    for name, (b, h, kh, s, hd, win, lse) in shapes.items():
+        q, k, v = (cs._randn((b, h, s, hd), bf, 1),
+                   cs._randn((b, kh, s, hd), bf, 2),
+                   cs._randn((b, kh, s, hd), bf, 3))
+        kernel = fa.flash_attention_fwd if lse else fa.flash_attention
+        res[name] = _both(lambda: kernel(q, k, v, window=win), 20, flush)
+        got = fa.flash_attention(q, k, v, window=win)
+        res[name]["max_abs_err"] = _err(
+            got, fa.flash_attention_plain(q, k, v, window=win))
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    for name, (b, kh, g, s, hd, cur, win) in cs.K5_TIMED.items():
+        q, kc, vc = (cs._randn((b, kh, g, hd), bf, 4),
+                     cs._randn((b, kh, s, hd), bf, 5),
+                     cs._randn((b, kh, s, hd), bf, 6))
+        cur_t = torch.full((1,), cur, dtype=torch.int32, device="cuda")
+        kern = lambda: fd.flash_decode(q, kc, vc, cur_t,  # noqa: E731
+                                       window=win)
+        res[f"k5_{name}"] = {
+            **_both(kern, 50, flush), "host_us": cs._host_us(kern),
+            "max_abs_err": _err(kern(), fd.flash_decode_plain(
+                q, kc, vc, cur_t, window=win))}
+    if "--zamba2" in sys.argv[3:]:
+        gap = cs._consistency("zamba2-1.2b", 4, 2100, "bfloat16", 32)
+        res["zamba2_bf16"] = {k: gap[k] for k in (
+            "max_logit_diff", "rms_logit_diff", "argmax_agreement")}
+    print(json.dumps(res))
+    with open(out, "a") as f:
+        f.write(json.dumps(res) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -4,7 +4,10 @@
   threshold (K4f or K1 forward; with the logsumexp and the K4b, K3 or K2
   backward when autograd records the call), the dense reference below
   it;
-* contiguous-cache decode: insert the new token, then K5 flash-decode;
+* contiguous-cache decode: insert the new token, then K5 flash-decode
+  on the card, or, for CPU tensors, the dense ``decode_attention`` on
+  seq-major views of the caches, as the reference's CPU decode takes its
+  jnp oracle (so the probabilities round to the input dtype as there);
 * paged decode over §6 pages of a shared cache pool, as torch ops (the
   reference has no kernel for it).
 
@@ -19,7 +22,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.models.attention import flash_min_seq, full_attention
+from repro_torch.models.attention import (decode_attention, flash_min_seq,
+                                          full_attention)
 
 NEG_INF = -1e30
 
@@ -65,8 +69,17 @@ def _decode_local(q: torch.Tensor, k_cache: torch.Tensor,
     q: (B, 1, H, hd); caches: (B, KH, S, hd); valid: int32 tensor with one
     element, the count of valid cache entries.  A CUDA tensor always
     launches K5 (the kernel masks the ragged tail itself, so no length
-    gate); a CPU tensor takes its plain version.
+    gate).  A CPU tensor takes the dense ``decode_attention`` over
+    seq-major views of the caches, as ``repro/dist/flash.py``
+    ``_decode_local`` does off the TPU: its probabilities round to q's
+    dtype before the PV product, as prefill's ``full_attention`` does, so
+    a bf16 decode matches the reference's bit for bit (K5's plain version
+    keeps them in fp32, as K5 does).
     """
+    if q.device.type == "cpu":
+        return decode_attention(q, k_cache.transpose(1, 2),
+                                v_cache.transpose(1, 2),
+                                cur_len=valid.reshape(()), window=window)
     return kernel_ops.flash_decode(q, k_cache, v_cache, valid, window=window)
 
 

@@ -30,6 +30,8 @@ _ENTRIES = {
     # q, k, v, out, lse (or null), B, H, KH, Sq, Sk, hd, q_offset, causal,
     # window, dtype, scale, stream
     "repro_flash_fwd": (_P,) * 5 + (_I,) * 10 + (_F, _P),
+    # hd, dtype, out: blocks per SM of K1
+    "repro_flash_fwd_occupancy": (_I,) * 2 + (_P,),
     # q, k, v, dout, lse, delta, dq, B, H, KH, Sq, Sk, hd, q_offset,
     # causal, window, dtype, scale, stream
     "repro_flash_bwd_dq": (_P,) * 7 + (_I,) * 10 + (_F, _P),
@@ -46,9 +48,9 @@ _ENTRIES = {
     "repro_flash_mega_bwd": (_P,) * 9 + (_I,) * 12 + (_P,),
     # bwd, hd, dtype, strip rows, shared-memory bytes, out: blocks per SM
     "repro_flash_mega_occupancy": (_I,) * 5 + (_P,),
-    # q, k_cache, v_cache, cur_len, out, B, KH, G, S, hd, window, dtype,
-    # scale, stream
-    "repro_flash_decode": (_P,) * 5 + (_I,) * 7 + (_F, _P),
+    # q, k_cache, v_cache, cur_len, out, partials scratch, B, KH, G, S,
+    # hd, window, splits, tile rows, dtype, scale, stream
+    "repro_flash_decode": (_P,) * 6 + (_I,) * 9 + (_F, _P),
     # dst, src, dst_row, src_row, rows, block_rows, stream
     "repro_partition_copy": (_P, _P, _I, _I, _I, _I, _P),
     # dst, src, tables (3 x n int32: dst rows, src rows, valid rows), n,

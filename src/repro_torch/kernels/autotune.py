@@ -17,7 +17,12 @@
   fp32 dK and dV) must sit in one block's shared memory, and one block
   per (batch, kv head) must fill the SMs;
 * :func:`kernel_head_dim`, the compiled width at which the tiled kernels
-  K1, K2, K3 and the decode kernel K5 run a head.
+  K1, K2, K3 and the decode kernel K5 run a head;
+* :func:`decode_splits`, how many blocks the split-sequence decode
+  kernel K5 (``csrc/flash_decode.cu``) gives each (batch, kv head), and
+  :func:`decode_chunk`, the rows each split takes.  The reference's
+  decode grid walks the cache in order on one core; on the card the
+  live span is split across blocks so that the SMs fill.
 
 All are pure functions of ints, cached, with no device query: callers
 pass the SM count.
@@ -65,6 +70,53 @@ def kernel_head_dim(hd: int) -> int:
         raise ValueError(f"head_dim {hd}: the attention kernels take a "
                          "multiple of 8 from 8 to 128")
     return 64 if hd <= 64 else 128
+
+
+# K5's tile and split cap.  The wrapper passes DECODE_TILE to every
+# launch and ``csrc/flash_decode.cu`` refuses one that is not its BS, and
+# a split count above its MAX_SPLITS: so the chunk rule below and the
+# kernel's cannot drift apart unseen.
+DECODE_TILE = 64          # cache rows a K5 block loads at once (its BS)
+DECODE_MIN_ROWS = 128     # least rows a split takes at the full span
+MAX_DECODE_SPLITS = 128   # the most K5 takes (its MAX_SPLITS)
+
+
+def decode_chunk(span: int, splits: int) -> int:
+    """Rows of the live span each of ``splits`` K5 blocks takes: its
+    share, ``ceil(span / splits)``, rounded up to the tile.  Split i
+    covers ``[i·chunk, (i+1)·chunk)`` of the span, so the last splits may
+    get fewer rows or none.  K5 computes the same from ``cur_len`` on the
+    device."""
+    share = -(-span // splits)
+    return -(-share // DECODE_TILE) * DECODE_TILE
+
+
+@functools.lru_cache(maxsize=1024)
+def decode_splits(b: int, kh: int, s: int, window: int,
+                  sm_count: int = SM_COUNT) -> int:
+    """Splits of the live span per (batch, kv head) for K5, from the
+    shapes alone (never from ``cur_len``, which stays on the device).
+
+    The longest live span is ``min(s, window)`` (``s`` without a
+    window).  The target is enough splits that ``b · kh · splits`` fills
+    two waves of ``sm_count`` SMs, as far as the span gives each split
+    at least ``DECODE_MIN_ROWS`` rows, and at most
+    ``MAX_DECODE_SPLITS``.  The count taken is that of the widest
+    tile-multiple chunk that still gives the target or more splits, so
+    the shares land on tile boundaries; then as many as
+    :func:`decode_chunk` leaves rows for at that span, so no split is
+    empty there.  At least 1.  h2o-danube3-4b (B=1, KH=8, window 4096)
+    takes 32 splits of 128 rows (256 blocks); smollm-360m's B=4, KH=5
+    decode over 2624 cache rows 14 of 192 (280 blocks).
+    """
+    span = min(s, window) if window > 0 else s
+    want = -(-2 * sm_count // max(1, b * kh))
+    target = min(want, span // DECODE_MIN_ROWS, MAX_DECODE_SPLITS)
+    if target <= 1:
+        return 1
+    chunk = (span - 1) // (target - 1) // DECODE_TILE * DECODE_TILE
+    n = min(-(-span // chunk), MAX_DECODE_SPLITS)
+    return -(-span // decode_chunk(span, n))
 
 
 def _align16(n: int) -> int:
@@ -128,11 +180,11 @@ class MegaTiming:
 
 # Every shape at which K4 has been timed against the tiled kernels, from
 # chip_smoke.py's phase 4a (B=64, H=15, KH=5, S=256, hd 64, bf16 causal,
-# K3 on tensor cores).  The planner takes a megakernel only at a shape
-# listed here where it won.
+# K1 and K3 on tensor cores).  The planner takes a megakernel only at a
+# shape listed here where it won.
 MEGA_TIMINGS = (
-    MegaTiming(256, 64, 16, 64, 5, k4f_ms=0.7556, k1_ms=0.4126,
-               k4b_ms=3.6584, k3_ms=0.3476,
+    MegaTiming(256, 64, 16, 64, 5, k4f_ms=0.7498, k1_ms=0.1020,
+               k4b_ms=3.6323, k3_ms=0.3453,
                card="NVIDIA H100 80GB HBM3, 700.00 W"),
 )
 
@@ -175,13 +227,13 @@ def plan_attention(sk: int, hd: int, hd_v: int, kh: int, batch: int,
       (``repro/kernels/autotune.py:433-454``).  The one shape measured so
       far is smollm-360m's short training shape, B=64, H=15, KH=5,
       S=256, hd 64, bf16 causal, on an NVIDIA H100 80GB HBM3 at 700 W
-      (``chip_smoke.py`` phase 4a, K3 on tensor cores):
+      (``chip_smoke.py`` phase 4a, K1 and K3 on tensor cores):
 
       =========  =================  ===========================
       pass       K4                 tiled kernel
       =========  =================  ===========================
-      forward    K4f-lse 0.7556 ms  K1-lse 0.4126 ms
-      backward   K4b 3.6584 ms      K3 0.3476 ms
+      forward    K4f-lse 0.7498 ms  K1-lse 0.1020 ms
+      backward   K4b 3.6323 ms      K3 0.3453 ms
       =========  =================  ===========================
 
       so no shape takes K4 today, and that shape plans K1 + K3;

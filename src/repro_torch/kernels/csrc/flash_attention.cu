@@ -4,47 +4,93 @@
 // _fwd_kernel (launched by _fwd_call, pallas_call at :437).  That kernel
 // walks kv tiles on the innermost sequential grid axis and carries the
 // online softmax (m, l, acc) in VMEM scratch from one grid step to the
-// next.  CUDA blocks run in no order, so here one block owns a BQ-row q
-// tile of one (batch, head) and walks the kv tiles in a loop, with the
-// carry in registers.  Query head h reads kv head h / G.  The loop bounds
-// skip every kv tile that the causal mask or the window masks whole (the
-// TPU kernel's pl.when skips); the ragged Sk edge is masked by index, the
-// host pads nothing.
+// next.  CUDA blocks run in no order, so here one block owns a q tile of
+// one (batch, head) and walks the kv tiles in a loop, with the carry in
+// registers.  Query head h reads kv head h / G.  The loop bounds skip
+// every kv tile that the causal mask or the window masks whole (the TPU
+// kernel's pl.when skips); the ragged Sq and Sk edges are masked by
+// index, the host pads nothing.
 //
-// Head widths: the kernel is compiled for HD = 64 and 128 and runs any
+// Head widths: the kernels are compiled for HD = 64 and 128 and run any
 // hd that is a multiple of 8 up to 128 at the next compiled width (hd 32
 // at 64; hd 120, h2o-danube3-4b's, at 128).  The tiles load hd columns
 // and zero-fill the rest in shared memory, so the padded columns add
 // zeros to every score and yield zeros that the store skips; the tensors
 // stay unpadded.  The wrapper passes hd and the scale 1/sqrt(hd).
 //
-// Numerics follow the reference: scale 1/sqrt(hd) folded into q, masked
-// scores -1e30, exp(s - m) and the rescale exp(m_old - m_new) in fp32,
-// the denominator floored at 1e-37.  Inputs are fp32 or bf16; all
-// arithmetic is fp32 (CUDA-core FMAs, no tensor cores yet).  With an lse
-// pointer (the reference's with_lse, taken on the differentiated path) the
+// Numerics follow the reference: s = (q . k) * 1/sqrt(hd) with fp32
+// sums, masked scores -1e30, exp(s - m) and the rescale exp(m_old -
+// m_new) in fp32, the denominator floored at 1e-37.  With an lse pointer
+// (the reference's with_lse, taken on the differentiated path) the
 // kernel also writes lse = m + log(max(l, 1e-37)) in fp32, one store per
 // row at the end as the reference's _finalize does; the backward kernels
-// (flash_attention_bwd.cu) recompute P from it.
+// (flash_attention_bwd.cu) recompute P from it.  The exponentials stay in
+// natural log: folding log2(e) into m would turn the m of a row with no
+// live key (-1e30) into -inf in lse.  The bf16 kernel takes the fast
+// __expf (ex2.approx of x * log2(e), a few ulp) of the difference s - m,
+// taken first so that a masked s = m = -1e30 gives exactly 1, as expf
+// does; accurate expf costs ~10 instructions an element, about as much
+// issue time as the tile's mma work, and in one A/B on the card __expf
+// took 10-14 % off K1 at 1 x 3008, 1 x 6000 and 4 x 4096 (6 % at the
+// launch-bound 64 x 256).
 //
 // Bound on the H100: at the serve shape (B=1, H=15, KH=5, hd=64,
-// Sq=Sk=3008, bf16, causal) the live work is 2*Sq^2*hd*H ~ 17.4 GFLOP
-// against ~15.4 MB moved, so the function is compute-bound: ~18 us at
-// 989 TFLOP/s of bf16 tensor cores.  This kernel does its products on
-// the fp32 CUDA cores (67 TFLOP/s peak), and each FMA of the two inner
-// loops needs half a shared-memory load, so it is bound by FMA issue and
-// shared-memory bandwidth, well above that bound.  mma/wgmma tiles and
-// TMA loads are later work.
+// Sq=Sk=3008, bf16, causal) the live work is 4*hd*H*(live pairs)
+// ~ 17.4 GFLOP against ~15.4 MB moved, so the function is compute-bound:
+// ~18 us at 989 TFLOP/s of bf16 tensor cores; at training's 4 x 4096,
+// 128.9 GFLOP, 0.13 ms.
 //
-// Tiles: BQ = BK = 64, 256 threads; thread (ty, tx) of a 16x16 grid owns
-// q rows 4*ty..4*ty+3, score columns tx+16j (j < 4) and output columns
-// tx+16j (j < hd/16).  Shared memory holds q, k (rows padded to hd+1
-// floats so the 16 column-owners of a warp hit 16 banks), v and the
-// probability tile, all fp32: (64(hd+1)*2 + 64hd + 64*65)*4 B = 66,304 B
-// at hd=64 and 115,456 B at hd=128, inside the 232,448 B (227 KB) a block
-// may use; the SM's 228 KB then holds three resp. two blocks.  Registers:
-// 16 scores + 4hd/16 accumulators + row state, under the 255 per thread
-// that 256 threads per block allow.
+// bf16 inputs: tensor cores (flash_fwd_tc_kernel), FlashAttention-2's
+// layout.  A block of four warps owns a BQ = 64-row q tile, 16 rows a
+// warp; q tiles launch heaviest first (the causal diagonal's last tiles
+// have the most kv tiles), so the tail wave is short.  The Q fragments
+// are loaded once with ldmatrix and stay in registers.  K and V tiles of
+// BK = 64 rows are double-buffered in shared memory by 16-byte cp.async
+// (zero-fill past hd and past Sk), rows padded by 16 B (stride HD + 8
+// bf16) so the eight rows an ldmatrix phase reads fall in distinct
+// banks.  Per kv tile each warp computes S = Q K^T (16 x 64) with
+// mma.sync.m16n8k16 (bf16 in, fp32 sums; K's B fragments by ldmatrix),
+// scales the fp32 accumulators, masks only on tiles that the causal
+// edge, the window edge or Sk cuts (full tiles take a path without
+// masks), runs the online softmax on the accumulator fragments (row max
+// and sum across the 4 lanes of a quad by shfl_xor 1 and 2, O rescaled
+// in registers), splits P into bf16 A fragments in registers (the C
+// layout of two n8 tiles is the A layout of one k16 step) and adds P V
+// (V's B fragments by ldmatrix.trans).  P enters P V as a bf16 hi + lo
+// pair (P = hi + lo to ~2^-16 relative), as in the backward kernels, so
+// P V keeps the reference's fp32 P: rounded once to bf16 (2^-9), P moved
+// the output against the plain version by one bf16 ulp of its own at
+// every large |o| (1.6e-2 at |o| in [2, 4), 78 % of the bf16 limit; one
+// ulp at |o| >= 4 exceeds it), and l, which sums the fp32 P, no longer
+// matched the numerator.  HMMA per warp and kv tile: HD/16 * 8 for S and
+// 2 * 4 * HD/8 for P V, 64 + 128 at HD 128 and 32 + 64 at HD 64.
+// Shared memory: (BQ + 4 BK) * (HD + 8) * 2 B = 87,040 B at HD 128 and
+// 46,080 B at HD 64.  Registers (ptxas, sm_90a): O (HD/2 fp32), S (32
+// fp32) and Q (HD/4) a thread, 217 at HD 128 and 149 at HD 64, no
+// spills; the occupancy calculator gives 2 and 3 blocks an SM.  The
+// launch bound's minimum of 2 blocks lets ptxas take over 200 registers
+// at HD 128 (182 without it), which ran h2o-danube3-4b's prefill shape
+// 4.5 % faster; a minimum of 4 at HD 64 (128 registers) spilled and
+// ran the serve shape 9 % slower.  What bounds it on the H100 (700 W):
+// 164 TFLOP/s at 4 x 4096 (0.785 ms) and 184 at danube's 1 x 6000 hd
+// 120 (1.35 ms) against mma.sync's share of the 989 peak: with 8-12
+// warps an SM each warp's softmax work (scale, max, exp, sum, rescale,
+// split: ~10 instructions an element with __expf) issues beside its own
+// mma, and nothing overlaps them but the other resident warps; the hi +
+// lo pair made K1 ~20 % slower than one rounding of P (0.65 ms at 4 x
+// 4096).  wgmma with
+// a producer warp feeding TMA tiles is the next step.
+//
+// fp32 inputs keep the CUDA-core kernel (flash_fwd_kernel): the card's
+// fp32 comparisons hold K1 to 1e-4 of the plain version, which TF32
+// tensor cores (10-bit mantissa) would not meet.  BQ = BK = 64, 256
+// threads; thread (ty, tx) of a 16x16 grid owns q rows 4*ty..4*ty+3,
+// score columns tx+16j (j < 4) and output columns tx+16j (j < hd/16).
+// Shared memory holds q (scaled), k (rows padded to hd+1 floats so the
+// 16 column-owners of a warp hit 16 banks), v and the probability tile,
+// all fp32: 66,304 B at hd=64 and 115,456 B at hd=128.  Its products
+// are fp32 FMAs out of shared memory, bound by FMA issue and
+// shared-memory bandwidth.
 
 #include "common.cuh"
 
@@ -186,50 +232,276 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
-                       float* lse, int B, int H, int KH, int Sq, int Sk,
-                       int hd, int q_offset, int causal, int window,
-                       float scale, cudaStream_t stream) {
-  constexpr size_t smem = fwd_smem_bytes<HD>();
-  auto kern = flash_fwd_kernel<T, HD>;
+// ------------------------------------------------ bf16: tensor cores
+
+constexpr int TC_NT = 128, TC_BQ = 64, TC_BK = 64;
+
+template <int HD>
+constexpr size_t tc_fwd_smem_bytes() {
+  return (size_t)(TC_BQ + 4 * TC_BK) * (HD + 8) * sizeof(bf16);
+}
+
+// one block per (b*H + h, q tile); q tiles in reverse, heaviest first
+template <int HD>
+__global__ void __launch_bounds__(TC_NT, 2)
+flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ o,
+                    float* __restrict__ lse, int H, int G, int Sq, int Sk,
+                    int hd, int q_offset, int causal, int window,
+                    float scale) {
+  constexpr int LD = HD + 8, KS = HD / 16, NK = TC_BK / 8, ND = HD / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // TC_BQ x LD
+  bf16* sK = sQ + TC_BQ * LD;                      // 2 stages of TC_BK x LD
+  bf16* sV = sK + 2 * TC_BK * LD;                  // 2 stages of TC_BK x LD
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3, w0 = warp * 16;
+  const int bh = blockIdx.x;                          // b * H + h
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_BQ;
+  const int bkv = (bh / H) * (H / G) + (bh % H) / G;  // b * KH + h / G
+  const bf16* kp = k + (size_t)bkv * Sk * hd;
+  const bf16* vp = v + (size_t)bkv * Sk * hd;
+  const int q_rows = min(TC_BQ, Sq - q0);
+  const int row0 = q_offset + q0;   // global position of tile row 0
+  int kv_begin = 0, kv_end = Sk;
+  if (causal) kv_end = min(Sk, row0 + TC_BQ);
+  if (window > 0) kv_begin = max(0, row0 - window + 1);
+  const int kt0 = (kv_begin / TC_BK) * TC_BK;
+  const int n_it = kv_end > kt0 ? (kv_end - kt0 + TC_BK - 1) / TC_BK : 0;
+
+  cp_tile<HD, TC_BQ, LD, TC_NT>(sQ, q + ((size_t)bh * Sq + q0) * hd, q_rows,
+                                hd);
+  if (n_it > 0) {
+    cp_tile<HD, TC_BK, LD, TC_NT>(sK, kp + (size_t)kt0 * hd, Sk - kt0, hd);
+    cp_tile<HD, TC_BK, LD, TC_NT>(sV, vp + (size_t)kt0 * hd, Sk - kt0, hd);
+  }
+  cp_async_commit();
+
+  // this thread's rows of the warp's 16: w0 + g and w0 + g + 8
+  uint32_t qf[KS][4];
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it & 1, k0 = kt0 + it * TC_BK;
+    if (it + 1 < n_it) {   // prefetch the next kv tile into the other stage
+      const int nk0 = k0 + TC_BK;
+      cp_tile<HD, TC_BK, LD, TC_NT>(sK + (st ^ 1) * TC_BK * LD,
+                                    kp + (size_t)nk0 * hd, Sk - nk0, hd);
+      cp_tile<HD, TC_BK, LD, TC_NT>(sV + (st ^ 1) * TC_BK * LD,
+                                    vp + (size_t)nk0 * hd, Sk - nk0, hd);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (it == 0) {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+        ldsm_x4(qf[ks], a_addr(sQ, LD, w0, ks * 16, lane));
+    }
+    const bf16* Ks = sK + st * TC_BK * LD;
+    const bf16* Vs = sV + st * TC_BK * LD;
+
+    // S = Q K^T, fp32 sums
+    float s[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+      for (int np = 0; np < NK / 2; ++np) {
+        uint32_t b[4];
+        ldsm_x4(b, b_addr(Ks, LD, np * 16, ks * 16, lane));
+        mma_bf16(s[2 * np], qf[ks], b[0], b[1]);
+        mma_bf16(s[2 * np + 1], qf[ks], b[2], b[3]);
+      }
+    }
+    // scale in fp32; mask only where the causal edge, the window edge or
+    // Sk cuts the tile
+    const bool full = k0 + TC_BK <= Sk &&
+                      (!causal || k0 + TC_BK - 1 <= row0) &&
+                      (window <= 0 || row0 + TC_BQ - 1 - k0 < window);
+    if (full) {
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] *= scale;
+    } else {
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = row0 + w0 + g + 8 * (e >> 1);
+          const int col = k0 + n * 8 + 2 * t + (e & 1);
+          s[n][e] = is_live(row, col, Sk, causal, window) ? s[n][e] * scale
+                                                          : NEG_INF;
+        }
+    }
+
+    // online softmax on the fragments: a row lives in the 4 lanes of a quad
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+    }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      alpha[i] = __expf(m[i] - mx[i]);
+      m[i] = mx[i];
+    }
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = __expf(s[n][e] - m[e >> 1]);
+        rs[e >> 1] += s[n][e];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+
+    // O += P V: P from registers as a bf16 hi + lo pair, V^T by
+    // ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < TC_BK / 16; ++kk) {
+      uint32_t hi[4], lo[4];
+      split_frag(s[2 * kk], s[2 * kk + 1], hi, lo);
+#pragma unroll
+      for (int np = 0; np < ND / 2; ++np) {
+        uint32_t b[4];
+        ldsm_x4_t(b, bt_addr(Vs, LD, kk * 16, np * 16, lane));
+        mma_pair(acc[2 * np], acc[2 * np + 1], hi, lo, b);
+      }
+    }
+    __syncthreads();   // this stage is read; the next prefetch may land
+  }
+
+  // each lane holds a quarter of its rows' sums
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = w0 + g + 8 * i;
+    if (r >= q_rows) continue;
+    const float den = fmaxf(l[i], 1e-37f);
+    if (lse != nullptr && t == 0)
+      lse[(size_t)bh * Sq + q0 + r] = m[i] + logf(den);
+    bf16* out = o + ((size_t)bh * Sq + q0 + r) * hd;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      const int c = n * 8 + 2 * t;
+      if (c < hd)
+        *reinterpret_cast<__nv_bfloat162*>(out + c) = __floats2bfloat162_rn(
+            acc[n][2 * i] / den, acc[n][2 * i + 1] / den);
+    }
+  }
+}
+
+struct FwdArgs {
+  const void *q, *k, *v;
+  void* o;
+  float* lse;
+  int B, H, KH, Sq, Sk, hd, q_offset, causal, window;
+  float scale;
+  int* occupancy;   // non-null: report blocks per SM instead of launching
+};
+
+// Set the kernel's shared-memory limit, then either report its blocks
+// per SM (a.occupancy) or launch it.
+template <typename T, typename Kern>
+cudaError_t run(Kern kern, const FwdArgs& a, dim3 grid, int threads,
+                size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  kern<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, H, H / KH, Sq, Sk,
-      hd, q_offset, causal, window, scale);
+  if (a.occupancy != nullptr)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(a.occupancy, kern,
+                                                         threads, smem);
+  kern<<<grid, threads, smem, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.H,
+      a.H / a.KH, a.Sq, a.Sk, a.hd, a.q_offset, a.causal, a.window, a.scale);
   return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_f32(const FwdArgs& a, cudaStream_t st) {
+  return run<float>(flash_fwd_kernel<float, HD>, a,
+                    dim3((a.Sq + BQ - 1) / BQ, a.B * a.H), NT,
+                    fwd_smem_bytes<HD>(), st);
+}
+
+template <int HD>
+cudaError_t launch_tc(const FwdArgs& a, cudaStream_t st) {
+  return run<bf16>(flash_fwd_tc_kernel<HD>, a,
+                   dim3(a.B * a.H, (a.Sq + TC_BQ - 1) / TC_BQ), TC_NT,
+                   tc_fwd_smem_bytes<HD>(), st);
+}
+
+cudaError_t dispatch(const FwdArgs& a, int dtype, cudaStream_t st) {
+  if (a.hd % 8 || a.hd < 8 || a.hd > 128) return cudaErrorInvalidValue;
+  if (a.occupancy == nullptr) {
+    if (a.B <= 0 || a.H <= 0 || a.Sq <= 0) return cudaSuccess;
+    if (a.KH <= 0 || a.H % a.KH) return cudaErrorInvalidValue;
+    // grid limits: fp32 (q tiles, B*H), bf16 (B*H, q tiles)
+    const int nq = (a.Sq + BQ - 1) / BQ;
+    if ((dtype == 0 && a.B * a.H > 65535) || (dtype == 1 && nq > 65535))
+      return cudaErrorInvalidValue;
+  }
+  if (dtype == 0)
+    return a.hd <= 64 ? launch_f32<64>(a, st) : launch_f32<128>(a, st);
+  if (dtype == 1)
+    return a.hd <= 64 ? launch_tc<64>(a, st) : launch_tc<128>(a, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 }  // namespace repro
 
-// dtype: 0 = float32, 1 = bfloat16.  q (B,H,Sq,hd), k/v (B,KH,Sk,hd),
-// out (B,H,Sq,hd), all contiguous, hd a multiple of 8 up to 128; lse
-// (B,H,Sq) fp32, or null for the forward without it; scale 1/sqrt(hd).
-// Returns the launch's cudaError_t.
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  q
+// (B,H,Sq,hd), k/v (B,KH,Sk,hd), out (B,H,Sq,hd), all contiguous, hd a
+// multiple of 8 up to 128; lse (B,H,Sq) fp32, or null for the forward
+// without it; scale 1/sqrt(hd).  Returns the launch's cudaError_t.
 extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
                                void* o, void* lse, int B, int H, int KH,
                                int Sq, int Sk, int hd, int q_offset,
                                int causal, int window, int dtype,
                                float scale, void* stream) {
-  using namespace repro;
-  if (B <= 0 || H <= 0 || Sq <= 0) return cudaSuccess;
-  if (KH <= 0 || H % KH || B * H > 65535 || hd % 8 || hd < 8 || hd > 128)
-    return cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define REPRO_FWD(T, HD) \
-  launch_fwd<T, HD>(q, k, v, o, static_cast<float*>(lse), B, H, KH, Sq, Sk, \
-                    hd, q_offset, causal, window, scale, st)
-  if (dtype == 0 && hd <= 64) return REPRO_FWD(float, 64);
-  if (dtype == 0) return REPRO_FWD(float, 128);
-  if (dtype == 1 && hd <= 64) return REPRO_FWD(__nv_bfloat16, 64);
-  if (dtype == 1) return REPRO_FWD(__nv_bfloat16, 128);
-#undef REPRO_FWD
-  return cudaErrorInvalidValue;
+  const repro::FwdArgs a{q,  k,  v,  o,  static_cast<float*>(lse),
+                         B,  H,  KH, Sq, Sk, hd, q_offset, causal, window,
+                         scale, nullptr};
+  return repro::dispatch(a, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// *blocks = the blocks of K1 that one SM holds at once for this head
+// width and dtype, as the CUDA runtime's occupancy calculator gives it for
+// the compiled kernel.
+extern "C" int repro_flash_fwd_occupancy(int hd, int dtype, int* blocks) {
+  const repro::FwdArgs a{nullptr, nullptr, nullptr, nullptr, nullptr,
+                         1, 1, 1, 1, 1, hd, 0, 0, 0, 1.f, blocks};
+  return repro::dispatch(a, dtype, nullptr);
 }
 
 extern "C" const char* repro_error_string(int err) {

@@ -107,14 +107,6 @@
 namespace repro {
 namespace {
 
-// The reference's _tile_mask for one (query row, key column), both global
-// positions; col < Sk masks the ragged kv edge.
-__device__ __forceinline__ bool is_live(int row, int col, int Sk, int causal,
-                                        int window) {
-  return col < Sk && (!causal || col <= row) &&
-         (window <= 0 || row - col < window);
-}
-
 // ---------------------------------------------------- fp32: CUDA cores
 
 constexpr int BQ = 64, BK = 64, NT = 256;
@@ -445,53 +437,6 @@ struct TcTiles {
     return (size_t)(2 * DQ_BQ * LD + 4 * DQ_BK * LD) * 2;
   }
 };
-
-// The A operand of one k16 step from the accumulators of two n8 tiles,
-// as a hi + lo pair of bf16 fragments.
-__device__ __forceinline__ void split_frag(const float (&c0)[4],
-                                           const float (&c1)[4],
-                                           uint32_t (&hi)[4],
-                                           uint32_t (&lo)[4]) {
-  split_bf16(c0[0], c0[1], hi[0], lo[0]);
-  split_bf16(c0[2], c0[3], hi[1], lo[1]);
-  split_bf16(c1[0], c1[1], hi[2], lo[2]);
-  split_bf16(c1[2], c1[3], hi[3], lo[3]);
-}
-
-// c += (hi + lo) . b for the two n8 tiles whose B fragments b holds
-__device__ __forceinline__ void mma_pair(float (&c0)[4], float (&c1)[4],
-                                         const uint32_t (&hi)[4],
-                                         const uint32_t (&lo)[4],
-                                         const uint32_t (&b)[4]) {
-  mma_bf16(c0, hi, b[0], b[1]);
-  mma_bf16(c0, lo, b[0], b[1]);
-  mma_bf16(c1, hi, b[2], b[3]);
-  mma_bf16(c1, lo, b[2], b[3]);
-}
-
-// ldmatrix addresses, for one 16 x 16 step at (r0, c0) of a tile with row
-// stride ld: A from a row-major [m][k] tile, B from an [n][k] tile (two
-// n8 tiles), and their transposed forms from [k][m] and [k][n] tiles.
-__device__ __forceinline__ const bf16* a_addr(const bf16* s, int ld, int r0,
-                                              int c0, int lane) {
-  return s + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + c0 +
-         (lane >> 4) * 8;
-}
-__device__ __forceinline__ const bf16* b_addr(const bf16* s, int ld, int r0,
-                                              int c0, int lane) {
-  return s + (r0 + (lane & 7) + (lane >> 4) * 8) * ld + c0 +
-         ((lane >> 3) & 1) * 8;
-}
-__device__ __forceinline__ const bf16* at_addr(const bf16* s, int ld, int k0,
-                                               int m0, int lane) {
-  return s + (k0 + (lane & 7) + (lane >> 4) * 8) * ld + m0 +
-         ((lane >> 3) & 1) * 8;
-}
-__device__ __forceinline__ const bf16* bt_addr(const bf16* s, int ld, int k0,
-                                               int n0, int lane) {
-  return s + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 +
-         (lane >> 4) * 8;
-}
 
 // K2 dq on tensor cores: one block per (DQ_BQ-row q tile, b*H + h)
 template <int HD>

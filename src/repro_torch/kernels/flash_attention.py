@@ -4,7 +4,8 @@ Hopper, forward and backward.
 Replaces the Pallas TPU kernels of ``repro/kernels/flash_attention.py``:
 
 * K1 ``_fwd_kernel`` (``csrc/flash_attention.cu``): the forward, with the
-  per-row logsumexp as an optional output (``with_lse``);
+  per-row logsumexp as an optional output (``with_lse``); bf16 on the
+  tensor cores (``mma.sync``), fp32 on the CUDA cores;
 * K2 ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``
   (``csrc/flash_attention_bwd.cu``): the split backward, dq per q tile
   and dk/dv per kv tile with the GQA group sum inside one block — no
@@ -37,8 +38,9 @@ fp32 and runs K4b, or K3, or K2 when
 deterministic, so it stays in deterministic mode.  Without autograd
 (serving, ``torch.no_grad``) K4f or K1 runs without the logsumexp.
 
-Conventions kept from the reference so results match: scale 1/√hd folded
-into q, masked scores −1e30, denominator floor 1e-37,
+Conventions kept from the reference so results match: scale 1/√hd in
+fp32 (folded into q where q is fp32 in the kernel, applied to the fp32
+scores where the tensor cores take bf16 q), masked scores −1e30, denominator floor 1e-37,
 ``lse = m + log(max(l, 1e-37))`` (one convention for K1 and K4f, so
 either forward feeds any backward), ``P = exp(s − lse)``,
 ``dS = P·(dP − delta)·scale``, ``q_offset`` the global position of q row
@@ -415,6 +417,17 @@ def mega_occupancy(bwd: bool, sk: int, hd: int,
         int(bwd), hd, _DTYPES[dtype], rows, smem, ctypes.byref(blocks))
     _build.check(err, "mega_occupancy")
     return rows, smem, blocks.value
+
+
+def fwd_occupancy(hd: int, dtype: torch.dtype) -> int:
+    """Blocks per SM of K1 at this head width and dtype (bf16: the
+    tensor-core kernel), from the CUDA runtime's occupancy calculator for
+    the compiled kernel on the current device; builds the kernels."""
+    blocks = ctypes.c_int(0)
+    err = _build.load().repro_flash_fwd_occupancy(
+        autotune.kernel_head_dim(hd), _DTYPES[dtype], ctypes.byref(blocks))
+    _build.check(err, "fwd_occupancy")
+    return blocks.value
 
 
 def bwd_occupancy(which: str, hd: int, dtype: torch.dtype) -> int:

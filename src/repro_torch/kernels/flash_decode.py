@@ -2,12 +2,17 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_decode.py``
 ``_decode_kernel`` (launched by ``flash_decode``).  The CUDA source is
-``csrc/flash_decode.cu``.  ``cur_len`` (valid cache entries, the new
-token included) stays on the device, so a decode loop never waits on the
-host; the kernel skips cache blocks at or past ``cur_len`` and, with a
-window, blocks wholly before ``cur_len − window``, and masks the ragged
-edge by index.  It takes any head width that is a multiple of 8 up to
-128 (``autotune.kernel_head_dim``): compiled at 64 and 128, it zero-fills
+``csrc/flash_decode.cu``: a split-sequence decode (Flash-Decoding), in
+which ``autotune.decode_splits`` blocks per (batch, kv head) each run
+the online softmax over a share of the live span and write their
+partial (m, l, acc) in fp32, and a second kernel combines the partials
+in split order (:func:`combine_partials_plain` is its plain version).
+``cur_len`` (valid cache entries, the new token included) stays on the
+device, so a decode loop never waits on the host; the kernel skips cache
+rows at or past ``cur_len`` and, with a window, rows before
+``cur_len − window``, and masks the ragged edge by index.  It takes any
+head width that is a multiple of 8 up to 128
+(``autotune.kernel_head_dim``): compiled at 64 and 128, it zero-fills
 the columns past hd in shared memory, and the wrapper passes 1/√hd.
 """
 from __future__ import annotations
@@ -16,6 +21,7 @@ import numpy as np
 import torch
 
 from . import _build, autotune
+from .flash_attention import _sm_count
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -47,6 +53,29 @@ def flash_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
     return out.to(q.dtype)
 
 
+def combine_partials_plain(m: torch.Tensor, l: torch.Tensor,
+                           acc: torch.Tensor) -> torch.Tensor:
+    """The lse-combine of partial softmaxes, in plain PyTorch: K5's
+    second kernel.
+
+    m, l: (..., NS, G) fp32, each split's running max and denominator;
+    acc: (..., NS, G, hd) fp32, its unnormalised p·v → (..., G, hd) fp32:
+    ``m* = max mᵢ``, ``o = Σ accᵢ·e^{mᵢ−m*} / max(Σ lᵢ·e^{mᵢ−m*}, 1e-37)``,
+    summed in split order.  A split with no live key holds (−1e30, 0, 0):
+    its weight is exactly 0, so it changes no bit of the result.
+    """
+    m_all = m[..., 0, :]
+    for i in range(1, m.shape[-2]):
+        m_all = torch.maximum(m_all, m[..., i, :])
+    den = torch.zeros_like(m_all)
+    num = torch.zeros_like(acc[..., 0, :, :])
+    for i in range(m.shape[-2]):
+        w = torch.exp(m[..., i, :] - m_all)
+        den = den + l[..., i, :] * w
+        num = num + acc[..., i, :, :] * w[..., None]
+    return num / torch.clamp(den, min=1e-37)[..., None]
+
+
 def check_shapes(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor) -> None:
     """Raise ``ValueError`` unless the caches are (B, KH, S, hd) under q's
@@ -71,9 +100,11 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     """q: (B, KH, G, hd); caches (B, KH, S, hd); cur_len: int32 tensor
     with one element, on q's device → (B, KH, G, hd).
 
-    CUDA tensors launch K5 on the current stream; CPU tensors take
-    :func:`flash_decode_plain`.  ``flash_decode.launches`` counts kernel
-    launches.
+    CUDA tensors launch K5 on the current stream (its split kernel over
+    ``autotune.decode_splits`` blocks per (batch, kv head), planned for
+    the card's SM count, then the combine); CPU tensors take :func:`flash_decode_plain`.
+    ``flash_decode.launches`` counts the calls that launched K5 and
+    ``flash_decode.last_splits`` holds the split count of the last one.
     """
     if q.device.type == "cpu":
         return flash_decode_plain(q, k_cache, v_cache, cur_len, window=window)
@@ -93,16 +124,23 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                for t in (q, k_cache, v_cache)):
         raise ValueError("flash_decode: q and caches must be contiguous and "
                          "16-byte aligned")
+    splits = autotune.decode_splits(b, kh, s, int(window),
+                                    _sm_count(q.device.index))
     out = torch.empty_like(q)
-    lib = _build.load()
-    err = lib.repro_flash_decode(
+    # per split and query row: acc (hd), then m, then l, all fp32
+    part = torch.empty(b * kh * splits * g * (hd + 2), dtype=torch.float32,
+                       device=q.device)
+    err = _build.load().repro_flash_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        cur_len.data_ptr(), out.data_ptr(), b, kh, g, s, hd, int(window),
-        _DTYPES[q.dtype], 1.0 / np.sqrt(hd),
+        cur_len.data_ptr(), out.data_ptr(), part.data_ptr(), b, kh, g, s,
+        hd, int(window), splits, autotune.DECODE_TILE, _DTYPES[q.dtype],
+        1.0 / np.sqrt(hd),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_decode launch")
     flash_decode.launches += 1
+    flash_decode.last_splits = splits
     return out
 
 
 flash_decode.launches = 0
+flash_decode.last_splits = 0

@@ -1,5 +1,6 @@
 """Card-only checks: the CUDA kernels K1 (with and without its
-logsumexp), K2, K3 (on tensor cores in bf16), K4f, K4b, K5 — at head
+logsumexp; K1, K2 and K3 on tensor cores in bf16), K4f, K4b, K5 (split
+across blocks, then combined) — at head
 widths 32, 64, 120 and 128 — the partition copies K6, K7, K8 and the
 SSD scan K9 against their plain PyTorch versions on the same inputs, a
 reduced train step (tiled and megakernel routes) and reduced SSM /
@@ -219,6 +220,104 @@ def test_kernels_at_narrow_head_widths_match_plain(cuda, b, h, kh, s, hd,
     want_dec = fd.flash_decode_plain(qd, k, v, cur, window=window)
     assert (dec.float() - want_dec.float()).abs().max().item() <= TOL[dtype]
     assert [a - b_ for a, b_ in zip(counts(), before)] == [1, 1, 1, 1, 1, 1]
+
+
+@pytest.mark.parametrize("hd", [32, 64, 120, 128])
+@pytest.mark.parametrize("sq,sk,q_offset,window", [
+    (200, 200, 0, 0),        # causal from row 0, ragged against BQ 64
+    (333, 461, 128, 0),      # ragged Sq and Sk, q stripe at offset 128
+    (333, 461, 128, 100),    # and a window
+    (1, 300, 299, 0),        # one query row, at the last position
+    (1, 300, 299, 64),
+])
+def test_tensor_core_forward_matches_plain(cuda, hd, sq, sk, q_offset,
+                                           window):
+    """The bf16 K1 (tensor cores) at both compiled widths and at 32 and
+    120, against its plain version: the output with and without lse (the
+    same bits), lse, the same bits twice, and K1-lse's lse through K2 and
+    K3 against the plain backward."""
+    b, h, kh = 2, 6, 2
+    bf = torch.bfloat16
+    q = _randn((b, h, sq, hd), bf, cuda, 30)
+    k = _randn((b, kh, sk, hd), bf, cuda, 31)
+    v = _randn((b, kh, sk, hd), bf, cuda, 32)
+    do = _randn((b, h, sq, hd), bf, cuda, 33)
+    kw = dict(causal=True, window=window)
+    before = fa.flash_attention.launches
+    with torch.no_grad():
+        served = fa.flash_attention(q, k, v, q_offset, **kw)
+    assert fa.flash_attention.launches == before + 1
+    out, lse = fa.flash_attention_fwd(q, k, v, q_offset, **kw)
+    again = fa.flash_attention_fwd(q, k, v, q_offset, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(served, out)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+    want_out, want_lse = fa.flash_attention_plain(q, k, v, q_offset,
+                                                  with_lse=True, **kw)
+    assert (out.float() - want_out.float()).abs().max().item() <= TOL[bf]
+    _close(lse, want_lse, (1e-5, 1e-4))
+    delta = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, q_offset)
+    dq2 = fa.flash_attention_bwd_dq(*args, **kw)
+    dk2, dv2 = fa.flash_attention_bwd_dkv(*args, **kw)
+    fused = fa.flash_attention_bwd_fused(*args, **kw)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, q_offset,
+                                        **kw)
+    for got2, got3, w in zip((dq2, dk2, dv2), fused, want):
+        _close(got2, w, BWD_TOL[bf])
+        _close(got3, w, BWD_TOL[bf])
+    assert fa.fwd_occupancy(hd, bf) >= 1
+    assert fa.fwd_occupancy(hd, torch.float32) >= 1
+
+
+@pytest.mark.parametrize("hd", [32, 64, 120, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_split_decode_matches_plain(cuda, hd, dtype):
+    """K5's split kernel and combine at every compiled width (and 32,
+    120): cur_len 1 (one live row, every other split empty), short spans
+    that leave splits empty, the end of S, past S, windows, a window
+    wider than S; against the plain version, and the same bits twice."""
+    b, kh, g, s = 2, 2, 3, 2048
+    q = _randn((b, kh, g, hd), dtype, cuda, 40)
+    kc = _randn((b, kh, s, hd), dtype, cuda, 41)
+    vc = _randn((b, kh, s, hd), dtype, cuda, 42)
+    for cur, window in [(1, 0), (1, 64), (37, 0), (200, 0), (s, 0),
+                        (s, 512), (s + 1, 0), (s + 1, 300), (1000, 4096),
+                        (1500, 64)]:
+        cur_t = torch.full((1,), cur, dtype=torch.int32, device=cuda)
+        got = fd.flash_decode(q, kc, vc, cur_t, window=window)
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        splits = autotune.decode_splits(b, kh, s, window, sms)
+        assert fd.flash_decode.last_splits == splits
+        again = fd.flash_decode(q, kc, vc, cur_t, window=window)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), (cur, window)
+        want = fd.flash_decode_plain(q, kc, vc, cur_t, window=window)
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= TOL[dtype], (cur, window, splits, err)
+    assert autotune.decode_splits(b, kh, s, 0) == 16   # empty splits above
+
+
+def test_decode_refuses_another_tile(cuda):
+    """The host plans K5's splits with ``autotune.DECODE_TILE``; a launch
+    that names another tile than the kernel's own is refused, so the two
+    chunk rules cannot drift apart unseen."""
+    from repro_torch.kernels import _build
+    b, kh, g, s, hd = 1, 1, 1, 256, 64
+    q = _randn((b, kh, g, hd), torch.bfloat16, cuda, 43)
+    kc = _randn((b, kh, s, hd), torch.bfloat16, cuda, 44)
+    cur = torch.full((1,), s, dtype=torch.int32, device=cuda)
+    out = torch.empty_like(q)
+    part = torch.empty(b * kh * 2 * g * (hd + 2), dtype=torch.float32,
+                       device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for tile, ok in ((autotune.DECODE_TILE, True),
+                     (2 * autotune.DECODE_TILE, False)):
+        err = _build.load().repro_flash_decode(
+            q.data_ptr(), kc.data_ptr(), kc.data_ptr(), cur.data_ptr(),
+            out.data_ptr(), part.data_ptr(), b, kh, g, s, hd, 0, 2, tile, 1,
+            1.0 / np.sqrt(hd), stream)
+        assert (err == 0) == ok, (tile, err)
 
 
 @pytest.mark.parametrize("hd", [64, 120, 128])

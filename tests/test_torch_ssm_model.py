@@ -216,7 +216,8 @@ def test_bf16_prefill_decode_gap_is_the_references(arch):
     different intermediates, so their last logits differ by more than
     summation order, and argmax can flip where the top two are close.
     The reference has that gap too, on the same weights: the port's RMS
-    gap stays within 2x the reference's.  SSM widths as served (P 64,
+    gap stays within 2x the reference's, and zamba2's, whose attention
+    decode rounds as the reference's, within 1.25x.  SSM widths as served (P 64,
     N as the config, chunk 128) at d_model 512, 4 layers.  Run with -s
     to print both gaps."""
     over = dict(dtype="bfloat16", param_dtype="bfloat16", num_layers=4,
@@ -250,3 +251,7 @@ def test_bf16_prefill_decode_gap_is_the_references(arch):
           f"agreement: reference {jgap[0]:.4f} {jgap[1]:.4f} {jgap[2]:.3f}; "
           f"port {tgap[0]:.4f} {tgap[1]:.4f} {tgap[2]:.3f}")
     assert 0 < jgap[0] and tgap[0] <= 2 * jgap[0]
+    if arch == "zamba2-1.2b":
+        # the shared attention's CPU decode rounds P to bf16 as the
+        # reference's does, so the hybrid's gap is the reference's size
+        assert tgap[0] <= 1.25 * jgap[0]
