@@ -38,11 +38,17 @@ Phases, in order; any failure raises and the script exits nonzero:
    of 10 cold-L2 samples) beside the plain versions, the forward and the
    backward (``torch.autograd.grad``) of one
    ``scaled_dot_product_attention`` call, and their bounds;
-4a. K4f and K4b (the whole-sequence megakernels) against their plain
-   versions at the short-sequence training shape (B=64, H=15, KH=5,
-   S=256, hd 64, bf16) and at ragged / window / q_offset / G=1 / hd 128
-   / fp32 variants; K4b deterministic and against K2; K3 fed K4f's lse;
-   timed beside K1, K1-lse, K3, the plain versions, one
+4a. K4f and K4b (the whole-sequence megakernels; bf16 on tensor cores)
+   against their plain versions at the short-sequence training shape
+   (B=64, H=15, KH=5, S=256, hd 64, bf16) and at ragged / window /
+   q_offset / window + q_offset / G=1 / hd 128 / hd 120 / fp32
+   variants; K4b deterministic and against K2 (same bits in bf16); K3
+   fed K4f's lse; the HMMA instructions in the bf16 K4 kernels' SASS
+   (a kernel without any fails) and their blocks per SM and waves at 320
+   and 160 blocks; then timed (events and device-only) beside K1,
+   K1-lse, K3 and the K2 pair at B=64 and B=32 x 256 (``MEGA_TIMED``:
+   the entries of the planner's table ``autotune.MEGA_TIMINGS``, printed
+   as such), and at B=64 beside the plain versions, one
    ``scaled_dot_product_attention`` forward and forward+backward, and
    their bounds;
 5. the engine: ``repro_torch.launch.serve`` builds ServeEngine +
@@ -80,16 +86,19 @@ Phases, in order; any failure raises and the script exits nonzero:
    ``torch.profiler`` breakdown of one step;
 8a. short-sequence training: smollm-360m at full width with
    ``attn_flash_min_seq=128``, 8 steps of 64 x 256 tokens through the
-   port's Trainer on the default plan: exactly 64 K1-lse and 32 K3
-   launches a step and no K4 (the card's times have K4 slower there);
-   the cross entropy must fall; a profiled step; then 2 steps on the K4
-   route, forced by patching the planner's measured table in-process
-   (64 K4f-lse and 32 K4b a step), both step medians printed;
-8b. short-sequence serving: the same model in bf16, prefill 32 x 256
-   (32 K1 launches), 16 decode steps (K5), prefill(S) + decode against
-   prefill(S + 1) (fp32 argmax agreement >= 0.95, through K1; the bf16
-   logit gap printed), and the paged engine's plan (one request a
-   prefill: K1);
+   port's Trainer on the default plan, which must be what the planner's
+   measured table says there, with exactly that route's launches a step
+   (64 K4f-lse or K1-lse, 32 K4b or K3); the cross entropy must fall; a
+   profiled step; then, on the same trainer, blocks of 4 steps on the
+   other route (each pass flipped, forced by patching the planner's
+   measured table in-process) and on the default route in turn, twice,
+   each block's launches checked; both routes' step medians (each
+   block's first step left out) and a profiled step of each printed;
+8b. short-sequence serving: the same model in bf16, prefill 32 x 256 on
+   the table's plan (32 K4f or K1 launches), 16 decode steps (K5),
+   prefill(S) + decode against prefill(S + 1) (fp32 argmax agreement >=
+   0.95, through K1; the bf16 logit gap printed), and the paged engine's
+   plan (one request a prefill: K1);
 9. restart in deterministic mode (K2 backward): 8 uninterrupted steps
    against a run that checkpoints at step 4 and fail-stops at 6, resumed
    from the checkpoint — the final parameters must be equal bit for bit;
@@ -112,12 +121,12 @@ Phases, in order; any failure raises and the script exits nonzero:
 
 Phase 7 also runs a reduced fp32 smollm (head_dim 64,
 ``attn_flash_min_seq=32``, B 72 x S 96: B·KH = 144) on the forced K4
-route on the card against the CPU: prefill logits through K4f and one
-step's gradients through K4f and K4b; and the reduced smollm as it is
+route (the CUDA-core fp32 K4) on the card against the CPU: prefill
+logits through K4f and one step's gradients through K4f and K4b; and the reduced smollm as it is
 (head_dim 32) through K1, K5, K1-lse and K3.
 
 Counters on the kernel wrappers are zeroed just before each main-path
-phase (5, 6, 6a, 6b, 6c, 6d, 8, 8a and its K4 route, 8b, 9, 10 and each
+phase (5, 6, 6a, 6b, 6c, 6d, 8, 8a and its other route, 8b, 9, 10 and each
 path of 12) and read just after: every kernel of the path must have
 launched.  The kernel line's
 launches are those counts alone; the reduced model of phase 7 and the
@@ -796,7 +805,7 @@ def _mega_reference():
     toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (72, 97)))
     batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
     layers = cfg.num_layers
-    with _k4_wins(96, 64, 32, 72, cfg.num_kv_heads):
+    with _k4_route(96, 64, 32, 72, cfg.num_kv_heads):
         _zero_counts()
         with torch.no_grad():
             lg, _ = gpu.prefill(params_gpu,
@@ -1157,11 +1166,72 @@ def phase_k_train(flush):
     return rows
 
 
+def _mega_hmma():
+    """The tensor-core instructions in each K4 kernel's SASS (the bf16
+    ones must hold some; the fp32 strips hold none), printed."""
+    hmma = _sass_counts("mega_")
+    for name, n in hmma.items():
+        print(f"  SASS {name[-60:]}: {n} HMMA/HGMMA instructions")
+    tc = [n for name, n in hmma.items() if "tc_kernel" in name]
+    if len(tc) != 4 or min(tc) == 0:
+        raise AssertionError("the bf16 K4f / K4b kernels hold no HMMA")
+    return hmma
+
+
+# the shapes at which K4 is timed against the tiled kernels for the
+# planner's table (autotune.MEGA_TIMINGS): smollm-360m's short training
+# batch and its short-serve prefill, B x S with H=15, KH=5, hd 64, bf16
+MEGA_TIMED = {"train": (64, 256), "serve": (32, 256)}
+
+
+def _k4_inputs(b, s, seed):
+    h, kh, hd, dt = 15, 5, 64, torch.bfloat16
+    q, k, v, do = (_randn((b, h, s, hd), dt, seed),
+                   _randn((b, kh, s, hd), dt, seed + 1),
+                   _randn((b, kh, s, hd), dt, seed + 2),
+                   _randn((b, h, s, hd), dt, seed + 3))
+    out, lse = fa.flash_attention_mega_fwd(q, k, v, with_lse=True)
+    return q, k, v, do, out, lse, (do.float() * out.float()).sum(-1)
+
+
+def _k4_times(b, s, flush):
+    """K4f, K4f-lse and K4b against K1, K1-lse, K3 and the K2 pair at
+    (B, S), one process, median and spread of cold-L2 samples: under the
+    events timer (every kernel row's) and after a device spin (the device
+    work alone)."""
+    q, k, v, do, out, lse, delta = _k4_inputs(b, s, 900 + b)
+    args = (q, k, v, do, lse, delta)
+    calls = {"k4f": (lambda: fa.flash_attention_mega_fwd(q, k, v), 20),
+             "k4f_lse": (lambda: fa.flash_attention_mega_fwd(
+                 q, k, v, with_lse=True), 20),
+             "k4b": (lambda: fa.flash_attention_mega_bwd(*args), 10),
+             "k1": (lambda: fa.flash_attention(q, k, v, block_q=64), 20),
+             "k1_lse": (lambda: fa.flash_attention_fwd(q, k, v), 20),
+             "k3": (lambda: fa.flash_attention_bwd_fused(*args), 10),
+             "k2": (lambda: (fa.flash_attention_bwd_dq(*args),
+                             fa.flash_attention_bwd_dkv(*args)), 10)}
+    st = {key: _time_stats(fn, reps, flush)
+          for key, (fn, reps) in calls.items()}
+    dev = {key: _time_stats(calls[key][0], calls[key][1], flush, spin=True)
+           for key in ("k4f", "k4f_lse", "k4b", "k1", "k1_lse", "k3")}
+    host = {key: _host_us(calls[key][0])
+            for key in ("k4f_lse", "k4b", "k1_lse", "k3")}
+    print(f"  B={b} S={s}: K4f {_fmt(st['k4f'])}, K4f-lse "
+          f"{_fmt(st['k4f_lse'])} against K1 {_fmt(st['k1'])}, K1-lse "
+          f"{_fmt(st['k1_lse'])}; K4b {_fmt(st['k4b'])} against K3 "
+          f"{_fmt(st['k3'])}, K2 pair {_fmt(st['k2'])}; device only: "
+          + ", ".join(f"{k} {_fmt(v)}" for k, v in dev.items())
+          + "; host us a wrapper call: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in host.items()))
+    return q, k, v, do, out, lse, args, st, dev, host
+
+
 def phase_k4(flush):
     """K4f (with and without lse) and K4b against their plain versions,
-    K4b's determinism and agreement with K2, K3 fed K4f's lse, then K4f,
-    K4f-lse and K4b timed at the short-sequence training shape beside
-    K1, K1-lse and K3 at the same shape."""
+    K4b's determinism and agreement with K2, K3 fed K4f's lse, the HMMA
+    count of the bf16 kernels and their blocks per SM, then K4f, K4f-lse
+    and K4b timed beside K1, K1-lse, K3 and the K2 pair at the two
+    MEGA_TIMED shapes: the numbers of the planner's table."""
     print("== K4f, K4b: whole-sequence kernels vs plain versions")
     bf, f32 = torch.bfloat16, torch.float32
     cases = [  # name, B, H, KH, Sq, Sk, hd, dtype, window, q_offset
@@ -1171,8 +1241,11 @@ def phase_k4(flush):
         ("window 64", 64, 15, 5, 256, 256, 64, bf, 64, 0),
         ("q_offset 128, Sq 256, Sk 384", 32, 15, 5, 256, 384, 64, bf, 0, 128),
         ("q_offset 64, Sq 192, Sk 256", 32, 15, 5, 192, 256, 64, bf, 0, 64),
+        ("window 96 + q_offset 128, Sk 384", 64, 15, 5, 256, 384, 64, bf, 96,
+         128),
         ("G = 1", 32, 5, 5, 256, 256, 64, bf, 0, 0),
-        ("hd 128 at S 128", 32, 15, 5, 128, 128, 128, bf, 0, 0),
+        ("hd 128 at S 256", 32, 15, 5, 256, 256, 128, bf, 0, 0),
+        ("hd 120 at S 256 (width 128)", 32, 32, 8, 256, 256, 120, bf, 0, 0),
         ("fp32 S 128", 32, 15, 5, 128, 128, 64, f32, 0, 0),
     ]
     worst = {k: [0.0, 0.0] for k in ("k4f", "k4f_lse", "k4b")}
@@ -1207,7 +1280,8 @@ def phase_k4(flush):
         torch.cuda.synchronize()
         want = fa.flash_attention_bwd_plain(q, k, v, out_l, lse, do, off,
                                             causal=True, window=win)
-        errs = [_check_rel(f"{name} K4b {n} ({rows}-row strips)", g, w, dt)
+        unit = f"{rows}-row strips" if dt == f32 else "64-row tiles"
+        errs = [_check_rel(f"{name} K4b {n} ({unit})", g, w, dt)
                 for n, g, w in zip(("dq", "dk", "dv"), got, want)]
         note("k4b", (max(e[0] for e in errs), max(e[1] for e in errs)))
         del got, want, out, out_l, want_o
@@ -1215,12 +1289,7 @@ def phase_k4(flush):
 
     # the training shape: determinism, K2, K3 fed K4f's lse
     b, h, kh, s, hd, dt = 64, 15, 5, 256, 64, bf
-    q, k, v, do = (_randn((b, h, s, hd), dt, 800),
-                   _randn((b, kh, s, hd), dt, 801),
-                   _randn((b, kh, s, hd), dt, 802),
-                   _randn((b, h, s, hd), dt, 803))
-    out, lse = fa.flash_attention_mega_fwd(q, k, v, with_lse=True)
-    delta = (do.float() * out.float()).sum(-1)
+    q, k, v, do, out, lse, delta = _k4_inputs(b, s, 800)
     args = (q, k, v, do, lse, delta)
     first, second = fa.flash_attention_mega_bwd(*args), \
         fa.flash_attention_mega_bwd(*args)
@@ -1230,11 +1299,14 @@ def phase_k4(flush):
         raise AssertionError("K4b is not deterministic")
     ref2 = (fa.flash_attention_bwd_dq(*args),
             *fa.flash_attention_bwd_dkv(*args))
+    same_as_k2 = {}
     for n, a, c in zip(("dq", "dk", "dv"), first, ref2):
         d = (a.float() - c.float()).abs()
         lim = 2.0 ** -7 * c.float().abs() + 1e-4 * c.float().abs().max()
-        print(f"  K4b vs K2 {n}: max_abs_diff {d.max().item():.3e} (limit "
-              f"2^-7|x| + 1e-4 max|x|: one bf16 rounding of two fp32 sums)")
+        same_as_k2[n] = torch.equal(a, c)
+        print(f"  K4b vs K2 {n}: same bits {same_as_k2[n]}, max_abs_diff "
+              f"{d.max().item():.3e} (limit 2^-7|x| + 1e-4 max|x|: one bf16 "
+              f"rounding of two fp32 sums)")
         if (d > lim).any():
             raise AssertionError(f"K4b {n} differs from K2's")
     qf, kf, vf, dof = (x.float() for x in (q[:32, :, :128], k[:32, :, :128],
@@ -1258,84 +1330,108 @@ def phase_k4(flush):
     for n, g, w in zip(("dq", "dk", "dv"), (dq3, dk3, dv3), want):
         _check_rel(f"mixed plan: K3 {n} from K4f's lse", g, w, dt)
     del first, second, ref2, dq3, dk3, dv3, want, qf, kf, vf, dof, of, lsef
+    del q, k, v, do, out, lse, delta, args
     torch.cuda.empty_cache()
 
-    # times at the training shape
-    pinned = dict(block_q=64)    # a pinned tile: the K1 route
-    ms = {"k4f": _time_ms(lambda: fa.flash_attention_mega_fwd(q, k, v), 20,
-                          flush),
-          "k4f_lse": _time_ms(lambda: fa.flash_attention_mega_fwd(
-              q, k, v, with_lse=True), 20, flush),
-          "k4b": _time_ms(lambda: fa.flash_attention_mega_bwd(*args), 10,
-                          flush),
-          "k1": _time_ms(lambda: fa.flash_attention(q, k, v, **pinned), 20,
-                         flush),
-          "k1_lse": _time_ms(lambda: fa.flash_attention_fwd(q, k, v), 20,
-                             flush),
-          "k3": _time_ms(lambda: fa.flash_attention_bwd_fused(*args), 10,
-                         flush),
-          "k2": _time_ms(lambda: (fa.flash_attention_bwd_dq(*args),
-                                  fa.flash_attention_bwd_dkv(*args)), 10,
-                         flush)}
+    # the tensor cores, and the blocks an SM at the timed shapes
+    hmma = _mega_hmma()
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    occ = {}
+    for key, bwd in (("k4f", False), ("k4b", True)):
+        rows, smem, per_sm = fa.mega_occupancy(bwd, 256, hd, dt)
+        occ[key] = {"rows": rows, "smem_bytes": smem, "blocks_per_sm": per_sm,
+                    "waves": {bs: bs * kh / (sm * per_sm)
+                              for bs, _s in MEGA_TIMED.values()}}
+        print(f"  {key}: {rows}-row tiles, {smem} B shared, {per_sm} blocks "
+              f"an SM (occupancy calculator): " + ", ".join(
+                  f"{bs * kh} blocks = {w:.2f} waves on {sm} SMs"
+                  for bs, w in occ[key]["waves"].items()))
+
+    # times at the two shapes; the first gives the kernel rows
+    timed = {}
+    for label in ("serve", "train"):   # the last one's tensors stay
+        tb, ts = MEGA_TIMED[label]
+        q, k, v, do, out, lse, args, st, dev, host = _k4_times(tb, ts, flush)
+        timed[label] = {"shape": [tb, 15, 5, ts, 64], "events": st,
+                        "device": dev, "host_us": host}
+        print(f"  table entry: MegaTiming({ts}, 64, 16, {tb}, 5, k4f_ms="
+              f"{st['k4f_lse']['median']:.4f}, k1_ms="
+              f"{st['k1_lse']['median']:.4f}, k4b_ms="
+              f"{st['k4b']['median']:.4f}, k3_ms={st['k3']['median']:.4f})")
+        if label != "train":
+            del q, k, v, do, out, lse, args
+            torch.cuda.empty_cache()
+    ms = {key: timed["train"]["events"][key]["median"]
+          for key in timed["train"]["events"]}
     plain_fwd = _time_ms(lambda: fa.flash_attention_plain(q, k, v), 3, flush)
     plain_fwd_lse = _time_ms(lambda: fa.flash_attention_plain(
         q, k, v, with_lse=True), 3, flush)
     plain_bwd = _time_ms(lambda: fa.flash_attention_bwd_plain(
         q, k, v, out, lse, do), 3, flush)
-    lib_fwd = _time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), 20, flush)
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, is_causal=True, enable_gqa=True)
+    lib_fwd = _time_ms(sdpa, 20, flush)
+    lib_fwd_dev = _time_stats(sdpa, 20, flush, spin=True)["median"]
     ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
     lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
                                         enable_gqa=True)
-    lib_bwd = _time_ms(lambda: torch.autograd.grad(
-        lo, (ql, kl, vl), do, retain_graph=True), 20, flush)
+    sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        lo, (ql, kl, vl), do, retain_graph=True)
+    lib_bwd = _time_ms(sdpa_bwd, 20, flush)
+    lib_bwd_dev = _time_stats(sdpa_bwd, 20, flush, spin=True)["median"]
     lib_fwd_bwd = _time_ms(lambda: torch.autograd.grad(
         F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
                                        enable_gqa=True), (ql, kl, vl), do),
         20, flush)
     del ql, kl, vl, lo
+    b, s = MEGA_TIMED["train"]
     live = b * h * _live_pairs(s, s, 0, True, 0)
     el = q.element_size()
     qb, kb, rowb = q.numel() * el, k.numel() * el, b * h * s * 4
     work = {"k4f": (4 * hd * live, 2 * qb + 2 * kb),
             "k4f_lse": (4 * hd * live, 2 * qb + 2 * kb + rowb),
             "k4b": (10 * hd * live, 3 * qb + 4 * kb + 2 * rowb)}
-    sm = torch.cuda.get_device_properties(0).multi_processor_count
     plan = autotune.plan_attention(s, hd, hd, kh, b, 16, sm_count=sm)
     out_rows = {}
     names = {"k4f": "K4f", "k4f_lse": "K4f with lse", "k4b": "K4b"}
     for key, (flops, nbytes) in work.items():
         bound_ms, bound_by = _bound(flops, nbytes, dt)
-        # blocks per SM from the CUDA runtime's occupancy calculator
-        rows, smem, per_sm = fa.mega_occupancy(key == "k4b", s, hd, dt)
-        waves = b * kh / (sm * per_sm)
+        o = occ["k4b" if key == "k4b" else "k4f"]
         plain = {"k4f": plain_fwd, "k4f_lse": plain_fwd_lse,
                  "k4b": plain_bwd}[key]
         lib = lib_bwd if key == "k4b" else lib_fwd
-        out_rows[key] = {"ms": ms[key], "plain_ms": plain, "library_ms": lib,
-                         "bound_ms": bound_ms, "bound_by": bound_by,
+        dev = timed["train"]["device"].get(key, {}).get("median")
+        out_rows[key] = {"ms": ms[key], "device_ms": dev, "plain_ms": plain,
+                         "library_ms": lib, "bound_ms": bound_ms,
+                         "bound_by": bound_by,
                          "max_abs_err": worst[key][0],
                          "mean_abs_err": worst[key][1],
                          "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
-                         "strip_rows": rows, "smem_bytes": smem,
-                         "blocks": b * kh, "blocks_per_sm": per_sm,
-                         "waves": waves,
+                         "tile_rows": o["rows"], "smem_bytes": o["smem_bytes"],
+                         "blocks": b * kh, "blocks_per_sm": o["blocks_per_sm"],
+                         "waves": o["waves"][b],
                          "tiled_ms": ms[{"k4f": "k1", "k4f_lse": "k1_lse",
                                          "k4b": "k3"}[key]]}
-        print(f"  {names[key]}: kernel {ms[key]:.4f} ms, plain {plain:.4f} "
-              f"ms, sdpa {lib:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-              f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
-              f"{rows}-row strips, {smem} B shared, {b * kh} blocks at "
-              f"{per_sm} an SM (occupancy calculator) = {waves:.2f} waves")
-    print(f"  same shape, tiled kernels: K1 {ms['k1']:.4f} ms, K1-lse "
-          f"{ms['k1_lse']:.4f} ms, K3 {ms['k3']:.4f} ms, K2 pair "
-          f"{ms['k2']:.4f} ms; sdpa forward {lib_fwd:.4f} ms, backward "
-          f"{lib_bwd:.4f} ms, forward+backward {lib_fwd_bwd:.4f} ms")
-    out_rows["tiled_ms"] = {k: ms[k] for k in ("k1", "k1_lse", "k3", "k2")}
+        print(f"  {names[key]}: kernel {ms[key]:.4f} ms"
+              + (f" (device {dev:.4f})" if dev is not None else "")
+              + f", plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB), {flops / ms[key] / 1e9:.0f} TFLOP/s "
+              f"of the reference count")
+    print(f"  sdpa at B={b} S={s}: forward {lib_fwd:.4f} ms (device "
+          f"{lib_fwd_dev:.4f}), backward {lib_bwd:.4f} ms (device "
+          f"{lib_bwd_dev:.4f}), forward+backward {lib_fwd_bwd:.4f} ms; "
+          f"the planner's table gives {plan.describe()}")
+    out_rows["tiled_ms"] = {k_: ms[k_] for k_ in ("k1", "k1_lse", "k3", "k2")}
     out_rows["library_ms"] = {"sdpa_fwd": lib_fwd, "sdpa_bwd": lib_bwd,
-                              "sdpa_fwd_bwd": lib_fwd_bwd}
+                              "sdpa_fwd_bwd": lib_fwd_bwd,
+                              "sdpa_fwd_device": lib_fwd_dev,
+                              "sdpa_bwd_device": lib_bwd_dev}
+    out_rows["timed"] = timed
+    out_rows["hmma"] = hmma
+    out_rows["k4b_same_bits_as_k2"] = same_as_k2
     out_rows["plan"] = plan.describe()
-    del q, k, v, do, out, lse, delta, args
+    del q, k, v, do, out, lse, args
     torch.cuda.empty_cache()
     return out_rows
 
@@ -1347,19 +1443,34 @@ SHORT_MIN_SEQ = {"attn_flash_min_seq": 128}     # 256 > 128: flash
 
 
 @contextlib.contextmanager
-def _k4_wins(sk, hd, dtype_bits, batch, kh):
-    """The planner as if the card's times said K4f and K4b beat the tiled
-    kernels at this shape: the forced K4 route, made by patching the
-    planner's measured table in this process (no config field or
-    environment variable of the package changes)."""
+def _k4_route(sk, hd, dtype_bits, batch, kh, fwd=True, bwd=True):
+    """The planner as if the card's times said K4f (``fwd``) and K4b
+    (``bwd``) beat the tiled kernels at this shape, and the others lose:
+    a route forced by putting such an entry first in the planner's
+    measured table in this process (no config field or environment
+    variable of the package changes)."""
     saved = autotune.MEGA_TIMINGS
     autotune.MEGA_TIMINGS = (autotune.MegaTiming(
-        sk, hd, dtype_bits, batch, kh, k4f_ms=0.0, k1_ms=1.0, k4b_ms=0.0,
-        k3_ms=1.0, card="forced by chip_smoke.py"),) + saved
+        sk, hd, dtype_bits, batch, kh, k4f_ms=0.0 if fwd else 2.0, k1_ms=1.0,
+        k4b_ms=0.0 if bwd else 2.0, k3_ms=1.0,
+        card="forced by chip_smoke.py"),) + saved
     try:
         yield
     finally:
         autotune.MEGA_TIMINGS = saved
+
+
+def _route_counts(plan, layers, steps, counts):
+    """The launches a short train run takes on ``plan``: the forward
+    twice a layer (remat="layer"), the backward once, every step."""
+    fwd, bwd = 2 * layers * steps, layers * steps
+    want = {k: 0 for k in counts}
+    if plan.mega_fwd:
+        want.update(k4f=fwd, k4f_lse=fwd)
+    else:
+        want["k1_lse"] = fwd
+    want["k4b" if plan.mega_bwd else "k3"] = bwd
+    return want
 
 
 def _short_run(cfg, steps):
@@ -1384,30 +1495,39 @@ def _short_run(cfg, steps):
 def phase_short_train():
     """smollm-360m at full width on 64 x 256-token sequences (16,384
     tokens a step, as the 4 x 4096 phase), 8 steps through the Trainer on
-    the default plan: exactly 64 K1-lse and 32 K3 launches a step and no
-    K4 (the card's times have K4 slower there); then 2 steps on the
-    forced K4 route (64 K4f-lse and 32 K4b a step), both step medians
-    printed."""
+    the default plan, which must be what the planner's measured table
+    (``autotune.MEGA_TIMINGS``) says at that shape, with exactly that
+    route's launches; then, on the same trainer, blocks of 4 steps on the
+    other route (each pass flipped between K4 and the tiled kernels) and
+    on the default route in turn, each block's launches checked, both
+    routes' step medians and a profiled step of each printed: host walls
+    of this step move by ~100 ms between runs, so the two routes are
+    compared in turn and by their device time."""
     print("== short train: smollm-360m full width, attn_flash_min_seq=128, "
           "64 x 256, 8 steps")
     cfg = dataclasses.replace(get_config("smollm-360m"), **SHORT_MIN_SEQ)
     sm = torch.cuda.get_device_properties(0).multi_processor_count
-    shape = (256, cfg.head_dim, 16, 64, cfg.num_kv_heads)
-    plan = autotune.plan_attention(256, cfg.head_dim, cfg.head_dim,
-                                   cfg.num_kv_heads, 64, 16, sm_count=sm)
-    print(f"  plan at B=64 S=256 bf16 on {sm} SMs: {plan.describe()}")
-    if plan.mega_fwd or plan.mega_bwd:
-        raise AssertionError("the default plan took K4 where it is slower")
+    hd, kh = cfg.head_dim, cfg.num_kv_heads
+    shape = (256, hd, 16, 64, kh)
+    plan = autotune.plan_attention(256, hd, hd, kh, 64, 16, sm_count=sm)
+    entry = [t for t in autotune.MEGA_TIMINGS
+             if (t.sk, t.hd, t.dtype_bits, t.batch, t.kh) == shape]
+    table = (bool(entry) and entry[0].k4f_ms < entry[0].k1_ms,
+             bool(entry) and entry[0].k4b_ms < entry[0].k3_ms)
+    print(f"  plan at B=64 S=256 bf16 on {sm} SMs: {plan.describe()}; the "
+          f"table: {entry[0] if entry else 'no entry'}")
+    if (plan.mega_fwd, plan.mega_bwd) != table:
+        raise AssertionError("the default plan is not what the card's "
+                             "measured table says")
     torch.cuda.reset_peak_memory_stats()
     tr, state, wall, counts, step_ms = _short_run(cfg, 8)
     layers, steps = cfg.num_layers, len(tr.history)
-    want = {**{k: 0 for k in counts}, "k1_lse": 2 * layers * steps,
-            "k3": layers * steps}
-    print(f"  launches {counts} over {steps} steps (want {want}: 64 K1-lse "
-          f"and 32 K3 a step, remat='layer' runs each forward twice)")
+    want = _route_counts(plan, layers, steps, counts)
+    print(f"  launches {counts} over {steps} steps (want {want}: "
+          f"remat='layer' runs each forward twice)")
     if counts != want:
-        raise AssertionError("the short train run did not launch K1-lse and "
-                             "K3 alone")
+        raise AssertionError("the short train run did not launch its plan's "
+                             "kernels alone")
     first, last = tr.history[0]["ce_loss"], tr.history[-1]["ce_loss"]
     if not (np.isfinite(last) and last < first):
         raise AssertionError(f"ce_loss {first} -> {last}: did not descend")
@@ -1425,37 +1545,70 @@ def phase_short_train():
             "ce_loss": [hst["ce_loss"] for hst in tr.history],
             "peak_memory_gb": peak_gb, "launches": counts,
             "plan": plan.describe(), "step_profile": prof}
-    del tr, state, step_fn, batch
-    torch.cuda.empty_cache()
 
-    print("  the forced K4 route, 2 steps from the same seed")
-    with _k4_wins(*shape):
-        forced = autotune.plan_attention(
-            256, cfg.head_dim, cfg.head_dim, cfg.num_kv_heads, 64, 16,
-            sm_count=sm, timings=autotune.MEGA_TIMINGS)
-        tr, state, wall, counts, k4_ms = _short_run(cfg, 2)
-    want = {**{k: 0 for k in counts}, "k4f": 2 * layers * 2,
-            "k4f_lse": 2 * layers * 2, "k4b": layers * 2}
-    print(f"  plan {forced.describe()}; launches {counts} (want {want}); "
-          f"step median {np.median(k4_ms):.1f} ms on K4 (second step "
-          f"{k4_ms[-1]:.1f}) against {info['step_ms_median']:.1f} ms on "
-          f"K1-lse + K3")
-    if counts != want:
-        raise AssertionError("the forced K4 route did not launch K4 alone")
+    # the other route and the default one in turn, blocks of 4 steps on
+    # the same trainer, so that both see the same host; each block's first
+    # step (the allocator meeting the route's buffers) is left out
+    flip = dict(fwd=not plan.mega_fwd, bwd=not plan.mega_bwd)
+    with _k4_route(*shape, **flip):
+        other = autotune.plan_attention(256, hd, hd, kh, 64, 16, sm_count=sm,
+                                        timings=autotune.MEGA_TIMINGS)
+    print(f"  the other route ({other.describe()}) and the default one in "
+          f"turn, 2 blocks of 4 steps each on the same trainer")
+    runs = {"other": (other, []), "default": (plan, [])}
+    totals = {key: {k: 0 for k in counts} for key in runs}
+
+    def route(key):
+        return (_k4_route(*shape, **flip) if key == "other"
+                else contextlib.nullcontext())
+
+    step = steps
+    for key in ("other", "default", "other", "default"):
+        plan_k, times = runs[key]
+        _zero_counts()
+        with route(key):
+            state = tr.run(state, 4, start_step=step)
+        torch.cuda.synchronize()
+        got = _counts()
+        want = _route_counts(plan_k, layers, 4, got)
+        if got != want:
+            raise AssertionError(f"{plan_k.describe()}: launches {got}, want "
+                                 f"{want}")
+        totals[key] = {k: totals[key][k] + got[k] for k in got}
+        times.extend(1e3 * h["step_time"] for h in tr.history[-3:])
+        step += 4
     if not all(np.isfinite(h["ce_loss"]) for h in tr.history):
-        raise AssertionError("the forced K4 route gave a non-finite loss")
-    info["k4_route"] = {"step_ms": k4_ms,
-                        "step_ms_median": float(np.median(k4_ms)),
-                        "launches": counts, "plan": forced.describe(),
-                        "ce_loss": [h["ce_loss"] for h in tr.history]}
+        raise AssertionError("a short train step gave a non-finite loss")
+    other_ms, default_ms = runs["other"][1], runs["default"][1]
+    with route("other"):
+        prof_other = _profile(lambda: step_fn(state, batch), 1)
+    _print_profile(f"short train step on the other route ({other.describe()}"
+                   "; idle share against its interleaved median)",
+                   prof_other, float(np.median(other_ms)))
+    print(f"  step medians, in turn: other route {np.median(other_ms):.1f} "
+          f"ms {[round(x, 1) for x in other_ms]}, default route "
+          f"{np.median(default_ms):.1f} ms "
+          f"{[round(x, 1) for x in default_ms]}; device busy a step "
+          f"{prof_other['device_busy_ms']} ms on the other route against "
+          f"{prof['device_busy_ms']} on the default; launches on the other "
+          f"route {totals['other']}")
+    info["other_route"] = {"step_ms": other_ms,
+                           "step_ms_median": float(np.median(other_ms)),
+                           "launches": totals["other"],
+                           "plan": other.describe(),
+                           "step_profile": prof_other}
+    info["default_interleaved"] = {
+        "step_ms": default_ms, "step_ms_median": float(np.median(default_ms)),
+        "launches": totals["default"]}
+    del step_fn, batch
     del tr, state
     torch.cuda.empty_cache()
     return info
 
 
 def phase_short_serve():
-    """The same model in bf16: prefill 32 x 256 (K1: no time measured on
-    the card says K4f wins at B·KH = 160), 16 decode steps (K5);
+    """The same model in bf16: prefill 32 x 256 (B·KH = 160) on the plan
+    the card's measured table gives (K4f or K1), 16 decode steps (K5);
     consistency in fp32 through K1; the paged engine's plan."""
     print("== short serve: smollm-360m full width, bf16, prefill 32 x 256")
     cfg = dataclasses.replace(get_config("smollm-360m"),
@@ -1472,9 +1625,13 @@ def phase_short_serve():
                                                      steps)
         counts = _counts()
     layers = cfg.num_layers
-    want = {**{k: 0 for k in counts}, "k1": layers, "k5": layers * steps}
-    print(f"  prefill {prefill_ms:.1f} ms (B=32 x 256), decode step "
-          f"{step_ms:.3f} ms (B=32); launches {counts}")
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = autotune.plan_attention(s, cfg.head_dim, cfg.head_dim,
+                                   cfg.num_kv_heads, b, 16, sm_count=sm)
+    want = {**{k: 0 for k in counts}, "k5": layers * steps,
+            ("k4f" if plan.mega_fwd else "k1"): layers}
+    print(f"  prefill {prefill_ms:.1f} ms (B=32 x 256, {plan.describe()}), "
+          f"decode step {step_ms:.3f} ms (B=32); launches {counts}")
     if counts != want:
         raise AssertionError(f"launches {counts}, want {want}")
     prof = _profile(lambda: model.prefill(params, {"tokens": tokens}), 2)
@@ -1497,7 +1654,6 @@ def phase_short_serve():
             and cons_counts["k1"] == 2 * layers):
         raise AssertionError("short serve: decode disagrees with prefill, "
                              "or the fp32 prefills did not run K1")
-    sm = torch.cuda.get_device_properties(0).multi_processor_count
     paged = autotune.plan_attention(s, cfg.head_dim, cfg.head_dim,
                                     cfg.num_kv_heads, 1, 16, sm_count=sm)
     print(f"  the paged engine prefills one request at a time: B·KH = "
@@ -1505,7 +1661,8 @@ def phase_short_serve():
     if paged.mega_fwd:
         raise AssertionError("a one-request prefill planned K4f")
     return {"prefill_ms": prefill_ms, "decode_step_ms": step_ms,
-            "launches": counts, "prefill_profile": prof,
+            "launches": counts, "plan": plan.describe(),
+            "prefill_profile": prof,
             "consistency": {"fp32": f32, "bf16": bf16},
             "consistency_launches": cons_counts,
             "paged_plan": paged.describe()}
@@ -2464,7 +2621,9 @@ def main() -> int:
                 "train": train["launches"], "restart": restart["launches"],
                 "serve_ckpt": served["launches"],
                 "short_train": short_train["launches"],
-                "short_train_k4": short_train["k4_route"]["launches"],
+                "short_train_other": short_train["other_route"]["launches"],
+                "short_train_interleaved":
+                    short_train["default_interleaved"]["launches"],
                 "short_serve": short_serve["launches"]}
 
     def launches(*keys):

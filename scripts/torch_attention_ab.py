@@ -1,6 +1,6 @@
-"""Time the attention kernels K1, K1-lse and K5 of whichever
-``repro_torch`` is first on ``sys.path``, so that two trees can be
-compared on one card in one run.
+"""Time the attention kernels K1, K1-lse, K5, K4f, K4f-lse and K4b of
+whichever ``repro_torch`` is first on ``sys.path``, so that two trees
+can be compared on one card in one run.
 
     PYTHONPATH=<tree>/src python scripts/torch_attention_ab.py LABEL OUT
         [--zamba2]
@@ -12,7 +12,12 @@ shape of ``chip_smoke.py`` (``K1_TIMED``, ``K1_LSE_TIMED``,
 events around the call (``events``, every kernel row's timer) and the
 same after a ~0.5 ms device spin (``device``, the device work alone).
 Per shape also the largest |difference| from the plain version, and per
-K5 shape the host µs a call of the wrapper takes (``host_us``).  With
+K5 shape the host µs a call of the wrapper takes (``host_us``).  At
+chip_smoke's short training shape (``MEGA_TIMED["train"]``, B=64 x 256)
+also K4f, K4f-lse and K4b beside K1-lse, K3 and one
+``scaled_dot_product_attention`` forward and backward (``mega_*``, 20
+calls, 10 for the backwards), with K4f's and K4b's largest |difference|
+from the plain versions.  With
 ``--zamba2``, also chip_smoke's bf16 prefill/decode consistency of
 zamba2-1.2b at full width (B=4, S=2100): the largest and RMS logit gap.
 The timer, the shapes and the consistency check are chip_smoke's own,
@@ -27,6 +32,7 @@ import sys
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 import repro_torch  # noqa: F401  (the tree under test, before chip_smoke)
 from repro_torch.kernels import _build
@@ -66,7 +72,7 @@ def main() -> int:
                    cs._randn((b, kh, s, hd), bf, 3))
         kernel = fa.flash_attention_fwd if lse else fa.flash_attention
         res[name] = _both(lambda: kernel(q, k, v, window=win), 20, flush)
-        got = fa.flash_attention(q, k, v, window=win)
+        got = fa.flash_attention(q, k, v, window=win, block_q=64)  # K1
         res[name]["max_abs_err"] = _err(
             got, fa.flash_attention_plain(q, k, v, window=win))
         del q, k, v, got
@@ -82,6 +88,34 @@ def main() -> int:
             **_both(kern, 50, flush), "host_us": cs._host_us(kern),
             "max_abs_err": _err(kern(), fd.flash_decode_plain(
                 q, kc, vc, cur_t, window=win))}
+    b, s = cs.MEGA_TIMED["train"]
+    q, k, v, do, o4, lse, delta = cs._k4_inputs(b, s, 7)
+    args = (q, k, v, do, lse, delta)
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                        enable_gqa=True)
+    calls = {
+        "k4f": (lambda: fa.flash_attention_mega_fwd(q, k, v), 20),
+        "k4f_lse": (lambda: fa.flash_attention_mega_fwd(
+            q, k, v, with_lse=True), 20),
+        "k4b": (lambda: fa.flash_attention_mega_bwd(*args), 10),
+        "k1_lse": (lambda: fa.flash_attention_fwd(q, k, v), 20),
+        "k3": (lambda: fa.flash_attention_bwd_fused(*args), 10),
+        "sdpa_fwd": (lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 20),
+        "sdpa_bwd": (lambda: torch.autograd.grad(
+            lo, (ql, kl, vl), do, retain_graph=True), 10)}
+    for name, (fn, reps) in calls.items():
+        res[f"mega_{name}"] = _both(fn, reps, flush)
+    res["mega_k4f"]["max_abs_err"] = _err(
+        fa.flash_attention_mega_fwd(q, k, v),
+        fa.flash_attention_plain(q, k, v))
+    res["mega_k4b"]["max_abs_err"] = max(
+        _err(g, w) for g, w in zip(fa.flash_attention_mega_bwd(*args),
+                                   fa.flash_attention_bwd_plain(
+                                       q, k, v, o4, lse, do)))
+    del q, k, v, do, o4, lse, delta, args, ql, kl, vl, lo
+    torch.cuda.empty_cache()
     if "--zamba2" in sys.argv[3:]:
         gap = cs._consistency("zamba2-1.2b", 4, 2100, "bfloat16", 32)
         res["zamba2_bf16"] = {k: gap[k] for k in (

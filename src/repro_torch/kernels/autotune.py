@@ -13,9 +13,9 @@
   takes a megakernel only where its cost model says it beats the tiled
   grid; its VMEM budgets and TPU step costs do not carry over.  Here the
   costs are times measured on the card (:data:`MEGA_TIMINGS`), and the
-  fits are the card's: the kv head's whole K and V (and, for K4b, its
-  fp32 dK and dV) must sit in one block's shared memory, and one block
-  per (batch, kv head) must fill the SMs;
+  fits are the card's: the kv head's whole K and V (and, for the fp32
+  K4b, its fp32 dK and dV) must sit in one block's shared memory, and
+  one block per (batch, kv head) must fill the SMs;
 * :func:`kernel_head_dim`, the compiled width at which the tiled kernels
   K1, K2, K3 and the decode kernel K5 run a head;
 * :func:`decode_splits`, how many blocks the split-sequence decode
@@ -36,10 +36,16 @@ LANES = 128
 SMEM_OPTIN_BYTES = 232_448     # H100 per-block opt-in shared memory
 MIN_CHUNK = 16                 # rows; the reference planner's MIN_BLOCK
 SM_COUNT = 132                 # H100 SXM streaming multiprocessors
-HEAD_DIMS = (64, 128)          # the head widths K4f / K4b take
-# query rows per strip of K4f / K4b, largest first: 8 warps of 4, 2 or 1
-# rows each (``csrc/flash_attention_mega.cu``'s RPT)
+HEAD_DIMS = (64, 128)          # the head widths the fp32 K4f / K4b take
+# query rows per strip of the fp32 K4f / K4b, largest first: 8 warps of
+# 4, 2 or 1 rows each (``csrc/flash_attention_mega.cu``'s RPT)
 MEGA_ROWS = (32, 16, 8)
+# the bf16 K4f / K4b (``csrc/flash_attention_mega.cu``'s TC_TILE, TC_NW,
+# SLICE): 64-row kv tiles, to which the resident K and V are rounded up;
+# four warps, each walking 16-row query slices of its own
+MEGA_TILE = 64
+MEGA_WARPS = 4
+MEGA_SLICE = 16
 
 
 @functools.lru_cache(maxsize=64)
@@ -123,22 +129,51 @@ def _align16(n: int) -> int:
     return (n + 15) // 16 * 16
 
 
+def mega_width(hd: int, itemsize: int) -> int:
+    """The compiled width at which K4f / K4b run a head of width ``hd``,
+    or 0 where they do not take it.  bf16 (``itemsize`` 2) takes every
+    width the tiled kernels take, at :func:`kernel_head_dim` (columns
+    past hd zero-filled in shared memory); fp32 (4) takes ``HEAD_DIMS``
+    as they are."""
+    if itemsize == 2:
+        return kernel_head_dim(hd) if hd % 8 == 0 and 8 <= hd <= 128 else 0
+    return hd if itemsize == 4 and hd in HEAD_DIMS else 0
+
+
 def mega_smem_bytes(bwd: bool, rows: int, sk: int, hd: int,
                     itemsize: int) -> int:
     """Dynamic shared memory of one K4f (``bwd=False``) or K4b block with
-    a ``rows``-row strip.  The launch allocates this sum as it is, and
-    each block of ``csrc/flash_attention_mega.cu`` traps if it is less
-    than the block's layout needs.
+    a ``rows``-row strip (fp32) or tile (bf16: ``MEGA_TILE``).  The launch
+    allocates this sum as it is, and each block of
+    ``csrc/flash_attention_mega.cu`` traps if it is less than the
+    block's layout needs.
 
-    Every array starts on a 16-byte boundary.  K and V keep the input
-    dtype, rows padded by one 32-bit word (hd + 2 bf16, hd + 1 fp32
-    values) so that lanes reading one column each hit distinct banks.
-    K4f adds the strip's pre-scaled q (rows × hd fp32) and its scores
-    (rows × sk fp32); K4b adds fp32 dK and dV (sk × hd each), q and dO
-    (rows × hd fp32 each), P and dS (rows × sk fp32 each) and the strip's
-    lse and delta (rows fp32 each).
+    bf16, at the compiled width w (:func:`mega_width`): K and V for sk
+    rounded up to ``MEGA_TILE`` rows, unpadded (the kernels swizzle the
+    16-byte chunks of a row); K4f adds each warp's 16-row q slice; K4b
+    adds the larger of its two phases' streams, which share the room:
+    phase 1's two stages of q and dO tiles (64 rows at w 64, 32 at w
+    128) with their lse and delta, phase 2's two stages per warp of a
+    16-row slice of q, dO, lse and delta.
+
+    fp32: every array starts on a 16-byte boundary.  K and V rows are
+    padded by one 32-bit word (hd + 1 values) so that lanes reading one
+    column each hit distinct banks.  K4f adds the strip's pre-scaled q
+    (rows × hd) and its scores (rows × sk); K4b adds dK and dV (sk × hd
+    each), q and dO (rows × hd each), P and dS (rows × sk each) and the
+    strip's lse and delta (rows each).
     """
-    ldk = hd + (2 if itemsize == 2 else 1)
+    if itemsize == 2:
+        w = kernel_head_dim(hd)
+        total = 2 * (-(-sk // MEGA_TILE) * MEGA_TILE) * w * 2
+        if not bwd:
+            return total + MEGA_WARPS * MEGA_SLICE * w * 2
+        tq, groups = (64, 2) if w == 64 else (32, 1)
+        phase1 = groups * 2 * (2 * tq * w * 2 + 2 * tq * 4)
+        phase2 = 4 * groups * 2 * (2 * MEGA_SLICE * w * 2
+                                   + 2 * MEGA_SLICE * 4)
+        return total + max(phase1, phase2)
+    ldk = hd + 1
     total = 2 * _align16(sk * ldk * itemsize)
     if bwd:
         total += 2 * _align16(sk * hd * 4)
@@ -152,9 +187,13 @@ def mega_smem_bytes(bwd: bool, rows: int, sk: int, hd: int,
 
 @functools.lru_cache(maxsize=1024)
 def mega_rows(bwd: bool, sk: int, hd: int, itemsize: int) -> int:
-    """The largest strip of ``MEGA_ROWS`` whose block fits the opt-in
-    shared memory, or 0 when not even 8 rows do (no K4 for this shape)."""
-    for rows in MEGA_ROWS:
+    """The rows a K4 block takes at once: ``MEGA_TILE`` in bf16, the
+    largest strip of ``MEGA_ROWS`` in fp32, whose block fits the opt-in
+    shared memory; 0 where none fits or K4 does not take the width (no
+    K4 for this shape)."""
+    if mega_width(hd, itemsize) == 0:
+        return 0
+    for rows in ((MEGA_TILE,) if itemsize == 2 else MEGA_ROWS):
         if mega_smem_bytes(bwd, rows, sk, hd, itemsize) <= SMEM_OPTIN_BYTES:
             return rows
     return 0
@@ -179,12 +218,16 @@ class MegaTiming:
 
 
 # Every shape at which K4 has been timed against the tiled kernels, from
-# chip_smoke.py's phase 4a (B=64, H=15, KH=5, S=256, hd 64, bf16 causal,
-# K1 and K3 on tensor cores).  The planner takes a megakernel only at a
-# shape listed here where it won.
+# chip_smoke.py's phase 4a (MEGA_TIMED: H=15, KH=5, S=256, hd 64, bf16
+# causal, all on tensor cores): smollm-360m's short training batch (B=64)
+# and its short-serve prefill (B=32).  The planner takes a megakernel
+# only at a shape listed here where it won.
 MEGA_TIMINGS = (
-    MegaTiming(256, 64, 16, 64, 5, k4f_ms=0.7498, k1_ms=0.1020,
-               k4b_ms=3.6323, k3_ms=0.3453,
+    MegaTiming(256, 64, 16, 64, 5, k4f_ms=0.0969, k1_ms=0.1020,
+               k4b_ms=0.2987, k3_ms=0.3431,
+               card="NVIDIA H100 80GB HBM3, 700.00 W"),
+    MegaTiming(256, 64, 16, 32, 5, k4f_ms=0.0696, k1_ms=0.0580,
+               k4b_ms=0.2016, k3_ms=0.1941,
                card="NVIDIA H100 80GB HBM3, 700.00 W"),
 )
 
@@ -224,43 +267,51 @@ def plan_attention(sk: int, hd: int, hd_v: int, kh: int, batch: int,
       faster than K1 (for ``mega_fwd``) or K4b faster than K3 (for
       ``mega_bwd``), as the reference takes its megakernels only where
       its cost model says they beat the tiled grid
-      (``repro/kernels/autotune.py:433-454``).  The one shape measured so
-      far is smollm-360m's short training shape, B=64, H=15, KH=5,
-      S=256, hd 64, bf16 causal, on an NVIDIA H100 80GB HBM3 at 700 W
-      (``chip_smoke.py`` phase 4a, K1 and K3 on tensor cores):
+      (``repro/kernels/autotune.py:433-454``).  Measured so far:
+      smollm-360m's short training batch and its short-serve prefill,
+      H=15, KH=5, S=256, hd 64, bf16 causal, on an NVIDIA H100 80GB
+      HBM3 at 700 W (``chip_smoke.py`` phase 4a, every kernel on tensor
+      cores):
 
-      =========  =================  ===========================
-      pass       K4                 tiled kernel
-      =========  =================  ===========================
-      forward    K4f-lse 0.7498 ms  K1-lse 0.1020 ms
-      backward   K4b 3.6323 ms      K3 0.3453 ms
-      =========  =================  ===========================
+      =====  =========  =================  ===================
+      B      pass       K4                 tiled kernel
+      =====  =========  =================  ===================
+      64     forward    K4f-lse 0.0969 ms  K1-lse 0.1020 ms
+      64     backward   K4b 0.2987 ms      K3 0.3431 ms
+      32     forward    K4f-lse 0.0696 ms  K1-lse 0.0580 ms
+      32     backward   K4b 0.2016 ms      K3 0.1941 ms
+      =====  =========  =================  ===================
 
-      so no shape takes K4 today, and that shape plans K1 + K3;
+      so B=64 plans K4f + K4b (320 blocks: K4f fills 396 slots in one
+      wave) and B=32 K1 + K3 (160 blocks: a few SMs run two K4 blocks
+      while the tiled kernels' thousands of blocks even out);
 
     * the block fits: the kv head's K and V for the whole ``sk`` in the
-      input dtype, plus a strip of at least 8 query rows, fit the
-      232,448 B of shared memory an H100 block may opt into —
-      :func:`mega_smem_bytes` has the sum.  At hd 64, bf16,
-      sk 256: K and V take 2 · 256 · 66 · 2 = 67,584 B; K4f's 32-row
-      strip adds 8,192 B of q and 32,768 B of scores (108,544 B in all,
-      two blocks an SM); K4b adds fp32 dK and dV, 131,072 B, and an
-      8-row strip of q, dO, P, dS, lse and delta, 20,544 B (219,200 B,
-      one block an SM; 16 rows would need 239,744 B).  The longest sk
-      each kernel takes (bf16 / fp32): K4f 778 / 417 at hd 64, 413 / 214
-      at hd 128; K4b 271 / 208 at hd 64, 139 / 105 at hd 128;
+      input dtype, plus the kernel's streams (bf16) or a strip of at
+      least 8 query rows (fp32), fit the 232,448 B of shared memory an
+      H100 block may opt into — :func:`mega_smem_bytes` has the sum.  At
+      hd 64, bf16, sk 256: K and V take 2 · 256 · 64 · 2 = 65,536 B; K4f
+      adds four 16-row q slices, 8,192 B (73,728 B in all, three blocks
+      an SM); K4b adds its two four-warp groups' q / dO streams, 67,584 B
+      (133,120 B, one eight-warp block an SM; at hd 128, one group:
+      197,632 B).  hd 120 runs at width 128: K4f at sk 200 takes
+      147,456 B.  fp32 at sk 128: K4f with a 32-row strip 91,136 B, K4b
+      with an 8-row strip 144,448 B.  The longest sk each kernel takes
+      (bf16 / fp32): K4f 832 / 417 at hd 64, 384 / 214 at hd 128; K4b
+      640 / 208 at hd 64, 320 / 105 at hd 128;
     * one block per (batch, kv head) fills the card:
       ``batch · kh ≥ sm_count`` (the caller passes the device's
       ``multi_processor_count``; 132 on an H100 SXM);
-    * the kernels take the shape: hd in ``HEAD_DIMS``, ``hd_v == hd``,
-      and ``dtype_bits`` 16 (bf16) or 32 (fp32); callers pass 0 for any
-      other dtype.
+    * the kernels take the shape (:func:`mega_width`): bf16
+      (``dtype_bits`` 16) at any hd that is a multiple of 8 up to 128,
+      fp32 (32) at hd 64 or 128, and ``hd_v == hd``; callers pass 0
+      for any other dtype.
 
-    The query length and the group size do not enter: the strip loop
-    covers any number of query rows.  Pure and cached; no device query.
+    The query length and the group size do not enter: the kernels walk
+    any number of query rows.  Pure and cached; no device query.
     """
-    if (block_q is not None or block_k is not None or hd not in HEAD_DIMS
-            or hd_v != hd or dtype_bits not in (16, 32)
+    if (block_q is not None or block_k is not None
+            or mega_width(hd, dtype_bits // 8) == 0 or hd_v != hd
             or batch * kh < sm_count):
         return AttnPlan()
     key = (sk, hd, dtype_bits, batch, kh)

@@ -15,9 +15,11 @@ Replaces the Pallas TPU kernels of ``repro/kernels/flash_attention.py``:
 * K4f ``_fwd_mega_kernel`` and K4b ``_bwd_mega_kernel`` (and their
   batch-tiled ``_bt`` variants; ``csrc/flash_attention_mega.cu``): the
   same functions for short sequences, one block per (batch, kv head)
-  holding the whole K and V — a softmax over whole rows, and a backward
-  that owns every query row of its kv head, so it writes whole dq rows
-  and sums dk/dv in a fixed order without atomics.
+  holding the whole K and V, read once for the whole GQA group — a
+  backward that owns every query row of its kv head, so it writes whole
+  dq rows and sums dk/dv in a fixed order without atomics; bf16 on the
+  tensor cores (K1's online softmax and K2's two passes over the
+  resident K and V), fp32 on the CUDA cores (a softmax over whole rows).
 
 The CUDA sources' headers say how the TPU grids' sequential axes became
 loops inside one thread block and how the tiles fit the card.  Each
@@ -51,9 +53,10 @@ Head widths: K1, K2 and K3 take any hd that is a multiple of 8 up to 128
 (``autotune.kernel_head_dim``; 32 for the ``reduced()`` configs, 120 for
 h2o-danube3-4b).  They are compiled at 64 and 128 and zero-fill the
 columns past hd in shared memory, so the tensors stay unpadded; the
-wrapper passes the scale 1/√hd of the true width.  K4f and K4b take hd
-64 and 128 only (``autotune.HEAD_DIMS``): the planner keeps other widths
-off them, and a K4 wrapper given another width on the card raises.
+wrapper passes the scale 1/√hd of the true width.  The bf16 K4f and K4b
+take the same widths the same way (``autotune.mega_width``); the fp32
+ones take hd 64 and 128 only (``autotune.HEAD_DIMS``): the planner keeps
+other widths off them, and a K4 wrapper given one on the card raises.
 """
 from __future__ import annotations
 
@@ -326,14 +329,15 @@ def flash_attention_bwd_fused(q, k, v, do, lse, delta, q_offset: int = 0, *,
 
 
 def _mega_block(name, bwd, sk, hd, dtype):
-    """(strip rows, shared-memory bytes) of the K4 block: the planner's
-    gate, ``autotune.mega_rows`` and ``mega_smem_bytes``, which the launch
-    takes as they are.  Raises where the head width is not one K4 is
-    compiled for (``autotune.HEAD_DIMS``) or no strip fits the shared
-    memory."""
-    if hd not in autotune.HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim {hd} (K4 takes "
-                         f"{autotune.HEAD_DIMS})")
+    """(strip or tile rows, shared-memory bytes) of the K4 block: the
+    planner's gate, ``autotune.mega_rows`` and ``mega_smem_bytes``, which
+    the launch takes as they are.  Raises where K4 does not take the head
+    width (``autotune.mega_width``: bf16 any multiple of 8 up to 128,
+    fp32 ``autotune.HEAD_DIMS``) or no block fits the shared memory."""
+    if autotune.mega_width(hd, dtype.itemsize) == 0:
+        raise ValueError(f"{name}: head_dim {hd} in {dtype} (K4 takes a "
+                         "multiple of 8 up to 128 in bf16, "
+                         f"{autotune.HEAD_DIMS} in fp32)")
     rows = autotune.mega_rows(bwd, sk, hd, dtype.itemsize)
     if rows == 0:
         raise ValueError(f"{name}: Sk {sk} at head_dim {hd} {dtype} does "
@@ -406,7 +410,7 @@ def flash_attention_mega_bwd(q, k, v, do, lse, delta, q_offset: int = 0, *,
 
 def mega_occupancy(bwd: bool, sk: int, hd: int,
                    dtype: torch.dtype) -> Tuple[int, int, int]:
-    """(strip rows, shared-memory bytes, blocks per SM) of the K4f
+    """(strip or tile rows, shared-memory bytes, blocks per SM) of the K4f
     (``bwd=False``) or K4b block at this Sk, head_dim and dtype, the last
     from the CUDA runtime's occupancy calculator for the compiled kernel
     on the current device; builds the kernels.  Raises where no strip

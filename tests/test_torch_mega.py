@@ -12,11 +12,13 @@ K4 (CPU).
     ``jax.vjp``: causal, window, q_offset, ragged Sq against the plan's
     block, G in {1, 2, 4}, hd 32 and 64.
 (b) ``kernels/autotune.plan_attention``'s rule — K4 only at a shape
-    where a time measured on the card says it wins, which no shape does
-    today — its gates and budget arithmetic (held with a measured table
-    in which K4 wins, so that each gate is what refuses), and that
-    ``flash_attention`` (and its autograd Function) call the K4 wrappers
-    exactly when the plan says so, pinned tiles included.
+    where a time measured on the card says it wins; the default plan at
+    each measured shape is what ``autotune.MEGA_TIMINGS`` says — its
+    gates (bf16 takes any width the tiled kernels take, fp32 64 and 128)
+    and budget arithmetic (held with a measured table in which K4 wins,
+    so that each gate is what refuses), and that ``flash_attention`` (and
+    its autograd Function) call the K4 wrappers exactly when the plan
+    says so, pinned tiles included.
 (c) A reduced smollm with ``attn_flash_min_seq=32`` at B 2, S 64, where
     the reference's interpret planner picks ``mega_fwd`` and
     ``mega_bwd``: ``train_loss`` gradients against ``jax.grad``, prefill
@@ -174,20 +176,23 @@ def k4_wins(monkeypatch):
     monkeypatch.setattr(autotune, "MEGA_TIMINGS", _wins(s, hd, kh, b, 32))
 
 
+def _measured(sk, hd, bits, b, kh):
+    """The card's table entry at this shape: (K4f wins, K4b wins)."""
+    hit = [t for t in autotune.MEGA_TIMINGS
+           if (t.sk, t.hd, t.dtype_bits, t.batch, t.kh) == (sk, hd, bits, b,
+                                                             kh)]
+    assert len(hit) == 1 and "H100" in hit[0].card
+    return hit[0].k4f_ms < hit[0].k1_ms, hit[0].k4b_ms < hit[0].k3_ms
+
+
 def test_plan_training_shape_takes_both_megakernels():
     """smollm-360m at 64 x 256 tokens: B·KH = 320 blocks, bf16, hd 64.
-    The card's times there have K4f slower than K1 and K4b slower than
-    K3, so the default plan is the tiled route; the megakernels take
-    both passes only where a measured time says they win."""
+    The default plan is what the card's times there say; the
+    megakernels take both passes wherever a measured time says they both
+    win, and a win measured at another shape does not carry over."""
     default = autotune.plan_attention(256, 64, 64, 5, 64, 16)
-    assert not default.mega_fwd and not default.mega_bwd
-    assert default.describe() == "forward K1, backward K3/K2"
-    measured = [t for t in autotune.MEGA_TIMINGS
-                if (t.sk, t.hd, t.dtype_bits, t.batch, t.kh)
-                == (256, 64, 16, 64, 5)]
-    assert measured and measured[0].k4f_ms > measured[0].k1_ms \
-        and measured[0].k4b_ms > measured[0].k3_ms
-    assert "H100" in measured[0].card
+    assert (default.mega_fwd, default.mega_bwd) == _measured(256, 64, 16,
+                                                             64, 5)
     # where K4 is measured faster, both passes take it
     plan = _plan(256, 64, 5, 64, 16)
     assert plan.mega_fwd and plan.mega_bwd
@@ -195,9 +200,40 @@ def test_plan_training_shape_takes_both_megakernels():
     # a measured win at another shape does not carry over
     assert not autotune.plan_attention(
         256, 64, 64, 5, 64, 16, timings=_wins(384, 64, 5, 64, 16)).mega_fwd
-    # the strips the wrappers take at that shape
+    # the bf16 tiles the wrappers take at that shape
     assert (autotune.mega_rows(False, 256, 64, 2),
-            autotune.mega_rows(True, 256, 64, 2)) == (32, 8)
+            autotune.mega_rows(True, 256, 64, 2)) == (64, 64)
+
+
+@pytest.mark.parametrize("b", [64, 32], ids=["train-64x256",
+                                             "serve-32x256"])
+def test_default_plan_follows_the_measured_table(b):
+    """At both shapes timed on the card (the short training batch and the
+    short-serve prefill), each pass of the default plan is K4 exactly
+    where the table says K4 beat K1-lse / K3 — whichever way it points —
+    and ``attention_plan`` reads the same table for CPU tensors."""
+    want = _measured(256, 64, 16, b, 5)
+    plan = autotune.plan_attention(256, 64, 64, 5, b, 16)
+    assert (plan.mega_fwd, plan.mega_bwd) == want
+    q = torch.empty((b, 15, 256, 64), dtype=torch.bfloat16)
+    k = torch.empty((b, 5, 256, 64), dtype=torch.bfloat16)
+    assert tfa.attention_plan(q, k, k) == plan
+
+
+@pytest.mark.parametrize("entry,bits,want", [
+    (True, 16, True), (False, 16, False), (True, 32, False)],
+    ids=["bf16-with-entry", "bf16-without", "fp32-with-entry"])
+def test_plan_hd120_passes_the_width_gate_only_with_an_entry(entry, bits,
+                                                             want):
+    """bf16 K4 takes h2o-danube3-4b's head width 120 (compiled at 128,
+    columns past 120 zero-filled), so hd 120 passes the planner's width
+    gate, and K4 takes it where a timing entry at hd 120 says it wins;
+    the fp32 kernels keep widths 64 and 128."""
+    timings = _wins(256, 120, 8, 32, bits) if entry else ()
+    plan = autotune.plan_attention(256, 120, 120, 8, 32, bits,
+                                   timings=timings)
+    assert plan.mega_fwd == plan.mega_bwd == want
+    assert autotune.mega_width(120, bits // 8) == (128 if bits == 16 else 0)
 
 
 @pytest.mark.parametrize("what,args,kw", [
@@ -206,7 +242,7 @@ def test_plan_training_shape_takes_both_megakernels():
     ("S 2049", (2049, 64, 5, 64, 16), {}),
     ("block_q pinned", (256, 64, 5, 64, 16), {"block_q": 64}),
     ("block_k pinned", (256, 64, 5, 64, 16), {"block_k": 128}),
-    ("hd 32", (256, 32, 5, 64, 16), {}),
+    ("hd 32", (256, 32, 5, 64, 32), {}),     # fp32 keeps 64 and 128
     ("8-bit inputs", (256, 64, 5, 64, 8), {}),
 ])
 def test_plan_gives_no_megakernel(what, args, kw):
@@ -222,9 +258,13 @@ def test_plan_occupancy_follows_the_sm_count():
 
 
 def test_plan_hd128_at_256_takes_the_forward_only():
-    plan = _plan(256, 128, 5, 64, 16)
+    """At hd 128 K4f takes a longer kv head than K4b: the bf16 K4b keeps
+    dK/dV in registers, so Sk 256 fits both kernels and Sk 384 the
+    forward only (K4b: K and V plus 66,560 B of streams)."""
+    plan = _plan(384, 128, 5, 64, 16)
     assert plan.mega_fwd and not plan.mega_bwd
-    assert _plan(128, 128, 5, 64, 16).mega_bwd
+    both = _plan(256, 128, 5, 64, 16)
+    assert both.mega_fwd and both.mega_bwd
 
 
 def _longest(bwd, hd, itemsize):
@@ -235,27 +275,39 @@ def _longest(bwd, hd, itemsize):
 
 
 def test_plan_fp32_has_tighter_limits():
-    """K and V stay in the input dtype in shared memory, so fp32 halves
-    the kv length each kernel takes (dK/dV are fp32 either way)."""
+    """K and V stay in the input dtype in shared memory, the fp32 K4b
+    also keeps fp32 dK/dV there and the bf16 one keeps them in
+    registers, so fp32 takes a shorter kv head in each kernel."""
     plan = _plan(256, 64, 5, 64, 32)
     assert plan.mega_fwd and not plan.mega_bwd
     for bwd in (False, True):
         for hd in (64, 128):
             assert _longest(bwd, hd, 4) < _longest(bwd, hd, 2)
-    assert 256 <= _longest(True, 64, 2) < 512    # K4b: S 256 at hd 64
-    assert _longest(True, 128, 2) < 256 <= _longest(False, 128, 2)
+    # the docstring's longest Sk, bf16 then fp32
+    assert [_longest(bwd, hd, item) for item in (2, 4) for hd in (64, 128)
+            for bwd in (False, True)] == [832, 640, 384, 320,
+                                          417, 208, 214, 105]
 
 
-def test_budget_arithmetic_matches_the_docstring():
-    smem = autotune.mega_smem_bytes
-    assert smem(False, 32, 256, 64, 2) == 108_544
-    assert smem(True, 8, 256, 64, 2) == 219_200
-    assert smem(True, 16, 256, 64, 2) == 239_744 > autotune.SMEM_OPTIN_BYTES
-    assert autotune.mega_rows(True, 256, 64, 2) == 8
-    assert autotune.mega_rows(False, 256, 64, 2) == 32
-    # the strip shrinks before the kernel is refused
-    assert autotune.mega_rows(False, 700, 64, 2) in (8, 16)
-    assert autotune.mega_rows(False, 2049, 64, 2) == 0
+@pytest.mark.parametrize("args,want", [
+    ((False, 64, 256, 64, 2), 73_728),    # bf16 K4f: K, V + 4 q slices
+    ((True, 64, 256, 64, 2), 133_120),    # bf16 K4b: K, V + 2 groups
+    ((True, 64, 256, 128, 2), 197_632),   # bf16 K4b hd 128: one group
+    ((False, 64, 200, 120, 2), 147_456),  # hd 120 at width 128, Sk to 256
+    ((False, 32, 128, 64, 4), 91_136),    # fp32 K4f, 32-row strip
+    ((True, 8, 128, 64, 4), 144_448),     # fp32 K4b, 8-row strip
+], ids=["k4f", "k4b", "k4b-hd128", "k4f-hd120", "fp32-k4f", "fp32-k4b"])
+def test_budget_arithmetic_matches_the_docstring(args, want):
+    assert autotune.mega_smem_bytes(*args) == want
+
+
+def test_budget_rows_match_the_docstring():
+    rows = autotune.mega_rows
+    assert rows(True, 256, 64, 2) == rows(False, 256, 64, 2) == 64
+    # fp32: the strip shrinks before the kernel is refused
+    assert (rows(False, 300, 64, 4), rows(False, 350, 64, 4),
+            rows(False, 400, 64, 4)) == (32, 16, 8)
+    assert rows(False, 2049, 64, 2) == 0
 
 
 MEGA_SHAPE = (66, 40, 4, 2, 64)   # B, S, H, KH, hd: B·KH = 132, fp32
