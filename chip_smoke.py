@@ -27,7 +27,12 @@ Phases, in order; any failure raises and the script exits nonzero:
    serve shape (B=4, S=4096, H=64, P=64, N=128, bf16), zamba2's (N=64,
    B=1 x 3000), B=1 x 16384, a ragged 4 x 3000, the reduced fp32 shape
    (P=32, N=16, chunk 16) and prompts of 40, 70 and 100 tokens (the
-   chunk is the prompt), timed beside its plain version and its bound;
+   chunk is the prompt), each on the route ``ssd_scan.route`` gives (the
+   bf16 shapes on the tensor-core route, whose entering states are also
+   held against ``ssd_chunk_states_plain``); the three full-width shapes
+   timed under both timers (events, and device-only) beside the plain
+   version and the bound, with the tensor-core route's two kernels (K9s,
+   K9y) timed alone and its own byte floor;
 4. K1 with its logsumexp, K2 (dq; dk/dv) and K3 (fused backward; bf16
    on tensor cores) against their plain versions at the training shape
    (B=4, H=15, KH=5, S=4096, hd 64, bf16) and at ragged / window /
@@ -59,7 +64,8 @@ Phases, in order; any failure raises and the script exits nonzero:
 6. contiguous-cache serving: ``LanguageModel.prefill`` on 4 prompts of
    2560 tokens, then 32 ``decode_step``s;
 6a. SSM serving: mamba2-1.3b at full width (48 layers, bf16) through
-   ``LanguageModel.prefill`` on 4 x 4096 tokens (K9 once a layer), 32
+   ``LanguageModel.prefill`` on 4 x 4096 tokens (K9 once a layer, on
+   its tensor-core route every time, as at 1 x 16384 and in 6b), 32
    ``decode_step``s, one 1 x 16384 prefill, and prefill(S) + decode
    against prefill(S + 1) (argmax agreement >= 0.95 in fp32; in bf16,
    as served, the largest logit difference <= 0.42), with the peak
@@ -111,7 +117,8 @@ Phases, in order; any failure raises and the script exits nonzero:
     bit for bit (K6: one 128 MiB range of 256 MiB buffers; K7: 4 MiB
     and exactly-16 MiB buffers, ragged and 64-range sets; K8: 256 MiB
     buffers, 64 ragged ranges and the hazard pattern), timed beside
-    their plain versions, ``Tensor.copy_`` (K6) and their bounds; then
+    their plain versions, ``Tensor.copy_`` (K6, both timers) and their
+    bounds; then
     the paths: ``ops.partition_copy_bytes`` (K6) and a 64-partition §6
     program under ``Runtime(copy_backend="cuda")`` at 4 MiB (K7) and
     256 MiB (K8), equal to the numpy backend, one fused copy each, with
@@ -972,6 +979,16 @@ def _zero_counts():
     for fn in COUNTERS:
         fn.launches = 0
     fa.flash_attention_mega_fwd.lse_launches = 0
+    ssd.ssd_scan.route_launches = {"tc": 0, "fp32": 0}
+
+
+def _check_k9_routes(what, layers):
+    """Every Mamba layer of the prefill just run took K9's tc route."""
+    routes = dict(ssd.ssd_scan.route_launches)
+    print(f"  {what}: K9 routes {routes} (want tc on all {layers} layers)")
+    if routes != {"tc": layers, "fp32": 0}:
+        raise AssertionError(f"{what}: K9 routes {routes}")
+    return routes
 
 
 def _counts():
@@ -1915,8 +1932,23 @@ def _ssd_work(b, h, s, p, n, chunk, el):
     return flops, nbytes
 
 
+def _ssd_tc_floor(b, h, s, p, n, chunk, el):
+    """Bytes the tc route itself moves at the least, over the card's
+    memory rate (ms): x read by both kernels, y written, B twice and C
+    once, dt twice, the entering states' scratch written and read, the
+    final state written.  Beside the function's bound, never instead."""
+    nc = -(-s // min(chunk, s))
+    scratch = b * h * nc * p * n * 4
+    nbytes = (3 * b * h * s * p * el + 3 * b * s * n * el + 8 * b * h * s
+              + 2 * scratch + 4 * b * h * p * n)
+    return nbytes / PEAK_BYTES * 1e3
+
+
 def phase_k9(flush):
-    """K9 against its plain version at the serving shapes, then timed."""
+    """K9 against its plain version at the serving shapes (on the tc
+    route also the entering states against ``ssd_chunk_states_plain``),
+    then timed: the call under both timers, and on the tc route K9s and
+    K9y alone (device-only)."""
     print("== K9 ssd_scan: kernel vs plain version")
     cases = [  # name, B, H, S, P, N, chunk, dtype, timed
         ("mamba2 4x4096 bf16", 4, 64, 4096, 64, 128, 128, torch.bfloat16,
@@ -1933,12 +1965,15 @@ def phase_k9(flush):
         (f"short 4x{s} bf16", 4, 64, s, 64, 128, 128, torch.bfloat16, False)
         for s in (40, 70, 100)
     ]
-    worst = {"y": 0.0, "state_rel": 0.0}
+    worst = {"y": 0.0, "state_rel": 0.0, "entering_rel": 0.0}
     timed = []
     for i, (name, b, h, s, p, n, chunk, dt, time_it) in enumerate(cases):
         args = _ssd_inputs(b, h, s, p, n, dt, 500 + i)
         y, st = ssd.ssd_scan(*args, chunk=chunk)
         torch.cuda.synchronize()
+        route = ssd.ssd_scan.last_route
+        if route != ssd.route(dt, p, n, min(chunk, s)):
+            raise AssertionError(f"{name}: K9 took the {route} route")
         yw, sw = ssd.ssd_scan_plain(*args, chunk=chunk)
         if not (torch.isfinite(y.float()).all() and torch.isfinite(st).all()):
             raise AssertionError(f"{name}: K9 gave a NaN or inf")
@@ -1949,37 +1984,75 @@ def phase_k9(flush):
         rel = 2.0 ** -7 if dt == torch.bfloat16 else 1e-4
         bad = int((d > rel * top + 1e-4 * top.max()).sum())
         st_rel = (st - sw).abs().max().item() / sw.abs().max().item()
-        print(f"  {name}: y max_abs_err {d.max().item():.3e} (max|y| "
-              f"{top.max().item():.3g}; {bad} entries past {rel:g}|y| + "
-              f"1e-4 max|y|), state max err {st_rel:.2e} of max|state| "
-              f"(limit 1e-4)")
-        if bad or not st_rel <= 1e-4:
+        ent = ""
+        ent_rel = 0.0
+        if route == "tc":
+            # the tc route's first stage against its plain version: the
+            # entering states (read back as their hi + lo pair)
+            entering, _ = ssd.ssd_chunk_states_plain(*args[:4], chunk=chunk)
+            scratch, _ = ssd.chunk_states_tc(*args, chunk=chunk)
+            ent_rel = ((ssd.states_from_scratch(scratch) - entering).abs()
+                       .max().item() / max(entering.abs().max().item(),
+                                           1e-30))
+            ent = f", entering states {ent_rel:.2e} (limit 1e-4)"
+            del entering, scratch
+        print(f"  {name}: route {route}; y max_abs_err {d.max().item():.3e} "
+              f"(max|y| {top.max().item():.3g}; {bad} entries past {rel:g}"
+              f"|y| + 1e-4 max|y|), state max err {st_rel:.2e} of "
+              f"max|state| (limit 1e-4){ent}")
+        if bad or not st_rel <= 1e-4 or not ent_rel <= 1e-4:
             raise AssertionError(f"{name}: K9 disagrees with plain version")
         worst["y"] = max(worst["y"], d.max().item())
         worst["state_rel"] = max(worst["state_rel"], st_rel)
+        worst["entering_rel"] = max(worst["entering_rel"], ent_rel)
         del y, st, yw, sw
         if time_it:
-            ms = _time_ms(lambda: ssd.ssd_scan(*args, chunk=chunk), 10, flush)
+            call = lambda: ssd.ssd_scan(*args, chunk=chunk)  # noqa: E731
+            ev = _time_stats(call, 10, flush)
+            dev = _time_stats(call, 10, flush, spin=True)
             plain_ms = _time_ms(lambda: ssd.ssd_scan_plain(
                 *args, chunk=chunk), 3, flush)
             flops, nbytes = _ssd_work(b, h, s, p, n, chunk,
                                       args[0].element_size())
             bound_ms, bound_by = _bound(flops, nbytes, dt)
-            timed.append({"shape": name, "blocks": b * h, "ms": ms,
-                          "plain_ms": plain_ms, "bound_ms": bound_ms,
-                          "bound_by": bound_by, "gflop": flops / 1e9,
-                          "mbytes": nbytes / 1e6})
-            print(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                  f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, "
-                  f"{nbytes / 1e6:.1f} MB), {b * h} blocks on the 132 SMs")
+            row = {"shape": name, "k9_route": route, "ms": ev["median"],
+                   "events": ev, "device": dev, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+            stages = ""
+            if route == "tc":
+                scratch, _ = ssd.chunk_states_tc(*args, chunk=chunk)
+                row["k9s_device"] = _time_stats(
+                    lambda: ssd.chunk_states_tc(*args, chunk=chunk), 10,
+                    flush, spin=True)
+                row["k9y_device"] = _time_stats(
+                    lambda: ssd.chunk_scan_tc(*args, scratch, chunk=chunk),
+                    10, flush, spin=True)
+                row["design_floor_ms"] = _ssd_tc_floor(
+                    b, h, s, p, n, chunk, args[0].element_size())
+                row["heads_per_k9y_block"] = ssd.tc_group(
+                    b, h, -(-s // min(chunk, s)),
+                    torch.cuda.get_device_properties(0).multi_processor_count)
+                stages = (f"; K9s {_fmt(row['k9s_device'])}, K9y "
+                          f"{_fmt(row['k9y_device'])} (device-only); the "
+                          f"route's byte floor {row['design_floor_ms']:.4f}"
+                          f" ms")
+                del scratch
+            timed.append(row)
+            print(f"    kernel {_fmt(ev)}, device-only {_fmt(dev)}{stages}; "
+                  f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}: {flops / 1e9:.2f} GFLOP, "
+                  f"{nbytes / 1e6:.1f} MB)")
         del args
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
     main = timed[0]
     return {"name": "ssd_scan (K9)", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:28",
             "max_abs_err": worst["y"],
-            "state_max_err_rel": worst["state_rel"], "ms": main["ms"],
+            "state_max_err_rel": worst["state_rel"],
+            "entering_max_err_rel": worst["entering_rel"], "ms": main["ms"],
+            "device_ms": main["device"]["median"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": None,
             "timed_shape": "B=4 H=64 S=4096 P=64 N=128 chunk 128 bf16",
@@ -2083,6 +2156,7 @@ def phase_ssm_serve():
                                                      steps)
         counts = _counts()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        info["routes"] = _check_k9_routes("prefill 4 x 4096", cfg.num_layers)
         want = {**{k: 0 for k in counts}, "k9": cfg.num_layers}
         print(f"  prefill {prefill_ms:.1f} ms (B=4 x 4096), decode step "
               f"{step_ms:.3f} ms (B=4); launches {counts}; peak device "
@@ -2104,6 +2178,8 @@ def phase_ssm_serve():
         prefill_long_ms, _, cache, _ = _serve_run(model, params, long, 0)
         counts = _counts()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        info["routes_16384"] = _check_k9_routes("prefill 1 x 16384",
+                                                cfg.num_layers)
         print(f"  prefill {prefill_long_ms:.1f} ms (B=1 x 16384); launches "
               f"{counts}; peak device memory {peak_gb:.2f} GB")
         if counts != want:
@@ -2138,6 +2214,7 @@ def phase_hybrid_serve():
         prefill_ms, step_ms, cache, tok = _serve_run(model, params, tokens,
                                                      steps)
         counts = _counts()
+        routes = _check_k9_routes("prefill 1 x 3000", cfg.num_layers)
         want = {**{k: 0 for k in counts}, "k9": cfg.num_layers, "k1": g,
                 "k5": g * steps}
         print(f"  {g} groups of {cfg.attn_every} + {rem}: prefill "
@@ -2149,7 +2226,7 @@ def phase_hybrid_serve():
                                                   s + steps - 1), 3)
         _print_profile("hybrid decode step (B=1)", prof, step_ms)
     info = {"prefill_ms": prefill_ms, "decode_step_ms": step_ms,
-            "launches": counts, "decode_profile": prof}
+            "launches": counts, "routes": routes, "decode_profile": prof}
     del model, params, cache
     torch.cuda.empty_cache()
     # S > 2048: the fp32 check runs the shared attention through K1 too
@@ -2297,18 +2374,23 @@ def phase_copy_kernels():
     d0, s0, rows = k6
     rows_out = {}
     k6_call = lambda: pc.partition_copy(dst, src, *k6)  # noqa: E731
+    lib_call = lambda: dst[d0:d0 + rows].copy_(  # noqa: E731
+        src[s0:s0 + rows])
     t = _copy_times(k6_call, k6_call,
                     lambda: pc.partition_copy_plain(dst, src, *k6), 20, flush)
-    lib_ms = _time_ms(lambda: dst[d0:d0 + rows].copy_(src[s0:s0 + rows]), 20,
-                      flush)
+    lib = _time_stats(lib_call, 20, flush)
+    t["device_ms"] = _time_stats(k6_call, 20, flush, spin=True)["median"]
+    lib_device_ms = _time_stats(lib_call, 20, flush, spin=True)["median"]
     bound_ms, bound_by = _copy_bound(rows * pc.LANES)
-    rows_out["k6"] = {**t, "library_ms": lib_ms,
+    rows_out["k6"] = {**t, "library_ms": lib["median"], "library": lib,
+                      "library_device_ms": lib_device_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by,
                       "max_abs_err": 0.0,
                       "timed_shape": "one 128 MiB range of 256 MiB uint8 "
                                      "buffers, 32 KiB-aligned"}
-    print(f"  K6: kernel {t['ms']:.4f} ms (wrapper {t['wrapper_ms']:.4f}), "
-          f"plain {t['plain_ms']:.4f} ms, copy_ {lib_ms:.4f} ms, bound "
+    print(f"  K6: kernel {t['ms']:.4f} ms (wrapper {t['wrapper_ms']:.4f}, "
+          f"device-only {t['device_ms']:.4f}), plain {t['plain_ms']:.4f} ms, "
+          f"copy_ {_fmt(lib)} (device-only {lib_device_ms:.4f}), bound "
           f"{bound_ms:.4f} ms ({bound_by}: {2 * rows * pc.LANES / 1e6:.1f} "
           f"MB)")
 

@@ -61,6 +61,9 @@ _ENTRIES = {
     # x, dt, A, B, C, y, state, B, H, S, P, N, chunk, strides of x, y, dt
     # (b, h, s), of B, C (b, s), dtype, stream
     "repro_ssd_scan": (_P,) * 7 + (_I,) * 6 + (_L,) * 13 + (_I, _P),
+    # x, dt, A, B, C, y, state, scratch, B, H, S, P, N, chunk, heads per
+    # K9y block, strides as above, stages (1 K9s, 2 K9y, 3 both), stream
+    "repro_ssd_scan_tc": (_P,) * 8 + (_I,) * 7 + (_L,) * 13 + (_I, _P),
 }
 
 

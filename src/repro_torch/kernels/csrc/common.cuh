@@ -1,9 +1,10 @@
-// Shared helpers of the attention kernels: dtype conversion and the
-// vectorised tile loader.  Every tensor is row-major with rows of hd
-// elements, hd a multiple of 8, so each row starts on a 16-byte boundary
-// (the wrappers check the base pointers) and a row loads as
-// hd*sizeof(T)/16 vectors of 16 B.  A kernel is compiled for a width HD
-// of 64 or 128 and runs any hd <= HD: the loaders zero-fill columns
+// Shared helpers of the kernels: dtype conversion and the vectorised
+// tile loader of the attention kernels, the tensor-core, cp.async and
+// bulk-copy (TMA) helpers.  The attention loaders take row-major tensors
+// with rows of hd elements, hd a multiple of 8, so each row starts on a
+// 16-byte boundary (the wrappers check the base pointers) and a row loads
+// as hd*sizeof(T)/16 vectors of 16 B.  A kernel is compiled for a width
+// HD of 64 or 128 and runs any hd <= HD: the loaders zero-fill columns
 // hd..HD in shared memory and the stores write the hd real columns only.
 #pragma once
 
@@ -84,6 +85,45 @@ using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ------------------------------------------------ bulk copies (TMA), 1-D
+//
+// One thread moves a whole contiguous range between global and shared
+// memory; a load completes on an mbarrier (its bytes counted as
+// transactions), a store joins the issuing thread's current bulk group.
+
+// Start a bulk copy of `bytes` (a multiple of 16) from global memory into
+// shared memory, completing on `bar` (one arrival, plus the bytes).
+__device__ __forceinline__ void bulk_load(void* smem, const void* gmem,
+                                          uint32_t bytes, uint64_t* bar) {
+  const uint32_t b = smem_u32(bar);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(b), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(smem)), "l"(gmem), "r"(bytes), "r"(b) : "memory");
+}
+
+// `bytes` (a multiple of 16) from shared to global memory, in the issuing
+// thread's current bulk group
+__device__ __forceinline__ void bulk_store(void* gmem, const void* smem,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               :: "l"(gmem), "r"(smem_u32(smem)), "r"(bytes) : "memory");
+}
+
+// Wait until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  }
 }
 
 // 16 bytes global -> shared, asynchronously; with ok false nothing is read

@@ -43,8 +43,7 @@
 //     autotune.plan_copy_chunk: two slots of chunk x 128 B fit the 227 KB
 //     a block may opt into (512 rows: 128 KiB).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace repro {
 namespace {
@@ -89,36 +88,6 @@ multi_copy_tiles_kernel(uint4* __restrict__ dst,
   const int e = blockIdx.x;
   copy_rows(dst + (int64_t)tab[e] * ROW_VECS,
             src + (int64_t)tab[n + e] * ROW_VECS, tab[2 * n + e]);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Start a bulk copy of `bytes` from global memory into shared memory,
-// completing on `bar` (one arrival, plus the bytes as transactions).
-__device__ __forceinline__ void bulk_load(void* smem, const void* gmem,
-                                          uint32_t bytes, uint64_t* bar) {
-  const uint32_t b = smem_u32(bar);
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(b), "r"(bytes) : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n"
-      :: "r"(smem_u32(smem)), "l"(gmem), "r"(bytes), "r"(b) : "memory");
-}
-
-// Wait until the phase of `bar` with this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t b = smem_u32(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(b), "r"(parity) : "memory");
-  }
 }
 
 __global__ void __launch_bounds__(NT)

@@ -2,9 +2,23 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/ssd_scan.py``
 ``_ssd_kernel`` (launched by ``ssd_scan``).  The CUDA source is
-``csrc/ssd_scan.cu``: one block per (batch, head) loops over the chunks
-in order with the (P, N) state in shared memory, where the TPU kernel
-carried it across the sequential axis of its grid.
+``csrc/ssd_scan.cu``, with two routes that :func:`route` picks from the
+dtype and shape alone (``ssd_scan.last_route`` holds the last launch's):
+
+* ``"tc"`` — bf16, P and N multiples of 16 up to 64 and 128 (mamba2's
+  P 64 / N 128, zamba2's P 64 / N 64): chunk-parallel on the tensor
+  cores, two launches.  K9s walks the chunks of each (b, h, 32 state
+  rows) in order and stores the state *entering* every chunk to a
+  scratch (B, H, nc, 2, P, N) bf16, a hi + lo pair; K9y then computes
+  every chunk's y at once, C·Bᵀ once for :func:`tc_group` heads.  The
+  scratch is B·H·nc·P·N·4 bytes, 268 MB at mamba2's 4 × 4096 and at
+  1 × 16384, allocated per call and freed when it returns.
+  :func:`ssd_chunk_states_plain` and :func:`ssd_chunk_scan_plain` are
+  the two stages in plain PyTorch.
+* ``"fp32"`` — fp32, and bf16 shapes outside that range: one block per
+  (batch, head) loops over the chunks in order with the (P, N) state in
+  shared memory, where the TPU kernel carried it across the sequential
+  axis of its grid; fp32 FMAs.
 
 Layouts, as the reference kernel's:
   x: (B, H, S, P)   dt: (B, H, S) fp32   A: (H,) fp32   B, C: (B, S, N)
@@ -25,9 +39,38 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .autotune import SM_COUNT
+from .flash_attention import _sm_count
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK, MAX_P, MAX_N = 128, 64, 128
+TC_MAX_GROUP = 8               # K9y's heads per block (csrc TC_MAX_G)
+
+
+def route(dtype: torch.dtype, p: int, n: int, chunk: int) -> str:
+    """The kernel route of a call: ``"tc"`` for bf16 with P and N
+    multiples of 16 up to :data:`MAX_P` / :data:`MAX_N` and a chunk
+    (``min(chunk, S)``) up to :data:`MAX_CHUNK`, else ``"fp32"``."""
+    if dtype == torch.bfloat16 and 16 <= p <= MAX_P and p % 16 == 0 \
+            and 16 <= n <= MAX_N and n % 16 == 0 and 1 <= chunk <= MAX_CHUNK:
+        return "tc"
+    return "fp32"
+
+
+# a K9y block's fixed work (C, B and dt loaded, C·Bᵀ) in heads' worth of
+# its per-head work, fitted to the H100's K9y times at G = 1, 2, 4 and 8
+# (PERF.md)
+TC_BLOCK_HEADS = 0.55
+
+
+def tc_group(b: int, h: int, nc: int, sm_count: int = SM_COUNT) -> int:
+    """Heads per K9y block, G in 8, 4, 2, 1: the fewest waves of one block
+    an SM on a card of ``sm_count`` SMs times a block's work
+    (``TC_BLOCK_HEADS + G`` heads' worth).  More heads share a block's
+    C·Bᵀ; fewer fill the card's last wave."""
+    def cost(g):
+        return -(-b * nc * -(-h // g) // sm_count) * (TC_BLOCK_HEADS + g)
+    return min((TC_MAX_GROUP, 4, 2, 1), key=cost)
 
 
 def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -73,6 +116,63 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y.to(x.dtype), state
 
 
+def _chunked(x, dt, A, chunk, *bc):
+    """fp32 views by chunk, ragged S padded with dt = 0 steps: x (B, H,
+    nc, Q, P), dt (B, H, nc, Q), the in-chunk cumsum of dt·A, and each
+    of ``bc`` (B, S, N) as (B, nc, Q, N)."""
+    b, h, s, p = x.shape
+    q = min(chunk, s)
+    pad = -s % q
+    nc = (s + pad) // q
+    F = torch.nn.functional
+    xf = F.pad(x.float(), (0, 0, 0, pad)).reshape(b, h, nc, q, p)
+    dtf = F.pad(dt.float(), (0, pad)).reshape(b, h, nc, q)
+    cum = torch.cumsum(dtf * A.float()[None, :, None, None], dim=-1)
+    return (xf, dtf, cum, *(F.pad(t.float(), (0, 0, 0, pad)).reshape(
+        b, nc, q, -1) for t in bc))
+
+
+def ssd_chunk_states_plain(x: torch.Tensor, dt: torch.Tensor,
+                           A: torch.Tensor, B: torch.Tensor, *,
+                           chunk: int = 128):
+    """K9s's function in plain PyTorch, fp32: (the state entering each
+    chunk (B, H, nc, P, N), the final state (B, H, P, N)).  Every chunk's
+    own contribution at once, then the carry over the chunks."""
+    xf, dtf, cum, Bf = _chunked(x, dt, A, chunk, B)
+    b, h, nc, _, p = xf.shape
+    total = cum[..., -1:]
+    w = torch.exp(total - cum) * dtf                       # (B, H, nc, Q)
+    contrib = torch.einsum("bhcqp,bcqn->bhcpn", xf * w[..., None], Bf)
+    decay = torch.exp(total[..., 0])                       # (B, H, nc)
+    state = torch.zeros((b, h, p, Bf.shape[-1]), dtype=torch.float32,
+                        device=x.device)
+    entering = []
+    for c in range(nc):
+        entering.append(state)
+        state = decay[:, :, c, None, None] * state + contrib[:, :, c]
+    return torch.stack(entering, dim=2), state
+
+
+def ssd_chunk_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                         B: torch.Tensor, C: torch.Tensor,
+                         states: torch.Tensor, *, chunk: int = 128
+                         ) -> torch.Tensor:
+    """K9y's function in plain PyTorch, fp32 sums: y (B, H, S, P) in x's
+    dtype from the entering ``states`` (B, H, nc, P, N) of
+    :func:`ssd_chunk_states_plain`, every chunk at once."""
+    s = x.shape[2]
+    xf, dtf, cum, Bf, Cf = _chunked(x, dt, A, chunk, B, C)
+    b, h, nc, q, p = xf.shape
+    tri = torch.tril(torch.ones(q, q, dtype=torch.bool, device=x.device))
+    cb = torch.einsum("bcqn,bctn->bcqt", Cf, Bf)[:, None]  # (B,1,nc,Q,Q)
+    decay = torch.exp(cum[..., :, None] - cum[..., None, :])
+    # select, not multiply: the masked decay overflows to inf
+    att = torch.where(tri, cb * decay * dtf[..., None, :], 0.0)
+    y = att @ xf + torch.exp(cum)[..., None] * torch.einsum(
+        "bcqn,bhcpn->bhcqp", Cf, states.float())
+    return y.reshape(b, h, nc * q, p)[:, :, :s].to(x.dtype)
+
+
 def _check(x, dt, A, B, C, chunk):
     b, h, s, p = x.shape
     n = B.shape[-1]
@@ -102,10 +202,81 @@ def _check(x, dt, A, B, C, chunk):
                          "be unit-stride, A contiguous")
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself if every row of its last dimension starts on 16 bytes
+    (the tc kernels copy rows by 16-byte cp.async), else a dense copy."""
+    ok = t.data_ptr() % 16 == 0 and all(
+        st % 8 == 0 for st in t.stride()[:-1])
+    return t if ok else t.contiguous()
+
+
+def _strides(x, y, dt, B, C):
+    return (*x.stride()[:3], *y.stride()[:3], *dt.stride(), *B.stride()[:2],
+            *C.stride()[:2])
+
+
+def _launch_tc(x, dt, A, B, C, chunk, stages, scratch=None):
+    """The tc route's launches on checked bf16 operands: ``stages`` 1 runs
+    K9s (returns the scratch and the final state), 2 runs K9y on a given
+    scratch (returns y), 3 both (returns y, state)."""
+    b, h, s, p = x.shape
+    n = B.shape[-1]
+    nc = -(-s // min(chunk, s))
+    x, B, C = _aligned(x), _aligned(B), _aligned(C)
+    # y in x's layout, as the fp32 route's; the state only where K9s runs
+    y = torch.empty_like(x) if stages & 2 else x
+    state = torch.empty((b, h, p, n) if stages & 1 else (0,),
+                        dtype=torch.float32, device=x.device)
+    if scratch is None:
+        scratch = torch.empty((b, h, nc, 2, p, n), dtype=torch.bfloat16,
+                              device=x.device)
+    err = _build.load().repro_ssd_scan_tc(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+        C.data_ptr(), y.data_ptr(), state.data_ptr(), scratch.data_ptr(), b,
+        h, s, p, n, chunk, tc_group(b, h, nc, _sm_count(x.device.index)),
+        *_strides(x, y, dt, B, C),
+        stages, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "ssd_scan launch")
+    return {1: (scratch, state), 2: y, 3: (y, state)}[stages]
+
+
+def _check_tc(x, dt, A, B, C, chunk):
+    _check(x, dt, A, B, C, chunk)
+    p, n = x.shape[-1], B.shape[-1]
+    if route(x.dtype, p, n, min(chunk, x.shape[2])) != "tc":
+        raise ValueError(f"ssd_scan: {x.dtype} P={p} N={n} is not on the "
+                         f"tc route")
+
+
+def chunk_states_tc(x, dt, A, B, C, *, chunk: int = 128):
+    """K9s alone (the tc route's shapes only): (the entering states as
+    the scratch's (B, H, nc, 2, P, N) hi + lo pairs, the final state).
+    For checks and timing; it leaves ``ssd_scan.launches`` alone."""
+    _check_tc(x, dt, A, B, C, chunk)
+    return _launch_tc(x, dt, A, B, C, chunk, 1)
+
+
+def chunk_scan_tc(x, dt, A, B, C, scratch, *, chunk: int = 128):
+    """K9y alone on the scratch of :func:`chunk_states_tc`: y."""
+    _check_tc(x, dt, A, B, C, chunk)
+    return _launch_tc(x, dt, A, B, C, chunk, 2, scratch)
+
+
+def states_from_scratch(scratch: torch.Tensor) -> torch.Tensor:
+    """The tc route's entering states as fp32 (B, H, nc, P, N): hi + lo."""
+    return scratch[:, :, :, 0].float() + scratch[:, :, :, 1].float()
+
+
 def _launch(x, dt, A, B, C, chunk):
     _check(x, dt, A, B, C, chunk)
     b, h, s, p = x.shape
     n = B.shape[-1]
+    ssd_scan.last_route = route(x.dtype, p, n, min(chunk, s))
+    ssd_scan.route_launches[ssd_scan.last_route] += 1
+    if ssd_scan.last_route == "tc":
+        out = _launch_tc(x, dt, A, B, C, chunk, 3)
+        ssd_scan.launches += 1
+        return out
     # empty_like keeps x's strides when x is a dense view, so a transposed
     # view of the model layout gets its output in the model layout too
     y = torch.empty_like(x)
@@ -113,8 +284,7 @@ def _launch(x, dt, A, B, C, chunk):
     err = _build.load().repro_ssd_scan(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
         C.data_ptr(), y.data_ptr(), state.data_ptr(), b, h, s, p, n, chunk,
-        *x.stride()[:3], *y.stride()[:3], *dt.stride(), *B.stride()[:2],
-        *C.stride()[:2], _DTYPES[x.dtype],
+        *_strides(x, y, dt, B, C), _DTYPES[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "ssd_scan launch")
     ssd_scan.launches += 1
@@ -138,8 +308,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     CUDA tensors launch K9 on the current stream (x, dt may be strided
     views; P and N multiples of 8 up to 64 and 128, chunk up to 128,
-    anything else raises); CPU tensors take :func:`ssd_scan_plain`.
-    ``ssd_scan.launches`` counts kernel launches.
+    anything else raises) on the route :func:`route` gives, recorded in
+    ``ssd_scan.last_route`` and counted in ``ssd_scan.route_launches``;
+    CPU tensors take :func:`ssd_scan_plain`.  ``ssd_scan.launches``
+    counts calls that launched K9 (one per call, though the tc route is
+    two kernel launches).
     """
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
@@ -147,3 +320,5 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 ssd_scan.launches = 0
+ssd_scan.last_route = None
+ssd_scan.route_launches = {"tc": 0, "fp32": 0}

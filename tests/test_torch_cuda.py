@@ -711,6 +711,100 @@ def test_ssd_scan_backward_raises_on_the_card(cuda):
         y.sum().backward()
 
 
+# the bf16 cases of test_ssd_scan_kernel_matches_plain, and batch 1 x 2048
+# with mamba2's 64 heads: all on the tc route
+SSD_TC_CASES = [  # b, h, s, p, n, chunk
+    (1, 4, 300, 64, 128, 128),
+    (2, 4, 256, 64, 64, 128),
+    (1, 4, 40, 64, 128, 128),
+    (1, 4, 70, 64, 128, 128),
+    (1, 4, 100, 64, 128, 128),
+    (1, 64, 2048, 64, 128, 128),
+]
+
+
+@pytest.mark.parametrize("b,h,s,p,n,chunk", SSD_TC_CASES)
+def test_ssd_scan_tc_route_matches_the_staged_plain_versions(
+        cuda, b, h, s, p, n, chunk):
+    """One counted launch on the tc route; y one bf16 rounding from the
+    staged plain versions (2^-7 relative, 1e-4 of max|y| near zero), the
+    final and the entering states 1e-4 of their largest |value| (the
+    entering ones read back as their hi + lo pair); the two stages run
+    alone give the same bits."""
+    args = _ssd_inputs(b, h, s, p, n, torch.bfloat16, cuda, s + n)
+    before = ssd.ssd_scan.launches
+    y, st = ssd.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan.launches == before + 1
+    assert ssd.ssd_scan.last_route == "tc"
+    entering, final = ssd.ssd_chunk_states_plain(*args[:4], chunk=chunk)
+    yw = ssd.ssd_chunk_scan_plain(*args, entering, chunk=chunk)
+    d = (y.float() - yw.float()).abs()
+    top = yw.float().abs()
+    assert (d <= 2.0 ** -7 * top + 1e-4 * top.max()).all()
+    assert (st - final).abs().max().item() <= 1e-4 * final.abs().max().item()
+    scratch, st2 = ssd.chunk_states_tc(*args, chunk=chunk)
+    got = ssd.states_from_scratch(scratch)
+    assert got.shape == entering.shape
+    assert (got - entering).abs().max().item() <= \
+        1e-4 * max(entering.abs().max().item(), 1e-30)
+    y2 = ssd.chunk_scan_tc(*args, scratch, chunk=chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(y2, y) and torch.equal(st2, st)
+    assert ssd.ssd_scan.launches == before + 1    # the stages count nothing
+
+
+def test_ssd_scan_route_follows_dtype_and_shape(cuda):
+    for dtype, p, n, want in ((torch.bfloat16, 64, 128, "tc"),
+                              (torch.float32, 64, 128, "fp32"),
+                              (torch.bfloat16, 32, 8, "fp32")):
+        args = _ssd_inputs(1, 2, 64, p, n, dtype, cuda, p + n)
+        before = ssd.ssd_scan.launches
+        ssd.ssd_scan(*args, chunk=32)
+        assert ssd.ssd_scan.launches == before + 1
+        assert ssd.ssd_scan.last_route == want == ssd.route(dtype, p, n, 32)
+
+
+def test_ssd_scan_tc_scratch_is_freed(cuda):
+    """The entering states' scratch (B·H·nc·P·N·4 bytes) lives for the
+    call only: the peak holds it, and nothing but y and the state stays."""
+    b, h, s, p, n = 2, 8, 1024, 64, 128
+    args = _ssd_inputs(b, h, s, p, n, torch.bfloat16, cuda, 7)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    y, st = ssd.ssd_scan(*args)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan.last_route == "tc"
+    scratch = b * h * (s // 128) * p * n * 4
+    assert torch.cuda.max_memory_allocated() - base >= scratch
+    del y, st
+    assert torch.cuda.memory_allocated() == base
+
+
+def test_ssd_scan_tc_reads_the_model_layout_through_strides(cuda):
+    from repro_torch.kernels import ops
+    x, dt, A, B, C = _ssd_inputs(2, 8, 300, 64, 64, torch.bfloat16, cuda, 6)
+    y1, s1 = ops.ssd_scan(x.transpose(1, 2).contiguous(),
+                          dt.transpose(1, 2).contiguous(), A, B, C)
+    assert ssd.ssd_scan.last_route == "tc"
+    y2, s2 = ssd.ssd_scan(x, dt, A, B, C)
+    assert y1.is_contiguous()
+    assert torch.equal(y1.transpose(1, 2), y2) and torch.equal(s1, s2)
+
+
+def test_partition_copy_at_128_mib_writes_only_its_range(cuda):
+    """K6 at chip_smoke's timed shape: one 128 MiB range of 256 MiB
+    buffers, bit-exact, every row outside the range left as it was."""
+    rows = 2 ** 20
+    dst, src = _bytes(2 * rows, 10, cuda), _bytes(2 * rows, 11, cuda)
+    want = pc.partition_copy_plain(dst.clone(), src, rows // 4, rows // 2,
+                                   rows)
+    pc.partition_copy(dst, src, rows // 4, rows // 2, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(dst, want)
+
+
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-1.2b"])
 def test_ssm_serving_on_the_card_matches_the_cpu(cuda, arch):
     """Reduced fp32 mamba2 / zamba2 (head_dim 64, K5's width): prefill
