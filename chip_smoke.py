@@ -116,9 +116,12 @@ Phases, in order; any failure raises and the script exits nonzero:
 12. the §6.3 partition copy: K6, K7 and K8 against their plain versions
     bit for bit (K6: one 128 MiB range of 256 MiB buffers; K7: 4 MiB
     and exactly-16 MiB buffers, ragged and 64-range sets; K8: 256 MiB
-    buffers, 64 ragged ranges and the hazard pattern), timed beside
-    their plain versions, ``Tensor.copy_`` (K6, both timers) and their
-    bounds; then
+    buffers, 64 ragged ranges and the hazard pattern; K7 and K8 on both
+    routes of their range descriptor: a 64-range set by value and forced
+    onto the card, a 256-range set past ``MAX_PARAM_RANGES`` on the
+    card), timed beside their plain versions, ``Tensor.copy_`` (K6) and
+    their bounds, each under both timers, with the wrapper's time and
+    host µs and K7's one-row floor; then
     the paths: ``ops.partition_copy_bytes`` (K6) and a 64-partition §6
     program under ``Runtime(copy_backend="cuda")`` at 4 MiB (K7) and
     256 MiB (K8), equal to the numpy backend, one fused copy each, with
@@ -2326,35 +2329,69 @@ def _hazard_rows(nrows):
             (40_000, nrows - 129, 128), (30_000, 30_000, 257))
 
 
-def _copy_check(name, fn, dst, src, ranges, counter):
+def _copy_check(name, fn, dst, src, ranges, counter, route=None):
     """One call of a copy kernel against its plain version, bit for bit;
-    the counter must rise by one."""
+    the counter must rise by one, on descriptor ``route`` where given."""
     want = pc.multi_partition_copy_plain(dst.clone(), src, ranges)
     before = counter.launches
     got = fn(dst.clone(), src, ranges)
     torch.cuda.synchronize()
     if counter.launches != before + 1:
         raise AssertionError(f"{name}: the kernel did not launch once")
+    taken = getattr(counter, "last_route", None)
+    if route is not None and taken != route:
+        raise AssertionError(f"{name}: took the {taken} route, not {route}")
     same = torch.equal(got, want)
     print(f"  {name}: {len(ranges)} ranges, "
           f"{sum(r for _, _, r in ranges) * pc.LANES / MIB:.3f} MiB, "
-          f"bit-exact {same}")
+          f"route {taken}, bit-exact {same}")
     if not same:
         raise AssertionError(f"{name}: kernel disagrees with plain version")
 
 
 def _copy_times(kernel, wrapper, plain, reps, flush):
-    """CUDA-event ms of the bare kernel launch (tables already on the
-    card), of the whole wrapper (host tables, their transfer, the launch)
-    and of the plain version, each call after an L2 flush."""
+    """CUDA-event ms of the bare kernel launch (the range descriptor
+    already built; ``ms``) and of the same after a device spin (the
+    device work alone; ``device_ms``), of the whole wrapper (its checks,
+    the descriptor and the launch; ``wrapper_ms``) and the host µs a
+    wrapper call takes, and of the plain version, each call after an L2
+    flush."""
     return {"ms": _time_ms(kernel, reps, flush),
+            "device_ms": _time_stats(kernel, reps, flush,
+                                     spin=True)["median"],
             "wrapper_ms": _time_ms(wrapper, reps, flush),
+            "wrapper_host_us": _host_us(wrapper),
             "plain_ms": _time_ms(plain, reps, flush)}
 
 
 def _copy_bound(nbytes):
     """Bytes bound of a copy of ``nbytes``: read once, written once."""
     return _bound(0, 2 * nbytes, torch.bfloat16)
+
+
+def _routes_check(name, launch, wrapper, dst, src, ranges, entry_rows,
+                  counter, flush):
+    """A set past ``MAX_PARAM_RANGES`` (its descriptor on the card) and
+    the timed set ``ranges`` forced onto the card, each bit-exact with
+    one launch, then timed device-only (and the first through the
+    wrapper)."""
+    many = _rows_of(_ragged_set(dst.numel(), 256))
+    _copy_check(f"{name} 256 ragged ranges, past MAX_PARAM_RANGES", wrapper,
+                dst, src, many, counter, "device")
+    forced = pc.descriptor(ranges, entry_rows, "cuda", route="device")
+    _copy_check(f"{name} {len(ranges)} ragged ranges, forced onto the card",
+                lambda d, s_, r: launch(d, s_, forced), dst, src, ranges,
+                counter, "device")
+    many_desc = pc.descriptor(many, entry_rows, "cuda")
+    return {"many_ranges": len(many),
+            "many_device_ms": _time_stats(
+                lambda: launch(dst, src, many_desc), 20, flush,
+                spin=True)["median"],
+            "many_wrapper_ms": _time_ms(lambda: wrapper(dst, src, many), 20,
+                                        flush),
+            "forced_device_route_device_ms": _time_stats(
+                lambda: launch(dst, src, forced), 20, flush,
+                spin=True)["median"]}
 
 
 def phase_copy_kernels():
@@ -2379,7 +2416,6 @@ def phase_copy_kernels():
     t = _copy_times(k6_call, k6_call,
                     lambda: pc.partition_copy_plain(dst, src, *k6), 20, flush)
     lib = _time_stats(lib_call, 20, flush)
-    t["device_ms"] = _time_stats(k6_call, 20, flush, spin=True)["median"]
     lib_device_ms = _time_stats(lib_call, 20, flush, spin=True)["median"]
     bound_ms, bound_by = _copy_bound(rows * pc.LANES)
     rows_out["k6"] = {**t, "library_ms": lib["median"], "library": lib,
@@ -2397,71 +2433,92 @@ def phase_copy_kernels():
     # K8: 256 MiB buffers
     nrows = dst.shape[0]
     k8_set = _rows_of(_ragged_set(256 * MIB, 64))
+    staged = pc.multi_partition_copy_staged
     _copy_check("K8 64 ragged ranges, 256 MiB", pc.multi_partition_copy,
-                dst, src, k8_set, pc.multi_partition_copy_staged)
+                dst, src, k8_set, staged, "param")
     _copy_check("K8 hazard pattern, 256 MiB", pc.multi_partition_copy,
-                dst, src, _hazard_rows(nrows), pc.multi_partition_copy_staged)
+                dst, src, _hazard_rows(nrows), staged, "param")
     for chunk in (16, 128):
         _copy_check(f"K8 hazard pattern, chunk {chunk}",
                     lambda d, s_, r: pc.multi_partition_copy_staged(
                         d, s_, r, chunk=chunk),
-                    dst, src, _hazard_rows(nrows),
-                    pc.multi_partition_copy_staged)
+                    dst, src, _hazard_rows(nrows), staged, "param")
     k8_bytes = sum(r for _, _, r in k8_set) * pc.LANES
     chunk = plan_copy_chunk(k8_bytes // pc.LANES)
-    tabs = pc.tables(k8_set, chunk, "cuda")
-    t = _copy_times(lambda: pc.launch_staged(dst, src, tabs, chunk),
+    desc = pc.descriptor(k8_set, chunk, "cuda")
+    t = _copy_times(lambda: pc.launch_staged(dst, src, desc),
                     lambda: pc.multi_partition_copy(dst, src, k8_set),
                     lambda: pc.multi_partition_copy_plain(dst, src, k8_set),
                     20, flush)
+    t.update(_routes_check("K8", pc.launch_staged, pc.multi_partition_copy,
+                           dst, src, k8_set, chunk, staged, flush))
     bound_ms, bound_by = _copy_bound(k8_bytes)
     rows_out["k8"] = {**t, "library_ms": None,
                       "bound_ms": bound_ms, "bound_by": bound_by,
                       "max_abs_err": 0.0, "chunk_rows": chunk,
-                      "table_entries": tabs.shape[1],
+                      "entries": desc.total, "descriptor_route": desc.route,
                       "timed_shape": f"64 ragged ranges, "
                                      f"{k8_bytes / MIB:.2f} MiB of 256 MiB "
                                      f"uint8 buffers"}
-    print(f"  K8: kernel {t['ms']:.4f} ms (wrapper {t['wrapper_ms']:.4f}), "
-          f"plain (64 copy_ calls) {t['plain_ms']:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}: {2 * k8_bytes / 1e6:.1f} MB); no "
+    print(f"  K8: kernel {t['ms']:.4f} ms (device-only {t['device_ms']:.4f};"
+          f" wrapper {t['wrapper_ms']:.4f}, host {t['wrapper_host_us']:.1f} "
+          f"us), plain (64 copy_ calls) {t['plain_ms']:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {2 * k8_bytes / 1e6:.1f} MB); "
+          f"{desc.total} entries of {chunk} rows by value; 256 ranges on the"
+          f" card: device-only {t['many_device_ms']:.4f}, wrapper "
+          f"{t['many_wrapper_ms']:.4f}; the 64-range set forced onto the "
+          f"card: device-only {t['forced_device_route_device_ms']:.4f}; no "
           f"single PyTorch call computes it")
     del dst, src
 
     # K7: 4 MiB and exactly-16 MiB buffers
     dst, src = _rand_rows(4 * MIB, 402), _rand_rows(4 * MIB, 403)
+    tiles = pc.multi_partition_copy_tiles
     k7_set = _rows_of(_ragged_set(4 * MIB, 64))
     for name, ranges in (
             ("K7 one range", ((0, 1, 3),)),
             ("K7 three ranges", ((1, 0, 2), (8, 16, 1), (32, 4, 5))),
             ("K7 spanning tiles", ((0, 0, 300), (700, 350, 257))),
+            ("K7 empty and one-row ranges",
+             ((5, 9, 0), (0, 3, 1), (9, 9, 0), (1, 700, 300), (400, 0, 1))),
             ("K7 64 ranges of 7 rows",
              tuple((i * 8, ((i + 7) % 64) * 8, 7) for i in range(64))),
             ("K7 64 ragged ranges, 4 MiB", k7_set)):
-        _copy_check(name, pc.multi_partition_copy, dst, src, ranges,
-                    pc.multi_partition_copy_tiles)
+        _copy_check(name, pc.multi_partition_copy, dst, src, ranges, tiles,
+                    "param")
     k7_bytes = sum(r for _, _, r in k7_set) * pc.LANES
-    tabs = pc.tables(k7_set, pc.BLOCK_ROWS, "cuda")
-    t = _copy_times(lambda: pc.launch_tiles(dst, src, tabs),
+    desc = pc.descriptor(k7_set, pc.BLOCK_ROWS, "cuda")
+    t = _copy_times(lambda: pc.launch_tiles(dst, src, desc),
                     lambda: pc.multi_partition_copy(dst, src, k7_set),
                     lambda: pc.multi_partition_copy_plain(dst, src, k7_set),
                     50, flush)
+    t.update(_routes_check("K7", pc.launch_tiles, pc.multi_partition_copy,
+                           dst, src, k7_set, pc.BLOCK_ROWS, tiles, flush))
+    one_row = pc.descriptor(((0, 0, 1),), pc.BLOCK_ROWS, "cuda")
+    t["floor_ms"] = _time_stats(lambda: pc.launch_tiles(dst, src, one_row),
+                                50, flush, spin=True)["median"]
     bound_ms, bound_by = _copy_bound(k7_bytes)
     rows_out["k7"] = {**t, "library_ms": None,
                       "bound_ms": bound_ms, "bound_by": bound_by,
-                      "max_abs_err": 0.0, "table_entries": tabs.shape[1],
+                      "max_abs_err": 0.0, "entries": desc.total,
+                      "descriptor_route": desc.route,
                       "timed_shape": f"64 ragged ranges, "
                                      f"{k7_bytes / MIB:.3f} MiB of 4 MiB "
                                      f"uint8 buffers"}
-    print(f"  K7: kernel {t['ms']:.4f} ms (wrapper {t['wrapper_ms']:.4f}), "
-          f"plain (64 copy_ calls) {t['plain_ms']:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}: {2 * k7_bytes / 1e6:.2f} MB); no "
+    print(f"  K7: kernel {t['ms']:.4f} ms (device-only {t['device_ms']:.4f};"
+          f" wrapper {t['wrapper_ms']:.4f}, host {t['wrapper_host_us']:.1f} "
+          f"us), plain (64 copy_ calls) {t['plain_ms']:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {2 * k7_bytes / 1e6:.2f} MB), "
+          f"floor (one row, device-only) {t['floor_ms']:.4f} ms; "
+          f"{desc.total} entries by value; 256 ranges on the card: "
+          f"device-only {t['many_device_ms']:.4f}, wrapper "
+          f"{t['many_wrapper_ms']:.4f}; the 64-range set forced onto the "
+          f"card: device-only {t['forced_device_route_device_ms']:.4f}; no "
           f"single PyTorch call computes it")
     dst, src = _rand_rows(16 * MIB, 404), _rand_rows(16 * MIB, 405)
     _copy_check("K7 64 ragged ranges, exactly 16 MiB", pc.multi_partition_copy,
-                dst, src, _rows_of(_ragged_set(16 * MIB, 64)),
-                pc.multi_partition_copy_tiles)
-    del dst, src, tabs, flush
+                dst, src, _rows_of(_ragged_set(16 * MIB, 64)), tiles, "param")
+    del dst, src, desc, one_row, flush
     torch.cuda.empty_cache()
     return rows_out
 
@@ -2534,7 +2591,7 @@ def _run_program(body, backend, walls=None):
 def _fused_copy_split(data, ranges, want):
     """The fused copy's three steps replayed on fresh buffers of the
     program's size, host clock and a sync around each: both blocks to
-    the card, the kernel step (its host tables, their transfer and the
+    the card, the kernel step (the range checks, the descriptor and the
     launch), dst back into the host buffer.  The result must equal the
     numpy backend's shadow ``want``."""
     dbuf, sbuf, split = np.zeros_like(data), data.copy(), {}
@@ -2590,14 +2647,18 @@ def phase_copy_paths():
         _zero_copy_counts()
         got, stats, run_ms = _run_program(body, "cuda", walls)
         counts = _copy_counts()
+        route = {"k7": pc.multi_partition_copy_tiles,
+                 "k8": pc.multi_partition_copy_staged}[kernel].last_route
         want, ref_stats, numpy_ms = _run_program(body, "numpy")
         same = np.array_equal(got, want)
         expect = {"k6": 0, "k7": 0, "k8": 0, kernel: 1}
         print(f"  §6 program, 64 partitions of a {size // MIB} MiB block: "
               f"shadow equal to the numpy backend's {same}; fused_copies "
-              f"{stats.fused_copies}; launches {counts}; bytes_copied "
-              f"{stats.bytes_copied} ({ref_stats.bytes_copied} numpy)")
+              f"{stats.fused_copies}; launches {counts}, descriptor route "
+              f"{route}; bytes_copied {stats.bytes_copied} "
+              f"({ref_stats.bytes_copied} numpy)")
         if not (same and stats.fused_copies == 1 and counts == expect
+                and route == "param"
                 and stats.bytes_copied == ref_stats.bytes_copied):
             raise AssertionError(f"the {size // MIB} MiB program did not "
                                  f"take one fused {kernel} copy, or differs")

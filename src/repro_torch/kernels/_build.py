@@ -53,11 +53,14 @@ _ENTRIES = {
     "repro_flash_decode": (_P,) * 6 + (_I,) * 9 + (_F, _P),
     # dst, src, dst_row, src_row, rows, block_rows, stream
     "repro_partition_copy": (_P, _P, _I, _I, _I, _I, _P),
-    # dst, src, tables (3 x n int32: dst rows, src rows, valid rows), n,
-    # stream
-    "repro_multi_partition_copy_tiles": (_P, _P, _P, _I, _P),
-    # dst, src, tables, n, chunk rows, grid, stream
-    "repro_multi_partition_copy_staged": (_P, _P, _P, _I, _I, _I, _P),
+    # out (2 int32): the range descriptor's by-value capacity and size
+    "repro_copy_param_ranges": (_P,),
+    # dst, src, descriptor columns (4 x n int32: dst rows, src rows, rows,
+    # first entry) on the host or (else null) on the card, n, entries,
+    # rows an entry, stream
+    "repro_multi_partition_copy_tiles": (_P,) * 4 + (_I,) * 3 + (_P,),
+    # dst, src, columns as K7's, n, entries, chunk rows, grid, stream
+    "repro_multi_partition_copy_staged": (_P,) * 4 + (_I,) * 4 + (_P,),
     # x, dt, A, B, C, y, state, B, H, S, P, N, chunk, strides of x, y, dt
     # (b, h, s), of B, C (b, s), dtype, stream
     "repro_ssd_scan": (_P,) * 7 + (_I,) * 6 + (_L,) * 13 + (_I, _P),

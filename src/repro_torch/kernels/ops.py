@@ -8,13 +8,13 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from . import flash_attention as _fa
 from . import flash_decode as _fd
 from . import partition_copy as _pc
 from . import ssd_scan as _ssd
-from ..core.objects import spans_overlap
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -77,25 +77,31 @@ def _rows(buf: torch.Tensor, what: str) -> torch.Tensor:
     return buf[:buf.numel() - buf.numel() % lanes].view(-1, lanes)
 
 
-def _row_ranges(ranges, nd: int, ns: int):
+def _row_ranges(ranges, nd: int, ns: int) -> np.ndarray:
     """Validate ``(dst_off, src_off, size)`` byte triples as the reference
-    does and turn them into row triples."""
+    does (the first range at fault raises, with the reference's message)
+    and turn them into an (n, 3) array of row triples."""
     lanes = _pc.LANES
-    row_ranges = []
-    for (d_off, s_off, size) in ranges:
-        if size <= 0:
+    r = _pc.as_rows(ranges)
+    d, s, n = r.T
+    if len(r) and (n.min() <= 0 or r.min() < 0
+                   or np.bitwise_or.reduce(r, axis=None) % lanes) \
+            or _pc._ends_past(r, nd, ns):
+        empty = n <= 0
+        misaligned = ((d % lanes) | (s % lanes) | (n % lanes)) != 0
+        oob = (d + n > nd) | (s + n > ns) | (d < 0) | (s < 0)
+        i = int(np.argmax(empty | misaligned | oob))
+        d_off, s_off, size = r[i].tolist()
+        if empty[i]:
             raise ValueError(f"empty copy range ({d_off},{s_off},{size})")
-        if d_off % lanes or s_off % lanes or size % lanes:
+        if misaligned[i]:
             raise ValueError(
                 f"range ({d_off},{s_off},{size}) not 128-byte aligned")
-        if d_off + size > nd or s_off + size > ns or d_off < 0 or s_off < 0:
-            raise ValueError(
-                f"range ({d_off},{s_off},{size}) out of bounds "
-                f"(dst {nd}, src {ns})")
-        row_ranges.append((d_off // lanes, s_off // lanes, size // lanes))
-    if spans_overlap((d, d + n) for d, _, n in row_ranges):
+        raise ValueError(f"range ({d_off},{s_off},{size}) out of bounds "
+                         f"(dst {nd}, src {ns})")
+    if not _pc.disjoint(d, n):
         raise ValueError("destination ranges overlap")
-    return tuple(row_ranges)
+    return r // lanes
 
 
 def partition_copy_bytes(dst: torch.Tensor, src: torch.Tensor, *,
@@ -107,8 +113,9 @@ def partition_copy_bytes(dst: torch.Tensor, src: torch.Tensor, *,
     32 KiB-aligned copies take the tile-per-block kernel (K6), anything
     else the multi-range kernel (K7, or K8 above the staging threshold)
     with one range."""
-    ((d_row, s_row, rows),) = _row_ranges(((dst_off, src_off, size),),
-                                          dst.numel(), src.numel())
+    row_ranges = _row_ranges(((dst_off, src_off, size),), dst.numel(),
+                             src.numel())
+    d_row, s_row, rows = row_ranges[0].tolist()
     out = dst.clone()
     d2, s2 = _rows(out, "partition_copy_bytes"), _rows(src,
                                                        "partition_copy_bytes")
@@ -116,7 +123,7 @@ def partition_copy_bytes(dst: torch.Tensor, src: torch.Tensor, *,
     if d_row % tile == 0 and s_row % tile == 0 and rows % tile == 0:
         _pc.partition_copy(d2, s2, d_row, s_row, rows)
     else:
-        _pc.multi_partition_copy(d2, s2, ((d_row, s_row, rows),))
+        _pc.multi_partition_copy(d2, s2, row_ranges, checked=True)
     return out
 
 
@@ -141,9 +148,10 @@ def multi_partition_copy_bytes_(dst: torch.Tensor, src: torch.Tensor, ranges,
                                 *, block_rows: int = _pc.BLOCK_ROWS
                                 ) -> torch.Tensor:
     """:func:`multi_partition_copy_bytes` in place on ``dst`` (returned);
-    ``src`` must not share memory with it."""
+    ``src`` must not share memory with it.  The ranges are checked here,
+    once, and reach the kernel's wrapper as checked rows."""
     row_ranges = _row_ranges(ranges, dst.numel(), src.numel())
     what = "multi_partition_copy_bytes"
     _pc.multi_partition_copy(_rows(dst, what), _rows(src, what), row_ranges,
-                             block_rows=block_rows)
+                             block_rows=block_rows, checked=True)
     return dst

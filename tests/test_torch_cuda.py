@@ -562,6 +562,51 @@ def test_multi_partition_copy_staged_matches_plain(cuda, chunk, ranges):
     assert torch.equal(got, want)
 
 
+# past MAX_PARAM_RANGES, with empty and one-row ranges among them
+MANY = tuple((i * 13, (i * 7) % 300 * 13, (13 - i % 3) * (i % 17 != 5))
+             for i in range(300)) + ((3900, 4000, 1), (3901, 0, 0))
+
+
+SMALL_SETS = (
+    HAZARD,
+    tuple((i * 60, ((i + 7) % 64) * 60, 59 - i % 3) for i in range(64)),
+    ((5, 9, 0), (0, 3, 1), (9, 9, 0), (1, 700, 300), (400, 0, 1)),
+)
+
+
+@pytest.mark.parametrize("ranges,route", [
+    *((r, route) for r in SMALL_SETS for route in ("param", "device")),
+    (MANY, "device"),
+])
+@pytest.mark.parametrize("kernel", ["tiles", "staged"])
+def test_copy_descriptor_routes_match_plain(cuda, kernel, ranges, route):
+    """K7 and K8 on both routes of their range descriptor (a set past
+    MAX_PARAM_RANGES only on the card), one launch each, bit for bit."""
+    dst, src = _bytes(4095, 10, cuda), _bytes(4095, 11, cuda)
+    want = pc.multi_partition_copy_plain(dst.clone(), src, ranges)
+    wrapper = getattr(pc, f"multi_partition_copy_{kernel}")
+    launch, rows = ((pc.launch_tiles, pc.BLOCK_ROWS) if kernel == "tiles"
+                    else (pc.launch_staged, 64))
+    desc = pc.descriptor(ranges, rows, cuda, route=route)
+    before = wrapper.launches
+    got = launch(dst, src, desc)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.last_route) == (before + 1, route)
+    assert torch.equal(got, want)
+    if pc.descriptor_route(len(ranges)) == route:   # the wrapper's own route
+        got = wrapper(_bytes(4095, 10, cuda), src, ranges)
+        torch.cuda.synchronize()
+        assert (wrapper.launches, wrapper.last_route) == (before + 2, route)
+        assert torch.equal(got, want)
+
+
+def test_param_descriptor_past_the_cap_is_refused(cuda):
+    dst, src = _bytes(4095, 12, cuda), _bytes(4095, 13, cuda)
+    desc = pc.descriptor(MANY, pc.BLOCK_ROWS, cuda, route="param")
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        pc.launch_tiles(dst, src, desc)
+
+
 def test_multi_partition_copy_routes_past_the_threshold(cuda):
     rows = pc.DMA_STAGE_BYTES // pc.LANES
     ranges = ((0, 128, 3000), (50_000, 0, 7000), (rows - 4000, 60_000, 3999))
