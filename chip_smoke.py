@@ -33,6 +33,14 @@ Phases, in order; any failure raises and the script exits nonzero:
    timed under both timers (events, and device-only) beside the plain
    version and the bound, with the tensor-core route's two kernels (K9s,
    K9y) timed alone and its own byte floor;
+3b. K9b (the scan's backward) against ``ssd_scan_bwd_plain`` at
+   mamba2's training shape (4 x 4096 bf16), zamba2's (N 64), a ragged 4 x
+   3000, the reduced fp32 and bf16 shapes (P 32, N 16, chunk 16) and two
+   with a nonzero final-state gradient (bf16 1 x 1000, fp32 full width),
+   each called twice for the same bits; the two 4 x 4096 shapes timed
+   under both timers beside the plain backward and the bound, one call's
+   kernels profiled; the HMMA count of each K9b kernel (a tc-route kernel
+   without any fails);
 4. K1 with its logsumexp, K2 (dq; dk/dv) and K3 (fused backward; bf16
    on tensor cores) against their plain versions at the training shape
    (B=4, H=15, KH=5, S=4096, hd 64, bf16) and at ragged / window /
@@ -105,6 +113,21 @@ Phases, in order; any failure raises and the script exits nonzero:
    prefill(S) + decode against prefill(S + 1) (fp32 argmax agreement >=
    0.95, through K1; the bf16 logit gap printed), and the paged engine's
    plan (one request a prefill: K1);
+8c. SSM training: ``repro_torch.launch.train`` trains mamba2-1.3b at
+   full width (48 layers, bf16 compute, fp32 master weights, remat per
+   layer) for 6 steps of 4 x 4096; the cross entropy must fall and each
+   step launch K9 twice a layer and K9b once; step median, peak memory
+   and a profiled step;
+8d. hybrid training: zamba2-1.2b the same way, 6 steps of 4 x 4096: K9
+   twice and K9b once a Mamba layer (38), K1-lse and K3 once per
+   application of the shared attention block (6, outside remat as in the
+   reference);
+8e. one depth-cut mamba2 train step (2 layers, full width, fp32, 1 x
+   1024) on the card (K9, K9b on the fp32 route) against the CPU's plain
+   path: loss and every gradient;
+8f. deterministic reruns: 2 steps of a depth-cut mamba2 (4 layers) and
+   zamba2 (7 layers) at full width, 2 x 2560, each run twice: the final
+   parameters must be the same bits (K2 for the shared attention);
 9. restart in deterministic mode (K2 backward): 8 uninterrupted steps
    against a run that checkpoints at step 4 and fail-stops at 6, resumed
    from the checkpoint — the final parameters must be equal bit for bit;
@@ -136,8 +159,8 @@ logits through K4f and one step's gradients through K4f and K4b; and the reduced
 (head_dim 32) through K1, K5, K1-lse and K3.
 
 Counters on the kernel wrappers are zeroed just before each main-path
-phase (5, 6, 6a, 6b, 6c, 6d, 8, 8a and its other route, 8b, 9, 10 and each
-path of 12) and read just after: every kernel of the path must have
+phase (5, 6, 6a, 6b, 6c, 6d, 8, 8a and its other route, 8b, 8c-8f, 9,
+10 and each path of 12) and read just after: every kernel of the path must have
 launched.  The kernel line's
 launches are those counts alone; the reduced model of phase 7 and the
 fp32 consistency check of 8b keep theirs in their own results.  The line before the last is the kernel table as
@@ -982,6 +1005,7 @@ def _zero_counts():
     for fn in COUNTERS:
         fn.launches = 0
     fa.flash_attention_mega_fwd.lse_launches = 0
+    ssd.ssd_scan.bwd_launches = 0
     ssd.ssd_scan.route_launches = {"tc": 0, "fp32": 0}
 
 
@@ -1004,7 +1028,8 @@ def _counts():
             "k4f_lse": fa.flash_attention_mega_fwd.lse_launches,
             "k4b": fa.flash_attention_mega_bwd.launches,
             "k5": fd.flash_decode.launches,
-            "k9": ssd.ssd_scan.launches}
+            "k9": ssd.ssd_scan.launches,
+            "k9b": ssd.ssd_scan.bwd_launches}
 
 
 def phase_k_train(flush):
@@ -1822,6 +1847,171 @@ def phase_restart(ckpt_dir):
             "depth_cut_for_disk": cut, "state_gb": state_bytes / 1e9}
 
 
+SSM_TRAIN_ARGS = ["--arch", "mamba2-1.3b", "--data", "markov", "--batch",
+                  "4", "--seq", "4096", "--steps", "6", "--lr", "1e-3",
+                  "--device", "cuda"]
+HYBRID_TRAIN_ARGS = ["--arch", "zamba2-1.2b"] + SSM_TRAIN_ARGS[2:]
+
+
+def _ssm_want(cfg, steps, counts, deterministic=False):
+    """The launches of ``steps`` train steps of an ssm / hybrid config:
+    with remat="layer" K9 twice a Mamba layer (forward, then again in the
+    backward's recompute) and K9b once; a hybrid's shared attention block
+    (outside remat, as in the reference) K1-lse and K3 (K2 in
+    deterministic mode) once per application."""
+    want = {**{k: 0 for k in counts}, "k9": 2 * cfg.num_layers * steps,
+            "k9b": cfg.num_layers * steps}
+    if cfg.family == "hybrid":
+        g = cfg.num_layers // cfg.attn_every
+        want["k1_lse"] = g * steps
+        if deterministic:
+            want["k2_dq"] = want["k2_dkv"] = g * steps
+        else:
+            want["k3"] = g * steps
+    return want
+
+
+def _ssm_train(argv, what):
+    """Full-width training of an ssm or hybrid config through the entry
+    point: ce_loss falls, the launches match the reckoning; step median,
+    peak memory and one profiled step."""
+    print(f"== {what}: repro_torch.launch.train " + " ".join(argv))
+    args = train_cli.parse_args(argv)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    tr, state = train_cli.run(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    cfg = tr.model.cfg
+    for h in tr.history:
+        print(f"  step {h['step']}: ce_loss {h['ce_loss']:.4f} grad_norm "
+              f"{h['grad_norm']:.3f} {h['step_time'] * 1e3:.1f} ms")
+    want = _ssm_want(cfg, args.steps, counts)
+    print(f"  launches {counts} (want {want})")
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, want {want}")
+    first, last = tr.history[0]["ce_loss"], tr.history[-1]["ce_loss"]
+    if not (np.isfinite(last) and last < first):
+        raise AssertionError(f"ce_loss {first} -> {last}: did not descend")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = [1e3 * h["step_time"] for h in tr.history]
+    print(f"  {args.steps} steps in {wall:.1f} s wall; step median "
+          f"{np.median(step_ms):.1f} ms (steps 2-{args.steps} mean "
+          f"{np.mean(step_ms[1:]):.1f}); peak memory {peak_gb:.2f} GB")
+    step_fn = tr._build()
+    batch = {k: torch.from_numpy(v).cuda() for k, v in tr.data.get(0).items()}
+    prof = _profile(lambda: step_fn(state, batch), 1)
+    _print_profile(f"{what} step (B=4 x 4096)", prof,
+                   prof["profiled_wall_ms"])
+    info = {"wall_s": wall, "step_ms": step_ms,
+            "ce_loss": [h["ce_loss"] for h in tr.history],
+            "grad_norm": [h["grad_norm"] for h in tr.history],
+            "peak_memory_gb": peak_gb, "launches": counts,
+            "step_profile": prof}
+    del tr, state, step_fn, batch
+    torch.cuda.empty_cache()
+    return info
+
+
+def phase_ssm_train():
+    """mamba2-1.3b at full width (48 layers), 6 steps of 4 x 4096."""
+    return _ssm_train(SSM_TRAIN_ARGS, "ssm train")
+
+
+def phase_hybrid_train():
+    """zamba2-1.2b at full width (38 Mamba layers, the shared attention
+    block applied 6 times), 6 steps of 4 x 4096."""
+    return _ssm_train(HYBRID_TRAIN_ARGS, "hybrid train")
+
+
+def phase_ssm_train_reference():
+    """One depth-cut mamba2 train step: 2 layers at full width, fp32, 1 x
+    1024 tokens, on the card (K9 and K9b on the fp32 route) against the
+    CPU's plain path (autograd of the plain scan) from the same weights:
+    loss and gradients."""
+    print("== ssm train: 2 layers full width, fp32, 1 x 1024, card (K9, "
+          "K9b) vs CPU")
+    cfg = dataclasses.replace(get_config("mamba2-1.3b"), num_layers=2,
+                              dtype="float32", param_dtype="float32")
+    cpu = LanguageModel(cfg, "cpu")
+    params = cpu.init(torch.Generator().manual_seed(64))
+    gpu = LanguageModel(cfg, "cuda")
+    params_gpu = _tree_to(params, "cuda", copy=True)
+    toks = np.random.RandomState(65).randint(0, cfg.vocab_size, (1, 1025))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+             "targets": torch.from_numpy(toks[:, 1:])}
+    _zero_counts()
+    loss, grads = _grads(gpu, params_gpu, batch, "cuda")
+    torch.cuda.synchronize()
+    counts = _counts()
+    grads = [g.cpu() for g in grads]
+    t0 = time.perf_counter()
+    loss_c, g_cpu = _grads(cpu, params, batch, "cpu")
+    cpu_s = time.perf_counter() - t0
+    loss_err = abs(loss - loss_c) / abs(loss_c)
+    errs = {"/".join(p): (a - c).abs().max().item()
+            / max(c.abs().max().item(), 1e-30)
+            for (p, _), a, c in zip(iter_leaves(params), grads, g_cpu)}
+    grad_err = max(errs.values())
+    want = _ssm_want(cfg, 1, counts)
+    finite = all(torch.isfinite(g).all() for g in g_cpu)
+    print(f"  loss {loss:.6f} vs CPU {loss_c:.6f} (rel err {loss_err:.2e}, "
+          f"limit 1e-5), gradients {grad_err:.2e} of each leaf's max (limit "
+          f"1e-4: fp32 in another summation order; worst "
+          f"{max(errs, key=errs.get)}), CPU gradients finite {finite}; "
+          f"launches {counts} (want {want}); CPU {cpu_s:.1f} s")
+    if counts != want:
+        raise AssertionError(f"launches {counts}, want {want}")
+    if not (finite and loss_err <= 1e-5 and grad_err <= 1e-4):
+        raise AssertionError("ssm train step: card and CPU disagree")
+    del gpu, params_gpu
+    torch.cuda.empty_cache()
+    return {"loss_rel_err": loss_err, "grad_rel_err": grad_err,
+            "grad_rel_err_by_leaf": errs, "launches": counts, "cpu_s": cpu_s}
+
+
+def phase_ssm_deterministic():
+    """Deterministic mode: 2 steps of a depth-cut mamba2 (4 layers) and
+    zamba2 (7 layers: one shared-attention group and one more Mamba layer)
+    at full width, each run twice from the same seed: the two runs' final
+    parameters must be the same bits."""
+    print("== ssm / hybrid deterministic reruns (depth-cut, full width)")
+    info = {}
+    for arch, layers in (("mamba2-1.3b", 4), ("zamba2-1.2b", 7)):
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        argv = ["--arch", arch, "--data", "markov", "--batch", "2", "--seq",
+                "2560", "--steps", "2", "--lr", "1e-3", "--device", "cuda"]
+        finals, counts = [], []
+        torch.use_deterministic_algorithms(True)
+        try:
+            for _ in range(2):
+                _zero_counts()
+                tr = _trainer(cfg, TrainerConfig(), argv=argv)
+                state = tr.run(tr.init_or_restore(
+                    torch.Generator(device="cuda").manual_seed(0)), 2)
+                torch.cuda.synchronize()
+                counts.append(_counts())
+                finals.append([p.cpu() for _p, p in
+                               iter_leaves(state["params"])])
+                del tr, state
+                torch.cuda.empty_cache()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        same = all(torch.equal(a, c) for a, c in zip(*finals))
+        want = _ssm_want(cfg, 2, counts[0], deterministic=True)
+        print(f"  {arch} ({layers} layers, 2 x 2560, 2 steps twice): final "
+              f"params the same bits {same}; launches {counts[0]} (want "
+              f"{want})")
+        if not same:
+            raise AssertionError(f"{arch}: deterministic reruns differ")
+        if counts[0] != want or counts[1] != want:
+            raise AssertionError(f"{arch}: launches {counts}, want {want}")
+        info[arch] = {"bit_exact": same, "launches": counts[0]}
+    return info
+
+
 def phase_serve_ckpt(ckpt_dir):
     """Restore the restart phase's last checkpoint; prefill a 2100-token
     prompt (K1) and decode 16 tokens (K5) on the card."""
@@ -2060,6 +2250,157 @@ def phase_k9(flush):
             "bound_by": main["bound_by"], "library_ms": None,
             "timed_shape": "B=4 H=64 S=4096 P=64 N=128 chunk 128 bf16",
             "timed": timed}
+
+
+def _ssd_bwd_work(b, h, s, p, n, chunk, el):
+    """FLOP and bytes the scan's VJP needs for this input: per chunk of v
+    positions and head, the causal half of dy·xᵀ and attᵀ·dy, 2v(v+1)P,
+    and six vPN products (the entering states, their gradients, G·Bᵀ,
+    S·Cᵀ and the state terms of dC and dB), 12vPN; per chunk and batch
+    row, the causal half of C·Bᵀ, dCB·B and dCBᵀ·C, 3v(v+1)N.  x, dy, B,
+    C, dt, A read once, dx, dB, dC, ddt, dA written once."""
+    q = min(chunk, s)
+    flops = 0
+    for c0 in range(0, s, q):
+        v = min(q, s - c0)
+        flops += b * h * (2 * v * (v + 1) * p + 12 * v * p * n)
+        flops += b * 3 * v * (v + 1) * n
+    nbytes = (3 * b * h * s * p * el + 4 * b * s * n * el + 8 * b * h * s
+              + 8 * h)
+    return flops, nbytes
+
+
+# K9b's kernels: label -> a piece of the mangled name (the fp32 state pass
+# serves both directions)
+K9B_KERNELS = {"K9bs tc": "ssd_states_tc_kernelILb1",
+               "K9bx tc": "ssd_bwd_chunk_tc_kernel",
+               "K9bc tc": "ssd_bwd_bc_tc_kernel",
+               "pass fp32": "ssd_pass_kernel",
+               "K9bg fp32": "ssd_bwd_state_kernel",
+               "K9bx fp32": "ssd_bwd_chunk_kernel",
+               "K9bc fp32": "ssd_bwd_bc_kernel"}
+
+
+def _bwd_check(name, got, want, dtype):
+    """One gradient against the plain version's: bf16 entries one bf16
+    rounding apart (2^-7 relative) plus 1e-4 of the largest |value| (sums
+    of thousands of terms near zero); fp32 1e-4 of the largest |value|
+    (summation order).  Returns (entries past the limit, the largest
+    error, the same relative to the largest |value|)."""
+    d = (got.float() - want.float()).abs()
+    top = want.float().abs()
+    scale = max(top.max().item(), 1e-30)
+    rel = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    bad = int((d > rel * top + 1e-4 * scale).sum())
+    return bad, d.max().item(), d.max().item() / scale
+
+
+def phase_k9b(flush):
+    """K9b (the scan's backward) against ``ssd_scan_bwd_plain`` at the
+    training shapes, twice each for the same bits; the two full-width
+    bf16 shapes timed under both timers beside the plain backward and
+    the bound."""
+    print("== K9b ssd_scan backward: kernel vs plain version")
+    bf = torch.bfloat16
+    cases = [  # name, B, H, S, P, N, chunk, dtype, dstate, timed
+        ("mamba2 4x4096 bf16", 4, 64, 4096, 64, 128, 128, bf, False, True),
+        ("zamba2 4x4096 N=64 bf16", 4, 64, 4096, 64, 64, 128, bf, False,
+         True),
+        ("ragged 4x3000 bf16", 4, 64, 3000, 64, 128, 128, bf, False, False),
+        ("reduced fp32 P=32 N=16 chunk 16, S=65", 2, 8, 65, 32, 16, 16,
+         torch.float32, False, False),
+        ("reduced bf16 P=32 N=16 chunk 16, S=65", 2, 8, 65, 32, 16, 16, bf,
+         False, False),
+        ("dstate 1x1000 bf16", 1, 64, 1000, 64, 128, 128, bf, True, False),
+        ("dstate fp32 1x300 P=64 N=128", 1, 8, 300, 64, 128, 128,
+         torch.float32, True, False),
+    ]
+    names = ("dx", "ddt", "dA", "dB", "dC")
+    worst = dict.fromkeys(names, 0.0)
+    worst_abs = 0.0
+    timed = []
+    for i, (name, b, h, s, p, n, chunk, dt, with_ds, time_it) in \
+            enumerate(cases):
+        args = _ssd_inputs(b, h, s, p, n, dt, 700 + i)
+        gen = torch.Generator(device="cuda").manual_seed(800 + i)
+        dy = torch.randn((b, h, s, p), generator=gen, device="cuda").to(dt)
+        ds = (torch.randn((b, h, p, n), generator=gen, device="cuda")
+              if with_ds else None)
+        before = ssd.ssd_scan.bwd_launches
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = ssd._launch_bwd(*args, dy, ds, chunk)
+        torch.cuda.synchronize()
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        again = ssd._launch_bwd(*args, dy, ds, chunk)
+        torch.cuda.synchronize()
+        if ssd.ssd_scan.bwd_launches != before + 2:
+            raise AssertionError(f"{name}: K9b launches not counted")
+        same = all(torch.equal(a, c) for a, c in zip(got, again))
+        want = ssd.ssd_scan_bwd_plain(*args, dy, ds, chunk=chunk)
+        errs, fails = {}, []
+        for nm, g, w in zip(names, got, want):
+            if not torch.isfinite(g.float()).all():
+                fails.append(f"{nm} not finite")
+            bad, err_abs, err = _bwd_check(nm, g, w, g.dtype)
+            # dA sums B·S products dcum·cumsum(dt) that cancel: 1e-3 of
+            # max|dA| (the CPU tests see ~1e-5 at a few hundred positions)
+            if (err > 1e-3) if nm == "dA" else bad:
+                fails.append(f"{nm}: {bad} entries out, err {err:.2e}")
+            errs[nm] = err
+            worst[nm] = max(worst[nm], err)
+            worst_abs = max(worst_abs, err_abs)
+        print(f"  {name}: route {ssd.route(dt, p, n, min(chunk, s))}; "
+              f"max err / max|value|: " + ", ".join(
+                  f"{k} {v:.2e}" for k, v in errs.items())
+              + f" (limits: bf16 outputs one rounding + 1e-4, fp32 1e-4, "
+              f"dA 1e-3); twice the same bits {same}; peak {peak_gb:.2f} GB")
+        if fails or not same:
+            raise AssertionError(f"{name}: K9b disagrees with the plain "
+                                 f"backward: {fails}, same bits {same}")
+        del got, again, want
+        if time_it:
+            call = lambda: ssd._launch_bwd(*args, dy, ds, chunk)  # noqa: E731
+            ev = _time_stats(call, 5, flush)
+            dev = _time_stats(call, 5, flush, spin=True)
+            plain_ms = _time_ms(lambda: ssd.ssd_scan_bwd_plain(
+                *args, dy, ds, chunk=chunk), 2, flush)
+            flops, nbytes = _ssd_bwd_work(b, h, s, p, n, chunk,
+                                          args[0].element_size())
+            bound_ms, bound_by = _bound(flops, nbytes, dt)
+            row = {"shape": name, "ms": ev["median"], "events": ev,
+                   "device": dev, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "gflop": flops / 1e9,
+                   "mbytes": nbytes / 1e6, "peak_gb": peak_gb}
+            if not timed:
+                # the kernels of one call, device time each
+                row["profile"] = _profile(call, 2)
+                _print_profile(f"K9b ({name})", row["profile"],
+                               row["profile"]["profiled_wall_ms"])
+            timed.append(row)
+            print(f"    kernel {_fmt(ev)}, device-only {_fmt(dev)}; plain "
+                  f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+                  f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+        del args, dy, ds
+        torch.cuda.empty_cache()
+    sass = _sass_counts("ssd_")
+    hmma = {label: sum(n for name, n in sass.items() if pattern in name)
+            for label, pattern in K9B_KERNELS.items()}
+    print(f"  K9b's kernels, HMMA in SASS: {hmma} (the tc route's K9bs, K9bx "
+          f"and K9bc on tensor cores; the fp32 route's on CUDA cores)")
+    if not all(hmma[k] for k in K9B_KERNELS if k.endswith("tc")):
+        raise AssertionError(f"a tc kernel of K9b has no HMMA: {hmma}")
+    main = timed[0]
+    return {"name": "ssd_scan_bwd (K9b)", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+            "replaces": "none: autodiff of src/repro/models/mamba.py:71 "
+                        "ssd_chunked",
+            "max_abs_err": worst_abs, "max_err_rel": worst,
+            "ms": main["ms"], "device_ms": main["device"]["median"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            "timed_shape": "B=4 H=64 S=4096 P=64 N=128 chunk 128 bf16",
+            "hmma": hmma, "timed": timed}
 
 
 def _serve_run(model, params, tokens, steps, cache_len=None):
@@ -2723,6 +3064,7 @@ def main() -> int:
     k1 = timed("k1_s", phase_k1, flush)
     k5 = timed("k5_s", phase_k5, flush)
     k9 = timed("k9_s", phase_k9, flush)
+    k9b = timed("k9b_s", phase_k9b, flush)
     ktrain = timed("k_train_s", phase_k_train, flush)
     k4 = timed("k4_s", phase_k4, flush)
     del flush
@@ -2736,6 +3078,10 @@ def main() -> int:
     train = timed("train_s", phase_train)
     short_train = timed("short_train_s", phase_short_train)
     short_serve = timed("short_serve_s", phase_short_serve)
+    ssm_train = timed("ssm_train_s", phase_ssm_train)
+    hybrid_train = timed("hybrid_train_s", phase_hybrid_train)
+    ssm_train_ref = timed("ssm_train_reference_s", phase_ssm_train_reference)
+    ssm_det = timed("ssm_deterministic_s", phase_ssm_deterministic)
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         restart = timed("restart_s", phase_restart, ckpt_dir)
@@ -2767,7 +3113,14 @@ def main() -> int:
                 "short_train_other": short_train["other_route"]["launches"],
                 "short_train_interleaved":
                     short_train["default_interleaved"]["launches"],
-                "short_serve": short_serve["launches"]}
+                "short_serve": short_serve["launches"],
+                "ssm_train": ssm_train["launches"],
+                "hybrid_train": hybrid_train["launches"],
+                "ssm_train_reference": ssm_train_ref["launches"],
+                "ssm_deterministic":
+                    ssm_det["mamba2-1.3b"]["launches"],
+                "hybrid_deterministic":
+                    ssm_det["zamba2-1.2b"]["launches"]}
 
     def launches(*keys):
         per = {ph: sum(c.get(k, 0) for k in keys)
@@ -2810,6 +3163,8 @@ def main() -> int:
                         "launches_by_phase": per})
     k9["launches"], k9["launches_by_phase"] = launches("k9")
     kernels.append(k9)
+    k9b["launches"], k9b["launches_by_phase"] = launches("k9b")
+    kernels.append(k9b)
     src_mega = "src/repro_torch/kernels/csrc/flash_attention_mega.cu"
     for key, name, replaces, counter in (
             ("k4f", "flash_attention_mega_fwd (K4f)",
@@ -2836,7 +3191,10 @@ def main() -> int:
               "restart": restart, "serve_ckpt": served,
               "train_reference": train_ref, "copy_paths": copy_paths,
               "k4": k4, "short_train": short_train,
-              "short_serve": short_serve,
+              "short_serve": short_serve, "ssm_train": ssm_train,
+              "hybrid_train": hybrid_train,
+              "ssm_train_reference": ssm_train_ref,
+              "ssm_deterministic": ssm_det,
               "library_bwd_ms": ktrain["library_bwd_ms"], "phase_s": timings}
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)

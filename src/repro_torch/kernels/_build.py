@@ -67,6 +67,17 @@ _ENTRIES = {
     # x, dt, A, B, C, y, state, scratch, B, H, S, P, N, chunk, heads per
     # K9y block, strides as above, stages (1 K9s, 2 K9y, 3 both), stream
     "repro_ssd_scan_tc": (_P,) * 8 + (_I,) * 7 + (_L,) * 13 + (_I, _P),
+    # dy, dt, A, C, dstate (or null), scratch, B, H, S, P, N, chunk,
+    # strides of dy, dt (b, h, s), of C (b, s), stream: K9s reversed
+    "repro_ssd_dstates_tc": (_P,) * 6 + (_I,) * 6 + (_L,) * 8 + (_P,),
+    # B, H, S, P, N, chunk, own states, out (long long): K9b's workspace
+    # bytes
+    "repro_ssd_scan_bwd_workspace": (_I,) * 7 + (_P,),
+    # x, dt, A, B, C, dy, dstate, states, dstates (each or null),
+    # workspace, dx, ddt, dA, dB, dC, B, H, S, P, N, chunk, pair, strides
+    # of x, dy, dx, dt, ddt (b, h, s) and of B, C, dB, dC (b, s), dtype,
+    # stream
+    "repro_ssd_scan_bwd": (_P,) * 15 + (_I,) * 7 + (_L,) * 23 + (_I, _P),
 }
 
 

@@ -69,6 +69,48 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src,
   }
 }
 
+// ------------------------------------------- CUDA-core tile products
+//
+// The SSD kernels' fp32 products from shared memory (csrc/ssd_scan.cu's
+// fp32 route, csrc/ssd_scan_bwd.cu).
+
+// acc[i][j] += sum_k A(m0 + i*ms, k) * B(n0 + j*ns, k) over k < K, where
+// A(m, k) is A[m*lda + k] if A_KC (k contiguous) else A[k*lda + m], and
+// likewise for B.  Spreading a thread's rows and columns by ms, ns puts
+// the neighbouring threads of a warp on neighbouring rows / columns.
+template <int TM, int TN, bool A_KC, bool B_KC>
+__device__ __forceinline__ void mac(float (&acc)[TM][TN],
+                                    const float* __restrict__ A, int lda,
+                                    const float* __restrict__ B, int ldb,
+                                    int m0, int ms, int n0, int ns, int K) {
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    float a[TM], b[TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int m = m0 + i * ms;
+      a[i] = A_KC ? A[m * lda + k] : A[k * lda + m];
+    }
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int n = n0 + j * ns;
+      b[j] = B_KC ? B[n * ldb + k] : B[k * ldb + n];
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+}
+
+template <int TM, int TN>
+__device__ __forceinline__ void zero(float (&acc)[TM][TN]) {
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+}
+
 // ---------------------------------------------------- tensor-core helpers
 //
 // bf16 operands for mma.sync.m16n8k16 (fp32 accumulators), loaded from
@@ -244,6 +286,38 @@ __device__ __forceinline__ const bf16* bt_addr(const bf16* s, int ld, int k0,
   return s + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 +
          (lane >> 4) * 8;
 }
+
+// Rows [0, rows) of a chunk of a (S, cols) bf16 operand (row stride ld
+// elements) into shared memory with row stride lds, 16 bytes a copy, by
+// a block of NT threads; rows at or past `valid` are zeros.  cols is a
+// multiple of 8.
+template <int NT = 256>
+__device__ __forceinline__ void cp_rows(bf16* dst, int lds, const bf16* src,
+                                        long long ld, int rows, int valid,
+                                        int cols) {
+  // thread i copies column piece i % ch of rows i / ch, + step, ...
+  const int ch = cols / 8, step = NT / ch;
+  const int r0 = threadIdx.x / ch, c = (threadIdx.x % ch) * 8;
+  if (r0 >= step) return;
+  bf16* d = dst + r0 * lds + c;
+  const bf16* g = src + r0 * ld + c;
+  for (int r = r0; r < rows; r += step) {
+    const bool ok = r < valid;
+    cp_async16(d, ok ? g : src, ok);
+    d += step * lds;
+    g += step * ld;
+  }
+}
+
+// (x0, x1) * (w0, w1) from a packed bf16 pair, as a bf16 hi + lo pair
+__device__ __forceinline__ void scale_split(uint32_t x, float2 w, uint32_t& hi,
+                                            uint32_t& lo) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
+  split_bf16(f.x * w.x, f.y * w.y, hi, lo);
+}
+
+// the chunk as the tc kernels hold it: whole 16-row tiles
+__host__ __device__ constexpr int qpad16(int q) { return (q + 15) / 16 * 16; }
 
 // Rows [0, ROWS) of a bf16 (rows, hd) tile into shared memory with row
 // stride LD by 16-byte cp.async; rows at or past valid_rows and columns

@@ -96,43 +96,6 @@ __host__ __device__ inline size_t ssd_smem_floats(int qp, int p, int n) {
          (size_t)r * (qp + 1) + 3 * (size_t)qp + 8;
 }
 
-// acc[i][j] += sum_k A(m0 + i*ms, k) * B(n0 + j*ns, k) over k < K, where
-// A(m, k) is A[m*lda + k] if A_KC (k contiguous) else A[k*lda + m], and
-// likewise for B.  Spreading a thread's rows and columns by ms, ns puts
-// the neighbouring threads of a warp on neighbouring rows / columns.
-template <int TM, int TN, bool A_KC, bool B_KC>
-__device__ __forceinline__ void mac(float (&acc)[TM][TN],
-                                    const float* __restrict__ A, int lda,
-                                    const float* __restrict__ B, int ldb,
-                                    int m0, int ms, int n0, int ns, int K) {
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float a[TM], b[TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int m = m0 + i * ms;
-      a[i] = A_KC ? A[m * lda + k] : A[k * lda + m];
-    }
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + j * ns;
-      b[j] = B_KC ? B[n * ldb + k] : B[k * ldb + n];
-    }
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-template <int TM, int TN>
-__device__ __forceinline__ void zero(float (&acc)[TM][TN]) {
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-}
-
 struct SsdArgs {
   const void* x;
   const float* dt;
@@ -322,8 +285,6 @@ constexpr int TC_LDX = TC_PS + 8;
 constexpr int TC_MAX_G = 8;    // K9y: heads per block
 constexpr float LOG2E = 1.4426950408889634f;
 
-// the chunk as the tc kernels hold it: whole 16-row tiles
-__host__ __device__ constexpr int qpad16(int q) { return (q + 15) / 16 * 16; }
 
 struct TcArgs {
   const bf16* x;
@@ -340,36 +301,14 @@ struct TcArgs {
   long long ds_b, ds_h, ds_s;
   long long bs_b, bs_s;
   long long cs_b, cs_s;
+  const float* init;            // K9s reversed: (B, H, P, N) or null
 };
 
-// Rows [0, rows) of a chunk of a (S, cols) bf16 operand (row stride ld
-// elements) into shared memory with row stride lds, 16 bytes a copy;
-// rows at or past `valid` are zeros.  cols is a multiple of 8.
-__device__ __forceinline__ void cp_rows(bf16* dst, int lds, const bf16* src,
-                                        long long ld, int rows, int valid,
-                                        int cols) {
-  // thread i copies column piece i % ch of rows i / ch, + step, ...
-  const int ch = cols / 8, step = TC_NT / ch;
-  const int r0 = threadIdx.x / ch, c = (threadIdx.x % ch) * 8;
-  if (r0 >= step) return;
-  bf16* d = dst + r0 * lds + c;
-  const bf16* g = src + r0 * ld + c;
-  for (int r = r0; r < rows; r += step) {
-    const bool ok = r < valid;
-    cp_async16(d, ok ? g : src, ok);
-    d += step * lds;
-    g += step * ld;
-  }
-}
-
-// (x0, x1) * (w0, w1) from a packed bf16 pair, as a bf16 hi + lo pair
-__device__ __forceinline__ void scale_split(uint32_t x, float2 w, uint32_t& hi,
-                                            uint32_t& lo) {
-  const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
-  split_bf16(f.x * w.x, f.y * w.y, hi, lo);
-}
-
 // K9s.  Block (b*H + h, p-slice): state rows p0..p0+PS-1 of (b, h).
+// REV (K9b's reverse state pass, K9bs): the same walk from the last chunk
+// to the first, on x = dy, B = C with w = e^cum, from a.init (the final
+// state's gradient): G_c = e^total G_{c+1} + (dy e^cum)^T C, storing the
+// gradient of the state *leaving* each chunk, G_{c+1}; no final state.
 // Warp w: rows 16*(w/4) of the slice, column pairs (16 wide) w%4, w%4+4.
 // One block barrier a chunk.  After it, for chunk c: thread 0 writes the
 // staged entering state out by two bulk copies; the chunk TC_RING - 1
@@ -380,6 +319,7 @@ __device__ __forceinline__ void scale_split(uint32_t x, float2 w, uint32_t& hi,
 // registers, adds (x w)^T B to its rows, and stages the state entering
 // chunk c + 1 once the copies have read the stage (an mbarrier that
 // thread 0 arrives on).
+template <bool REV>
 __global__ void __launch_bounds__(TC_NT, 2) ssd_states_tc_kernel(TcArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t stage_free;
@@ -403,10 +343,12 @@ __global__ void __launch_bounds__(TC_NT, 2) ssd_states_tc_kernel(TcArgs a) {
   const bf16* bp = a.Bm + b * a.bs_b;
   const float A_h = a.A[h];
   bf16* scr = a.scr + ((size_t)(b * a.H + h) * nc) * 2 * P * N;
+  // the chunk walked c-th
+  auto pos = [&](int c) { return REV ? nc - 1 - c : c; };
 
   // dt of chunk c into its slot (TC_RING + 1 slots)
   auto load_dt = [&](int c) {
-    const int base = c * Q, valid = min(Q, S - base);
+    const int base = pos(c) * Q, valid = min(Q, S - base);
     float* d = sDt + (c % (TC_RING + 1)) * QP;
     for (int t = tid; t < QP; t += TC_NT) {
       const bool ok = t < valid;
@@ -416,7 +358,8 @@ __global__ void __launch_bounds__(TC_NT, 2) ssd_states_tc_kernel(TcArgs a) {
   // one cp.async group per chunk c: its x and B, and the dt of c + 1
   auto load = [&](int c) {
     if (c < nc) {
-      const int base = c * Q, valid = min(Q, S - base), buf = c % TC_RING;
+      const int base = pos(c) * Q, valid = min(Q, S - base);
+      const int buf = c % TC_RING;
       cp_rows(sX + buf * QP * TC_LDX, TC_LDX, xp + base * a.xs_s, a.xs_s,
               QP, valid, PS);
       cp_rows(sB + buf * QP * LDN, LDN, bp + base * a.bs_s, a.bs_s, QP,
@@ -448,18 +391,26 @@ __global__ void __launch_bounds__(TC_NT, 2) ssd_states_tc_kernel(TcArgs a) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int t = 4 * lane + i;
-      if (t < QP) w[t] = expf(total - (v[i] + excl)) * dts[t];
+      if (t < QP)
+        w[t] = REV ? expf(v[i] + excl) : expf(total - (v[i] + excl)) * dts[t];
     }
     if (lane == 0) sTot[c & 1] = total;
   };
 
   float st[2][2][4];   // the carried state: pairs wn, wn + 4; n8 tiles
+  const float* init =
+      a.init ? a.init + (size_t)(b * a.H + h) * P * N : nullptr;
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) st[i][j][e] = 0.f;
+      for (int e = 0; e < 4; ++e) {
+        const int row = p0 + 16 * wm + gq + 8 * (e >> 1);
+        const int col = 16 * (wn + 4 * i) + 8 * j + 2 * tq + (e & 1);
+        st[i][j][e] = init && active && 16 * (wn + 4 * i) < N
+                          ? init[row * N + col] : 0.f;
+      }
   // the carried state as a hi + lo pair into the stage, for the copies
   auto stage = [&]() {
     if (!active) return;
@@ -501,7 +452,7 @@ __global__ void __launch_bounds__(TC_NT, 2) ssd_states_tc_kernel(TcArgs a) {
     __syncthreads();   // chunk c's x, B and dt(c + 1) have landed; w(c)
                        // and the stage are complete; chunk c - 1 is done
     if (tid == 0) {
-      bf16* hp = scr + (size_t)c * 2 * P * N + (size_t)p0 * N;
+      bf16* hp = scr + (size_t)pos(c) * 2 * P * N + (size_t)p0 * N;
       bulk_store(hp, sSt, PS * N * 2);
       bulk_store(hp + (size_t)P * N, sSt + PS * N, PS * N * 2);
       asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
@@ -571,7 +522,7 @@ __global__ void __launch_bounds__(TC_NT, 2) ssd_states_tc_kernel(TcArgs a) {
   if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 
   // the final state, fp32
-  if (active) {
+  if (active && a.state) {
     float* out = a.state + (size_t)(b * a.H + h) * P * N;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -844,11 +795,12 @@ cudaError_t launch_tc(const TcArgs& a, int B, int stages,
   if (stages & 1) {
     const size_t smem = states_tc_smem(qp, a.N);
     cudaError_t err = cudaFuncSetAttribute(
-        ssd_states_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        ssd_states_tc_kernel<false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    ssd_states_tc_kernel<<<dim3(B * a.H, (a.P + TC_PS - 1) / TC_PS), TC_NT,
-                           smem, stream>>>(a);
+    ssd_states_tc_kernel<false>
+        <<<dim3(B * a.H, (a.P + TC_PS - 1) / TC_PS), TC_NT, smem, stream>>>(
+            a);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -927,6 +879,43 @@ extern "C" int repro_ssd_scan_tc(const void* x, const void* dt, const void* A,
            static_cast<float*>(state),   static_cast<bf16*>(scratch),
            H, S, P, N, Q, (S + Q - 1) / Q, G,
            xs_b, xs_h, xs_s, ys_b, ys_h, ys_s, ds_b, ds_h, ds_s,
-           bs_b, bs_s, cs_b, cs_s};
+           bs_b, bs_s, cs_b, cs_s, nullptr};
   return launch_tc(a, B, stages, static_cast<cudaStream_t>(stream));
+}
+
+// K9b's reverse state pass on the tc route (K9s reversed): dy (B, H, S, P)
+// through its strides (b, h, s), dt, A, C (B, S, N) as the forward's,
+// dstate (B, H, P, N) fp32 contiguous or null; writes the gradient of the
+// state leaving each chunk to scratch (B, H, nc, 2, P, N) bf16 as a hi +
+// lo pair.  Rows of dy and C start on 16 bytes (the wrapper checks).
+extern "C" int repro_ssd_dstates_tc(const void* dy, const void* dt,
+                                    const void* A, const void* Cm,
+                                    const void* dstate, void* scratch, int B,
+                                    int H, int S, int P, int N, int chunk,
+                                    long long ys_b, long long ys_h,
+                                    long long ys_s, long long ds_b,
+                                    long long ds_h, long long ds_s,
+                                    long long cs_b, long long cs_s,
+                                    void* stream) {
+  using namespace repro;
+  if (B <= 0 || H <= 0) return cudaSuccess;
+  if (S <= 0 || chunk < 1 || chunk > MAX_Q || P < 16 || P > MAX_P ||
+      P % 16 || N < 16 || N > MAX_N || N % 16)
+    return cudaErrorInvalidValue;
+  const int Q = chunk < S ? chunk : S;
+  TcArgs a{static_cast<const bf16*>(dy), static_cast<const float*>(dt),
+           static_cast<const float*>(A), static_cast<const bf16*>(Cm),
+           nullptr, nullptr, nullptr, static_cast<bf16*>(scratch),
+           H, S, P, N, Q, (S + Q - 1) / Q, 1,
+           ys_b, ys_h, ys_s, 0, 0, 0, ds_b, ds_h, ds_s,
+           cs_b, cs_s, 0, 0, static_cast<const float*>(dstate)};
+  const size_t smem = states_tc_smem(qpad16(Q), N);
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_states_tc_kernel<true>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  ssd_states_tc_kernel<true>
+      <<<dim3(B * H, (P + TC_PS - 1) / TC_PS), TC_NT, smem,
+         static_cast<cudaStream_t>(stream)>>>(a);
+  return cudaGetLastError();
 }

@@ -30,11 +30,25 @@ dt = 0 steps (decay 1, no input) and y sliced back, as
 kernel reads x, dt and y through their strides, so a transposed view of
 the model's (B, S, H, P) tensors costs no copy.
 
-There is no backward kernel yet: on a CUDA tensor the autograd Function
-around K9 raises in its backward; on the CPU autograd differentiates the
-plain version.
+The backward, K9b (``csrc/ssd_scan_bwd.cu``), has no TPU kernel to
+port: the reference differentiates the jnp ``ssd_chunked``, and K9b
+computes the same gradients on a CUDA tensor (:func:`ssd_scan_bwd_plain`
+is its plain version, staged as :func:`ssd_chunk_dstates_plain` and
+:func:`ssd_chunk_grads_plain`).  The forward saves only its inputs; the
+backward recomputes the states entering each chunk and runs a reverse
+state pass for the gradient of the state leaving each chunk, then the
+chunk-parallel gradients, every sum over heads in a fixed order (two
+calls give the same bits).  On the tc route all of it runs on the tensor
+cores: K9s and K9s reversed (K9bs) into bf16 hi + lo scratches, then
+K9bx (dx, ddt, dA, dCB) and K9bc (dB, dC) on ``mma.sync``; the fp32
+route runs K9b's CUDA-core kernels.  The scratches (the states and their
+gradients, B·H·nc·P·N·4 bytes each, 268 MB at mamba2's 4 × 4096) are
+allocated per call and freed when it returns.  On the CPU autograd
+differentiates the plain forward.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -102,9 +116,11 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         cum = torch.cumsum(dtc * a, dim=-1)
         total = cum[..., -1:]
         cb = torch.einsum("bqn,btn->bqt", cc, bc)[:, None]    # (B, 1, Q, Q)
-        decay = torch.exp(cum[..., :, None] - cum[..., None, :])
-        # select, not multiply: the masked decay overflows to inf
-        att = torch.where(tri, cb * decay * dtc[..., None, :], 0.0)
+        # select before the exp: the masked decay overflows to inf, and
+        # autograd's inf · 0 at those entries would make ddt and dA NaN
+        decay = torch.exp(torch.where(
+            tri, cum[..., :, None] - cum[..., None, :], -torch.inf))
+        att = cb * decay * dtc[..., None, :]
         y = att @ xc
         y = y + torch.exp(cum)[..., None] * torch.einsum(
             "bqn,bhpn->bhqp", cc, state)
@@ -171,6 +187,102 @@ def ssd_chunk_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     y = att @ xf + torch.exp(cum)[..., None] * torch.einsum(
         "bcqn,bhcpn->bhcqp", Cf, states.float())
     return y.reshape(b, h, nc * q, p)[:, :, :s].to(x.dtype)
+
+
+def ssd_chunk_dstates_plain(dt: torch.Tensor, A: torch.Tensor,
+                            C: torch.Tensor, dy: torch.Tensor,
+                            dstate: torch.Tensor = None, *,
+                            chunk: int = 128):
+    """K9bs's function in plain PyTorch, fp32: (the gradient of the state
+    *leaving* each chunk (B, H, nc, P, N), the gradient of the initial
+    state (B, H, P, N)).  Every chunk's own contribution
+    Σ_q e^{cum_q} dy_qᵀ C_q at once, then the carry backwards over the
+    chunks, G_c = e^{total_c} G_{c+1} + contribution_c, from ``dstate``
+    (the final state's gradient; zeros if None)."""
+    dyf, dtf, cum, Cf = _chunked(dy, dt, A, chunk, C)
+    b, h, nc, _, p = dyf.shape
+    total = cum[..., -1]                                   # (B, H, nc)
+    contrib = torch.einsum("bhcqp,bcqn->bhcpn",
+                           dyf * torch.exp(cum)[..., None], Cf)
+    g = (torch.zeros((b, h, p, Cf.shape[-1]), dtype=torch.float32,
+                     device=dy.device) if dstate is None else dstate.float())
+    leaving = [None] * nc
+    for c in reversed(range(nc)):
+        leaving[c] = g
+        g = torch.exp(total[:, :, c])[..., None, None] * g + contrib[:, :, c]
+    return torch.stack(leaving, dim=2), g
+
+
+def ssd_chunk_grads_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                          B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor,
+                          states: torch.Tensor, dstates: torch.Tensor, *,
+                          chunk: int = 128):
+    """K9bx's function in plain PyTorch, fp32 sums: (dx, ddt, dA, dB, dC)
+    from the states entering each chunk (:func:`ssd_chunk_states_plain`)
+    and the gradients of the states leaving them
+    (:func:`ssd_chunk_dstates_plain`), every chunk at once.  dx, dB and
+    dC come out in the inputs' dtypes, ddt and dA in fp32.
+
+    Per chunk, with att[q,t] = C_q·B_t e^{cum_q − cum_t} dt_t (t ≤ q,
+    selected), dAtt[q,t] = dy_q·x_t, w_t = e^{total − cum_t} dt_t and G
+    the leaving state's gradient: dx_t = Σ_q att[q,t] dy_q + w_t G B_t;
+    dC and dB from dCB = dAtt e^{cum_q − cum_t} dt_t summed over the
+    heads, plus e^{cum_q} Sᵀ dy_q and w_t Gᵀ x_t; dcum collects
+    ±(dAtt∘att) row and column sums, dy_q·y_off_q, −w_t x_t·G B_t and,
+    on the chunk's last row, Σ_t w_t x_t·G B_t + e^{total}⟨G, S⟩; then
+    ddt_t gains A Σ_{q≥t} dcum_q and dA Σ_q dcum_q Σ_{t≤q} dt_t."""
+    b, h, s, p = x.shape
+    xf, dtf, cum, Bf, Cf = _chunked(x, dt, A, chunk, B, C)
+    _, _, nc, q, _ = xf.shape
+    dyf = torch.nn.functional.pad(dy.float(), (0, 0, 0, nc * q - s)
+                                  ).reshape(b, h, nc, q, p)
+    S, G = states.float(), dstates.float()                # (B, H, nc, P, N)
+    total = cum[..., -1:]                                  # (B, H, nc, 1)
+    tri = torch.tril(torch.ones(q, q, dtype=torch.bool, device=x.device))
+    cb = torch.einsum("bcqn,bctn->bcqt", Cf, Bf)[:, None]  # (B,1,nc,Q,Q)
+    # select, not multiply: the masked decay overflows to inf
+    decay = torch.where(tri, torch.exp(cum[..., :, None] - cum[..., None, :]),
+                        0.0)
+    dtt = dtf[..., None, :]                                # dt_t by column
+    att = cb * decay * dtt
+    datt = dyf @ xf.transpose(-1, -2)                      # dy_q·x_t
+    w = torch.exp(total - cum) * dtf                       # (B, H, nc, Q)
+    gb = torch.einsum("bcqn,bhcpn->bhcqp", Bf, G)          # G B_t
+    u = (xf * gb).sum(-1)                                  # x_t·G B_t
+    v = (dyf * torch.einsum("bcqn,bhcpn->bhcqp", Cf, S)).sum(-1)
+    dx = att.transpose(-1, -2) @ dyf + w[..., None] * gb
+    da = datt * att
+    dcum = da.sum(-1) - da.sum(-2) + torch.exp(cum) * v - w * u
+    dcum[..., -1] += (w * u).sum(-1) + torch.exp(total[..., 0]) * (
+        G * S).sum((-1, -2))
+    rev = torch.flip(torch.cumsum(torch.flip(dcum, [-1]), -1), [-1])
+    ddt = ((datt * cb * decay).sum(-2) + torch.exp(total - cum) * u
+           + A.float()[None, :, None, None] * rev)
+    dA = (dcum * torch.cumsum(dtf, -1)).sum((0, 2, 3))
+    dcb = (datt * decay * dtt).sum(1)                      # (B, nc, Q, Q)
+    dC = dcb @ Bf + torch.einsum("bhcqp,bhcpn->bcqn",
+                                 dyf * torch.exp(cum)[..., None], S)
+    dB = dcb.transpose(-1, -2) @ Cf + torch.einsum(
+        "bhcqp,bhcpn->bcqn", xf * w[..., None], G)
+    n = Bf.shape[-1]
+    return (dx.reshape(b, h, nc * q, p)[:, :, :s].to(x.dtype),
+            ddt.reshape(b, h, nc * q)[:, :, :s], dA,
+            dB.reshape(b, nc * q, n)[:, :s].to(B.dtype),
+            dC.reshape(b, nc * q, n)[:, :s].to(C.dtype))
+
+
+def ssd_scan_bwd_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                       B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor,
+                       dstate: torch.Tensor = None, *, chunk: int = 128):
+    """The scan's VJP in plain PyTorch, fp32 and without autograd: K9b's
+    reference on the card.  dy (B, H, S, P) is y's gradient, ``dstate``
+    (B, H, P, N) the final state's (None: zeros).  Returns (dx, ddt, dA,
+    dB, dC) in the kernel layout, dx / dB / dC in the inputs' dtypes.
+    A ragged S is padded with dt = 0 steps, as the forward does."""
+    states, _ = ssd_chunk_states_plain(x, dt, A, B, chunk=chunk)
+    dstates, _ = ssd_chunk_dstates_plain(dt, A, C, dy, dstate, chunk=chunk)
+    return ssd_chunk_grads_plain(x, dt, A, B, C, dy, states, dstates,
+                                 chunk=chunk)
 
 
 def _check(x, dt, A, B, C, chunk):
@@ -291,14 +403,94 @@ def _launch(x, dt, A, B, C, chunk):
     return y, state
 
 
+def _dstates_tc(dy, dt, A, C, dstate, chunk):
+    """K9s reversed (K9bs on the tc route): the gradient of the state
+    leaving each chunk as a (B, H, nc, 2, P, N) bf16 hi + lo scratch."""
+    b, h, s, p = dy.shape
+    n = C.shape[-1]
+    nc = -(-s // min(chunk, s))
+    dy, C = _aligned(dy), _aligned(C)
+    scratch = torch.empty((b, h, nc, 2, p, n), dtype=torch.bfloat16,
+                          device=dy.device)
+    err = _build.load().repro_ssd_dstates_tc(
+        dy.data_ptr(), dt.data_ptr(), A.data_ptr(), C.data_ptr(),
+        0 if dstate is None else dstate.data_ptr(), scratch.data_ptr(), b, h,
+        s, p, n, chunk, *dy.stride()[:3], *dt.stride(), *C.stride()[:2],
+        torch.cuda.current_stream(dy.device).cuda_stream)
+    _build.check(err, "ssd_scan backward: reverse state pass")
+    return scratch
+
+
+def _launch_bwd(x, dt, A, B, C, dy, dstate, chunk):
+    """K9b on the forward's (checked) operands: (dx, ddt, dA, dB, dC).
+    On the tc route the entering states come from K9s again and their
+    gradients from K9s reversed, both as bf16 hi + lo scratches; the fp32
+    route's K9b computes both itself.  ``dy`` is read through its strides
+    where its last dimension is unit-stride."""
+    b, h, s, p = x.shape
+    n = B.shape[-1]
+    if dy.shape != x.shape or dy.device != x.device or (
+            dstate is not None and dstate.shape != (b, h, p, n)):
+        raise ValueError(f"ssd_scan backward: dy {tuple(dy.shape)}, dstate "
+                         f"{None if dstate is None else tuple(dstate.shape)}"
+                         f" for x {tuple(x.shape)}, N={n}")
+    if dy.dtype != x.dtype:
+        raise TypeError(f"ssd_scan backward: dy {dy.dtype}, y {x.dtype}")
+    if dy.stride(3) != 1:
+        dy = dy.contiguous()
+    if dstate is not None:
+        dstate = dstate.float().contiguous()
+    states = dstates = None
+    if route(x.dtype, p, n, min(chunk, s)) == "tc":
+        states, _ = _launch_tc(x, dt, A, B, C, chunk, 1)
+        dstates = _dstates_tc(dy, dt, A, C, dstate, chunk)
+    lib = _build.load()
+    nbytes = ctypes.c_longlong(0)
+    _build.check(lib.repro_ssd_scan_bwd_workspace(
+        b, h, s, p, n, chunk, int(states is None), ctypes.byref(nbytes)),
+        "ssd_scan backward workspace")
+    work = torch.empty(nbytes.value, dtype=torch.uint8, device=x.device)
+    dx = torch.empty_like(x)
+    ddt = torch.empty_like(dt)
+    dA = torch.empty_like(A)
+    dB = torch.empty_like(B, memory_format=torch.contiguous_format)
+    dC = torch.empty_like(C, memory_format=torch.contiguous_format)
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
+    err = lib.repro_ssd_scan_bwd(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+        C.data_ptr(), dy.data_ptr(), ptr(dstate), ptr(states), ptr(dstates),
+        work.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
+        dB.data_ptr(), dC.data_ptr(), b, h, s, p, n, chunk,
+        int(states is not None), *x.stride()[:3], *dy.stride()[:3],
+        *dx.stride()[:3], *dt.stride(), *ddt.stride(), *B.stride()[:2],
+        *C.stride()[:2], *dB.stride()[:2], *dC.stride()[:2],
+        _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "ssd_scan backward launch")
+    ssd_scan.bwd_launches += 1
+    return dx, ddt, dA, dB, dC
+
+
 class _SSDScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dt, A, B, C, chunk):
-        return _launch(x, dt, A, B, C, chunk)
+        y, state = _launch(x, dt, A, B, C, chunk)
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
+        # the caller usually drops the final state: its gradient is None
+        ctx.set_materialize_grads(False)
+        return y, state
 
     @staticmethod
     def backward(ctx, dy, dstate):
-        raise NotImplementedError("K9 backward: not ported yet")
+        x, dt, A, B, C = ctx.saved_tensors
+        if dy is None and dstate is None:
+            return (None,) * 6
+        if dy is None:
+            dy = torch.zeros_like(x)
+        return (*_launch_bwd(x, dt, A, B, C, dy, dstate, ctx.chunk), None)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -310,9 +502,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     views; P and N multiples of 8 up to 64 and 128, chunk up to 128,
     anything else raises) on the route :func:`route` gives, recorded in
     ``ssd_scan.last_route`` and counted in ``ssd_scan.route_launches``;
-    CPU tensors take :func:`ssd_scan_plain`.  ``ssd_scan.launches``
-    counts calls that launched K9 (one per call, though the tc route is
-    two kernel launches).
+    their backward launches K9b.  CPU tensors take :func:`ssd_scan_plain`,
+    which autograd differentiates.  ``ssd_scan.launches`` counts calls
+    that launched K9 (one per call, though the tc route is two kernel
+    launches), ``ssd_scan.bwd_launches`` backward calls that launched K9b
+    (one per call, five to six kernels).
     """
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
@@ -320,5 +514,6 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 ssd_scan.launches = 0
+ssd_scan.bwd_launches = 0
 ssd_scan.last_route = None
 ssd_scan.route_launches = {"tc": 0, "fp32": 0}

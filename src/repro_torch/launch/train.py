@@ -1,8 +1,9 @@
 """End-to-end training driver (torch).
 
-Runs a dense architecture (reduced or full config) through the
-OCR-runtime trainer on ``--device`` (the card by default): §4 labeled
-step map, §5 chunked checkpoints, fail-stop restart, straggler watchdog.
+Runs a dense, ssm (mamba2-1.3b) or hybrid (zamba2-1.2b) architecture
+(reduced or full config) through the OCR-runtime trainer on ``--device``
+(the card by default): §4 labeled step map, §5 chunked checkpoints,
+fail-stop restart, straggler watchdog.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
       --smoke --device cpu --steps 100 --batch 8 --seq 128 \\

@@ -4,8 +4,8 @@ decode, as ``repro.models.mamba``.
 The SSD scan splits the sequence into chunks of ``ssm_chunk``: the
 intra-chunk contribution is a masked matmul, the inter-chunk state a
 short loop over chunks.  Prefill and training run it through
-``ops.ssd_scan`` — K9 on the card, its plain version on the CPU
-(``repro_torch.kernels.ssd_scan``); the reference's jnp
+``ops.ssd_scan`` — K9 (backward K9b) on the card, its plain version on
+the CPU (``repro_torch.kernels.ssd_scan``); the reference's jnp
 ``ssd_chunked`` computes the same function.  Decode is the
 recurrent form: the state (B, H, P, N) and the conv tails are updated in
 place per token, so the cache does not grow with the sequence.
@@ -102,9 +102,9 @@ def _mamba_out(params: Params, y_heads: torch.Tensor, xh: torch.Tensor,
 
 def mamba_train(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     """Full-sequence Mamba2 block.  The scan is ``ops.ssd_scan``: K9 on
-    a CUDA tensor (whose backward is not ported yet and raises), its
-    plain chunked version on a CPU tensor, which autograd
-    differentiates."""
+    a CUDA tensor, whose backward is K9b; its plain chunked version on a
+    CPU tensor, which autograd differentiates.  The final state is
+    dropped, so the scan's backward sees no state gradient."""
     h, pdim = cfg.ssm_heads, cfg.ssm_head_dim
     z, xs, B, C, dt, A, _ = _mamba_proj(params, x, cfg)
     xh = xs.reshape(*xs.shape[:-1], h, pdim)

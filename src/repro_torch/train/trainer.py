@@ -16,7 +16,8 @@ the ``train.*`` gauges of the runtime's monitoring registry.
 
 The step runs eagerly on the model's device (there is no ``jit``):
 attention above ``cfg.attn_flash_min_seq`` runs the flash kernels, K1
-with the logsumexp forward and K3 (K2 in deterministic mode) backward.
+with the logsumexp forward and K3 (K2 in deterministic mode) backward;
+a Mamba layer's scan runs K9 forward and K9b backward.
 Single device only: a ``mesh`` raises ``NotImplementedError``.
 """
 from __future__ import annotations

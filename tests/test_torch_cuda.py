@@ -748,12 +748,95 @@ def test_ssd_scan_rejects_what_the_kernel_does_not_take(cuda):
         ssd.ssd_scan(xb, dtb, Ab, Bb, Cb, chunk=256)
 
 
-def test_ssd_scan_backward_raises_on_the_card(cuda):
-    x, dt, A, B, C = _ssd_inputs(1, 2, 64, 16, 8, torch.float32, cuda, 2)
-    x.requires_grad_()
-    y, _ = ssd.ssd_scan(x, dt, A, B, C, chunk=16)
-    with pytest.raises(NotImplementedError, match="K9 backward"):
-        y.sum().backward()
+def _bwd_close(got, want):
+    """K9b against the plain backward: bf16 outputs one rounding apart
+    (2^-7 relative) plus 1e-4 of the largest |value|; fp32 1e-4 of it
+    (summation order); dA, a sum of B·S products that cancel, 1e-3."""
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.isfinite(g.float()).all(), name
+        d = (g.float() - w.float()).abs()
+        top = w.float().abs()
+        scale = max(top.max().item(), 1e-30)
+        if name == "dA":
+            assert d.max().item() <= 1e-3 * scale, name
+            continue
+        rel = 2.0 ** -7 if g.dtype == torch.bfloat16 else 0.0
+        assert (d <= rel * top + 1e-4 * scale).all(), name
+
+
+SSD_BWD_CASES = [  # b, h, s, p, n, chunk, dtype, dstate
+    (2, 8, 65, 32, 16, 16, torch.float32, False),     # reduced, ragged
+    (2, 3, 30, 8, 8, 10, torch.float32, True),        # chunk not 16k
+    (1, 3, 100, 64, 128, 128, torch.float32, True),   # full width fp32
+    (2, 4, 256, 64, 64, 128, torch.bfloat16, False),  # zamba2's N
+    (1, 4, 300, 64, 128, 128, torch.bfloat16, True),  # mamba2's, ragged
+    (1, 4, 70, 64, 128, 128, torch.bfloat16, False),  # one short chunk
+    (1, 9, 200, 64, 128, 128, torch.bfloat16, False),  # two head groups
+    # the tc route at narrow shapes: K9bc's 16-column tiles, P of 16, 32
+    (2, 8, 65, 32, 16, 16, torch.bfloat16, True),
+    (1, 3, 50, 16, 48, 32, torch.bfloat16, False),
+    (1, 3, 40, 8, 24, 16, torch.bfloat16, True),     # bf16 off the tc route
+]
+
+
+@pytest.mark.parametrize("b,h,s,p,n,chunk,dtype,with_ds", SSD_BWD_CASES)
+def test_ssd_scan_backward_kernel_matches_plain(cuda, b, h, s, p, n, chunk,
+                                                dtype, with_ds):
+    """K9b (one counted call) against ssd_scan_bwd_plain, and the same
+    bits from a second call."""
+    args = _ssd_inputs(b, h, s, p, n, dtype, cuda, s + n + 1)
+    rng = np.random.RandomState(s)
+    dy = torch.from_numpy(rng.randn(b, h, s, p).astype(np.float32)).to(
+        cuda, dtype)
+    ds = (torch.from_numpy(rng.randn(b, h, p, n).astype(np.float32)).to(cuda)
+          if with_ds else None)
+    before = ssd.ssd_scan.bwd_launches
+    got = ssd._launch_bwd(*args, dy, ds, chunk)
+    again = ssd._launch_bwd(*args, dy, ds, chunk)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan.bwd_launches == before + 2
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    _bwd_close(got, ssd.ssd_scan_bwd_plain(*args, dy, ds, chunk=chunk))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_backward_launches_k9b_on_the_card(cuda, dtype,
+                                                    monkeypatch):
+    """Autograd through ops.ssd_scan on the model layout: one K9b call,
+    never the plain backward, dy arriving as a strided view; the
+    gradients (model layout) are the plain backward's."""
+    from repro_torch.kernels import ops
+    b, h, s, p, n = 2, 4, 200, 64, 64
+    x, dt, A, B, C = _ssd_inputs(b, h, s, p, n, dtype, cuda, 9)
+    leaves = [x.transpose(1, 2).contiguous().requires_grad_(),
+              dt.transpose(1, 2).contiguous().requires_grad_(),
+              A.clone().requires_grad_(), B.clone().requires_grad_(),
+              C.clone().requires_grad_()]
+    dy = torch.randn((b, s, h, p), device=cuda).to(dtype)
+    plain = ssd.ssd_scan_bwd_plain
+    monkeypatch.setattr(ssd, "ssd_scan_bwd_plain", None)   # never called
+    before = ssd.ssd_scan.bwd_launches
+    y, _ = ops.ssd_scan(*leaves, chunk=128)
+    grads = torch.autograd.grad((y.float() * dy.float()).sum(), leaves)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan.bwd_launches == before + 1
+    want = plain(x, dt, A, B, C, dy.transpose(1, 2), chunk=128)
+    got = (grads[0].transpose(1, 2), grads[1].transpose(1, 2), *grads[2:])
+    _bwd_close(got, want)
+
+
+def test_ssd_scan_backward_scratch_is_freed(cuda):
+    """K9b's workspace and K9s's scratch live for the call only."""
+    args = _ssd_inputs(2, 8, 1024, 64, 128, torch.bfloat16, cuda, 8)
+    dy = torch.randn((2, 8, 1024, 64), device=cuda).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    grads = ssd._launch_bwd(*args, dy, None, 128)
+    torch.cuda.synchronize()
+    kept = sum(g.numel() * g.element_size() for g in grads)
+    del grads
+    assert torch.cuda.memory_allocated() == base and kept > 0
 
 
 # the bf16 cases of test_ssd_scan_kernel_matches_plain, and batch 1 x 2048

@@ -4,20 +4,24 @@
   window) through the flash branch (``attn_flash_min_seq=8``, seq 40):
   loss, metrics and gradients against ``jax.value_and_grad`` of the
   reference's ``train_loss``, and the updated state of a whole train step
-  (one with ``accum_steps=2``) against the reference's step;
+  (one with ``accum_steps=2``) against the reference's step, for those
+  two and for reduced mamba2-1.3b (ssm) and zamba2-1.2b (hybrid; its
+  shared attention block applied twice);
 * a mirror of ``tests/test_system.py`` through the port's ``Trainer``:
   train, checkpoint, restore, greedy decode that follows the chain;
 * fail-stop restart bit-exact, as ``tests/test_trainer.py``;
 * checkpoints that cross between the frameworks in both directions.
 
 Tolerances (fp32, the same arithmetic in another summation order):
-loss and metrics 1e-6 relative; gradients 1e-5 of each leaf's largest
+loss and metrics 1e-6 relative (10x that for the reduced zamba2, see
+``CONDITIONING``); gradients 1e-5 of each leaf's largest
 entry; logits of restored models 1e-4 (as ``test_torch_model.py``).
 One AdamW step moves a parameter by about lr·sign(g) (m/√v ≈ ±1 at step
 1), so an entry whose gradient is within rounding of zero may move by
 up to 2·lr in one framework and not the other: parameters after a step
 are held to 2·lr elementwise and to 1e-5·lr on average (a few entries
-per leaf differ by ~1e-2·lr, the mean by ~5e-7·lr).
+per leaf differ by ~1e-2·lr, the mean by ~5e-7·lr; 1e-4·lr for the
+reduced zamba2).
 """
 import dataclasses
 
@@ -83,10 +87,19 @@ def _jleaves(tree):
             for path, x in jax.tree_util.tree_flatten_with_path(tree)[0]]
 
 
-def _metrics_close(tm, jm):
+def _metrics_close(tm, jm, rtol=1e-6):
     for k, v in jm.items():
         np.testing.assert_allclose(float(tm[k].detach()), float(v),
-                                   rtol=1e-6, atol=1e-7, err_msg=k)
+                                   rtol=rtol, atol=1e-7, err_msg=k)
+
+
+# The reduced zamba2 is ill-conditioned in fp32: a one-ulp nudge of its
+# weights moves its gradients by ~2e-5 of a leaf's largest entry, ~8x
+# the dense configs' and mamba2's (2-4e-6), so the two frameworks'
+# gradients differ by ~1e-5 there, its grad_norm by ~1.5e-6, and AdamW's
+# first step (g / |g|) spreads that into the mean update: its metric and
+# mean-update limits are this factor times the others'.
+CONDITIONING = {"zamba2-1.2b": 10}
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "h2o-danube-3-4b"])
@@ -110,16 +123,18 @@ def test_loss_and_grads_match_reference(arch, monkeypatch):
                                    err_msg="/".join(path))
 
 
-def _params_close(tparams, jparams, lr):
+def _params_close(tparams, jparams, lr, mean=1e-5):
     for (path, want), (_q, got) in zip(_jleaves(jparams),
                                        iter_leaves(tparams)):
         diff = np.abs(got.detach().numpy() - want)
         assert diff.max() <= 2 * lr, path
-        assert diff.mean() <= 1e-5 * lr, path
+        assert diff.mean() <= mean * lr, path
 
 
 @pytest.mark.parametrize("arch,accum", [("h2o-danube-3-4b", 1),
-                                        ("llama3.2-3b", 2)])
+                                        ("llama3.2-3b", 2),
+                                        ("mamba2-1.3b", 1),
+                                        ("zamba2-1.2b", 1)])
 def test_train_step_matches_reference(arch, accum):
     jm, jp, tm, tp = _pair(arch, **FLASH)
     batch = _batch(jm.cfg.vocab_size, b=4)
@@ -130,9 +145,11 @@ def test_train_step_matches_reference(arch, accum):
     tstate = {"params": tp, "opt": init_opt_state(tp, toc)}
     jstate, jmet = jax.jit(jmake_step(jm, joc))(jstate, _jb(batch))
     tstate, tmet = make_train_step(tm, toc)(tstate, _tb(batch))
-    _metrics_close(tmet, jmet)
+    k = CONDITIONING.get(arch, 1)
+    _metrics_close(tmet, jmet, k * 1e-6)
     assert int(tstate["opt"]["step"]) == 1
-    _params_close(tstate["params"], jstate["params"], OPT["peak_lr"])
+    _params_close(tstate["params"], jstate["params"], OPT["peak_lr"],
+                  k * 1e-5)
 
 
 def test_remat_modes_give_the_same_gradients():
