@@ -12,14 +12,20 @@ Phases, in order; any failure raises and the script exits nonzero:
    head widths 120 (h2o-danube3-4b, window 4096) and 32 (the reduced
    configs), timed (median and min-max of 20 cold-L2 samples) beside its
    plain version, ``scaled_dot_product_attention`` (the backend that
-   served it printed) and its bound, at hd 64 and at danube's 1 x 6000,
+   served it printed) and its bound, at hd 64, at danube's 1 x 6000 and
+   at arctic-480b's serve prefill, 4 x 2100 (hd 128, a group of 7 query
+   heads per kv head, a ragged last tile) and its 1 x 4096 (each checked
+   twice for the same bits),
    then the kernel and sdpa once more after a ~0.5 ms device spin each
    (their device work alone, without the host work the device waits on);
    the HMMA instructions ``cuobjdump -sass`` finds in each K1 kernel (the
    bf16 ones run on tensor cores and must hold some) and K1's blocks per
    SM;
 3. K5 (flash-decode, split across blocks, then combined) the same way
-   at the contiguous-decode shape and at danube's (hd 120, window 4096),
+   at the contiguous-decode shape, at danube's (hd 120, window 4096) and
+   at arctic's (B=4, KH=8, G=7, hd 128, the serve phase's cache of 2116
+   positions at its first and last decode step's lengths, 2101 and
+   2116, and a cache of 2128 at 2100),
    each case twice for the same bits; the split count and the blocks
    launched at each timed shape (at least one per SM), and the host work
    a call of K5's wrapper and of sdpa takes;
@@ -45,9 +51,11 @@ Phases, in order; any failure raises and the script exits nonzero:
    on tensor cores) against their plain versions at the training shape
    (B=4, H=15, KH=5, S=4096, hd 64, bf16) and at ragged / window /
    q_offset / fp32-hd128 / bf16-hd128 / hd 120 window 4096 (bf16, fp32)
-   / hd 32 variants, K3 against K2, K2 twice the same bits; the HMMA
+   / hd 32 variants and arctic's (B=4, H=56, KH=8, S=4096, hd 128), K3
+   against K2, K1-lse and K2 twice the same bits; the HMMA
    instructions ``cuobjdump -sass`` finds in the bf16 K1, K2 and K3
-   kernels and their blocks per SM; then timed at the training shape (median and min-max
+   kernels and their blocks per SM; then timed at the training shape and
+   at arctic's (median and min-max
    of 10 cold-L2 samples) beside the plain versions, the forward and the
    backward (``torch.autograd.grad``) of one
    ``scaled_dot_product_attention`` call, and their bounds;
@@ -150,7 +158,25 @@ Phases, in order; any failure raises and the script exits nonzero:
     256 MiB (K8), equal to the numpy backend, one fused copy each, with
     the split of the fused copy into host→device, kernel and
     device→host; the overlapping-destination and read-after-write
-    programs take no fused copy.
+    programs take no fused copy;
+13. MoE serving: arctic-480b at full width (d_model 7168, all 128
+    experts of width 4864, top-2, capacity factor 1.25, dense residual),
+    depth cut from 35 to 2 layers, bf16 (~55 GB of weights, each expert
+    bank filled in place): prefill 4 x 2100 (K1 twice), 16 decode steps
+    (K5 twice a step), the prefill's drops, peak memory, prefill and
+    decode profiled beside their bounds (every expert's weights are read
+    by every step), and a second prefill the same bits;
+14. MoE training: the Trainer as ``launch.train`` builds it for arctic
+    (bf16 parameters, int8 AdamW moments) at full width with 2 layers
+    and 32 experts, 6 steps of 4 x 4096 at lr 3e-4 (ce_loss falls, K1-lse 4 and K3 2
+    a step, aux_loss and the drop gauges each step, the median beside
+    its bound, peak memory, a profiled step), then 2 steps twice in
+    deterministic mode (K2): the same bits;
+15. MoE against the CPU: arctic at full width in fp32 with 1 layer and
+    8 experts, 1 x 2304: the routing of every MoE call (a choice may
+    differ only between probabilities within 1e-5), prefill and 4 decode
+    logits, ``train_loss`` and every gradient on the card (K1, K5,
+    K1-lse, K3) against the port's CPU path.
 
 Phase 7 also runs a reduced fp32 smollm (head_dim 64,
 ``attn_flash_min_seq=32``, B 72 x S 96: B·KH = 144) on the forced K4
@@ -160,7 +186,7 @@ logits through K4f and one step's gradients through K4f and K4b; and the reduced
 
 Counters on the kernel wrappers are zeroed just before each main-path
 phase (5, 6, 6a, 6b, 6c, 6d, 8, 8a and its other route, 8b, 8c-8f, 9,
-10 and each path of 12) and read just after: every kernel of the path must have
+10, each path of 12, and 13-15) and read just after: every kernel of the path must have
 launched.  The kernel line's
 launches are those counts alone; the reduced model of phase 7 and the
 fp32 consistency check of 8b keep theirs in their own results.  The line before the last is the kernel table as
@@ -171,6 +197,7 @@ PATH`` also writes every number of the run as JSON to PATH.
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -205,8 +232,10 @@ from repro_torch.kernels.autotune import plan_copy_chunk  # noqa: E402
 from repro_torch.core import NULL_GUID, Runtime, spawn_main  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.models import blocks, moe  # noqa: E402
 from repro_torch.models.model import LanguageModel  # noqa: E402
-from repro_torch.optim import OptimizerConfig, init_opt_state  # noqa: E402
+from repro_torch.optim import (OptimizerConfig, adamw_update,  # noqa: E402
+                               init_opt_state)
 from repro_torch.optim.adamw import iter_leaves  # noqa: E402
 from repro_torch.train.steps import make_train_step  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
@@ -235,10 +264,15 @@ def _randn(shape, dtype, seed):
 # second is phase_k4's training shape), K5 (B, KH, G, S, hd, cur_len,
 # window)
 K1_TIMED = {"serve": (1, 15, 5, 3008, 64, 0),
-            "danube": (1, 32, 8, 6000, 120, 4096)}
-K1_LSE_TIMED = {"train": (4, 15, 5, 4096, 64), "short": (64, 15, 5, 256, 64)}
+            "danube": (1, 32, 8, 6000, 120, 4096),
+            "arctic": (4, 56, 8, 2100, 128, 0),
+            "arctic_4096": (1, 56, 8, 4096, 128, 0)}
+K1_LSE_TIMED = {"train": (4, 15, 5, 4096, 64), "short": (64, 15, 5, 256, 64),
+                "arctic": (4, 56, 8, 4096, 128)}
 K5_TIMED = {"smollm": (4, 5, 3, 2624, 64, 2600, 0),
-            "danube": (1, 8, 4, 6016, 120, 6001, 4096)}
+            "danube": (1, 8, 4, 6016, 120, 6001, 4096),
+            "arctic": (4, 8, 7, 2116, 128, 2116, 0),
+            "arctic_2128": (4, 8, 7, 2128, 128, 2100, 0)}
 
 # cycles the device spins before a call timed with ``spin`` (~0.5 ms)
 SPIN_CYCLES = 1_000_000
@@ -499,8 +533,31 @@ def phase_k1(flush):
               f"{_fmt(lib_dev)}")
         return row
 
+    # arctic-480b: hd 128, a group of 7 query heads per kv head (56 / 8),
+    # at the serve prefill's 4 x 2100 (past the last whole tile) and at
+    # 1 x 4096
+    for shape in ("arctic", "arctic_4096"):
+        b, h, kh, s, hd, win = K1_TIMED[shape]
+        dt = torch.bfloat16
+        q, k, v = (_randn((b, h, s, hd), dt, 90),
+                   _randn((b, kh, s, hd), dt, 91),
+                   _randn((b, kh, s, hd), dt, 92))
+        got = fa.flash_attention(q, k, v, causal=True, window=win)
+        again = fa.flash_attention(q, k, v, causal=True, window=win)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"K1 arctic G 7 {b}x{s}: two runs gave "
+                                 "other bits")
+        worst = max(worst, _check(
+            f"arctic {b}x{s} hd128 G7 bf16 causal (twice the same bits)",
+            got, fa.flash_attention_plain(q, k, v, causal=True, window=win),
+            dt))
+        del q, k, v, got, again
+
     main = timed(*K1_TIMED["serve"], 0)
     danube = timed(*K1_TIMED["danube"], 40)
+    arctic = timed(*K1_TIMED["arctic"], 90)
+    arctic_4096 = timed(*K1_TIMED["arctic_4096"], 90)
     torch.cuda.empty_cache()
     hmma, occupancy = _fwd_hmma()
     return {"name": "flash_attention (K1)", "route": "cuda",
@@ -510,7 +567,11 @@ def phase_k1(flush):
             "hmma": hmma, "blocks_per_sm": occupancy,
             "timed_shape": "B=1 H=15 KH=5 Sq=Sk=3008 hd=64 bf16 causal",
             "hd120": {**danube, "timed_shape": "B=1 H=32 KH=8 Sq=Sk=6000 "
-                      "hd=120 bf16 causal window 4096 (h2o-danube3-4b)"}}
+                      "hd=120 bf16 causal window 4096 (h2o-danube3-4b)"},
+            "arctic": {**arctic, "timed_shape": "B=4 H=56 KH=8 Sq=Sk=2100 "
+                       "hd=128 bf16 causal (arctic-480b's prefill, G 7)"},
+            "arctic_4096": {**arctic_4096, "timed_shape": "B=1 H=56 KH=8 "
+                            "Sq=Sk=4096 hd=128 bf16 causal (arctic, G 7)"}}
 
 
 def phase_k5(flush):
@@ -601,13 +662,41 @@ def phase_k5(flush):
     kd, vd = (_randn((bd, khd, sd, hdd), dt, 111),
               _randn((bd, khd, sd, hdd), dt, 112))
     danube = timed(qd, kd, vd, cur_d, win_d)
+    # arctic-480b: G 7 of K5's 8 rows per block, hd 128: the serve
+    # phase's cache (prefill 2100 + 16 decodes) at its first and last
+    # decode step's lengths, and a 2128-position cache at 2100
+    arctic = {}
+    for shape, curs in (("arctic", (K5_TIMED["arctic"][3] - 15,)),
+                        ("arctic_2128", ())):
+        ba, kha, ga, sa, hda, cur_a, win_a = K5_TIMED[shape]
+        qa = _randn((ba, kha, ga, hda), dt, 120)
+        ka, va = (_randn((ba, kha, sa, hda), dt, 121),
+                  _randn((ba, kha, sa, hda), dt, 122))
+        for cur in (*curs, cur_a):
+            cur_t = torch.full((1,), cur, dtype=torch.int32, device="cuda")
+            got = fd.flash_decode(qa, ka, va, cur_t, window=win_a)
+            if not torch.equal(got, fd.flash_decode(qa, ka, va, cur_t,
+                                                    window=win_a)):
+                raise AssertionError(f"K5 arctic G 7 S {sa} cur {cur}: two "
+                                     "runs gave other bits")
+            worst = max(worst, _check(
+                f"arctic hd128 G7 bf16 S {sa} cur {cur} (twice the same "
+                "bits)", got,
+                fd.flash_decode_plain(qa, ka, va, cur_t, window=win_a), dt))
+        arctic[shape] = timed(qa, ka, va, cur_a, win_a)
     return {"name": "flash_decode (K5)", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
             "replaces": "src/repro/kernels/flash_decode.py:34",
             "max_abs_err": worst, **main, "bound_us": main["bound_ms"] * 1e3,
             "timed_shape": "B=4 KH=5 G=3 S=2624 cur=2600 hd=64 bf16",
             "hd120": {**danube, "timed_shape": "B=1 KH=8 G=4 S=6016 "
-                      "cur=6001 hd=120 bf16 window 4096 (h2o-danube3-4b)"}}
+                      "cur=6001 hd=120 bf16 window 4096 (h2o-danube3-4b)"},
+            "arctic": {**arctic["arctic"], "timed_shape": "B=4 KH=8 G=7 "
+                       "S=2116 cur=2116 hd=128 bf16 (arctic-480b's last "
+                       "decode step)"},
+            "arctic_2128": {**arctic["arctic_2128"], "timed_shape": "B=4 "
+                            "KH=8 G=7 S=2128 cur=2100 hd=128 bf16 "
+                            "(arctic)"}}
 
 
 SERVE_ARGS = ["--arch", "smollm-360m", "--device", "cuda", "--requests", "12",
@@ -1052,6 +1141,7 @@ def phase_k_train(flush):
          4096, 0),
         ("reduced hd32 bf16 ragged 601", 2, 4, 2, 601, 601, 32, bf, 0, 0),
         ("reduced hd32 fp32 window 64", 2, 4, 2, 600, 600, 32, f32, 64, 0),
+        ("arctic hd128 G7 4x4096 bf16", 4, 56, 8, 4096, 4096, 128, bf, 0, 0),
     ]
     worst = {k: [0.0, 0.0] for k in ("k1_lse", "k2_dq", "k2_dkv", "k3")}
 
@@ -1065,7 +1155,11 @@ def phase_k_train(flush):
         do = _randn((b, h, sq, hd), dt, 203 + 10 * i)
         kw = dict(causal=True, window=win)
         out, lse = fa.flash_attention_fwd(q, k, v, off, **kw)
+        out2, lse2 = fa.flash_attention_fwd(q, k, v, off, **kw)
         torch.cuda.synchronize()
+        if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+            raise AssertionError(f"{name}: K1-lse run twice gave other bits")
+        del out2, lse2
         want_o, want_lse = fa.flash_attention_plain(q, k, v, off,
                                                     with_lse=True, **kw)
         _check(f"{name} K1-lse out", out, want_o, dt)
@@ -1099,8 +1193,8 @@ def phase_k_train(flush):
         d = (dq3.float() - dq2.float()).abs()
         lim = ((2.0 ** -7 if dt == torch.bfloat16 else 1e-5)
                * dq2.float().abs() + 1e-4 * dq2.float().abs().max())
-        print(f"  {name} K3 vs K2: dk, dv bit-equal; K2 twice the same "
-              f"bits; dq max_abs_diff {d.max().item():.3e} (limit 2^-7|dq| "
+        print(f"  {name} K3 vs K2: dk, dv bit-equal; K1-lse and K2 twice "
+              f"the same bits; dq max_abs_diff {d.max().item():.3e} (limit 2^-7|dq| "
               f"+ 1e-4 max|dq| in bf16, 1e-5|dq| + 1e-4 max|dq| in fp32)")
         if (d > lim).any():
             raise AssertionError(f"{name}: K3 dq differs from K2's")
@@ -1120,10 +1214,38 @@ def phase_k_train(flush):
     print(f"  blocks per SM (occupancy calculator): {occupancy}")
     fwd_hmma, fwd_occ = _fwd_hmma()
 
-    # timing at the training shape
-    (b, h, kh, s, hd), dt = K1_LSE_TIMED["train"], bf
-    q, k, v, do = (_randn((b, h, s, hd), dt, 300), _randn((b, kh, s, hd), dt, 301),
-                   _randn((b, kh, s, hd), dt, 302), _randn((b, h, s, hd), dt, 303))
+    train = _k_train_times(K1_LSE_TIMED["train"], 300, flush, worst,
+                           {"k1_lse": fwd_occ[f"hd64 {bf}"],
+                            "k2_dq": occupancy[f"dq hd64 {bf}"],
+                            "k2_dkv": occupancy[f"dkv hd64 {bf}"],
+                            "k3": occupancy[f"fused hd64 {bf}"]})
+    arctic = _k_train_times(K1_LSE_TIMED["arctic"], 320, flush, worst,
+                            {"k1_lse": fwd_occ[f"hd128 {bf}"],
+                             "k2_dq": occupancy[f"dq hd128 {bf}"],
+                             "k2_dkv": occupancy[f"dkv hd128 {bf}"],
+                             "k3": occupancy[f"fused hd128 {bf}"]})
+    rows = train
+    rows["arctic"] = {k: arctic[k] for k in ("k1_lse", "k2_dq", "k2_dkv",
+                                             "k3", "library_bwd")}
+    rows["arctic"]["timed_shape"] = ("B=4 H=56 KH=8 S=4096 hd=128 bf16 causal"
+                                     " (arctic-480b, G 7)")
+    rows["hmma"] = {**hmma, **fwd_hmma}
+    rows["occupancy"] = {**occupancy, **{f"k1 {k}": n
+                                         for k, n in fwd_occ.items()}}
+    return rows
+
+
+def _k_train_times(shape, seed, flush, worst, occ):
+    """K1 with lse, the K2 pair and K3 timed at one training shape (bf16,
+    causal; median and min-max of 10 cold-L2 samples) beside their plain
+    versions, one ``scaled_dot_product_attention`` forward and its
+    backward, and their bounds; K1-lse and sdpa's forward again after a
+    device spin."""
+    (b, h, kh, s, hd), dt = shape, torch.bfloat16
+    q, k, v, do = (_randn((b, h, s, hd), dt, seed),
+                   _randn((b, kh, s, hd), dt, seed + 1),
+                   _randn((b, kh, s, hd), dt, seed + 2),
+                   _randn((b, h, s, hd), dt, seed + 3))
     out, lse = fa.flash_attention_fwd(q, k, v)
     delta = (do.float() * out.float()).sum(-1)
     args = (q, k, v, do, lse, delta)
@@ -1165,13 +1287,10 @@ def phase_k_train(flush):
         "k2_dkv": (8 * hd * live, 2 * qb + 4 * kb + 2 * rowb),
         "k3": (10 * hd * live, 3 * qb + 4 * kb + 2 * rowb),
     }
-    occ = {"k1_lse": fwd_occ[f"hd64 {bf}"],
-           "k2_dq": occupancy[f"dq hd64 {bf}"],
-           "k2_dkv": occupancy[f"dkv hd64 {bf}"],
-           "k3": occupancy[f"fused hd64 {bf}"]}
     rows = {}
     names = {"k1_lse": "K1 with lse", "k2_dq": "K2 dq", "k2_dkv": "K2 dk/dv",
              "k3": "K3 fused"}
+    print(f"  timed at B={b} H={h} KH={kh} S={s} hd={hd} bf16 causal:")
     for key, (flops, nbytes) in work.items():
         bound_ms, bound_by = _bound(flops, nbytes, dt)
         plain = plain_fwd if key == "k1_lse" else plain_bwd
@@ -1205,9 +1324,8 @@ def phase_k_train(flush):
     rows["library_bwd_ms"] = lib_bwd["median"]
     rows["library_bwd"] = lib_bwd
     rows["library_backend"] = backend
-    rows["hmma"] = {**hmma, **fwd_hmma}
-    rows["occupancy"] = {**occupancy, **{f"k1 {k}": n
-                                         for k, n in fwd_occ.items()}}
+    del q, k, v, do, out, lse, delta, args
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1765,11 +1883,13 @@ def phase_train():
 
 
 def _trainer(cfg, tc, argv=TRAIN_ARGS):
-    """The port's Trainer as ``launch.train`` builds it from ``argv``."""
+    """The port's Trainer as ``launch.train`` builds it from ``argv``
+    (the config's optimizer state dtype: int8 moments for arctic)."""
     args = train_cli.parse_args(argv)
     oc = OptimizerConfig(peak_lr=args.lr,
                          warmup_steps=max(args.steps // 20, 5),
-                         total_steps=args.steps)
+                         total_steps=args.steps,
+                         state_dtype=cfg.optimizer_state_dtype)
     data = SyntheticTokens(cfg.vocab_size, args.batch, args.seq, seed=0,
                            mode="markov")
     return Trainer(LanguageModel(cfg, device="cuda"), oc, data, tc)
@@ -3027,6 +3147,421 @@ def phase_copy_paths():
     return info
 
 
+# ------------------------------------------------------------------ MoE
+
+ARCTIC = "arctic-480b"
+# at lr 1e-3 (smollm's) the fresh router runs away within 6 steps and
+# ce_loss rises from step 5: with fp32 moments as with int8 ones, and
+# the reference's Trainer does the same on the CPU from the same weights
+# (scripts/moe_lr_witness.py, PERF.md §6); 3e-4 keeps ce_loss falling
+ARCTIC_TRAIN_ARGS = ["--arch", ARCTIC, "--data", "markov", "--batch", "4",
+                     "--seq", "4096", "--steps", "6", "--lr", "3e-4",
+                     "--device", "cuda"]
+# one full-width MoE layer of 128 experts is 13.6 B parameters: with its
+# gradients and int8 moments ~82 GB, past one card; 32 experts train
+ARCTIC_TRAIN_EXPERTS = 32
+
+
+def _release():
+    """Frees what the deleted objects held on the card: a Trainer's
+    runtime keeps its step closure, and so the train state, in a
+    reference cycle that only the collector breaks."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _moe_record():
+    """Records, per MoE layer call, the aux dict (``blocks.moe_ffn``) and
+    the router's fp32 logits and chosen experts (``moe._route``)."""
+    rec = {"aux": [], "route": []}
+    ffn, route = blocks.moe_ffn, moe._route
+
+    def ffn_rec(*args):
+        y, aux = ffn(*args)
+        rec["aux"].append({k: v.detach() for k, v in aux.items()})
+        return y, aux
+
+    def route_rec(logits, k):
+        gates, idx = route(logits, k)
+        rec["route"].append((logits.detach(), idx))
+        return gates, idx
+
+    blocks.moe_ffn, moe._route = ffn_rec, route_rec
+    try:
+        yield rec
+    finally:
+        blocks.moe_ffn, moe._route = ffn, route
+
+
+def _arctic_flops(cfg, b, s, ctx, head_rows):
+    """FLOPs of one forward of ``b`` x ``s`` new tokens whose attention
+    reads ``ctx`` positions: the attention projections and core, the
+    router, the grouped expert products over every expert's E x C
+    capacity rows (the algorithm's work, empty slots included), the
+    dense residual, and the LM head on ``head_rows`` rows."""
+    t = b * s
+    d, h, kh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    e, f = cfg.num_experts, cfg.moe_d_ff
+    c = moe._capacity(cfg, t)
+    live = b * h * _live_pairs(s, ctx, ctx - s, True, 0)
+    layer = (2 * t * d * hd * (2 * h + 2 * kh) + 4 * hd * live
+             + 2 * t * d * e + 6 * e * c * d * f + 6 * t * d * cfg.d_ff)
+    return cfg.num_layers * layer + 2 * head_rows * d * cfg.vocab_size
+
+
+def _weight_bytes(params):
+    """Bytes of every weight a forward reads whole (all but the
+    embedding, of which it reads only its tokens' rows)."""
+    return sum(x.numel() * x.element_size() for path, x in
+               iter_leaves(params) if path[0] != "embedding")
+
+
+def _split_step(model, oc, state, batch):
+    """One train step in its two halves, each timed by the host clock to
+    a synchronize: the loss and its gradients, then the AdamW update."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _loss, grads = _grads(model, state["params"], batch, "cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    it = iter(grads)
+
+    def tree(node):
+        return {k: tree(node[k]) if isinstance(node[k], dict) else next(it)
+                for k in sorted(node)}
+    adamw_update(oc, tree(state["params"]), state["params"], state["opt"])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for _p, x in iter_leaves(state["params"]):
+        x.requires_grad_(False)
+    return 1e3 * (t1 - t0), 1e3 * (t2 - t1)
+
+
+def phase_moe_serve():
+    """arctic-480b at full width (d_model 7168, 56 heads over 8 kv heads
+    of width 128, all 128 experts of width 4864, top-2, capacity factor
+    1.25, the dense residual MLP), depth cut from 35 to 2 layers, bf16,
+    seeded random weights: init without holding a bank twice, prefill 4 x
+    2100 (K1 twice), 16 decode steps (K5 twice a step), each beside its
+    bound; the prefill's drop counts; a second prefill the same bits."""
+    print("== moe serve: arctic-480b full width, 2 of 35 layers, all 128 "
+          "experts, bf16, prefill 4 x 2100, 16 decodes")
+    cfg = dataclasses.replace(get_config(ARCTIC), num_layers=2)
+    if not (cfg.num_experts == 128 and cfg.experts_per_token == 2
+            and cfg.capacity_factor == 1.25 and cfg.moe_dense_residual
+            and cfg.param_dtype == cfg.dtype == "bfloat16"):
+        raise AssertionError("the config is not arctic's")
+    model = LanguageModel(cfg, device="cuda")
+    _release()                 # what earlier phases left in cycles
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(70))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(x.numel() for _p, x in iter_leaves(params))
+    print(f"  {n_params / 1e9:.2f} B parameters, {weights_gb:.2f} GB; init "
+          f"{init_s:.1f} s, peak {init_peak_gb:.2f} GB (no bank held twice)")
+    b, s, steps = 4, 2100, 16
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), device="cuda",
+                           generator=torch.Generator(
+                               device="cuda").manual_seed(71))
+    layers = cfg.num_layers
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        with _moe_record() as rec:
+            prefill_ms, step_ms, cache, tok = _serve_run(model, params,
+                                                         tokens, steps)
+        counts = _counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = {**{k: 0 for k in counts}, "k1": layers, "k5": layers * steps}
+        pre, dec = rec["aux"][:layers], rec["aux"][layers:]
+        dropped = sum(float(a["dropped"]) for a in pre)
+        routed = sum(float(a["routed"]) for a in pre)
+        dec_dropped = sum(float(a["dropped"]) for a in dec)
+        print(f"  prefill {prefill_ms:.1f} ms (B=4 x {s}), decode step "
+              f"{step_ms:.3f} ms (B=4, cache {s + steps}); launches {counts};"
+              f" peak device memory {peak_gb:.2f} GB; prefill drops "
+              f"{dropped:.0f} of {routed:.0f} routed (token, choice) pairs "
+              f"({dropped / routed:.4f}; capacity "
+              f"{moe._capacity(cfg, b * s)} a layer and expert), decode "
+              f"drops {dec_dropped:.0f}")
+        if counts != want:
+            raise AssertionError(f"launches {counts}, want {want}")
+        if len(rec["aux"]) != layers * (1 + steps):
+            raise AssertionError(f"{len(rec['aux'])} MoE layer calls")
+        first, _ = model.prefill(params, {"tokens": tokens})
+        again, _ = model.prefill(params, {"tokens": tokens})
+        if not torch.equal(first, again):
+            raise AssertionError("two arctic prefills gave other bits")
+        del first, again
+        prof_pre = _profile(lambda: model.prefill(params, {"tokens": tokens}),
+                            1)
+        _print_profile(f"arctic prefill ({b} x {s})", prof_pre,
+                       prof_pre["profiled_wall_ms"])
+        prof_dec = _profile(lambda: model.decode_step(params, cache, tok,
+                                                      s + steps - 1), 3)
+        _print_profile("arctic decode step (B=4)", prof_dec, step_ms)
+    wbytes = _weight_bytes(params)
+    el = 2
+    kv = 2 * layers * b * cfg.num_kv_heads * cfg.head_dim * el
+    pre_flops = _arctic_flops(cfg, b, s, s, b)
+    pre_bytes = wbytes + b * s * cfg.d_model * el + kv * s
+    pre_bound, pre_by = _bound(pre_flops, pre_bytes, torch.bfloat16)
+    dec_flops = _arctic_flops(cfg, b, 1, s + steps, b)
+    dec_bytes = wbytes + b * cfg.d_model * el + kv * (s + steps)
+    dec_bound, dec_by = _bound(dec_flops, dec_bytes, torch.bfloat16)
+    print(f"  prefill: wall {prefill_ms:.1f} ms the first (cold) call, "
+          f"{prof_pre['profiled_wall_ms']:.1f} ms warm (profiled), device "
+          f"busy {prof_pre['device_busy_ms'] or float('nan'):.1f} ms; bound "
+          f"{pre_bound:.2f} ms ({pre_by}: {pre_flops / 1e12:.2f} TFLOP, "
+          f"{pre_bytes / 1e9:.2f} GB)")
+    print(f"  decode step: wall {step_ms:.2f} ms, device busy "
+          f"{prof_dec['device_busy_ms'] or float('nan'):.2f} ms, idle share "
+          f"{prof_dec.get('idle_share', float('nan')):.3f}; bound "
+          f"{dec_bound:.2f} ms ({dec_by}: {dec_bytes / 1e9:.2f} GB, every "
+          f"expert's weights, {dec_flops / 1e9:.1f} GFLOP)")
+    info = {"num_layers": layers, "num_experts": cfg.num_experts,
+            "params_b": n_params / 1e9, "weights_gb": weights_gb,
+            "init_s": init_s, "init_peak_gb": init_peak_gb,
+            "prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+            "peak_gb": peak_gb, "launches": counts,
+            "prefill_dropped": dropped, "prefill_routed": routed,
+            "decode_dropped": dec_dropped,
+            "prefill_bound_ms": pre_bound, "prefill_bound_by": pre_by,
+            "prefill_tflop": pre_flops / 1e12, "prefill_gb": pre_bytes / 1e9,
+            "decode_bound_ms": dec_bound, "decode_bound_by": dec_by,
+            "decode_gb": dec_bytes / 1e9, "prefill_profile": prof_pre,
+            "decode_profile": prof_dec}
+    del model, params, cache, tokens, tok
+    _release()
+    return info
+
+
+def phase_moe_train():
+    """The Trainer as ``launch.train`` builds it (bf16 parameters, int8
+    AdamW moments) for arctic-480b at full width, 2 layers and 32
+    experts (top-2, capacity factor 1.25): 6 steps of 4 x 4096 at lr
+    3e-4 (ce_loss falls; K1-lse 4 and K3 2 a step; the MoE gauges each
+    step; the median beside a bound; peak memory; one profiled step),
+    then 2 steps twice in deterministic mode (K2) from the same seed: the
+    same bits."""
+    cfg = dataclasses.replace(get_config(ARCTIC), num_layers=2,
+                              num_experts=ARCTIC_TRAIN_EXPERTS)
+    print(f"== moe train: arctic-480b full width, 2 layers, "
+          f"{cfg.num_experts} experts, " + " ".join(ARCTIC_TRAIN_ARGS))
+    args = train_cli.parse_args(ARCTIC_TRAIN_ARGS)
+    layers, steps = cfg.num_layers, args.steps
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    tr = _trainer(cfg, TrainerConfig(), argv=ARCTIC_TRAIN_ARGS)
+    t0 = time.perf_counter()
+    state = tr.run(tr.init_or_restore(
+        torch.Generator(device="cuda").manual_seed(0)), steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    m_q = state["opt"]["m"]["layers"]["moe"]["w_gate"]["q"]
+    w_gate = state["params"]["layers"]["moe"]["w_gate"]
+    if not (m_q.dtype == torch.int8 and w_gate.dtype == torch.bfloat16
+            and tuple(w_gate.shape) == (layers, cfg.num_experts,
+                                        cfg.d_model, cfg.moe_d_ff)):
+        raise AssertionError("not bf16 parameters with int8 moments")
+    for h in tr.history:
+        print(f"  step {h['step']}: ce_loss {h['ce_loss']:.4f} aux_loss "
+              f"{h['aux_loss']:.4f} moe_dropped_tokens "
+              f"{h['moe_dropped_tokens']:.0f} moe_overflow_rate "
+              f"{h['moe_overflow_rate']:.4f} grad_norm {h['grad_norm']:.3f} "
+              f"{h['step_time'] * 1e3:.1f} ms")
+    want = {**{k: 0 for k in counts}, "k1_lse": 2 * layers * steps,
+            "k3": layers * steps}
+    print(f"  launches {counts} (want {want})")
+    if counts != want:
+        raise AssertionError(f"moe train: launches {counts}, want {want}")
+    first, last = tr.history[0]["ce_loss"], tr.history[-1]["ce_loss"]
+    if not (np.isfinite(last) and last < first):
+        raise AssertionError(f"ce_loss {first} -> {last}: did not descend")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = [1e3 * h["step_time"] for h in tr.history]
+    n_params = sum(x.numel() for _p, x in iter_leaves(state["params"]))
+    b, s = args.batch, args.seq
+    # forward, its recompute under remat="layer" and a backward of twice
+    # the forward; the head on every position for the loss
+    flops = 4 * _arctic_flops(cfg, b, s, s, b * s)
+    # bf16 weights read by the forward, the recompute and the backward,
+    # bf16 gradients written and read, the update's bf16 weights and
+    # int8 moments read and written
+    nbytes = n_params * (3 * 2 + 2 * 2 + 2 * 2 + 2 * 2)
+    bound_ms, bound_by = _bound(flops, nbytes, torch.bfloat16)
+    print(f"  {n_params / 1e9:.2f} B parameters; {steps} steps in "
+          f"{wall:.1f} s wall; step median {np.median(step_ms):.1f} ms "
+          f"(steps 2-{steps} mean {np.mean(step_ms[1:]):.1f}); bound "
+          f"{bound_ms:.1f} ms ({bound_by}: {flops / 1e12:.1f} TFLOP, "
+          f"{nbytes / 1e9:.1f} GB); peak memory {peak_gb:.2f} GB")
+    step_fn = tr._build()
+    batch = {k: torch.from_numpy(v).cuda() for k, v in tr.data.get(0).items()}
+    prof = _profile(lambda: step_fn(state, batch), 1)
+    _print_profile(f"arctic train step (B={b} x {s})", prof,
+                   prof["profiled_wall_ms"])
+    grad_ms, update_ms = _split_step(tr.model, tr.oc, state, batch)
+    print(f"  one step in halves: loss and gradients {grad_ms:.1f} ms, "
+          f"AdamW update (int8 moments, {n_params / 1e9:.2f} B parameters) "
+          f"{update_ms:.1f} ms")
+    info = {"num_layers": layers, "num_experts": cfg.num_experts,
+            "params_b": n_params / 1e9, "wall_s": wall, "step_ms": step_ms,
+            "ce_loss": [h["ce_loss"] for h in tr.history],
+            "aux_loss": [h["aux_loss"] for h in tr.history],
+            "moe_dropped_tokens": [h["moe_dropped_tokens"]
+                                   for h in tr.history],
+            "moe_overflow_rate": [h["moe_overflow_rate"] for h in tr.history],
+            "grad_norm": [h["grad_norm"] for h in tr.history],
+            "peak_memory_gb": peak_gb, "launches": counts,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "grad_ms": grad_ms, "update_ms": update_ms,
+            "step_profile": prof}
+    del tr, state, step_fn, batch, m_q, w_gate
+    _release()
+
+    finals, det_counts = [], []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for _ in range(2):
+            _zero_counts()
+            tr = _trainer(cfg, TrainerConfig(), argv=ARCTIC_TRAIN_ARGS)
+            st = tr.run(tr.init_or_restore(
+                torch.Generator(device="cuda").manual_seed(0)), 2)
+            torch.cuda.synchronize()
+            det_counts.append(_counts())
+            finals.append([p.cpu() for _p, p in iter_leaves(st["params"])])
+            del tr, st
+            _release()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = all(torch.equal(a, c) for a, c in zip(*finals))
+    want = {**{k: 0 for k in det_counts[0]}, "k1_lse": 2 * layers * 2,
+            "k2_dq": layers * 2, "k2_dkv": layers * 2}
+    print(f"  deterministic mode, 2 steps twice: final parameters the same "
+          f"bits {same}; launches {det_counts[0]} (want {want})")
+    if not same:
+        raise AssertionError("arctic: deterministic reruns differ")
+    if det_counts[0] != want or det_counts[1] != want:
+        raise AssertionError(f"arctic deterministic: launches {det_counts}")
+    info["deterministic"] = {"bit_exact": same, "launches": det_counts[0]}
+    return info
+
+
+def _route_flips(card, host):
+    """Per MoE call, the (token) rows whose chosen experts differ between
+    the card and the CPU; each must be a choice between two experts
+    whose probabilities lie within 1e-5 on the card."""
+    flips = 0
+    for (lg, ig), (_lc, ic) in zip(card, host):
+        ig = ig.cpu()
+        probs = torch.softmax(lg.cpu(), dim=-1)
+        for t in (ig != ic).any(-1).nonzero().flatten().tolist():
+            a, b = ig[t][ig[t] != ic[t]], ic[t][ig[t] != ic[t]]
+            gap = (probs[t, a] - probs[t, b]).abs().max().item()
+            if gap > 1e-5:
+                raise AssertionError(f"token {t}: experts {a.tolist()} on "
+                                     f"the card, {b.tolist()} on the CPU, "
+                                     f"probabilities {gap:.2e} apart")
+            flips += 1
+    return flips
+
+
+def phase_moe_reference():
+    """arctic-480b at full width in fp32, 1 layer and 8 experts (1.52 B
+    parameters), 1 x 2304 tokens (> 2048: K1, K1-lse and K3 run), on the
+    card against the port's CPU path from the same weights: the routing
+    of every MoE call (a choice may differ only between two experts whose
+    probabilities lie within 1e-5), the prefill logits and 4 decode
+    steps' (1e-3, fp32 logits O(1)), ``train_loss`` (1e-5 relative) and
+    the gradient of every leaf (1e-4 of its largest entry): the
+    tolerances of the danube train phase."""
+    print("== moe reference: arctic-480b full width, fp32, 1 layer, 8 "
+          "experts, 1 x 2304, card vs CPU")
+    cfg = dataclasses.replace(get_config(ARCTIC), num_layers=1,
+                              num_experts=8, dtype="float32",
+                              param_dtype="float32")
+    gpu, cpu = LanguageModel(cfg, device="cuda"), LanguageModel(cfg, "cpu")
+    _release()
+    params = gpu.init(torch.Generator(device="cuda").manual_seed(72))
+    params_cpu = _tree_to(params, "cpu")
+    s, steps = 2304, 4
+    toks = np.random.RandomState(73).randint(0, cfg.vocab_size,
+                                             (1, s + steps + 1))
+    batch = {"tokens": torch.from_numpy(toks[:, :s]),
+             "targets": torch.from_numpy(toks[:, 1:s + 1])}
+    runs = {}
+    for side, model, p in (("card", gpu, params), ("cpu", cpu, params_cpu)):
+        dev = model.device
+        t0 = time.perf_counter()
+        _zero_counts()
+        with torch.no_grad(), _moe_record() as rec:
+            lg, cache = model.prefill(p, {"tokens": batch["tokens"].to(dev)})
+            logits = [lg.cpu()]
+            cache = model.alloc_cache(1, s + steps, init=cache)
+            for i in range(steps):
+                tok = torch.from_numpy(toks[:, s + i:s + i + 1]).to(dev)
+                lg, cache = model.decode_step(p, cache, tok, s + i)
+                logits.append(lg.cpu())
+        serve_counts = _counts()
+        serve_route = rec["route"]
+        del cache
+        _zero_counts()
+        with _moe_record() as rec:
+            loss, grads = _grads(model, p, batch, dev)
+        grads = [g.cpu() for g in grads]
+        runs[side] = {"logits": logits, "route": serve_route + rec["route"],
+                      "loss": loss, "grads": grads,
+                      "launches_serve": serve_counts,
+                      "launches_train": _counts(),
+                      "s": time.perf_counter() - t0}
+        del grads
+    card, host = runs["card"], runs["cpu"]
+    flips = _route_flips(card["route"], host["route"])
+    logit_err = max((a - c).abs().max().item()
+                    for a, c in zip(card["logits"], host["logits"]))
+    loss_err = abs(card["loss"] - host["loss"]) / abs(host["loss"])
+    grad_err = max((a - c).abs().max().item()
+                   / max(c.abs().max().item(), 1e-30)
+                   for a, c in zip(card["grads"], host["grads"]))
+    want_serve = {**{k: 0 for k in card["launches_serve"]}, "k1": 1,
+                  "k5": steps}
+    want_train = {**{k: 0 for k in card["launches_train"]}, "k1_lse": 2,
+                  "k3": 1}
+    print(f"  routing: {len(card['route'])} MoE calls, {flips} choices "
+          f"differ (each within 1e-5 of probability); logits max_abs_err "
+          f"{logit_err:.3e} (limit 1e-3; fp32, logits O(1)), loss rel err "
+          f"{loss_err:.2e} (limit 1e-5), gradients {grad_err:.2e} of each "
+          f"leaf's max (limit 1e-4); launches serve "
+          f"{card['launches_serve']}, train {card['launches_train']}; card "
+          f"{card['s']:.1f} s, CPU {host['s']:.1f} s")
+    if card["launches_serve"] != want_serve or \
+            card["launches_train"] != want_train:
+        raise AssertionError(f"launches {card['launches_serve']} / "
+                             f"{card['launches_train']}, want {want_serve} "
+                             f"/ {want_train}")
+    if len(card["route"]) != len(host["route"]) or \
+            len(card["route"]) != 1 + steps + 2:
+        raise AssertionError(f"MoE calls {len(card['route'])} / "
+                             f"{len(host['route'])}")
+    if not (logit_err <= 1e-3 and loss_err <= 1e-5 and grad_err <= 1e-4):
+        raise AssertionError("arctic: card and CPU disagree")
+    info = {"route_flips": flips, "logits_max_abs_err": logit_err,
+            "loss_rel_err": loss_err, "grad_rel_err": grad_err,
+            "launches_serve": card["launches_serve"],
+            "launches_train": card["launches_train"],
+            "card_s": card["s"], "cpu_s": host["s"]}
+    del gpu, params, params_cpu, runs, card, host
+    _release()
+    return info
+
+
 def _tree_to(tree, device, copy=False):
     return {k: _tree_to(v, device, copy) if isinstance(v, dict)
             else v.to(device, copy=copy) for k, v in tree.items()}
@@ -3091,6 +3626,9 @@ def main() -> int:
     train_ref = timed("train_reference_s", phase_train_reference)
     kcopy = timed("copy_kernels_s", phase_copy_kernels)
     copy_paths = timed("copy_paths_s", phase_copy_paths)
+    moe_serve = timed("moe_serve_s", phase_moe_serve)
+    moe_train = timed("moe_train_s", phase_moe_train)
+    moe_ref = timed("moe_reference_s", phase_moe_reference)
 
     by_phase = {"engine_ample": {"k1": eng_a["k1_launches"],
                                  "k5": eng_a["k5_launches"]},
@@ -3120,7 +3658,13 @@ def main() -> int:
                 "ssm_deterministic":
                     ssm_det["mamba2-1.3b"]["launches"],
                 "hybrid_deterministic":
-                    ssm_det["zamba2-1.2b"]["launches"]}
+                    ssm_det["zamba2-1.2b"]["launches"],
+                "moe_serve": moe_serve["launches"],
+                "moe_train": moe_train["launches"],
+                "moe_train_deterministic":
+                    moe_train["deterministic"]["launches"],
+                "moe_reference_serve": moe_ref["launches_serve"],
+                "moe_reference_train": moe_ref["launches_train"]}
 
     def launches(*keys):
         per = {ph: sum(c.get(k, 0) for k in keys)
@@ -3194,7 +3738,8 @@ def main() -> int:
               "short_serve": short_serve, "ssm_train": ssm_train,
               "hybrid_train": hybrid_train,
               "ssm_train_reference": ssm_train_ref,
-              "ssm_deterministic": ssm_det,
+              "ssm_deterministic": ssm_det, "moe_serve": moe_serve,
+              "moe_train": moe_train, "moe_reference": moe_ref,
               "library_bwd_ms": ktrain["library_bwd_ms"], "phase_s": timings}
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)

@@ -37,7 +37,10 @@ def params_from_numpy(tree: Dict[str, Any], cfg, device="cuda") -> Dict[str, Any
 
     ``cfg`` names the model the tree belongs to; the tree must carry the
     stacked layers of that family at that width and depth: the decoder
-    layers' ``layers.attn.w_q`` (L, D, H, hd) for dense and vlm, the
+    layers' ``layers.attn.w_q`` (L, D, H, hd) for dense and vlm; for moe
+    the MoE layers' ``layers.attn.w_q`` and ``layers.moe.w_gate``
+    (L − first_k_dense, D, H, hd) and (…, E, D, moe_d_ff), and with
+    ``first_k_dense`` the dense layers' ``dense_layers.attn.w_q``; the
     Mamba layers' ``layers.mixer.w_x`` (L, D, d_inner) for ssm and
     hybrid, and for hybrid also the one shared block's
     ``shared_attn.attn.w_q`` (D, H, hd).  A mismatch raises.
@@ -56,6 +59,13 @@ def params_from_numpy(tree: Dict[str, Any], cfg, device="cuda") -> Dict[str, Any
         checks = [(("layers", "mixer", "w_x"), (L, D, cfg.d_inner))]
         if cfg.family == "hybrid":
             checks.append((("shared_attn", "attn", "w_q"), (D, *attn)))
+    elif cfg.family == "moe":
+        n, k = L - cfg.first_k_dense, cfg.first_k_dense
+        checks = [(("layers", "attn", "w_q"), (n, D, *attn)),
+                  (("layers", "moe", "w_gate"),
+                   (n, cfg.num_experts, D, cfg.moe_d_ff or cfg.d_ff))]
+        if k:
+            checks.append((("dense_layers", "attn", "w_q"), (k, D, *attn)))
     else:
         checks = [(("layers", "attn", "w_q"), (L, D, *attn))]
     for path, want in checks:

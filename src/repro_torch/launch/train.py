@@ -1,6 +1,7 @@
 """End-to-end training driver (torch).
 
-Runs a dense, ssm (mamba2-1.3b) or hybrid (zamba2-1.2b) architecture
+Runs a dense, moe without MLA (arctic-480b, with its int8 AdamW
+moments), ssm (mamba2-1.3b) or hybrid (zamba2-1.2b) architecture
 (reduced or full config) through the OCR-runtime trainer on ``--device``
 (the card by default): §4 labeled step map, §5 chunked checkpoints,
 fail-stop restart, straggler watchdog.

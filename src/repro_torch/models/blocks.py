@@ -1,8 +1,10 @@
-"""Dense decoder layer (``kind="dense"`` of ``repro.models.blocks``) and
-the Mamba2 layer: init plus train, prefill and decode application.
+"""The decoder layer (``kind`` "dense" or "moe" of
+``repro.models.blocks``) and the Mamba2 layer: init plus train, prefill
+and decode application.
 
 Pre-norm residual, as ``repro.models.blocks``.  Attention compute routes
-through ``repro_torch.dist.flash``, which picks the kernel.
+through ``repro_torch.dist.flash``, which picks the kernel.  The MLA
+kinds ("mla_dense", "mla_moe") are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -13,8 +15,9 @@ import torch
 from repro_torch.dist.flash import causal_attention, decode_update_and_attend
 from .attention import gqa_init, gqa_qkv
 from .layers import (Params, _dtype, apply_rope, cast_params, mlp, mlp_init,
-                     rmsnorm, rmsnorm_init)
+                     rmsnorm, rmsnorm_init, stack_trees)
 from .mamba import mamba_decode, mamba_init, mamba_prefill, mamba_train
+from .moe import moe_ffn, moe_init, zero_aux
 
 
 def _attn_apply(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
@@ -44,54 +47,97 @@ def _attn_decode(p: Params, x: torch.Tensor, cfg,
     return o, {"k": kc, "v": vc}
 
 
-def decoder_layer_init(gen: torch.Generator, cfg) -> Params:
+# --------------------------------------------------------------- decoder layer
+
+def _check_kind(kind: str) -> None:
+    if kind in ("mla_dense", "mla_moe"):
+        raise NotImplementedError(f"decoder layer kind {kind!r}: MLA is not "
+                                  f"ported yet (the MLA slice)")
+    if kind not in ("dense", "moe"):
+        raise ValueError(kind)
+
+
+def _norms_attn_init(gen: torch.Generator, cfg) -> Params:
     dt = _dtype(cfg.param_dtype)
     return {"ln1": rmsnorm_init(cfg.d_model, dt, gen.device),
             "ln2": rmsnorm_init(cfg.d_model, dt, gen.device),
-            "attn": gqa_init(gen, cfg),
-            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dt)}
+            "attn": gqa_init(gen, cfg)}
 
 
-def zero_aux(device=None) -> Dict[str, torch.Tensor]:
-    """Zero MoE aux dict (the schema of ``repro.models.moe.zero_aux``):
-    what a dense layer adds to the backbone's aux sums."""
-    z = torch.zeros((), dtype=torch.float32, device=device)
-    return {"loss": z, "dropped": z, "routed": z, "a2a_bytes": z}
+def decoder_layer_init(gen: torch.Generator, cfg, kind: str = "dense"
+                       ) -> Params:
+    """kind ∈ {dense, moe}: the norms and attention, then the SwiGLU
+    ``mlp`` or the ``moe`` layer."""
+    _check_kind(kind)
+    p = _norms_attn_init(gen, cfg)
+    if kind == "moe":
+        p["moe"] = moe_init(gen, cfg)
+    else:
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff,
+                            _dtype(cfg.param_dtype))
+    return p
+
+
+def decoder_stack_init(gen: torch.Generator, cfg, kind: str, n: int
+                       ) -> Params:
+    """``n`` decoder layers, stacked (n, …).  Dense layers are drawn one
+    at a time and stacked; a MoE stack draws its norms and attention
+    layer by layer and its MoE leaves through ``moe_init(layers=n)``,
+    which fills each expert bank in place, so no bank is held twice."""
+    if kind != "moe":
+        return stack_trees([decoder_layer_init(gen, cfg, kind)
+                            for _ in range(n)])
+    p = stack_trees([_norms_attn_init(gen, cfg) for _ in range(n)])
+    p["moe"] = moe_init(gen, cfg, layers=n)
+    return p
+
+
+def _ffn(p: Params, h: torch.Tensor, cfg, kind: str
+         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(output, aux) of the layer's feed-forward: the MoE layer, or the
+    dense MLP with zero aux."""
+    _check_kind(kind)
+    if kind == "moe":
+        return moe_ffn(p["moe"], h, cfg)
+    return mlp(p["mlp"], h), zero_aux(h.device)
 
 
 def decoder_layer_train(p: Params, x: torch.Tensor, cfg,
-                        positions: torch.Tensor
+                        positions: torch.Tensor, kind: str = "dense"
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Returns (x, zero aux).  The fp32 master weights are cast to the
-    compute dtype here, inside the layer (and so inside its checkpointed
-    region), and gradients flow back through the cast to fp32."""
+    """Returns (x, aux) in ``moe.zero_aux``'s schema.  The fp32 master
+    weights are cast to the compute dtype here, inside the layer (and so
+    inside its checkpointed region), and gradients flow back through the
+    cast to fp32."""
     p = cast_params(p, cfg.dtype)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     x = x + _attn_apply(p["attn"], h, cfg, positions)
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + mlp(p["mlp"], h), zero_aux(x.device)
+    f, aux = _ffn(p, h, cfg, kind)
+    return x + f, aux
 
 
 def decoder_layer_prefill(p: Params, x: torch.Tensor, cfg,
-                          positions: torch.Tensor
+                          positions: torch.Tensor, kind: str = "dense"
                           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     p = cast_params(p, cfg.dtype)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     attn, cache = _attn_apply(p["attn"], h, cfg, positions, want_cache=True)
     x = x + attn
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + mlp(p["mlp"], h), cache
+    return x + _ffn(p, h, cfg, kind)[0], cache
 
 
 def decoder_layer_decode(p: Params, x: torch.Tensor, cfg,
-                         cache: Dict[str, torch.Tensor], cur_len: int
+                         cache: Dict[str, torch.Tensor], cur_len: int,
+                         kind: str = "dense"
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     p = cast_params(p, cfg.dtype)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     attn, cache = _attn_decode(p["attn"], h, cfg, cache, cur_len)
     x = x + attn
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + mlp(p["mlp"], h), cache
+    return x + _ffn(p, h, cfg, kind)[0], cache
 
 
 # ----------------------------------------------------------------- mamba layer

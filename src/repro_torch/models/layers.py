@@ -53,6 +53,13 @@ def cast_params(params: Params, dtype_name: str) -> Params:
 
 # ----------------------------------------------------------------- initializers
 
+def stack_trees(trees):
+    """Per-layer trees of one structure → one tree of (n, ...) stacks."""
+    first = trees[0]
+    return {k: stack_trees([t[k] for t in trees]) if isinstance(first[k], dict)
+            else torch.stack([t[k] for t in trees]) for k in first}
+
+
 def dense_init(gen: torch.Generator, in_dim: int, out_shape: Tuple[int, ...],
                dtype: torch.dtype) -> torch.Tensor:
     scale = 1.0 / np.sqrt(in_dim)

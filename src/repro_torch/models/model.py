@@ -1,4 +1,5 @@
-"""Language model for the dense, VLM (text-only), SSM and hybrid families.
+"""Language model for the dense, VLM (text-only), MoE (without MLA), SSM
+and hybrid families.
 
 ``LanguageModel(cfg, device)`` exposes:
   init(generator)                              -> params
@@ -9,8 +10,12 @@
 
 Parameters keep the reference's tree names and stacked shapes
 (``layers.attn.w_q`` is (L, D, H, hd), ``layers.mixer.w_x`` (L, D,
-d_inner)), so one weight set feeds both packages; layers run as a Python
-loop over the stack.  The hybrid family (zamba2) applies one shared
+d_inner), ``layers.moe.w_gate`` (L, E, D, F)), so one weight set feeds
+both packages; layers run as a Python loop over the stack.  A MoE model
+(arctic; deepseek without MLA) runs its ``first_k_dense`` dense layers
+(``dense_layers``, cache ``"dense"``) before its MoE layers
+(``layers``), and sums the MoE aux over layers into the train
+metrics.  The hybrid family (zamba2) applies one shared
 attention + MLP block (``params["shared_attn"]``, a single copy) before
 each group of ``attn_every`` Mamba layers, then the remainder layers.
 Caches follow the reference's ``cache_spec``: head-major attention
@@ -31,7 +36,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from . import blocks
-from .layers import Params, _dtype, embed_init, resolve_device, rmsnorm, rmsnorm_init
+from .layers import (Params, _dtype, embed_init, resolve_device, rmsnorm,
+                     rmsnorm_init, stack_trees)
 
 
 def layer_params(stacked: Params, i: int) -> Params:
@@ -84,20 +90,34 @@ def _remat(body: Callable, cfg) -> Callable:
     return run
 
 
-def _stack(trees):
-    first = trees[0]
-    return {k: _stack([t[k] for t in trees]) if isinstance(first[k], dict)
-            else torch.stack([t[k] for t in trees]) for k in first}
-
-
 class LanguageModel:
     def __init__(self, cfg, device="cuda"):
-        if cfg.family not in ("dense", "vlm", "ssm", "hybrid") or cfg.use_mla:
+        if cfg.use_mla:
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (dense, vlm, ssm, "
-                f"hybrid only)")
+                f"{cfg.name}: MLA attention is not ported yet (the MLA slice)")
+        if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
+            raise NotImplementedError(
+                f"family {cfg.family!r} is not ported yet (dense, vlm, moe, "
+                f"ssm, hybrid only)")
         self.cfg = cfg
         self.device = resolve_device(device)
+
+    @property
+    def _kind(self) -> str:
+        return "moe" if self.cfg.family == "moe" else "dense"
+
+    def _stacked_layers(self) -> int:
+        """Layers in ``params["layers"]`` (a MoE model's dense ones sit in
+        ``params["dense_layers"]``)."""
+        return self.cfg.num_layers - self.cfg.first_k_dense
+
+    def _decoder_segments(self, params: Params):
+        """The decoder stacks in the order they run, as (params key, cache
+        key, layers, kind): a MoE model's ``first_k_dense`` dense layers,
+        then the main stack."""
+        if "dense_layers" in params:
+            yield "dense_layers", "dense", self.cfg.first_k_dense, "dense"
+        yield "layers", "layers", self._stacked_layers(), self._kind
 
     # ----------------------------------------------------------------- init
 
@@ -115,11 +135,14 @@ class LanguageModel:
                             device=generator.device)
             p["lm_head"] = (w / np.sqrt(cfg.d_model)).to(dt)
         if cfg.family in ("ssm", "hybrid"):
-            p["layers"] = _stack([blocks.mamba_layer_init(generator, cfg)
-                                  for _ in range(cfg.num_layers)])
+            p["layers"] = stack_trees([blocks.mamba_layer_init(generator, cfg)
+                                       for _ in range(cfg.num_layers)])
         else:
-            p["layers"] = _stack([blocks.decoder_layer_init(generator, cfg)
-                                  for _ in range(cfg.num_layers)])
+            if cfg.first_k_dense:
+                p["dense_layers"] = blocks.decoder_stack_init(
+                    generator, cfg, "dense", cfg.first_k_dense)
+            p["layers"] = blocks.decoder_stack_init(
+                generator, cfg, self._kind, self._stacked_layers())
         if cfg.family == "hybrid":
             p["shared_attn"] = blocks.decoder_layer_init(generator, cfg)
         return _to(p, self.device)
@@ -151,13 +174,13 @@ class LanguageModel:
     def _backbone_train(self, params: Params, x: torch.Tensor
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Returns (final-normed hidden, aux dict summed over layers —
-        ``blocks.zero_aux`` schema)."""
+        ``moe.zero_aux``'s schema)."""
         cfg = self.cfg
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         aux = blocks.zero_aux(x.device)
-        layers = unstack_layers(params["layers"], cfg.num_layers)
 
         if cfg.family in ("ssm", "hybrid"):
+            layers = unstack_layers(params["layers"], cfg.num_layers)
             mstep = _remat(lambda xx, p_l: blocks.mamba_layer_train(
                 p_l, xx, cfg), cfg)
             start = 0
@@ -174,13 +197,13 @@ class LanguageModel:
                 x = mstep(x, p_l)
             return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
-        def body(xx, p_l):
-            return blocks.decoder_layer_train(p_l, xx, cfg, positions)
-
-        step = _remat(body, cfg)
-        for p_l in layers:
-            x, a = step(x, p_l)
-            aux = {k: aux[k] + a[k] for k in aux}
+        for key, _ck, n, kind in self._decoder_segments(params):
+            step = _remat(lambda xx, p_l, kind=kind:
+                          blocks.decoder_layer_train(p_l, xx, cfg, positions,
+                                                     kind), cfg)
+            for p_l in unstack_layers(params[key], n):
+                x, a = step(x, p_l)
+                aux = {k: aux[k] + a[k] for k in aux}
         return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
     def lm_loss(self, params: Params, h: torch.Tensor, targets: torch.Tensor
@@ -244,9 +267,11 @@ class LanguageModel:
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor]):
         """batch["tokens"]: (B, S) int → (last logits (B, V) fp32, cache):
-        {"layers": {"k", "v"}} (L, B, KH, S, hd) for dense models,
-        {"layers": mamba} for ssm, {"groups": {"attn", "mamba"},
-        "remainder": mamba} for hybrid (see :meth:`alloc_cache`)."""
+        {"layers": {"k", "v"}} (L, B, KH, S, hd) for dense models (and a
+        MoE model's MoE layers, with {"dense": {"k", "v"}} for its
+        leading dense ones), {"layers": mamba} for ssm, {"groups":
+        {"attn", "mamba"}, "remainder": mamba} for hybrid (see
+        :meth:`alloc_cache`)."""
         cfg = self.cfg
         if "patches" in batch:
             raise NotImplementedError("VLM patch prefixes are not ported yet")
@@ -260,7 +285,7 @@ class LanguageModel:
                 x, c = blocks.mamba_layer_prefill(
                     layer_params(params["layers"], i), x, cfg)
                 caches.append(c)
-            return x, _stack(caches)
+            return x, stack_trees(caches)
 
         if fam == "ssm":
             x, layers = mamba_run(x, 0, cfg.num_layers)
@@ -275,16 +300,19 @@ class LanguageModel:
                 attn.append(c)
                 x, c = mamba_run(x, gi * per, (gi + 1) * per)
                 mamba.append(c)
-            cache = {"groups": {"attn": _stack(attn), "mamba": _stack(mamba)}}
+            cache = {"groups": {"attn": stack_trees(attn),
+                                "mamba": stack_trees(mamba)}}
             if rem:
                 x, cache["remainder"] = mamba_run(x, g * per, cfg.num_layers)
         else:
-            kv = []
-            for i in range(cfg.num_layers):
-                x, c = blocks.decoder_layer_prefill(
-                    layer_params(params["layers"], i), x, cfg, positions)
-                kv.append(c)
-            cache = {"layers": _stack(kv)}
+            cache = {}
+            for key, ck, n, kind in self._decoder_segments(params):
+                kv = []
+                for i in range(n):
+                    x, c = blocks.decoder_layer_prefill(
+                        layer_params(params[key], i), x, cfg, positions, kind)
+                    kv.append(c)
+                cache[ck] = stack_trees(kv)
         h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return self._logits(params, h[:, -1]), cache
 
@@ -321,10 +349,11 @@ class LanguageModel:
             if rem:
                 x = mamba_run(x, g * per, cfg.num_layers, cache["remainder"])
         else:
-            for i in range(cfg.num_layers):
-                x, _ = blocks.decoder_layer_decode(
-                    layer_params(params["layers"], i), x, cfg,
-                    layer_params(cache["layers"], i), cur)
+            for key, ck, n, kind in self._decoder_segments(params):
+                for i in range(n):
+                    x, _ = blocks.decoder_layer_decode(
+                        layer_params(params[key], i), x, cfg,
+                        layer_params(cache[ck], i), cur, kind)
         h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return self._logits(params, h[:, -1]), cache
 
@@ -336,9 +365,10 @@ class LanguageModel:
         attention k/v (n, batch, KH, seq, hd) in the compute dtype; Mamba
         conv tails (…, batch, K-1, C) in the compute dtype and states
         (…, batch, H, P, N) in fp32, both independent of ``seq``.  Dense:
-        {"layers": kv}; ssm: {"layers": mamba}; hybrid: {"groups":
-        {"attn": kv (g, …), "mamba": mamba (g, per, …)}, "remainder":
-        mamba (rem, …)}.  ``init`` (a prefill cache of S ≤ seq positions)
+        {"layers": kv}; MoE: {"layers": kv} over the MoE layers and, with
+        ``first_k_dense``, {"dense": kv}; ssm: {"layers": mamba}; hybrid:
+        {"groups": {"attn": kv (g, …), "mamba": mamba (g, per, …)},
+        "remainder": mamba (rem, …)}.  ``init`` (a prefill cache of S ≤ seq positions)
         is copied in: attention caches into their first S positions,
         Mamba caches whole."""
         cfg = self.cfg
@@ -368,7 +398,9 @@ class LanguageModel:
             if rem:
                 out["remainder"] = mamba(rem)
         else:
-            out = {"layers": kv(cfg.num_layers)}
+            out = {"layers": kv(self._stacked_layers())}
+            if cfg.first_k_dense:
+                out["dense"] = kv(cfg.first_k_dense)
         if init is not None:
             _fill(out, init)
         return out

@@ -1,0 +1,295 @@
+"""Mixture-of-Experts layer on one device: the no-mesh branch of
+``repro.models.moe``.
+
+Routing runs in fp32 (top-k of the router's softmax, renormalized);
+each (token, choice) pair takes a slot in its expert's bucket of
+``C = _capacity(cfg, tokens)`` rows, the earliest tokens first (a stable
+sort), and pairs past C are dropped and fall through on the residual
+path.  The expert products are batched matmuls over the (E, C, ·)
+buckets, and the combine sums each token's gate-weighted rows.  Every
+expert's weights are read whatever the routing: the reference's grouped
+GEMM over capacity.
+
+Dispatch and combine are ``torch.autograd.Function``s whose backwards
+are the mirror scatter / gather, as the reference's custom VJPs.  They
+run in chunks of at most ``CHUNK_ROWS`` (token, choice) rows, so the
+(T·k, D) gather never materializes whole.  Neither uses atomics: the
+dispatch writes each kept pair into its own slot (every dropped pair
+writes zeros into the trash row C, which is cut off), and the combine
+gathers token t's k rows, which sit at t·k … t·k + k − 1, and sums them
+over k in a fixed order.  So the layer gives the same bits on every call
+on the card, with no global deterministic switch.  Nothing reads the
+card: the capacity comes from shapes, and the dispatch stats stay
+tensors until the trainer reads its metrics.
+
+Not ported yet (the multi-device slice): ``_exchange``,
+``_a2a_experts``, ``_a2a_capacity`` and the two ``shard_map``
+branches.  Without a mesh the reference takes this branch whatever
+``cfg.moe_dispatch`` says, and so does the port.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .layers import Params, _dtype, dense_init, mlp, mlp_init, stack_trees
+
+# (token, choice) rows one chunk of the dispatch / combine loops takes
+CHUNK_ROWS = 16384
+
+
+def _bank(gen: torch.Generator, lead: Tuple[int, ...], fan_in: int,
+          fan_out: int, dtype: torch.dtype) -> torch.Tensor:
+    """(*lead, fan_in, fan_out) weights of scale 1/√fan_in, allocated
+    once and drawn one (fan_in, fan_out) matrix at a time in fp32, cast
+    on write: a full-width bank is never held in fp32, nor twice."""
+    out = torch.empty((*lead, fan_in, fan_out), dtype=dtype, device=gen.device)
+    for w in out.view(-1, fan_in, fan_out):
+        w.copy_(torch.randn((fan_in, fan_out), generator=gen,
+                            device=gen.device) / np.sqrt(fan_in))
+    return out
+
+
+def moe_init(gen: torch.Generator, cfg, layers: Optional[int] = None
+             ) -> Params:
+    """One MoE layer's parameters — ``router`` (D, E) fp32, the expert
+    banks ``w_gate`` / ``w_up`` (E, D, F) and ``w_down`` (E, F, D), the
+    ``shared`` experts' MLP (width F · num_shared_experts) and the
+    ``dense_residual`` MLP (d_ff) where the config has them — or, with
+    ``layers``, the stacked (layers, …) tree of that many."""
+    d, e = cfg.d_model, cfg.num_experts
+    f = cfg.moe_d_ff or cfg.d_ff
+    dt = _dtype(cfg.param_dtype)
+    lead = () if layers is None else (layers,)
+
+    def each(init):
+        if layers is None:
+            return init()
+        per = [init() for _ in range(layers)]
+        return (stack_trees(per) if isinstance(per[0], dict)
+                else torch.stack(per))
+
+    p: Params = {
+        "router": each(lambda: dense_init(gen, d, (e,), torch.float32)),
+        "w_gate": _bank(gen, (*lead, e), d, f, dt),
+        "w_up": _bank(gen, (*lead, e), d, f, dt),
+        "w_down": _bank(gen, (*lead, e), f, d, dt),
+    }
+    if cfg.num_shared_experts > 0:
+        p["shared"] = each(lambda: mlp_init(
+            gen, d, f * cfg.num_shared_experts, dt))
+    if cfg.moe_dense_residual:
+        p["dense_residual"] = each(lambda: mlp_init(gen, d, cfg.d_ff, dt))
+    return p
+
+
+def _route(logits: torch.Tensor, k: int, renormalize: bool = True
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k routing.  logits: (T, E) fp32 → (gates (T, k) fp32, idx (T, k)).
+
+    The top k come from a stable descending sort, so of two equal
+    probabilities the lower expert comes first, as in ``jax.lax.top_k``
+    (``torch.topk`` promises no order on ties)."""
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, idx = gates[:, :k], idx[:, :k]
+    if renormalize:
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    return gates, idx
+
+
+def load_balance_loss(logits: torch.Tensor, idx: torch.Tensor,
+                      num_experts: int) -> torch.Tensor:
+    """Switch-style auxiliary loss over all k routed choices:
+    E · Σ_e f_e · P_e, with f_e the fraction of (token, choice) slots
+    routed to expert e and P_e its mean router probability."""
+    probs = torch.softmax(logits, dim=-1)
+    f = F.one_hot(idx.reshape(-1), num_experts).float().mean(dim=0)
+    return num_experts * torch.sum(f * probs.mean(dim=0))
+
+
+def zero_aux(device=None) -> Dict[str, torch.Tensor]:
+    """Zero MoE aux dict: what a dense layer adds to the backbone's sums."""
+    z = torch.zeros((), dtype=torch.float32, device=device)
+    return {"loss": z, "dropped": z, "routed": z, "a2a_bytes": z}
+
+
+def _expert_positions(flat_e: torch.Tensor, n: int) -> torch.Tensor:
+    """Rank of each (token, choice) within its expert, in token order:
+    stable-sort by expert id, then position = index − start of its run,
+    where the start propagates by a running maximum."""
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    arange_n = torch.arange(n, device=flat_e.device)
+    new_run = torch.ones(n, dtype=torch.bool, device=flat_e.device)
+    new_run[1:] = sorted_e[1:] != sorted_e[:-1]
+    starts = torch.cummax(torch.where(new_run, arange_n, 0), dim=0).values
+    pos = torch.empty_like(arange_n)
+    pos[order] = arange_n - starts
+    return pos
+
+
+def _capacity(cfg, tokens: int) -> int:
+    """Per-expert bucket capacity over ``tokens`` routing together, a
+    multiple of 8 and at least 8 (the reference's psum / no-mesh
+    rule)."""
+    c = int(np.ceil(cfg.experts_per_token * tokens * cfg.capacity_factor
+                    / cfg.num_experts))
+    return max(8, int(np.ceil(c / 8) * 8))
+
+
+def _chunked(t: int, k: int):
+    """(first token, end token) of each chunk of ``t`` tokens' ``t·k``
+    rows: whole tokens, at most ``CHUNK_ROWS`` rows (one token at least).
+    The reference halves its chunk until it divides the rows
+    (``lax.scan`` wants equal chunks); a loop takes a shorter last chunk
+    instead, so 16,800 rows run as 2 chunks and not 525."""
+    step = max(1, min(t * k, CHUNK_ROWS) // k)
+    return [(t0, min(t0 + step, t)) for t0 in range(0, t, step)]
+
+
+class _Dispatch(torch.autograd.Function):
+    """x_flat (T, D) → buckets (E, C, D): row t·k + j of the tables is
+    token t's j-th choice, whose slot is (e, p); a pair of weight 0 (a
+    drop) writes zeros into the trash row C.  The backward gathers each
+    token's k slots and sums them over k."""
+
+    @staticmethod
+    def forward(ctx, x_flat, e, p, w, k: int, e_loc: int, capacity: int):
+        t, d = x_flat.shape
+        acc = x_flat.new_zeros((e_loc, capacity + 1, d))
+        keep = (w > 0).to(x_flat.dtype)[:, None]
+        for t0, t1 in _chunked(t, k):
+            r = slice(t0 * k, t1 * k)
+            rows = x_flat[t0:t1].repeat_interleave(k, dim=0) * keep[r]
+            acc[e[r], p[r]] = rows
+        ctx.save_for_backward(e, p, w)
+        ctx.k = k
+        return acc[:, :capacity]
+
+    @staticmethod
+    def backward(ctx, g_out):
+        e, p, w = ctx.saved_tensors
+        k = ctx.k
+        e_loc, _cap, d = g_out.shape
+        g_ext = torch.cat([g_out, g_out.new_zeros((e_loc, 1, d))], dim=1)
+        keep = (w > 0).to(g_out.dtype)[:, None]
+        t = e.shape[0] // k
+        dx = g_out.new_empty((t, d))
+        for t0, t1 in _chunked(t, k):
+            r = slice(t0 * k, t1 * k)
+            rows = g_ext[e[r], p[r]] * keep[r]
+            dx[t0:t1] = rows.view(t1 - t0, k, d).sum(dim=1)
+        return dx, None, None, None, None, None, None
+
+
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The combine sums in fp32 (float64 for float64 inputs, as in a
+    gradient check)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+class _Combine(torch.autograd.Function):
+    """y_grouped (E, C, D) → y (T, D) in fp32: token t's k slots, each
+    times its gate weight, summed over k (a dropped pair reads the zero
+    trash row with weight 0).  The backward scatters dy · w into the
+    slots and gives each weight its dot product dy · y_slot."""
+
+    @staticmethod
+    def forward(ctx, y_grouped, e, p, w, k: int):
+        e_loc, _cap, d = y_grouped.shape
+        acc = _acc_dtype(y_grouped.dtype)
+        y_ext = torch.cat([y_grouped, y_grouped.new_zeros((e_loc, 1, d))],
+                          dim=1)
+        t = e.shape[0] // k
+        y = torch.empty((t, d), dtype=acc, device=y_grouped.device)
+        for t0, t1 in _chunked(t, k):
+            r = slice(t0 * k, t1 * k)
+            rows = y_ext[e[r], p[r]].to(acc) * w[r, None]
+            y[t0:t1] = rows.view(t1 - t0, k, d).sum(dim=1)
+        ctx.save_for_backward(y_ext, e, p, w)
+        ctx.k = k
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        y_ext, e, p, w = ctx.saved_tensors
+        k = ctx.k
+        e_loc, cap1, d = y_ext.shape
+        acc = _acc_dtype(y_ext.dtype)
+        dg = torch.zeros((e_loc, cap1, d), dtype=acc, device=dy.device)
+        dw = torch.empty_like(w)
+        for t0, t1 in _chunked(dy.shape[0], k):
+            r = slice(t0 * k, t1 * k)
+            dy_rows = dy[t0:t1].to(acc).repeat_interleave(k, dim=0)
+            dg[e[r], p[r]] = dy_rows * w[r, None]
+            dw[r] = (y_ext[e[r], p[r]].to(acc) * dy_rows).sum(dim=-1)
+        return dg[:, :cap1 - 1].to(y_ext.dtype), None, None, dw, None
+
+
+# (x_flat, e, p, w, k, e_loc, capacity) → (E, C, D) buckets
+_dispatch = _Dispatch.apply
+# (y_grouped, e, p, w, k) → (T, D) fp32
+_combine = _Combine.apply
+
+
+def _grouped_experts(x_flat: torch.Tensor, gates: torch.Tensor,
+                     idx: torch.Tensor, w_gate: torch.Tensor,
+                     w_up: torch.Tensor, w_down: torch.Tensor, capacity: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Capacity-bucketed grouped-GEMM over every expert.
+
+    x_flat: (T, D); gates / idx: (T, k); w_*: (E, D, F) / (E, F, D).
+    Returns ``(y, kept)``: (T, D) sum of the experts' contributions, pairs
+    past ``capacity`` dropped, and each token's count of choices that kept
+    their slot."""
+    t, _d = x_flat.shape
+    k = idx.shape[1]
+    e_loc = w_gate.shape[0]
+    n = t * k
+    flat_e = idx.reshape(n)
+    flat_g = gates.reshape(n)
+    pos = _expert_positions(flat_e, n)
+    valid = (pos < capacity) & (flat_g > 0)
+    safe_e = torch.where(valid, flat_e, 0)
+    safe_pos = torch.where(valid, pos, capacity)          # row C: trash
+    w = flat_g * valid
+    x_grouped = _dispatch(x_flat, safe_e, safe_pos, w, k, e_loc, capacity)
+    g = torch.bmm(x_grouped, w_gate)
+    u = torch.bmm(x_grouped, w_up)
+    h = F.silu(g.float()).to(x_flat.dtype) * u
+    y_grouped = torch.bmm(h, w_down)                      # (E, C, D)
+    y = _combine(y_grouped, safe_e, safe_pos, w, k)
+    kept = valid.view(t, k).sum(dim=1).float()
+    return y.to(x_flat.dtype), kept
+
+
+def moe_ffn(params: Params, x: torch.Tensor, cfg
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """MoE feed-forward.  x: (B, S, D) → (y, aux): the balance ``loss``,
+    the ``dropped`` and ``routed`` (token, choice) counts and
+    ``a2a_bytes`` (0: one device exchanges nothing); then the shared
+    experts' and the dense residual MLPs are added to y."""
+    b, s, d = x.shape
+    t = b * s
+    k = cfg.experts_per_token
+    logits = x.reshape(t, d).float() @ params["router"]
+    gates, idx = _route(logits, k)
+    aux = load_balance_loss(logits, idx, cfg.num_experts)
+    y, kept = _grouped_experts(x.reshape(t, d), gates, idx,
+                               params["w_gate"], params["w_up"],
+                               params["w_down"], _capacity(cfg, t))
+    y = y.view(b, s, d)
+    routed = torch.full((), float(t * k), dtype=torch.float32,
+                        device=x.device)
+    auxd = {"loss": aux, "dropped": routed - kept.sum(), "routed": routed,
+            "a2a_bytes": torch.zeros((), dtype=torch.float32,
+                                     device=x.device)}
+    if "shared" in params:
+        y = y + mlp(params["shared"], x)
+    if "dense_residual" in params:
+        y = y + mlp(params["dense_residual"], x)
+    return y, auxd

@@ -118,16 +118,27 @@ def _at(tree: Any, path: Tuple[str, ...]) -> Any:
     return tree
 
 
+def _sum_squares(leaf: torch.Tensor) -> torch.Tensor:
+    """fp32 Σ leaf², over pieces of at most ``CHUNK_BYTES`` of fp32 so
+    that a large bf16 leaf (a MoE layer stack's expert bank) is never
+    held in fp32 whole."""
+    flat = leaf.reshape(-1)
+    n = max(1, CHUNK_BYTES // 4)
+    return sum(torch.sum(torch.square(c.float())) for c in flat.split(n))
+
+
 def global_norm(tree: Any) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(leaf.float()))
+    return torch.sqrt(sum(_sum_squares(leaf)
                           for _path, leaf in iter_leaves(tree)))
 
 
 _NO_DECAY = {"scale", "bias", "A_log", "dt_bias", "D", "b_q", "b_k", "b_v",
              "b_in", "b_out", "conv_b_x", "conv_b_B", "conv_b_C"}
 
-# Stacked leaves above this size update layer by layer, so the fp32
-# temporaries stay one layer in size; tests may lower it.
+# Stacked leaves above this size update layer by layer (and a layer's
+# slice that is still above it, such as a MoE layer's (E, D, F) expert
+# bank, expert by expert), so the fp32 temporaries stay one slice in
+# size; tests may lower it.
 CHUNK_BYTES = 128 * 1024 * 1024
 
 
@@ -170,16 +181,22 @@ def adamw_update(oc: OptimizerConfig, grads: Any, params: Any,
             _assign(m_s, _quant_m(m))
             _assign(v_s, _quant_v(v))
 
+    def chunked_update(p, g, m_s, v_s, decay: bool):
+        # chunk only over a genuine stack dim (small leading extent, ndim
+        # >= 3), as the reference does for layers; the update is
+        # elementwise and the int8 scales are per row of the last dim, so
+        # any slicing of the leading dims gives the same bits
+        if p.numel() * 4 > CHUNK_BYTES and p.ndim >= 3 and \
+                1 < p.shape[0] <= 256:
+            for i in range(p.shape[0]):
+                chunked_update(p[i], g[i], _slice(m_s, i), _slice(v_s, i),
+                               decay)
+        else:
+            leaf_update(p, g, m_s, v_s, decay)
+
     for path, p in iter_leaves(params):
         g = _at(grads, path)
         m_s, v_s = _at(opt_state["m"], path), _at(opt_state["v"], path)
         decay = bool(oc.weight_decay) and path[-1] not in _NO_DECAY
-        # chunk only over a genuine layer-stack dim (small leading extent,
-        # ndim >= 3), as the reference does
-        if p.numel() * 4 > CHUNK_BYTES and p.ndim >= 3 and \
-                1 < p.shape[0] <= 256:
-            for i in range(p.shape[0]):
-                leaf_update(p[i], g[i], _slice(m_s, i), _slice(v_s, i), decay)
-        else:
-            leaf_update(p, g, m_s, v_s, decay)
+        chunked_update(p, g, m_s, v_s, decay)
     return params, opt_state, {"lr": lr, "grad_norm": gnorm}

@@ -17,7 +17,10 @@ the ``train.*`` gauges of the runtime's monitoring registry.
 The step runs eagerly on the model's device (there is no ``jit``):
 attention above ``cfg.attn_flash_min_seq`` runs the flash kernels, K1
 with the logsumexp forward and K3 (K2 in deterministic mode) backward;
-a Mamba layer's scan runs K9 forward and K9b backward.
+a Mamba layer's scan runs K9 forward and K9b backward.  A MoE
+model's dispatch stats (``moe_dropped_tokens``, ``moe_overflow_rate``,
+``moe_a2a_bytes``) land in each step's history and, from the last
+step, in the runtime's stats, as in the reference.
 Single device only: a ``mesh`` raises ``NotImplementedError``.
 """
 from __future__ import annotations

@@ -4,8 +4,10 @@ across blocks, then combined) — at head
 widths 32, 64, 120 and 128 — the partition copies K6, K7, K8 and the
 SSD scan K9 against their plain PyTorch versions on the same inputs, a
 reduced train step (tiled and megakernel routes) and reduced SSM /
-hybrid serving on the card against the CPU, and the runtime's fused copy
-on the card against its numpy backend.
+hybrid serving on the card against the CPU, the runtime's fused copy
+on the card against its numpy backend, and the MoE layer and a reduced
+arctic model on the card against the CPU (the layer also twice for the
+same bits).
 They skip (from inside the fixture) where torch sees no CUDA device; on
 a machine with the card run
 
@@ -1184,3 +1186,131 @@ def test_megakernel_train_steps_on_the_card_match_the_cpu(cuda, monkeypatch):
     for mg, mc in zip(*metrics):
         for k in ("loss", "grad_norm"):
             assert mg[k] == pytest.approx(mc[k], rel=1e-5), k
+
+
+# ------------------------------------------------------------------ MoE layer
+
+def _moe_cfg(**over):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("arctic-480b").reduced(), **over)
+
+
+@pytest.mark.parametrize("cf", [8.0, 1.0])
+def test_moe_layer_on_the_card_matches_the_cpu(cuda, cf):
+    """Reduced fp32 arctic MoE layer (dense residual) on 2 x 300 tokens,
+    with and without drops: the routing (the same experts for every
+    token at this seed: a flip fails), the output, every aux entry and
+    the gradients on the card against the CPU; 1e-4 of each tensor's
+    largest entry (fp32, summation order)."""
+    from repro_torch.models import moe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _moe_cfg(capacity_factor=cf)
+    params = moe.moe_init(torch.Generator().manual_seed(0), cfg)
+    x = torch.randn(2, 300, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    runs = []
+    for dev in ("cpu", cuda):
+        p = {k: ({n: t.to(dev).requires_grad_() for n, t in v.items()}
+                 if isinstance(v, dict) else v.to(dev).requires_grad_())
+             for k, v in params.items()}
+        xx = x.to(dev).requires_grad_()
+        logits = xx.detach().reshape(-1, cfg.d_model) @ p["router"].detach()
+        idx = moe._route(logits, cfg.experts_per_token)[1]
+        y, aux = moe.moe_ffn(p, xx, cfg)
+        leaves = [xx] + [t for v in p.values() for t in
+                         (v.values() if isinstance(v, dict) else [v])]
+        grads = torch.autograd.grad((y ** 2).sum() + 0.01 * aux["loss"],
+                                    leaves)
+        runs.append((idx.cpu(), y.cpu(),
+                     {k: float(v.detach()) for k, v in aux.items()},
+                     [g.cpu() for g in grads]))
+    (ic, yc, ac, gc), (ig, yg, ag, gg) = runs
+    flips = (ic != ig).any(-1).nonzero().flatten().tolist()
+    assert not flips, f"tokens {flips} routed to other experts on the card"
+    if cf == 1.0:
+        assert ac["dropped"] > 0
+    assert ac.keys() == ag.keys()
+    for k in ac:
+        assert ag[k] == pytest.approx(ac[k], rel=1e-5, abs=1e-6), k
+    for got, want in [(yg, yc)] + list(zip(gg, gc)):
+        assert (got - want).abs().max().item() <= \
+            1e-4 * max(want.abs().max().item(), 1e-30)
+
+
+def test_moe_layer_gives_the_same_bits_twice_on_the_card(cuda):
+    """bf16 MoE layer with drops, forward and backward, twice: the same
+    bits without the global deterministic switch (dispatch and combine
+    write unique slots and gather; no atomics)."""
+    from repro_torch.models import moe
+
+    cfg = _moe_cfg(capacity_factor=1.0, dtype="bfloat16",
+                   param_dtype="bfloat16", num_experts=8, d_model=512,
+                   moe_d_ff=256, d_ff=512)
+    params = moe.moe_init(torch.Generator(device=cuda).manual_seed(0), cfg)
+    leaves = [t.requires_grad_() for v in params.values() for t in
+              (v.values() if isinstance(v, dict) else [v])]
+    x = torch.randn(4, 1024, cfg.d_model, device=cuda, dtype=torch.bfloat16,
+                    generator=torch.Generator(device=cuda).manual_seed(1))
+    x.requires_grad_()
+    outs = []
+    for _ in range(2):
+        y, aux = moe.moe_ffn(params, x, cfg)
+        grads = torch.autograd.grad((y.float() ** 2).sum() + aux["loss"],
+                                    [x] + leaves)
+        outs.append([y, aux["dropped"], aux["loss"], *grads])
+    assert float(outs[0][1]) > 0
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+def test_moe_model_on_the_card_matches_the_cpu(cuda):
+    """Reduced fp32 arctic (head_dim 64, ``attn_flash_min_seq=32``): prefill
+    of 2 x 96 through K1, three decode steps through K5, and one
+    ``train_loss`` with its gradients through K1-lse and K3, on the card
+    against the CPU's plain path from the same weights; logits 1e-3,
+    loss 1e-5 relative, gradients 1e-4 of each leaf's largest entry."""
+    from repro_torch.models.model import LanguageModel
+    from repro_torch.optim.adamw import iter_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _moe_cfg(head_dim=64, attn_flash_min_seq=32)
+    gpu, cpu = LanguageModel(cfg, device=cuda), LanguageModel(cfg, "cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    params_gpu = _tree_to(params, cuda)
+    rng = np.random.RandomState(0)
+    s = 96
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, s + 4)))
+    before = (fa.flash_attention.launches, fd.flash_decode.launches)
+    with torch.no_grad():
+        lg, cg = gpu.prefill(params_gpu, {"tokens": toks[:, :s].to(cuda)})
+        lc, cc = cpu.prefill(params, {"tokens": toks[:, :s]})
+        assert (lg.cpu() - lc).abs().max().item() <= 1e-3
+        cg, cc = gpu.alloc_cache(2, s + 3, init=cg), cpu.alloc_cache(
+            2, s + 3, init=cc)
+        for i in range(3):
+            tok = toks[:, s + i:s + i + 1]
+            lg, cg = gpu.decode_step(params_gpu, cg, tok.to(cuda), s + i)
+            lc, cc = cpu.decode_step(params, cc, tok, s + i)
+            assert (lg.cpu() - lc).abs().max().item() <= 1e-3
+    assert (fa.flash_attention.launches - before[0],
+            fd.flash_decode.launches - before[1]) == (
+        cfg.num_layers, 3 * cfg.num_layers)
+    batch = {"tokens": toks[:, :s], "targets": toks[:, 1:s + 1]}
+    out = []
+    for model, p in ((gpu, params_gpu), (cpu, params)):
+        leaves = [x.detach().requires_grad_() for _p, x in iter_leaves(p)]
+        it = iter(leaves)
+
+        def build(node):
+            return {k: build(node[k]) if isinstance(node[k], dict)
+                    else next(it) for k in sorted(node)}
+        loss, _m = model.train_loss(build(p), {
+            k: v.to(model.device) for k, v in batch.items()})
+        out.append((loss.item(), torch.autograd.grad(loss, leaves)))
+    (loss_g, grads_g), (loss_c, grads_c) = out
+    assert loss_g == pytest.approx(loss_c, rel=1e-5)
+    for a, c in zip(grads_g, grads_c):
+        assert (a.cpu() - c).abs().max().item() <= \
+            1e-4 * max(c.abs().max().item(), 1e-30)

@@ -28,7 +28,8 @@ SLICES = ("repro_torch.kernels.flash_attention", "repro_torch.launch.serve",
           "repro_torch.train.trainer", "repro_torch.data.pipeline",
           "repro_torch.ckpt.checkpoint", "repro_torch.launch.train",
           "repro_torch.kernels.partition_copy", "repro_torch.kernels.autotune",
-          "repro_torch.models.mamba", "repro_torch.kernels.ssd_scan")
+          "repro_torch.models.mamba", "repro_torch.kernels.ssd_scan",
+          "repro_torch.models.moe")
 
 
 def test_importing_every_module_leaves_jax_and_repro_out():

@@ -134,3 +134,42 @@ def test_no_decay_by_leaf_name():
             assert torch.equal(p, before[path]), path
         else:
             torch.testing.assert_close(p, before[path] * (1 - 1e-2 * 0.5))
+
+
+@pytest.mark.parametrize("state_dtype", ["float32", "int8"])
+def test_expert_banks_update_slice_by_slice_with_the_same_bits(
+        monkeypatch, state_dtype):
+    """A stacked MoE bank (L, E, D, F) whose layer slice is still above
+    CHUNK_BYTES updates expert by expert, with the same bits as one
+    whole-leaf update (the math is elementwise, the int8 scales per row
+    of the last dim)."""
+    rng = np.random.RandomState(5)
+    shapes = {"w_gate": (2, 4, 16, 8), "router": (2, 16, 4)}
+    params = {k: rng.randn(*s).astype(np.float32) for k, s in shapes.items()}
+    grads = {k: rng.randn(*s).astype(np.float32) for k, s in shapes.items()}
+    oc = tadamw.OptimizerConfig(peak_lr=1e-2, warmup_steps=1,
+                                total_steps=10, state_dtype=state_dtype)
+    slice_of = tadamw._slice
+    out = {}
+    for chunk in (1 << 30, 16 * 8 * 4):      # whole leaves; one expert
+        sliced = []
+        monkeypatch.setattr(tadamw, "CHUNK_BYTES", chunk)
+        monkeypatch.setattr(tadamw, "_slice", lambda s, i: sliced.append(
+            tuple((s["q"] if isinstance(s, dict) else s).shape))
+            or slice_of(s, i))
+        p = _to_torch(params)
+        st = tadamw.init_opt_state(p, oc)
+        for _ in range(2):
+            tadamw.adamw_update(oc, _to_torch(grads), p, st)
+        out[chunk] = (p, st, sliced)
+    (p1, s1, sliced1), (p2, s2, sliced2) = out.values()
+    assert not sliced1
+    assert (4, 16, 8) in sliced2          # a layer's bank, sliced again
+    for (_a, x), (_b, y) in zip(_paths(p1), _paths(p2)):
+        assert torch.equal(x, y)
+    for name in ("m", "v"):
+        for (_a, x), (_b, y) in zip(_paths(s1[name]), _paths(s2[name])):
+            if isinstance(x, dict):
+                assert all(torch.equal(x[k], y[k]) for k in x)
+            else:
+                assert torch.equal(x, y)

@@ -254,13 +254,16 @@ def _jax_logits(cfg, params, tokens):
     return np.asarray(logits)
 
 
-def test_checkpoints_cross_between_frameworks(tmp_path):
+@pytest.mark.parametrize("arch", ["smollm-360m", "arctic-480b"])
+def test_checkpoints_cross_between_frameworks(tmp_path, arch):
     """A JAX Trainer checkpoint restores into the port with the JAX
     logits; a port Trainer checkpoint restores into the JAX model with the
-    port's logits."""
-    jcfg, tcfg = jget("smollm-360m").reduced(), tget("smollm-360m").reduced()
+    port's logits.  Reduced arctic-480b carries MoE trees and its int8
+    AdamW moments across."""
+    jcfg, tcfg = jget(arch).reduced(), tget(arch).reduced()
     tokens = np.random.RandomState(3).randint(0, jcfg.vocab_size, (2, 12))
-    oc_kw = dict(peak_lr=1e-3, warmup_steps=2, total_steps=10)
+    oc_kw = dict(peak_lr=1e-3, warmup_steps=2, total_steps=10,
+                 state_dtype=jcfg.optimizer_state_dtype)
     tc_kw = dict(ckpt_every=2, async_ckpt=False)
 
     jdir = tmp_path / "jax"
@@ -291,8 +294,12 @@ def test_checkpoints_cross_between_frameworks(tmp_path):
                      2)
     tree, step = jckpt.restore(str(tdir))
     assert step == 2
-    for (path, want), (_q, got) in zip(_jleaves(tree),
-                                       iter_leaves(state_to_numpy(tstate))):
+    host = state_to_numpy(tstate)
+    if arch == "arctic-480b":
+        assert host["params"]["layers"]["moe"]["w_gate"].ndim == 4
+        assert host["opt"]["m"]["layers"]["moe"]["w_gate"]["q"].dtype == \
+            np.int8
+    for (path, want), (_q, got) in zip(_jleaves(tree), iter_leaves(host)):
         assert want.dtype == got.dtype and np.array_equal(want, got), path
     with torch.no_grad():
         want, _ = tr2.model.prefill(tstate["params"],
