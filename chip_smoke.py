@@ -10,12 +10,17 @@ Phases, in order; any failure raises and the script exits nonzero:
 2. K1 (flash-attention forward) against its plain PyTorch version at the
    serve shape and at ragged / windowed / offset / fp32 variants and at
    head widths 120 (h2o-danube3-4b, window 4096) and 32 (the reduced
-   configs), timed (median and min-max of 20 cold-L2 samples) beside its
-   plain version, ``scaled_dot_product_attention`` (the backend that
-   served it printed) and its bound, at hd 64, at danube's 1 x 6000 and
-   at arctic-480b's serve prefill, 4 x 2100 (hd 128, a group of 7 query
-   heads per kv head, a ragged last tile) and its 1 x 4096 (each checked
-   twice for the same bits),
+   configs) and at DeepSeek-V2's MLA widths, q/k 192 and v 128 (fp32,
+   bf16, window, ragged) and (48, 32) (the narrow test variant, and the
+   reduced config's absorbed route at one kv head), timed (median and
+   min-max of 20 cold-L2 samples) beside its plain version,
+   ``scaled_dot_product_attention`` (the backend that served it printed,
+   "no single call" where none takes the shape) and its bound, at hd 64,
+   at danube's 1 x 6000, at arctic-480b's serve prefill, 4 x 2100 (hd
+   128, a group of 7 query heads per kv head, a ragged last tile) and
+   its 1 x 4096, and at deepseek-v2-236b's prefill 4 x 4096 at (192,
+   128), G 1 (arctic's and deepseek's, and deepseek's ragged 4 x 2100,
+   each checked twice for the same bits),
    then the kernel and sdpa once more after a ~0.5 ms device spin each
    (their device work alone, without the host work the device waits on);
    the HMMA instructions ``cuobjdump -sass`` finds in each K1 kernel (the
@@ -51,11 +56,14 @@ Phases, in order; any failure raises and the script exits nonzero:
    on tensor cores) against their plain versions at the training shape
    (B=4, H=15, KH=5, S=4096, hd 64, bf16) and at ragged / window /
    q_offset / fp32-hd128 / bf16-hd128 / hd 120 window 4096 (bf16, fp32)
-   / hd 32 variants and arctic's (B=4, H=56, KH=8, S=4096, hd 128), K3
-   against K2, K1-lse and K2 twice the same bits; the HMMA
-   instructions ``cuobjdump -sass`` finds in the bf16 K1, K2 and K3
-   kernels and their blocks per SM; then timed at the training shape and
-   at arctic's (median and min-max
+   / hd 32 variants, arctic's (B=4, H=56, KH=8, S=4096, hd 128) and
+   MLA's (deepseek's micro-batch B=1, H=KH=128, S=4096 at (192, 128);
+   fp32, window and ragged (192, 128); (48, 32) in bf16 and fp32 and at
+   one kv head), K3 against K2, K1-lse and K2 twice the same bits; the
+   HMMA instructions ``cuobjdump -sass`` finds in the bf16 K1, K2 and K3
+   kernels of each compiled width pair and their blocks per SM; then
+   timed at the training shape, at arctic's and at deepseek's (median
+   and min-max
    of 10 cold-L2 samples) beside the plain versions, the forward and the
    backward (``torch.autograd.grad``) of one
    ``scaled_dot_product_attention`` call, and their bounds;
@@ -176,7 +184,28 @@ Phases, in order; any failure raises and the script exits nonzero:
     8 experts, 1 x 2304: the routing of every MoE call (a choice may
     differ only between probabilities within 1e-5), prefill and 4 decode
     logits, ``train_loss`` and every gradient on the card (K1, K5,
-    K1-lse, K3) against the port's CPU path.
+    K1-lse, K3) against the port's CPU path;
+16. MLA serving: deepseek-v2-236b at full width (128 MLA heads of q/k
+    128 + 64 and v 128 over a 512-wide kv latent, the dense first layer
+    at d_ff 12288, all 160 experts of width 1536, top-6, 2 shared),
+    depth cut from 60 to 3 layers (the dense one and 2 MoE layers), fp32
+    master weights (~37 GB) cast to bf16 per layer: prefill 4 x 4096 (K1
+    at (192, 128) three times), 16 decode steps in the latent space (torch
+    ops), both profiled beside their bounds, the latent caches' layout,
+    the prefill's drops, init and prefill peak memory, and prefill(S) +
+    decode against prefill(S + 1) (1 x 2100, fp32 and bf16, at a capacity
+    factor with no drops);
+17. MLA training: the Trainer as ``launch.train`` builds it for
+    deepseek (int8 AdamW moments, the config's 4 micro-batches a step) at
+    full width with 2 layers (dense + 1 MoE) and 64 experts, 6 steps of
+    4 x 4096 at lr 3e-4 (ce_loss falls; K1-lse 4 and K3 2 a micro-batch;
+    peak memory, step median beside its bound, the AdamW share, a
+    profiled step), then 2 steps twice in deterministic mode (K2): the
+    same bits;
+18. MLA against the CPU: deepseek at full width in fp32, dense + 1 MoE
+    layer of 8 experts, 1 x 2304 (the fp32 K1, K1-lse and K3 at (192,
+    128)): routing, prefill and 4 decode logits, loss and every gradient
+    on the card against the port's CPU path.
 
 Phase 7 also runs a reduced fp32 smollm (head_dim 64,
 ``attn_flash_min_seq=32``, B 72 x S 96: B·KH = 144) on the forced K4
@@ -186,7 +215,7 @@ logits through K4f and one step's gradients through K4f and K4b; and the reduced
 
 Counters on the kernel wrappers are zeroed just before each main-path
 phase (5, 6, 6a, 6b, 6c, 6d, 8, 8a and its other route, 8b, 8c-8f, 9,
-10, each path of 12, and 13-15) and read just after: every kernel of the path must have
+10, each path of 12, and 13-18) and read just after: every kernel of the path must have
 launched.  The kernel line's
 launches are those counts alone; the reduced model of phase 7 and the
 fp32 consistency check of 8b keep theirs in their own results.  The line before the last is the kernel table as
@@ -200,6 +229,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -260,15 +290,20 @@ def _randn(shape, dtype, seed):
 
 
 # the timed attention shapes, bf16 (scripts/torch_attention_ab.py times
-# the same): K1 (B, H, KH, S, hd, window), K1-lse (B, H, KH, S, hd; the
-# second is phase_k4's training shape), K5 (B, KH, G, S, hd, cur_len,
-# window)
-K1_TIMED = {"serve": (1, 15, 5, 3008, 64, 0),
-            "danube": (1, 32, 8, 6000, 120, 4096),
-            "arctic": (4, 56, 8, 2100, 128, 0),
-            "arctic_4096": (1, 56, 8, 4096, 128, 0)}
-K1_LSE_TIMED = {"train": (4, 15, 5, 4096, 64), "short": (64, 15, 5, 256, 64),
-                "arctic": (4, 56, 8, 4096, 128)}
+# the same): K1 (B, H, KH, S, hd, hd_v, window), K1-lse (B, H, KH, S, hd,
+# hd_v; the second is phase_k4's training shape), K5 (B, KH, G, S, hd,
+# cur_len, window).  deepseek: DeepSeek-V2's MLA heads, q/k 128 + 64 and
+# v 128, 128 query heads over 128 kv heads (G 1), at the serve phase's
+# prefill 4 x 4096 and one training micro-batch 1 x 4096
+K1_TIMED = {"serve": (1, 15, 5, 3008, 64, 64, 0),
+            "danube": (1, 32, 8, 6000, 120, 120, 4096),
+            "arctic": (4, 56, 8, 2100, 128, 128, 0),
+            "arctic_4096": (1, 56, 8, 4096, 128, 128, 0),
+            "deepseek": (4, 128, 128, 4096, 192, 128, 0)}
+K1_LSE_TIMED = {"train": (4, 15, 5, 4096, 64, 64),
+                "short": (64, 15, 5, 256, 64, 64),
+                "arctic": (4, 56, 8, 4096, 128, 128),
+                "deepseek": (1, 128, 128, 4096, 192, 128)}
 K5_TIMED = {"smollm": (4, 5, 3, 2624, 64, 2600, 0),
             "danube": (1, 8, 4, 6016, 120, 6001, 4096),
             "arctic": (4, 8, 7, 2116, 128, 2116, 0),
@@ -455,6 +490,50 @@ def _window_mask(sq, sk, q_offset, window, device="cuda"):
     return (cols <= rows) & (rows - cols < window)
 
 
+def _pair_name(hd, hd_v):
+    """A compiled width pair's key in the printed tables: "hd64", "hd128",
+    "hd192/128"."""
+    return f"hd{hd}" if hd == hd_v else f"hd{hd}/{hd_v}"
+
+
+def _sdpa_call(q, k, v, **kw):
+    """``scaled_dot_product_attention`` on these tensors, or None where
+    no backend takes them (the yardstick is then "no single call")."""
+    try:
+        F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
+    except RuntimeError as e:
+        print(f"  sdpa takes no call here: {str(e).splitlines()[0][:120]}")
+        return None
+    return lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, enable_gqa=True, **kw)
+
+
+def _ptxas_report(pattern):
+    """{kernel: {"registers", "spill_stores", "spill_loads"}} from the
+    build's ``-Xptxas -v`` report, for each kernel whose mangled name
+    holds every piece of ``pattern`` (a tuple of substrings)."""
+    out, name = {}, None
+    for line in _build.log_path().read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1) if all(p in m.group(1) for p in pattern) \
+                else None
+            if name:
+                out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
 def _fwd_hmma():
     """The tensor-core instructions in each K1 kernel's SASS (the bf16
     ones must hold some) and K1's blocks per SM, printed."""
@@ -462,9 +541,11 @@ def _fwd_hmma():
     for name, n in hmma.items():
         print(f"  SASS {name[-60:]}: {n} HMMA/HGMMA instructions")
     tc = [n for name, n in hmma.items() if "tc_kernel" in name]
-    if len(tc) != 2 or min(tc) == 0:
+    # one per compiled pair at least (equal widths build twice: SAME)
+    if len(tc) < len(autotune.ATTN_PAIRS) or min(tc) == 0:
         raise AssertionError("the bf16 K1 kernels hold no HMMA")
-    occupancy = {f"hd{hd} {dt}": fa.fwd_occupancy(hd, dt) for hd in (64, 128)
+    occupancy = {f"{_pair_name(hd, hd_v)} {dt}": fa.fwd_occupancy(hd, dt, hd_v)
+                 for hd, hd_v in autotune.ATTN_PAIRS
                  for dt in (torch.bfloat16, torch.float32)}
     print(f"  K1 blocks per SM (occupancy calculator): {occupancy}")
     return hmma, occupancy
@@ -472,92 +553,115 @@ def _fwd_hmma():
 
 def phase_k1(flush):
     print("== K1 flash_attention: kernel vs plain version")
-    cases = [  # name, B, H, KH, Sq, Sk, hd, dtype, window, q_offset
-        ("serve 3008 bf16 causal", 1, 15, 5, 3008, 3008, 64, torch.bfloat16, 0, 0),
-        ("ragged Sk 3001", 1, 15, 5, 3001, 3001, 64, torch.bfloat16, 0, 0),
-        ("window 512", 1, 15, 5, 3008, 3008, 64, torch.bfloat16, 512, 0),
-        ("q_offset 1024", 1, 15, 5, 1984, 3008, 64, torch.bfloat16, 0, 1024),
-        ("fp32 hd128", 2, 8, 2, 1100, 1100, 128, torch.float32, 0, 0),
-        ("danube hd120 window 4096", 1, 32, 8, 6000, 6000, 120,
-         torch.bfloat16, 4096, 0),
-        ("hd120 fp32 q_offset 512", 1, 8, 2, 1000, 1512, 120, torch.float32,
-         700, 512),
-        ("reduced hd32 bf16", 2, 4, 2, 600, 600, 32, torch.bfloat16, 0, 0),
-        ("reduced hd32 fp32 window 64", 2, 4, 2, 600, 600, 32, torch.float32,
-         64, 0),
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [  # name, B, H, KH, Sq, Sk, hd, hd_v, dtype, window, q_offset
+        ("serve 3008 bf16 causal", 1, 15, 5, 3008, 3008, 64, 64, bf, 0, 0),
+        ("ragged Sk 3001", 1, 15, 5, 3001, 3001, 64, 64, bf, 0, 0),
+        ("window 512", 1, 15, 5, 3008, 3008, 64, 64, bf, 512, 0),
+        ("q_offset 1024", 1, 15, 5, 1984, 3008, 64, 64, bf, 0, 1024),
+        ("fp32 hd128", 2, 8, 2, 1100, 1100, 128, 128, f32, 0, 0),
+        ("danube hd120 window 4096", 1, 32, 8, 6000, 6000, 120, 120, bf,
+         4096, 0),
+        ("hd120 fp32 q_offset 512", 1, 8, 2, 1000, 1512, 120, 120, f32, 700,
+         512),
+        ("reduced hd32 bf16", 2, 4, 2, 600, 600, 32, 32, bf, 0, 0),
+        ("reduced hd32 fp32 window 64", 2, 4, 2, 600, 600, 32, 32, f32, 64,
+         0),
+        ("mla (192, 128) fp32 ragged q_offset 100", 1, 8, 8, 700, 800, 192,
+         128, f32, 0, 100),
+        ("mla (192, 128) bf16 window 300", 1, 8, 8, 1000, 1000, 192, 128, bf,
+         300, 0),
+        ("mla narrow (48, 32) bf16 ragged 300", 2, 8, 8, 300, 300, 48, 32, bf,
+         0, 0),
+        ("mla narrow (48, 32) fp32", 2, 8, 8, 300, 300, 48, 32, f32, 0, 0),
+        ("mla absorbed reduced (48, 32) bf16 KH 1", 2, 4, 1, 300, 300, 48,
+         32, bf, 0, 0),
     ]
     worst = 0.0
-    for i, (name, b, h, kh, sq, sk, hd, dt, win, off) in enumerate(cases):
+    for i, (name, b, h, kh, sq, sk, hd, hd_v, dt, win, off) in \
+            enumerate(cases):
         q = _randn((b, h, sq, hd), dt, 10 * i)
         k = _randn((b, kh, sk, hd), dt, 10 * i + 1)
-        v = _randn((b, kh, sk, hd), dt, 10 * i + 2)
+        v = _randn((b, kh, sk, hd_v), dt, 10 * i + 2)
         got = fa.flash_attention(q, k, v, off, causal=True, window=win)
         torch.cuda.synchronize()
         want = fa.flash_attention_plain(q, k, v, off, causal=True, window=win)
         worst = max(worst, _check(name, got, want, dt))
 
-    def timed(b, h, kh, s, hd, win, seed):
+    def timed(b, h, kh, s, hd, hd_v, win, seed):
         dt = torch.bfloat16
         q, k, v = (_randn((b, h, s, hd), dt, seed),
                    _randn((b, kh, s, hd), dt, seed + 1),
-                   _randn((b, kh, s, hd), dt, seed + 2))
+                   _randn((b, kh, s, hd_v), dt, seed + 2))
         kern = lambda: fa.flash_attention(q, k, v, window=win)  # noqa: E731
         st = _time_stats(kern, 20, flush)
         dev = _time_stats(kern, 20, flush, spin=True)
         plain_ms = _time_ms(lambda: fa.flash_attention_plain(
             q, k, v, window=win), 3, flush)
         if win:
-            mask = _window_mask(s, s, 0, win)
-            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                q, k, v, attn_mask=mask, enable_gqa=True)
+            lib = _sdpa_call(q, k, v, attn_mask=_window_mask(s, s, 0, win))
         else:
-            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                q, k, v, is_causal=True, enable_gqa=True)
-        lib_st = _time_stats(lib, 20, flush)
-        lib_dev = _time_stats(lib, 20, flush, spin=True)
-        flops = 4 * hd * h * b * _live_pairs(s, s, 0, True, win)
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+            lib = _sdpa_call(q, k, v, is_causal=True)
+        lib_st = lib_dev = None
+        if lib is not None:
+            lib_st = _time_stats(lib, 20, flush)
+            lib_dev = _time_stats(lib, 20, flush, spin=True)
+        # S over hd, P V over hd_v, per live pair
+        flops = 2 * (hd + hd_v) * h * b * _live_pairs(s, s, 0, True, win)
+        # q, k, v read once, the (B, H, S, hd_v) output written once
+        nbytes = (q.numel() + k.numel() + v.numel() * (1 + h // kh)) \
+            * q.element_size()
         bound_ms, bound_by = _bound(flops, nbytes, dt)
         row = {"ms": st["median"], "ms_min": st["min"], "ms_max": st["max"],
-               "plain_ms": plain_ms, "library_ms": lib_st["median"],
-               "library_min": lib_st["min"], "library_max": lib_st["max"],
-               "library_backend": _sdpa_backend(lib), "bound_ms": bound_ms,
+               "plain_ms": plain_ms,
+               "library_ms": lib_st and lib_st["median"],
+               "library_min": lib_st and lib_st["min"],
+               "library_max": lib_st and lib_st["max"],
+               "library_backend": (_sdpa_backend(lib) if lib is not None
+                                   else "no single call"),
+               "bound_ms": bound_ms,
                "bound_by": bound_by, "gflop": flops / 1e9,
                "tflops": flops / st["median"] / 1e9, "device_ms": dev,
                "library_device_ms": lib_dev}
-        print(f"  B={b} H={h} KH={kh} S={s} hd={hd} window {win}: kernel "
-              f"{_fmt(st)}, plain {plain_ms:.4f} ms, sdpa {_fmt(lib_st)} "
-              f"[{row['library_backend']}], bound {bound_ms:.4f} ms "
-              f"({bound_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB);"
-              f" after a device spin: kernel {_fmt(dev)}, sdpa "
-              f"{_fmt(lib_dev)}")
+        lib_txt = ("no single call" if lib is None else
+                   f"{_fmt(lib_st)} [{row['library_backend']}]")
+        print(f"  B={b} H={h} KH={kh} S={s} hd={hd} hd_v={hd_v} window "
+              f"{win}: kernel {_fmt(st)}, plain {plain_ms:.4f} ms, sdpa "
+              f"{lib_txt}, bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB); after a "
+              f"device spin: kernel {_fmt(dev)}, sdpa "
+              f"{'-' if lib_dev is None else _fmt(lib_dev)}")
         return row
 
     # arctic-480b: hd 128, a group of 7 query heads per kv head (56 / 8),
     # at the serve prefill's 4 x 2100 (past the last whole tile) and at
-    # 1 x 4096
-    for shape in ("arctic", "arctic_4096"):
-        b, h, kh, s, hd, win = K1_TIMED[shape]
+    # 1 x 4096; deepseek-v2-236b's MLA heads (192, 128) at G 1, at its
+    # serve prefill 4 x 4096 and at a ragged 4 x 2100
+    for shape, s_over in (("arctic", None), ("arctic_4096", None),
+                          ("deepseek", None), ("deepseek", 2100)):
+        b, h, kh, s, hd, hd_v, win = K1_TIMED[shape]
+        s = s_over or s
         dt = torch.bfloat16
         q, k, v = (_randn((b, h, s, hd), dt, 90),
                    _randn((b, kh, s, hd), dt, 91),
-                   _randn((b, kh, s, hd), dt, 92))
+                   _randn((b, kh, s, hd_v), dt, 92))
         got = fa.flash_attention(q, k, v, causal=True, window=win)
         again = fa.flash_attention(q, k, v, causal=True, window=win)
         torch.cuda.synchronize()
+        what = f"{shape} {b}x{s} ({hd}, {hd_v}) G{h // kh} bf16 causal"
         if not torch.equal(got, again):
-            raise AssertionError(f"K1 arctic G 7 {b}x{s}: two runs gave "
-                                 "other bits")
+            raise AssertionError(f"K1 {what}: two runs gave other bits")
         worst = max(worst, _check(
-            f"arctic {b}x{s} hd128 G7 bf16 causal (twice the same bits)",
-            got, fa.flash_attention_plain(q, k, v, causal=True, window=win),
-            dt))
+            f"{what} (twice the same bits)", got,
+            fa.flash_attention_plain(q, k, v, causal=True, window=win), dt))
         del q, k, v, got, again
+        torch.cuda.empty_cache()
 
     main = timed(*K1_TIMED["serve"], 0)
     danube = timed(*K1_TIMED["danube"], 40)
     arctic = timed(*K1_TIMED["arctic"], 90)
     arctic_4096 = timed(*K1_TIMED["arctic_4096"], 90)
+    deepseek = timed(*K1_TIMED["deepseek"], 93)
     torch.cuda.empty_cache()
     hmma, occupancy = _fwd_hmma()
     return {"name": "flash_attention (K1)", "route": "cuda",
@@ -571,7 +675,10 @@ def phase_k1(flush):
             "arctic": {**arctic, "timed_shape": "B=4 H=56 KH=8 Sq=Sk=2100 "
                        "hd=128 bf16 causal (arctic-480b's prefill, G 7)"},
             "arctic_4096": {**arctic_4096, "timed_shape": "B=1 H=56 KH=8 "
-                            "Sq=Sk=4096 hd=128 bf16 causal (arctic, G 7)"}}
+                            "Sq=Sk=4096 hd=128 bf16 causal (arctic, G 7)"},
+            "deepseek": {**deepseek, "timed_shape": "B=4 H=KH=128 Sq=Sk=4096 "
+                         "hd=192 hd_v=128 bf16 causal (deepseek-v2-236b's "
+                         "MLA prefill, G 1)"}}
 
 
 def phase_k5(flush):
@@ -1127,32 +1234,48 @@ def phase_k_train(flush):
     blocks per SM of the bf16 K2/K3."""
     print("== K1-lse, K2, K3: kernels vs plain versions")
     bf, f32 = torch.bfloat16, torch.float32
-    cases = [  # name, B, H, KH, Sq, Sk, hd, dtype, window, q_offset
-        ("train 4x4096 bf16 causal", 4, 15, 5, 4096, 4096, 64, bf, 0, 0),
-        ("ragged 4097", 1, 15, 5, 4097, 4097, 64, bf, 0, 0),
-        ("window 512", 1, 15, 5, 4096, 4096, 64, bf, 512, 0),
-        ("q_offset 1024", 1, 15, 5, 3072, 4096, 64, bf, 0, 1024),
-        ("fp32 hd128", 2, 8, 2, 1100, 1100, 128, f32, 0, 0),
-        ("bf16 hd128 ragged 1100 q_offset 300", 2, 8, 2, 1100, 1400, 128, bf,
-         0, 300),
-        ("danube hd120 window 4096, Sq 4352", 1, 32, 8, 4352, 4352, 120, bf,
-         4096, 0),
-        ("hd120 fp32 window 4096, Sq 4352", 1, 8, 2, 4352, 4352, 120, f32,
-         4096, 0),
-        ("reduced hd32 bf16 ragged 601", 2, 4, 2, 601, 601, 32, bf, 0, 0),
-        ("reduced hd32 fp32 window 64", 2, 4, 2, 600, 600, 32, f32, 64, 0),
-        ("arctic hd128 G7 4x4096 bf16", 4, 56, 8, 4096, 4096, 128, bf, 0, 0),
+    cases = [  # name, B, H, KH, Sq, Sk, hd, hd_v, dtype, window, q_offset
+        ("train 4x4096 bf16 causal", 4, 15, 5, 4096, 4096, 64, 64, bf, 0, 0),
+        ("ragged 4097", 1, 15, 5, 4097, 4097, 64, 64, bf, 0, 0),
+        ("window 512", 1, 15, 5, 4096, 4096, 64, 64, bf, 512, 0),
+        ("q_offset 1024", 1, 15, 5, 3072, 4096, 64, 64, bf, 0, 1024),
+        ("fp32 hd128", 2, 8, 2, 1100, 1100, 128, 128, f32, 0, 0),
+        ("bf16 hd128 ragged 1100 q_offset 300", 2, 8, 2, 1100, 1400, 128,
+         128, bf, 0, 300),
+        ("danube hd120 window 4096, Sq 4352", 1, 32, 8, 4352, 4352, 120,
+         120, bf, 4096, 0),
+        ("hd120 fp32 window 4096, Sq 4352", 1, 8, 2, 4352, 4352, 120, 120,
+         f32, 4096, 0),
+        ("reduced hd32 bf16 ragged 601", 2, 4, 2, 601, 601, 32, 32, bf, 0,
+         0),
+        ("reduced hd32 fp32 window 64", 2, 4, 2, 600, 600, 32, 32, f32, 64,
+         0),
+        ("arctic hd128 G7 4x4096 bf16", 4, 56, 8, 4096, 4096, 128, 128, bf,
+         0, 0),
+        ("deepseek mla (192, 128) G1 1x4096 bf16", 1, 128, 128, 4096, 4096,
+         192, 128, bf, 0, 0),
+        ("mla (192, 128) fp32 ragged 1100 q_offset 200", 1, 16, 16, 1100,
+         1300, 192, 128, f32, 0, 200),
+        ("mla (192, 128) bf16 window 700 ragged 2000", 1, 16, 16, 2000,
+         2000, 192, 128, bf, 700, 0),
+        ("mla narrow (48, 32) bf16 ragged 601", 2, 8, 8, 601, 601, 48, 32,
+         bf, 0, 0),
+        ("mla narrow (48, 32) fp32 window 64", 2, 8, 8, 600, 600, 48, 32,
+         f32, 64, 0),
+        ("mla absorbed reduced (48, 32) bf16 KH 1", 2, 4, 1, 600, 600, 48,
+         32, bf, 0, 0),
     ]
     worst = {k: [0.0, 0.0] for k in ("k1_lse", "k2_dq", "k2_dkv", "k3")}
 
     def note(key, err):
         worst[key] = [max(worst[key][0], err[0]), max(worst[key][1], err[1])]
 
-    for i, (name, b, h, kh, sq, sk, hd, dt, win, off) in enumerate(cases):
+    for i, (name, b, h, kh, sq, sk, hd, hd_v, dt, win, off) in \
+            enumerate(cases):
         q = _randn((b, h, sq, hd), dt, 200 + 10 * i)
         k = _randn((b, kh, sk, hd), dt, 201 + 10 * i)
-        v = _randn((b, kh, sk, hd), dt, 202 + 10 * i)
-        do = _randn((b, h, sq, hd), dt, 203 + 10 * i)
+        v = _randn((b, kh, sk, hd_v), dt, 202 + 10 * i)
+        do = _randn((b, h, sq, hd_v), dt, 203 + 10 * i)
         kw = dict(causal=True, window=win)
         out, lse = fa.flash_attention_fwd(q, k, v, off, **kw)
         out2, lse2 = fa.flash_attention_fwd(q, k, v, off, **kw)
@@ -1206,30 +1329,48 @@ def phase_k_train(flush):
     hmma = {name: n for name, n in _sass_counts("tc_bwd").items()}
     for name, n in hmma.items():
         print(f"  SASS {name[-60:]}: {n} HMMA/HGMMA instructions")
-    if not hmma or min(hmma.values()) == 0:
+    if len(hmma) < 3 * len(autotune.ATTN_PAIRS) or min(hmma.values()) == 0:
         raise AssertionError("the bf16 K2/K3 kernels hold no HMMA")
-    occupancy = {f"{w} hd{hd} {dt}": fa.bwd_occupancy(w, hd, dt)
-                 for w in ("dq", "dkv", "fused") for hd in (64, 128)
-                 for dt in (bf, f32)}
+    occupancy = {f"{w} {_pair_name(hd, hd_v)} {dt}":
+                 fa.bwd_occupancy(w, hd, dt, hd_v)
+                 for w in ("dq", "dkv", "fused")
+                 for hd, hd_v in autotune.ATTN_PAIRS for dt in (bf, f32)}
     print(f"  blocks per SM (occupancy calculator): {occupancy}")
     fwd_hmma, fwd_occ = _fwd_hmma()
+    # the compiled pair MLA added: registers and spills of each kernel
+    mla_regs = {}
+    for kern in ("flash_fwd", "bwd_dq", "bwd_dkv"):
+        mla_regs.update(_ptxas_report((kern, "192ELi128")))
+    for kname, r in mla_regs.items():
+        print(f"  ptxas {kname[-64:]}: {r.get('registers')} registers, "
+              f"{r.get('spill_stores')} B spill stores, "
+              f"{r.get('spill_loads')} B spill loads")
+    if len(mla_regs) != 8:
+        raise AssertionError(f"ptxas report for (192, 128): {mla_regs}")
+
+    def occ(pair):
+        return {"k1_lse": fwd_occ[f"{pair} {bf}"],
+                **{key: occupancy[f"{w} {pair} {bf}"] for key, w in (
+                    ("k2_dq", "dq"), ("k2_dkv", "dkv"), ("k3", "fused"))}}
 
     train = _k_train_times(K1_LSE_TIMED["train"], 300, flush, worst,
-                           {"k1_lse": fwd_occ[f"hd64 {bf}"],
-                            "k2_dq": occupancy[f"dq hd64 {bf}"],
-                            "k2_dkv": occupancy[f"dkv hd64 {bf}"],
-                            "k3": occupancy[f"fused hd64 {bf}"]})
+                           occ("hd64"))
     arctic = _k_train_times(K1_LSE_TIMED["arctic"], 320, flush, worst,
-                            {"k1_lse": fwd_occ[f"hd128 {bf}"],
-                             "k2_dq": occupancy[f"dq hd128 {bf}"],
-                             "k2_dkv": occupancy[f"dkv hd128 {bf}"],
-                             "k3": occupancy[f"fused hd128 {bf}"]})
+                            occ("hd128"))
+    deepseek = _k_train_times(K1_LSE_TIMED["deepseek"], 340, flush, worst,
+                              occ("hd192/128"))
     rows = train
-    rows["arctic"] = {k: arctic[k] for k in ("k1_lse", "k2_dq", "k2_dkv",
-                                             "k3", "library_bwd")}
-    rows["arctic"]["timed_shape"] = ("B=4 H=56 KH=8 S=4096 hd=128 bf16 causal"
-                                     " (arctic-480b, G 7)")
+    for key, other, shape in (
+            ("arctic", arctic, "B=4 H=56 KH=8 S=4096 hd=128 bf16 causal "
+             "(arctic-480b, G 7)"),
+            ("deepseek", deepseek, "B=1 H=KH=128 S=4096 hd=192 hd_v=128 "
+             "bf16 causal (deepseek-v2-236b's MLA, G 1: one micro-batch of "
+             "its accumulated train step)")):
+        rows[key] = {k: other[k] for k in ("k1_lse", "k2_dq", "k2_dkv", "k3",
+                                           "library_bwd", "library_backend")}
+        rows[key]["timed_shape"] = shape
     rows["hmma"] = {**hmma, **fwd_hmma}
+    rows["ptxas_192_128"] = mla_regs
     rows["occupancy"] = {**occupancy, **{f"k1 {k}": n
                                          for k, n in fwd_occ.items()}}
     return rows
@@ -1241,11 +1382,11 @@ def _k_train_times(shape, seed, flush, worst, occ):
     versions, one ``scaled_dot_product_attention`` forward and its
     backward, and their bounds; K1-lse and sdpa's forward again after a
     device spin."""
-    (b, h, kh, s, hd), dt = shape, torch.bfloat16
+    (b, h, kh, s, hd, hd_v), dt = shape, torch.bfloat16
     q, k, v, do = (_randn((b, h, s, hd), dt, seed),
                    _randn((b, kh, s, hd), dt, seed + 1),
-                   _randn((b, kh, s, hd), dt, seed + 2),
-                   _randn((b, h, s, hd), dt, seed + 3))
+                   _randn((b, kh, s, hd_v), dt, seed + 2),
+                   _randn((b, h, s, hd_v), dt, seed + 3))
     out, lse = fa.flash_attention_fwd(q, k, v)
     delta = (do.float() * out.float()).sum(-1)
     args = (q, k, v, do, lse, delta)
@@ -1261,36 +1402,48 @@ def _k_train_times(shape, seed, flush, worst, occ):
         q, k, v, with_lse=True), 3, flush)
     plain_bwd = _time_ms(lambda: fa.flash_attention_bwd_plain(
         q, k, v, out, lse, do), 3, flush)
-    lib_f = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        q, k, v, is_causal=True, enable_gqa=True)
-    lib_fwd = _time_stats(lib_f, 10, flush)
+    lib_f = _sdpa_call(q, k, v, is_causal=True)
     k1_dev = _time_stats(lambda: fa.flash_attention_fwd(q, k, v), 10, flush,
                          spin=True)
-    lib_fwd_dev = _time_stats(lib_f, 10, flush, spin=True)
-    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
-                                        enable_gqa=True)
-    # autograd.grad: the backward alone, nothing added into .grad
-    lib_b = lambda: torch.autograd.grad(  # noqa: E731
-        lo, (ql, kl, vl), do, retain_graph=True)
-    lib_bwd = _time_stats(lib_b, 10, flush)
-    backend = {"forward": _sdpa_backend(lib_f), "backward": _sdpa_backend(
-        lambda: torch.autograd.grad(F.scaled_dot_product_attention(
-            ql, kl, vl, is_causal=True, enable_gqa=True), (ql, kl, vl), do))}
-    del ql, kl, vl, lo
+    lib_fwd = lib_fwd_dev = lib_bwd = None
+    backend = {"forward": "no single call", "backward": "no single call"}
+    if lib_f is not None:
+        lib_fwd = _time_stats(lib_f, 10, flush)
+        lib_fwd_dev = _time_stats(lib_f, 10, flush, spin=True)
+        ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                            enable_gqa=True)
+        # autograd.grad: the backward alone, nothing added into .grad
+        lib_b = lambda: torch.autograd.grad(  # noqa: E731
+            lo, (ql, kl, vl), do, retain_graph=True)
+        lib_bwd = _time_stats(lib_b, 10, flush)
+        backend = {"forward": _sdpa_backend(lib_f),
+                   "backward": _sdpa_backend(lambda: torch.autograd.grad(
+                       F.scaled_dot_product_attention(
+                           ql, kl, vl, is_causal=True, enable_gqa=True),
+                       (ql, kl, vl), do))}
+        del ql, kl, vl, lo
     live = b * h * _live_pairs(s, s, 0, True, 0)
     el = q.element_size()
-    qb, kb, rowb = q.numel() * el, k.numel() * el, b * h * s * 4
-    work = {  # FLOP per live pair and head dim; bytes read once + written
-        "k1_lse": (4 * hd * live, 2 * qb + 2 * kb + rowb),
-        "k2_dq": (6 * hd * live, 3 * qb + 2 * kb + 2 * rowb),
-        "k2_dkv": (8 * hd * live, 2 * qb + 4 * kb + 2 * rowb),
-        "k3": (10 * hd * live, 3 * qb + 4 * kb + 2 * rowb),
+    qb, kb, vb, rowb = (q.numel() * el, k.numel() * el, v.numel() * el,
+                        b * h * s * 4)
+    ob = vb * h // kh                 # the output, dO: (B, H, S, hd_v)
+    work = {  # FLOP per live pair: 2 x the width of each product (S and
+        # dK, dQ over hd; dP, P V and dV over hd_v); bytes read once +
+        # written once
+        "k1_lse": (2 * (hd + hd_v) * live, qb + kb + vb + ob + rowb),
+        "k2_dq": (2 * (2 * hd + hd_v) * live,
+                  2 * qb + kb + vb + ob + 2 * rowb),
+        "k2_dkv": (2 * (2 * hd + 2 * hd_v) * live,
+                   qb + 2 * kb + 2 * vb + ob + 2 * rowb),
+        "k3": (2 * (3 * hd + 2 * hd_v) * live,
+               2 * qb + 2 * kb + 2 * vb + ob + 2 * rowb),
     }
     rows = {}
     names = {"k1_lse": "K1 with lse", "k2_dq": "K2 dq", "k2_dkv": "K2 dk/dv",
              "k3": "K3 fused"}
-    print(f"  timed at B={b} H={h} KH={kh} S={s} hd={hd} bf16 causal:")
+    print(f"  timed at B={b} H={h} KH={kh} S={s} hd={hd} hd_v={hd_v} bf16 "
+          "causal:")
     for key, (flops, nbytes) in work.items():
         bound_ms, bound_by = _bound(flops, nbytes, dt)
         plain = plain_fwd if key == "k1_lse" else plain_bwd
@@ -1299,6 +1452,8 @@ def _k_train_times(shape, seed, flush, worst, occ):
         rows[key] = {"ms": st[key]["median"], "ms_min": st[key]["min"],
                      "ms_max": st[key]["max"], "plain_ms": plain,
                      "library_ms": None if lib is None else lib["median"],
+                     "library_backend": backend["forward" if key == "k1_lse"
+                                                else "backward"],
                      "library_min": None if lib is None else lib["min"],
                      "library_max": None if lib is None else lib["max"],
                      "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1313,15 +1468,16 @@ def _k_train_times(shape, seed, flush, worst, occ):
               f"{nbytes / 1e6:.1f} MB), {rows[key]['tflops']:.1f} TFLOP/s, "
               f"{occ[key]} blocks an SM")
     pair = st["k2_dq"]["median"] + st["k2_dkv"]["median"]
-    print(f"  sdpa forward [{backend['forward']}] {_fmt(lib_fwd)}; sdpa "
-          f"backward via autograd.grad [{backend['backward']}] "
-          f"{_fmt(lib_bwd)}; K2 pair {pair:.4f} ms, K3 "
-          f"{st['k3']['median']:.4f} ms")
-    print(f"  after a device spin: K1 with lse {_fmt(k1_dev)}, sdpa forward "
-          f"{_fmt(lib_fwd_dev)}")
+    if lib_f is not None:
+        print(f"  sdpa forward [{backend['forward']}] {_fmt(lib_fwd)}; sdpa "
+              f"backward via autograd.grad [{backend['backward']}] "
+              f"{_fmt(lib_bwd)}")
+    print(f"  K2 pair {pair:.4f} ms, K3 {st['k3']['median']:.4f} ms; after "
+          f"a device spin: K1 with lse {_fmt(k1_dev)}, sdpa forward "
+          f"{'-' if lib_fwd_dev is None else _fmt(lib_fwd_dev)}")
     rows["k1_lse"]["device_ms"] = k1_dev
     rows["k1_lse"]["library_device_ms"] = lib_fwd_dev
-    rows["library_bwd_ms"] = lib_bwd["median"]
+    rows["library_bwd_ms"] = lib_bwd and lib_bwd["median"]
     rows["library_bwd"] = lib_bwd
     rows["library_backend"] = backend
     del q, k, v, do, out, lse, delta, args
@@ -1884,12 +2040,10 @@ def phase_train():
 
 def _trainer(cfg, tc, argv=TRAIN_ARGS):
     """The port's Trainer as ``launch.train`` builds it from ``argv``
-    (the config's optimizer state dtype: int8 moments for arctic)."""
+    (the config's optimizer state dtype: int8 moments for arctic and
+    deepseek, and its ``train_accum_steps`` micro-batches a step)."""
     args = train_cli.parse_args(argv)
-    oc = OptimizerConfig(peak_lr=args.lr,
-                         warmup_steps=max(args.steps // 20, 5),
-                         total_steps=args.steps,
-                         state_dtype=cfg.optimizer_state_dtype)
+    oc = train_cli.optimizer_config(cfg, args)
     data = SyntheticTokens(cfg.vocab_size, args.batch, args.seq, seed=0,
                            mode="markov")
     return Trainer(LanguageModel(cfg, device="cuda"), oc, data, tc)
@@ -3349,8 +3503,12 @@ def phase_moe_train():
     step; the median beside a bound; peak memory; one profiled step),
     then 2 steps twice in deterministic mode (K2) from the same seed: the
     same bits."""
+    # one micro-batch a step: the config's 4 would add an fp32
+    # accumulator of the 7.6 B parameters (30 GB) beside the 52 GB this
+    # phase peaks at
     cfg = dataclasses.replace(get_config(ARCTIC), num_layers=2,
-                              num_experts=ARCTIC_TRAIN_EXPERTS)
+                              num_experts=ARCTIC_TRAIN_EXPERTS,
+                              train_accum_steps=1)
     print(f"== moe train: arctic-480b full width, 2 layers, "
           f"{cfg.num_experts} experts, " + " ".join(ARCTIC_TRAIN_ARGS))
     args = train_cli.parse_args(ARCTIC_TRAIN_ARGS)
@@ -3562,6 +3720,424 @@ def phase_moe_reference():
     return info
 
 
+DEEPSEEK = "deepseek-v2-236b"
+# the serve phase's depth, cut from 60: the dense first layer and 2 MoE
+# layers of all 160 experts, fp32 master weights (~37.3 GB)
+DEEPSEEK_SERVE_LAYERS = 3
+# lr 3e-4 as arctic's (phase_moe_train): a fresh router runs away at 1e-3
+DEEPSEEK_TRAIN_ARGS = ["--arch", DEEPSEEK, "--data", "markov", "--batch",
+                       "4", "--seq", "4096", "--steps", "6", "--lr", "3e-4",
+                       "--device", "cuda"]
+# the dense first layer and 1 MoE layer: with all 160 experts that is 5.4
+# B fp32 parameters, and a step holds ~14 B a parameter (the parameters,
+# a micro-batch's gradients, the accumulator of the config's 4
+# micro-batches, int8 moments) beside the MoE layer's bf16 cast and its
+# gradient (~8 B a parameter of the layer): ~105 GB.  64 experts: 3.1 B
+# parameters, ~60 GB.
+DEEPSEEK_TRAIN_EXPERTS = 64
+
+
+def _deepseek_cfg(**over):
+    """deepseek-v2-236b as registered (checked: MLA with q/k 128 + 64 and
+    v 128 over 128 heads, kv_lora_rank 512, 160 experts top-6 with 2
+    shared, the dense first layer, fp32 master weights, bf16 compute,
+    int8 moments, 4 micro-batches a step), then ``over`` replaced."""
+    cfg = get_config(DEEPSEEK)
+    if not (cfg.use_mla and cfg.d_model == 5120 and cfg.num_heads == 128
+            and (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                 cfg.v_head_dim) == (128, 64, 128)
+            and (cfg.q_lora_rank, cfg.kv_lora_rank) == (1536, 512)
+            and (cfg.num_experts, cfg.experts_per_token,
+                 cfg.num_shared_experts, cfg.first_k_dense) == (160, 6, 2, 1)
+            and cfg.param_dtype == "float32" and cfg.dtype == "bfloat16"
+            and cfg.optimizer_state_dtype == "int8"
+            and cfg.train_accum_steps == 4):
+        raise AssertionError("the config is not deepseek-v2-236b's")
+    return dataclasses.replace(cfg, **over)
+
+
+def _mla_flops(cfg, params, b, s, ctx, head_rows, decode=False):
+    """FLOPs of one forward of ``b`` x ``s`` new tokens whose attention
+    reads ``ctx`` positions: every projection on every token (two per
+    weight), the expert banks on every expert's capacity rows (empty
+    slots included: the reference's grouped GEMM), the attention (prefill
+    on the full heads: S over dn + dr and P V over dv a live pair; decode
+    in the latent space: scores over rkv + dr and the output over rkv a
+    cached position), and the LM head on ``head_rows`` rows."""
+    t = b * s
+    c = moe._capacity(cfg, t)
+    flops = 2 * head_rows * cfg.d_model * cfg.vocab_size
+    for path, x in iter_leaves(params):
+        if path[0] in ("embedding", "lm_head") or path[-1] == "scale":
+            continue
+        bank = "moe" in path and "shared" not in path and path[-1] != "router"
+        flops += 2 * (c if bank else t) * x.numel()
+    h, dr, rkv = cfg.num_heads, cfg.qk_rope_head_dim, cfg.kv_lora_rank
+    if decode:
+        per_layer = 2 * (2 * rkv + dr) * h * b * ctx
+    else:
+        hd = cfg.qk_nope_head_dim + dr
+        per_layer = 2 * (hd + cfg.v_head_dim) * h * b * _live_pairs(
+            s, ctx, ctx - s, True, 0)
+    return flops + cfg.num_layers * per_layer
+
+
+def _mla_consistency(cfg, params, b=1, s=2100, seed=82):
+    """prefill(S) + decode(token S) against prefill(S + 1)'s last logits
+    on the serve phase's weights, in fp32 and in bf16 compute, at a
+    capacity factor of experts / top-k, where a bucket holds every token,
+    so neither path drops a (token, expert) pair (at 1.25 the last token
+    of prefill(S + 1) is the likeliest dropped, and a decode step never
+    drops)."""
+    full = torch.randint(0, cfg.vocab_size, (b, s + 1), device="cuda",
+                         generator=torch.Generator(
+                             device="cuda").manual_seed(seed))
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        model = LanguageModel(dataclasses.replace(
+            cfg, dtype=dtype,
+            capacity_factor=cfg.num_experts / cfg.experts_per_token), "cuda")
+        with torch.no_grad(), _moe_record() as rec:
+            truth, _ = model.prefill(params, {"tokens": full})
+            _, cache = model.prefill(params, {"tokens": full[:, :-1]})
+            cache = model.alloc_cache(b, s + 1, init=cache)
+            got, _ = model.decode_step(params, cache, full[:, -1:], s)
+        d = got.float() - truth.float()
+        out[dtype] = {
+            "batch": b, "prompt": s,
+            "argmax_agreement": (got.argmax(-1) == truth.argmax(-1)).float()
+            .mean().item(),
+            "max_logit_diff": d.abs().max().item(),
+            "rms_logit_diff": d.square().mean().sqrt().item(),
+            "dropped": sum(float(a["dropped"]) for a in rec["aux"])}
+        del model, cache, got, truth, rec
+        torch.cuda.empty_cache()
+    f32, bf16 = out["float32"], out["bfloat16"]
+    print(f"  consistency, prefill({s}) + decode vs prefill({s + 1}), B={b},"
+          f" capacity factor {cfg.num_experts / cfg.experts_per_token:.2f} "
+          f"(drops {f32['dropped']:.0f} / {bf16['dropped']:.0f}): fp32 argmax"
+          f" agreement {f32['argmax_agreement']:.3f} (limit >= 0.95), max "
+          f"logit diff {f32['max_logit_diff']:.3e} (limit 5e-3); bf16 max "
+          f"logit diff {bf16['max_logit_diff']:.3e}, RMS "
+          f"{bf16['rms_logit_diff']:.3e}, argmax agreement "
+          f"{bf16['argmax_agreement']:.3f} (reported)")
+    if not (f32["argmax_agreement"] >= 0.95 and f32["max_logit_diff"] <= 5e-3
+            and f32["dropped"] == 0 == bf16["dropped"]):
+        raise AssertionError("deepseek: decode disagrees with prefill")
+    return out
+
+
+def phase_mla_serve():
+    """deepseek-v2-236b at full width (d_model 5120, 128 MLA heads of q/k
+    128 + 64 and v 128 over the 512-wide kv latent, the dense first
+    layer's MLP at 12288, all 160 experts of width 1536, top-6, 2 shared
+    experts), depth cut from 60 to 3 layers (the dense one and 2 MoE
+    layers), fp32 master weights cast to bf16 per layer, seeded random
+    weights: init, prefill 4 x 4096 (K1 at (192, 128) three times), 16
+    decode steps (the latent-space decode, torch ops), each beside its
+    bound and profiled; the latent cache's layout; the prefill's drops;
+    prefill(S) + decode against prefill(S + 1)."""
+    print("== mla serve: deepseek-v2-236b full width, 3 of 60 layers (the "
+          "dense first layer and 2 MoE layers of all 160 experts), fp32 "
+          "master weights, bf16 compute, prefill 4 x 4096, 16 decodes")
+    cfg = _deepseek_cfg(num_layers=DEEPSEEK_SERVE_LAYERS)
+    model = LanguageModel(cfg, device="cuda")
+    _release()                 # what earlier phases left in cycles
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(80))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(x.numel() for _p, x in iter_leaves(params))
+    print(f"  {n_params / 1e9:.2f} B parameters, {weights_gb:.2f} GB; init "
+          f"{init_s:.1f} s, peak {init_peak_gb:.2f} GB")
+    b, s, steps = 4, 4096, 16
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), device="cuda",
+                           generator=torch.Generator(
+                               device="cuda").manual_seed(81))
+    layers, n_moe = cfg.num_layers, cfg.num_layers - cfg.first_k_dense
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        with _moe_record() as rec:
+            prefill_ms, step_ms, cache, tok = _serve_run(model, params,
+                                                         tokens, steps)
+        counts = _counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = {**{k: 0 for k in counts}, "k1": layers}
+        pre = rec["aux"][:n_moe]
+        dropped = sum(float(a["dropped"]) for a in pre)
+        routed = sum(float(a["routed"]) for a in pre)
+        layout = {part: {k: tuple(v.shape) for k, v in c.items()}
+                  for part, c in cache.items()}
+        want_layout = {part: {"c_kv": (n, b, s + steps, cfg.kv_lora_rank),
+                              "k_rope": (n, b, s + steps,
+                                         cfg.qk_rope_head_dim)}
+                       for part, n in (("dense", 1), ("layers", n_moe))}
+        print(f"  prefill {prefill_ms:.1f} ms (B=4 x {s}), decode step "
+              f"{step_ms:.3f} ms (B=4, cache {s + steps}); launches {counts};"
+              f" peak device memory {peak_gb:.2f} GB; prefill drops "
+              f"{dropped:.0f} of {routed:.0f} routed (token, choice) pairs "
+              f"({dropped / routed:.4f}); latent caches {layout}")
+        if counts != want:
+            raise AssertionError(f"launches {counts}, want {want}")
+        if len(rec["aux"]) != n_moe * (1 + steps):
+            raise AssertionError(f"{len(rec['aux'])} MoE layer calls")
+        if layout != want_layout:
+            raise AssertionError(f"cache {layout}, want {want_layout}")
+        prof_pre = _profile(lambda: model.prefill(params, {"tokens": tokens}),
+                            1)
+        _print_profile(f"deepseek prefill ({b} x {s})", prof_pre,
+                       prof_pre["profiled_wall_ms"])
+        prof_dec = _profile(lambda: model.decode_step(params, cache, tok,
+                                                      s + steps - 1), 3)
+        _print_profile("deepseek decode step (B=4)", prof_dec, step_ms)
+        del cache
+    # fp32 weights read once; the prefill's tokens and the latent caches
+    wbytes = _weight_bytes(params)
+    lat = layers * b * (cfg.kv_lora_rank + cfg.qk_rope_head_dim) * 2
+    pre_flops = _mla_flops(cfg, params, b, s, s, b)
+    pre_bytes = wbytes + b * s * cfg.d_model * 2 + lat * s
+    pre_bound, pre_by = _bound(pre_flops, pre_bytes, torch.bfloat16)
+    dec_flops = _mla_flops(cfg, params, b, 1, s + steps, b, decode=True)
+    dec_bytes = wbytes + b * cfg.d_model * 2 + lat * (s + steps)
+    dec_bound, dec_by = _bound(dec_flops, dec_bytes, torch.bfloat16)
+    print(f"  prefill: wall {prefill_ms:.1f} ms the first (cold) call, "
+          f"{prof_pre['profiled_wall_ms']:.1f} ms warm (profiled), device "
+          f"busy {prof_pre['device_busy_ms'] or float('nan'):.1f} ms; bound "
+          f"{pre_bound:.2f} ms ({pre_by}: {pre_flops / 1e12:.2f} TFLOP, "
+          f"{pre_bytes / 1e9:.2f} GB)")
+    print(f"  decode step: wall {step_ms:.2f} ms, device busy "
+          f"{prof_dec['device_busy_ms'] or float('nan'):.2f} ms, idle share "
+          f"{prof_dec.get('idle_share', float('nan')):.3f}; bound "
+          f"{dec_bound:.2f} ms ({dec_by}: {dec_bytes / 1e9:.2f} GB, every "
+          f"fp32 weight, {dec_flops / 1e9:.1f} GFLOP)")
+    consistency = _mla_consistency(cfg, params)
+    info = {"num_layers": layers, "num_experts": cfg.num_experts,
+            "params_b": n_params / 1e9, "weights_gb": weights_gb,
+            "init_s": init_s, "init_peak_gb": init_peak_gb,
+            "prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+            "peak_gb": peak_gb, "launches": counts, "cache": layout,
+            "prefill_dropped": dropped, "prefill_routed": routed,
+            "prefill_bound_ms": pre_bound, "prefill_bound_by": pre_by,
+            "prefill_tflop": pre_flops / 1e12, "prefill_gb": pre_bytes / 1e9,
+            "decode_bound_ms": dec_bound, "decode_bound_by": dec_by,
+            "decode_gb": dec_bytes / 1e9, "prefill_profile": prof_pre,
+            "decode_profile": prof_dec, "consistency": consistency}
+    del model, params, tokens, tok
+    _release()
+    return info
+
+
+def phase_mla_train():
+    """The Trainer as ``launch.train`` builds it for deepseek-v2-236b
+    (fp32 master weights, bf16 compute, int8 AdamW moments, the config's
+    4 micro-batches a step) at full width with 2 layers (the dense first
+    one and 1 MoE layer) and 64 experts: 6 steps of 4 x 4096 at lr 3e-4
+    (ce_loss falls; K1-lse 4 and K3 2 a micro-batch; the MoE gauges each
+    step; the median beside a bound; peak memory; the AdamW share; one
+    profiled step), then 2 steps twice in deterministic mode (K2): the
+    same bits."""
+    cfg = _deepseek_cfg(num_layers=2, num_experts=DEEPSEEK_TRAIN_EXPERTS)
+    print(f"== mla train: deepseek-v2-236b full width, 2 layers, "
+          f"{cfg.num_experts} experts, " + " ".join(DEEPSEEK_TRAIN_ARGS))
+    args = train_cli.parse_args(DEEPSEEK_TRAIN_ARGS)
+    layers, steps = cfg.num_layers, args.steps
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    tr = _trainer(cfg, TrainerConfig(), argv=DEEPSEEK_TRAIN_ARGS)
+    accum = tr.oc.accum_steps
+    t0 = time.perf_counter()
+    state = tr.run(tr.init_or_restore(
+        torch.Generator(device="cuda").manual_seed(0)), steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    m_q = state["opt"]["m"]["layers"]["moe"]["w_gate"]["q"]
+    w_gate = state["params"]["layers"]["moe"]["w_gate"]
+    if not (accum == 4 and m_q.dtype == torch.int8
+            and w_gate.dtype == torch.float32
+            and tuple(w_gate.shape) == (1, cfg.num_experts, cfg.d_model,
+                                        cfg.moe_d_ff)):
+        raise AssertionError("not 4 micro-batches of fp32 parameters with "
+                             "int8 moments")
+    for h in tr.history:
+        print(f"  step {h['step']}: ce_loss {h['ce_loss']:.4f} aux_loss "
+              f"{h['aux_loss']:.4f} moe_dropped_tokens "
+              f"{h['moe_dropped_tokens']:.0f} moe_overflow_rate "
+              f"{h['moe_overflow_rate']:.4f} grad_norm {h['grad_norm']:.3f} "
+              f"{h['step_time'] * 1e3:.1f} ms")
+    want = {**{k: 0 for k in counts}, "k1_lse": 2 * layers * steps * accum,
+            "k3": layers * steps * accum}
+    print(f"  launches {counts} (want {want})")
+    if counts != want:
+        raise AssertionError(f"mla train: launches {counts}, want {want}")
+    first, last = tr.history[0]["ce_loss"], tr.history[-1]["ce_loss"]
+    if not (np.isfinite(last) and last < first):
+        raise AssertionError(f"ce_loss {first} -> {last}: did not descend")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = [1e3 * h["step_time"] for h in tr.history]
+    n_params = sum(x.numel() for _p, x in iter_leaves(state["params"]))
+    b, s = args.batch, args.seq
+    mb = b // accum
+    # each micro-batch: forward, its recompute under remat="layer" and a
+    # backward of twice the forward, the head on every position
+    flops = accum * 4 * _mla_flops(cfg, state["params"], mb, s, s, mb * s)
+    # each micro-batch reads the fp32 weights in the forward, the
+    # recompute and the backward and writes, then adds, fp32 gradients;
+    # the update reads weights and gradients, writes weights, and reads
+    # and writes the int8 moments
+    nbytes = n_params * (accum * (3 * 4 + 3 * 4) + 3 * 4 + 2 * 2)
+    bound_ms, bound_by = _bound(flops, nbytes, torch.bfloat16)
+    print(f"  {n_params / 1e9:.2f} B parameters; {steps} steps in "
+          f"{wall:.1f} s wall; step median {np.median(step_ms):.1f} ms "
+          f"(steps 2-{steps} mean {np.mean(step_ms[1:]):.1f}); bound "
+          f"{bound_ms:.1f} ms ({bound_by}: {flops / 1e12:.1f} TFLOP, "
+          f"{nbytes / 1e9:.1f} GB); peak memory {peak_gb:.2f} GB")
+    step_fn = tr._build()
+    batch = {k: torch.from_numpy(v).cuda() for k, v in tr.data.get(0).items()}
+    prof = _profile(lambda: step_fn(state, batch), 1)
+    _print_profile(f"deepseek train step ({accum} x {mb} x {s})", prof,
+                   prof["profiled_wall_ms"])
+    micro = {k: v[:mb] for k, v in batch.items()}
+    grad_ms, update_ms = _split_step(tr.model, tr.oc, state, micro)
+    adamw_share = update_ms / float(np.median(step_ms))
+    print(f"  one micro-batch's loss and gradients {grad_ms:.1f} ms; AdamW "
+          f"update (int8 moments, {n_params / 1e9:.2f} B parameters) "
+          f"{update_ms:.1f} ms, {adamw_share:.3f} of the step median")
+    info = {"num_layers": layers, "num_experts": cfg.num_experts,
+            "accum_steps": accum, "params_b": n_params / 1e9, "wall_s": wall,
+            "step_ms": step_ms,
+            "ce_loss": [h["ce_loss"] for h in tr.history],
+            "aux_loss": [h["aux_loss"] for h in tr.history],
+            "moe_dropped_tokens": [h["moe_dropped_tokens"]
+                                   for h in tr.history],
+            "moe_overflow_rate": [h["moe_overflow_rate"] for h in tr.history],
+            "grad_norm": [h["grad_norm"] for h in tr.history],
+            "peak_memory_gb": peak_gb, "launches": counts,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "micro_grad_ms": grad_ms, "update_ms": update_ms,
+            "adamw_share": adamw_share, "step_profile": prof}
+    del tr, state, step_fn, batch, micro, m_q, w_gate
+    _release()
+
+    finals, det_counts = [], []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for _ in range(2):
+            _zero_counts()
+            tr = _trainer(cfg, TrainerConfig(), argv=DEEPSEEK_TRAIN_ARGS)
+            st = tr.run(tr.init_or_restore(
+                torch.Generator(device="cuda").manual_seed(0)), 2)
+            torch.cuda.synchronize()
+            det_counts.append(_counts())
+            finals.append([p.cpu() for _p, p in iter_leaves(st["params"])])
+            del tr, st
+            _release()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = all(torch.equal(a, c) for a, c in zip(*finals))
+    want = {**{k: 0 for k in det_counts[0]},
+            "k1_lse": 2 * layers * 2 * accum, "k2_dq": layers * 2 * accum,
+            "k2_dkv": layers * 2 * accum}
+    print(f"  deterministic mode, 2 steps twice: final parameters the same "
+          f"bits {same}; launches {det_counts[0]} (want {want})")
+    if not same:
+        raise AssertionError("deepseek: deterministic reruns differ")
+    if det_counts[0] != want or det_counts[1] != want:
+        raise AssertionError(f"deepseek deterministic: launches {det_counts}")
+    info["deterministic"] = {"bit_exact": same, "launches": det_counts[0]}
+    return info
+
+
+def phase_mla_reference():
+    """deepseek-v2-236b at full width in fp32 with 2 layers (the dense
+    first one and 1 MoE layer of 8 experts; 1.78 B parameters), 1 x 2304
+    tokens (> 2048: the fp32 K1, K1-lse and K3 at (192, 128) run), on the
+    card against the port's CPU path from the same weights: the routing
+    of every MoE call, the prefill logits and 4 decode steps', the loss
+    and every gradient, within the limits of ``phase_moe_reference``."""
+    print("== mla reference: deepseek-v2-236b full width, fp32, dense + 1 "
+          "MoE layer of 8 experts, 1 x 2304, card vs CPU")
+    cfg = _deepseek_cfg(num_layers=2, num_experts=8, dtype="float32")
+    gpu, cpu = LanguageModel(cfg, device="cuda"), LanguageModel(cfg, "cpu")
+    _release()
+    params = gpu.init(torch.Generator(device="cuda").manual_seed(83))
+    params_cpu = _tree_to(params, "cpu")
+    s, steps = 2304, 4
+    toks = np.random.RandomState(84).randint(0, cfg.vocab_size,
+                                             (1, s + steps + 1))
+    batch = {"tokens": torch.from_numpy(toks[:, :s]),
+             "targets": torch.from_numpy(toks[:, 1:s + 1])}
+    runs = {}
+    for side, model, p in (("card", gpu, params), ("cpu", cpu, params_cpu)):
+        dev = model.device
+        t0 = time.perf_counter()
+        _zero_counts()
+        with torch.no_grad(), _moe_record() as rec:
+            lg, cache = model.prefill(p, {"tokens": batch["tokens"].to(dev)})
+            logits = [lg.cpu()]
+            cache = model.alloc_cache(1, s + steps, init=cache)
+            for i in range(steps):
+                tok = torch.from_numpy(toks[:, s + i:s + i + 1]).to(dev)
+                lg, cache = model.decode_step(p, cache, tok, s + i)
+                logits.append(lg.cpu())
+        serve_counts = _counts()
+        serve_route = rec["route"]
+        del cache
+        _zero_counts()
+        with _moe_record() as rec:
+            loss, grads = _grads(model, p, batch, dev)
+        grads = [g.cpu() for g in grads]
+        runs[side] = {"logits": logits, "route": serve_route + rec["route"],
+                      "loss": loss, "grads": grads,
+                      "launches_serve": serve_counts,
+                      "launches_train": _counts(),
+                      "s": time.perf_counter() - t0}
+        del grads
+    card, host = runs["card"], runs["cpu"]
+    flips = _route_flips(card["route"], host["route"])
+    logit_err = max((a - c).abs().max().item()
+                    for a, c in zip(card["logits"], host["logits"]))
+    loss_err = abs(card["loss"] - host["loss"]) / abs(host["loss"])
+    grad_err = max((a - c).abs().max().item()
+                   / max(c.abs().max().item(), 1e-30)
+                   for a, c in zip(card["grads"], host["grads"]))
+    layers = cfg.num_layers
+    want_serve = {**{k: 0 for k in card["launches_serve"]}, "k1": layers}
+    want_train = {**{k: 0 for k in card["launches_train"]},
+                  "k1_lse": 2 * layers, "k3": layers}
+    print(f"  routing: {len(card['route'])} MoE calls, {flips} choices "
+          f"differ (each within 1e-5 of probability); logits max_abs_err "
+          f"{logit_err:.3e} (limit 1e-3; fp32, logits O(1)), loss rel err "
+          f"{loss_err:.2e} (limit 1e-5), gradients {grad_err:.2e} of each "
+          f"leaf's max (limit 1e-4); launches serve "
+          f"{card['launches_serve']}, train {card['launches_train']}; card "
+          f"{card['s']:.1f} s, CPU {host['s']:.1f} s")
+    if card["launches_serve"] != want_serve or \
+            card["launches_train"] != want_train:
+        raise AssertionError(f"launches {card['launches_serve']} / "
+                             f"{card['launches_train']}, want {want_serve} "
+                             f"/ {want_train}")
+    if len(card["route"]) != len(host["route"]) or \
+            len(card["route"]) != 1 + steps + 2:
+        raise AssertionError(f"MoE calls {len(card['route'])} / "
+                             f"{len(host['route'])}")
+    if not (logit_err <= 1e-3 and loss_err <= 1e-5 and grad_err <= 1e-4):
+        raise AssertionError("deepseek: card and CPU disagree")
+    info = {"route_flips": flips, "logits_max_abs_err": logit_err,
+            "loss_rel_err": loss_err, "grad_rel_err": grad_err,
+            "launches_serve": card["launches_serve"],
+            "launches_train": card["launches_train"],
+            "card_s": card["s"], "cpu_s": host["s"]}
+    del gpu, params, params_cpu, runs, card, host
+    _release()
+    return info
+
+
 def _tree_to(tree, device, copy=False):
     return {k: _tree_to(v, device, copy) if isinstance(v, dict)
             else v.to(device, copy=copy) for k, v in tree.items()}
@@ -3629,6 +4205,9 @@ def main() -> int:
     moe_serve = timed("moe_serve_s", phase_moe_serve)
     moe_train = timed("moe_train_s", phase_moe_train)
     moe_ref = timed("moe_reference_s", phase_moe_reference)
+    mla_serve = timed("mla_serve_s", phase_mla_serve)
+    mla_train = timed("mla_train_s", phase_mla_train)
+    mla_ref = timed("mla_reference_s", phase_mla_reference)
 
     by_phase = {"engine_ample": {"k1": eng_a["k1_launches"],
                                  "k5": eng_a["k5_launches"]},
@@ -3664,7 +4243,13 @@ def main() -> int:
                 "moe_train_deterministic":
                     moe_train["deterministic"]["launches"],
                 "moe_reference_serve": moe_ref["launches_serve"],
-                "moe_reference_train": moe_ref["launches_train"]}
+                "moe_reference_train": moe_ref["launches_train"],
+                "mla_serve": mla_serve["launches"],
+                "mla_train": mla_train["launches"],
+                "mla_train_deterministic":
+                    mla_train["deterministic"]["launches"],
+                "mla_reference_serve": mla_ref["launches_serve"],
+                "mla_reference_train": mla_ref["launches_train"]}
 
     def launches(*keys):
         per = {ph: sum(c.get(k, 0) for k in keys)
@@ -3674,6 +4259,8 @@ def main() -> int:
     k1["launches"], k1["launches_by_phase"] = launches("k1", "k1_lse")
     k1["launches_with_lse"] = launches("k1_lse")[0]
     k1["lse_at_train_shape"] = ktrain["k1_lse"]
+    k1["lse_deepseek"] = {**ktrain["deepseek"]["k1_lse"],
+                          "timed_shape": ktrain["deepseek"]["timed_shape"]}
     k5["launches"], k5["launches_by_phase"] = launches("k5")
     kernels = [k1, k5]
     src_bwd = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
@@ -3686,7 +4273,9 @@ def main() -> int:
              "src/repro/kernels/flash_attention.py:541")):
         row = {"name": name, "route": "cuda", "source": src_bwd,
                "replaces": replaces, **ktrain[key],
-               "timed_shape": "B=4 H=15 KH=5 S=4096 hd=64 bf16 causal"}
+               "timed_shape": "B=4 H=15 KH=5 S=4096 hd=64 bf16 causal",
+               "deepseek": {**ktrain["deepseek"][key],
+                            "timed_shape": ktrain["deepseek"]["timed_shape"]}}
         row["launches"], row["launches_by_phase"] = launches(key)
         kernels.append(row)
     src_copy = "src/repro_torch/kernels/csrc/partition_copy.cu"
@@ -3740,7 +4329,10 @@ def main() -> int:
               "ssm_train_reference": ssm_train_ref,
               "ssm_deterministic": ssm_det, "moe_serve": moe_serve,
               "moe_train": moe_train, "moe_reference": moe_ref,
-              "library_bwd_ms": ktrain["library_bwd_ms"], "phase_s": timings}
+              "mla_serve": mla_serve, "mla_train": mla_train,
+              "mla_reference": mla_ref,
+              "library_bwd_ms": ktrain["library_bwd_ms"], "phase_s": timings,
+              "build_log": _build.log_path().read_text()}
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)
         args.report.write_text(json.dumps(report, indent=1))

@@ -11,7 +11,11 @@ shape of ``chip_smoke.py`` (``K1_TIMED``, ``K1_LSE_TIMED``,
 50 (K5) calls under both of ``chip_smoke._time_stats``'s timers: the
 events around the call (``events``, every kernel row's timer) and the
 same after a ~0.5 ms device spin (``device``, the device work alone).
-Per shape also the largest |difference| from the plain version, and per
+At each ``K1_LSE_TIMED`` shape also the backward kernels K2 (dq, dk/dv)
+and K3 (``k2_dq_*``, ``k2_dkv_*``, ``k3_*``, 10 calls each).
+Per shape also the largest |difference| from the plain version (a shape
+whose widths the tree's kernels do not take, such as MLA's (192, 128) on
+a tree before it, is recorded as ``not_taken``), and per
 K5 shape the host µs a call of the wrapper takes (``host_us``).  At
 chip_smoke's short training shape (``MEGA_TIMED["train"]``, B=64 x 256)
 also K4f, K4f-lse and K4b beside K1-lse, K3 and one
@@ -66,15 +70,30 @@ def main() -> int:
     shapes = {**{f"k1_{n}": (*v, False) for n, v in cs.K1_TIMED.items()},
               **{f"k1_lse_{n}": (*v, 0, True)
                  for n, v in cs.K1_LSE_TIMED.items()}}
-    for name, (b, h, kh, s, hd, win, lse) in shapes.items():
+    for name, (b, h, kh, s, hd, hd_v, win, lse) in shapes.items():
         q, k, v = (cs._randn((b, h, s, hd), bf, 1),
                    cs._randn((b, kh, s, hd), bf, 2),
-                   cs._randn((b, kh, s, hd), bf, 3))
+                   cs._randn((b, kh, s, hd_v), bf, 3))
         kernel = fa.flash_attention_fwd if lse else fa.flash_attention
+        try:
+            kernel(q, k, v, window=win)
+        except ValueError as e:      # a tree whose kernels lack the widths
+            res[name] = {"not_taken": str(e)}
+            continue
         res[name] = _both(lambda: kernel(q, k, v, window=win), 20, flush)
         got = fa.flash_attention(q, k, v, window=win, block_q=64)  # K1
         res[name]["max_abs_err"] = _err(
             got, fa.flash_attention_plain(q, k, v, window=win))
+        if lse:
+            do = cs._randn((b, h, s, hd_v), bf, 4)
+            o_t, lse_t = fa.flash_attention_fwd(q, k, v)
+            args = (q, k, v, do, lse_t, (do.float() * o_t.float()).sum(-1))
+            stem = name[len("k1_lse_"):]
+            for kname, fn in (("k2_dq", fa.flash_attention_bwd_dq),
+                              ("k2_dkv", fa.flash_attention_bwd_dkv),
+                              ("k3", fa.flash_attention_bwd_fused)):
+                res[f"{kname}_{stem}"] = _both(lambda: fn(*args), 10, flush)
+            del do, o_t, lse_t, args
         del q, k, v, got
         torch.cuda.empty_cache()
     for name, (b, kh, g, s, hd, cur, win) in cs.K5_TIMED.items():

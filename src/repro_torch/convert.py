@@ -40,9 +40,12 @@ def params_from_numpy(tree: Dict[str, Any], cfg, device="cuda") -> Dict[str, Any
     layers' ``layers.attn.w_q`` (L, D, H, hd) for dense and vlm; for moe
     the MoE layers' ``layers.attn.w_q`` and ``layers.moe.w_gate``
     (L − first_k_dense, D, H, hd) and (…, E, D, moe_d_ff), and with
-    ``first_k_dense`` the dense layers' ``dense_layers.attn.w_q``; the
-    Mamba layers' ``layers.mixer.w_x`` (L, D, d_inner) for ssm and
-    hybrid, and for hybrid also the one shared block's
+    ``first_k_dense`` the dense layers' ``dense_layers.attn.w_q``; under
+    MLA (deepseek-v2), which has no ``w_q``, ``attn.w_uq`` (…,
+    q_lora_rank, H, qk_nope_head_dim + qk_rope_head_dim) and
+    ``attn.w_dkv`` (…, D, kv_lora_rank + qk_rope_head_dim) of both stacks
+    in its place; the Mamba layers' ``layers.mixer.w_x`` (L, D, d_inner)
+    for ssm and hybrid, and for hybrid also the one shared block's
     ``shared_attn.attn.w_q`` (D, H, hd).  A mismatch raises.
     """
     dev = resolve_device(device)
@@ -61,11 +64,21 @@ def params_from_numpy(tree: Dict[str, Any], cfg, device="cuda") -> Dict[str, Any
             checks.append((("shared_attn", "attn", "w_q"), (D, *attn)))
     elif cfg.family == "moe":
         n, k = L - cfg.first_k_dense, cfg.first_k_dense
-        checks = [(("layers", "attn", "w_q"), (n, D, *attn)),
-                  (("layers", "moe", "w_gate"),
-                   (n, cfg.num_experts, D, cfg.moe_d_ff or cfg.d_ff))]
+
+        def attn_checks(stack, m):
+            if not cfg.use_mla:
+                return [((stack, "attn", "w_q"), (m, D, *attn))]
+            dqk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+            return [((stack, "attn", "w_uq"),
+                     (m, cfg.q_lora_rank, cfg.num_heads, dqk)),
+                    ((stack, "attn", "w_dkv"),
+                     (m, D, cfg.kv_lora_rank + cfg.qk_rope_head_dim))]
+
+        checks = attn_checks("layers", n) + [
+            (("layers", "moe", "w_gate"),
+             (n, cfg.num_experts, D, cfg.moe_d_ff or cfg.d_ff))]
         if k:
-            checks.append((("dense_layers", "attn", "w_q"), (k, D, *attn)))
+            checks += attn_checks("dense_layers", k)
     else:
         checks = [(("layers", "attn", "w_q"), (L, D, *attn))]
     for path, want in checks:

@@ -9,10 +9,12 @@
   seq-major views of the caches, as the reference's CPU decode takes its
   jnp oracle (so the probabilities round to the input dtype as there);
 * paged decode over §6 pages of a shared cache pool, as torch ops (the
-  reference has no kernel for it).
+  reference has no kernel for it);
+* MLA decode in the compressed latent space (``mla_decode_attend``), as
+  torch ops, as the reference's is jnp with no Pallas kernel.
 
-The mesh branches (head-, context-parallel, lse-combine decode) come with
-the multi-device slice.
+The mesh branches (head-, context-parallel, lse-combine decode, MLA's
+head-sharded decode) come with the multi-device slice.
 """
 from __future__ import annotations
 
@@ -174,3 +176,34 @@ def paged_update_and_attend(q: torch.Tensor, k_new: torch.Tensor,
     out = num / torch.clamp(den, min=1e-37)[..., None]
     out = out * active[:, None, None, None]
     return out.reshape(b, 1, h, -1).to(q.dtype), k_pages, v_pages
+
+
+# ---------------------------------------------------------------- MLA decode
+
+def mla_decode_attend(q_latent: torch.Tensor, q_rope: torch.Tensor,
+                      c_new: torch.Tensor, kr_new: torch.Tensor,
+                      c_kv: torch.Tensor, k_rope: torch.Tensor,
+                      cur_len: int, *, scale: float):
+    """Absorbed-matrix MLA decode in the compressed latent space, the
+    reference's no-mesh branch.
+
+    q_latent: (B, 1, H, rkv); q_rope: (B, 1, H, dr); new latents c_new
+    (B, 1, rkv) / kr_new (B, 1, dr); caches c_kv (B, S, rkv) / k_rope (B,
+    S, dr), updated in place at ``cur_len`` (the reference returns new
+    arrays; a start past the end clamps to the last slot, as its
+    ``dynamic_update_slice`` does).  The scores sum both products in the
+    input dtype and are scaled, masked and softmaxed in fp32; the
+    probabilities are cast to the input dtype before the product with
+    c_kv, as there.  Returns (out_latent (B, 1, H, rkv), c_kv, k_rope).
+    """
+    pos = min(max(cur_len, 0), c_kv.shape[1] - 1)
+    c_kv[:, pos] = c_new[:, 0].to(c_kv.dtype)
+    k_rope[:, pos] = kr_new[:, 0].to(k_rope.dtype)
+    s = (torch.einsum("bshr,btr->bhst", q_latent, c_kv)
+         + torch.einsum("bshk,btk->bhst", q_rope, k_rope)).float()
+    s = s * scale
+    valid = torch.arange(c_kv.shape[1], device=c_kv.device) < cur_len + 1
+    s = torch.where(valid[None, None, None, :], s, NEG_INF)
+    probs = torch.softmax(s, dim=-1).to(q_latent.dtype)
+    out = torch.einsum("bhst,btr->bshr", probs, c_kv)
+    return out, c_kv, k_rope

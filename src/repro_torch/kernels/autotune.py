@@ -16,8 +16,9 @@
   fits are the card's: the kv head's whole K and V (and, for the fp32
   K4b, its fp32 dK and dV) must sit in one block's shared memory, and
   one block per (batch, kv head) must fill the SMs;
-* :func:`kernel_head_dim`, the compiled width at which the tiled kernels
-  K1, K2, K3 and the decode kernel K5 run a head;
+* :func:`kernel_head_dim`, the compiled (q/k width, v width) pair at
+  which the tiled kernels K1, K2, K3 and the decode kernel K5 run a
+  head;
 * :func:`decode_splits`, how many blocks the split-sequence decode
   kernel K5 (``csrc/flash_decode.cu``) gives each (batch, kv head), and
   :func:`decode_chunk`, the rows each split takes.  The reference's
@@ -65,17 +66,29 @@ def plan_copy_chunk(total_rows: int, smem_budget: int | None = None) -> int:
 
 # --------------------------------------------------------------- attention
 
-def kernel_head_dim(hd: int) -> int:
-    """The compiled width (64 or 128) at which K1, K2, K3 and K5 run a
-    head of width ``hd``: the next one at or above it.  The kernels load
-    hd columns and zero-fill the rest in shared memory, so the tensors
-    stay unpadded.  ``hd`` must be a multiple of 8 (whole 16-byte
-    vectors a row in bf16) from 8 to 128; raises ``ValueError`` for any
-    other width."""
-    if hd % 8 or not 8 <= hd <= 128:
-        raise ValueError(f"head_dim {hd}: the attention kernels take a "
-                         "multiple of 8 from 8 to 128")
-    return 64 if hd <= 64 else 128
+# The (q/k width, v width) pairs K1, K2 and K3 are compiled for, in the
+# order ``attn_pair`` in ``csrc/common.cuh`` tries them: (192, 128) is
+# DeepSeek-V2's MLA head (q/k 128 + 64, v 128).  K5 takes the first two.
+ATTN_PAIRS = ((64, 64), (128, 128), (192, 128))
+
+
+def kernel_head_dim(hd: int, hd_v: int | None = None) -> tuple:
+    """The compiled pair (HD, HD_V) at which K1, K2, K3 and K5 run q/k
+    heads of width ``hd`` and v heads of width ``hd_v`` (default ``hd``):
+    the first of :data:`ATTN_PAIRS` that holds both.  The kernels load the
+    true columns and zero-fill the rest in shared memory, so the tensors
+    stay unpadded.  Both widths must be multiples of 8 (whole 16-byte
+    vectors a row in bf16) from 8; raises ``ValueError`` naming both
+    widths where no pair holds them (e.g. the absorbed MLA route's
+    (576, 512))."""
+    hd_v = hd if hd_v is None else hd_v
+    if hd % 8 == 0 and hd_v % 8 == 0 and hd >= 8 and hd_v >= 8:
+        for pair in ATTN_PAIRS:
+            if hd <= pair[0] and hd_v <= pair[1]:
+                return pair
+    raise ValueError(f"head_dim {hd}, v head_dim {hd_v}: the attention "
+                     "kernels take multiples of 8 held by one of the "
+                     f"compiled pairs {ATTN_PAIRS}")
 
 
 # K5's tile and split cap.  The wrapper passes DECODE_TILE to every
@@ -131,12 +144,13 @@ def _align16(n: int) -> int:
 
 def mega_width(hd: int, itemsize: int) -> int:
     """The compiled width at which K4f / K4b run a head of width ``hd``,
-    or 0 where they do not take it.  bf16 (``itemsize`` 2) takes every
-    width the tiled kernels take, at :func:`kernel_head_dim` (columns
-    past hd zero-filled in shared memory); fp32 (4) takes ``HEAD_DIMS``
-    as they are."""
+    or 0 where they do not take it.  bf16 (``itemsize`` 2) takes the
+    widths up to 128 that the tiled kernels take, at their compiled
+    width (:func:`kernel_head_dim`; columns past hd zero-filled in shared
+    memory); fp32 (4) takes ``HEAD_DIMS`` as they are."""
     if itemsize == 2:
-        return kernel_head_dim(hd) if hd % 8 == 0 and 8 <= hd <= 128 else 0
+        return kernel_head_dim(hd)[0] if hd % 8 == 0 and 8 <= hd <= 128 \
+            else 0
     return hd if itemsize == 4 and hd in HEAD_DIMS else 0
 
 
@@ -164,7 +178,7 @@ def mega_smem_bytes(bwd: bool, rows: int, sk: int, hd: int,
     strip's lse and delta (rows each).
     """
     if itemsize == 2:
-        w = kernel_head_dim(hd)
+        w = mega_width(hd, itemsize)
         total = 2 * (-(-sk // MEGA_TILE) * MEGA_TILE) * w * 2
         if not bwd:
             return total + MEGA_WARPS * MEGA_SLICE * w * 2
@@ -305,7 +319,9 @@ def plan_attention(sk: int, hd: int, hd_v: int, kh: int, batch: int,
     * the kernels take the shape (:func:`mega_width`): bf16
       (``dtype_bits`` 16) at any hd that is a multiple of 8 up to 128,
       fp32 (32) at hd 64 or 128, and ``hd_v == hd``; callers pass 0
-      for any other dtype.
+      for any other dtype.  So MLA's heads (hd 192, hd_v 128) never
+      reach K4, where the reference's planner sizes its megakernels by
+      ``hd + hd_v`` and would take them.
 
     The query length and the group size do not enter: the kernels walk
     any number of query rows.  Pure and cached; no device query.

@@ -4,8 +4,9 @@
 // with rows of hd elements, hd a multiple of 8, so each row starts on a
 // 16-byte boundary (the wrappers check the base pointers) and a row loads
 // as hd*sizeof(T)/16 vectors of 16 B.  A kernel is compiled for a width
-// HD of 64 or 128 and runs any hd <= HD: the loaders zero-fill columns
-// hd..HD in shared memory and the stores write the hd real columns only.
+// HD (64, 128, or 192 for MLA's q and k) and runs any hd <= HD: the
+// loaders zero-fill columns hd..HD in shared memory and the stores write
+// the hd real columns only.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -67,6 +68,19 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src,
 #pragma unroll
     for (int i = 0; i < V; ++i) dst[r * LDS + c + i] = x[i];
   }
+}
+
+// The (q/k width, v width) pairs the tiled attention kernels K1, K2 and
+// K3 are compiled for: 0 = (64, 64), 1 = (128, 128), 2 = (192, 128)
+// (DeepSeek-V2's MLA heads, q/k 128 + 64 and v 128).  Returns the first
+// pair that holds (hd, hd_v), both multiples of 8, or -1 where none does
+// (the wrapper's autotune.kernel_head_dim holds the same table).
+__host__ __device__ inline int attn_pair(int hd, int hd_v) {
+  if (hd % 8 || hd_v % 8 || hd < 8 || hd_v < 8) return -1;
+  if (hd <= 64 && hd_v <= 64) return 0;
+  if (hd <= 128 && hd_v <= 128) return 1;
+  if (hd <= 192 && hd_v <= 128) return 2;
+  return -1;
 }
 
 // ------------------------------------------- CUDA-core tile products

@@ -11,12 +11,17 @@
 // kernel's pl.when skips); the ragged Sq and Sk edges are masked by
 // index, the host pads nothing.
 //
-// Head widths: the kernels are compiled for HD = 64 and 128 and run any
-// hd that is a multiple of 8 up to 128 at the next compiled width (hd 32
-// at 64; hd 120, h2o-danube3-4b's, at 128).  The tiles load hd columns
-// and zero-fill the rest in shared memory, so the padded columns add
-// zeros to every score and yield zeros that the store skips; the tensors
-// stay unpadded.  The wrapper passes hd and the scale 1/sqrt(hd).
+// Head widths: q and k have width hd, v and the output hd_v.  The
+// kernels are compiled for the pairs (HD, HD_V) = (64, 64), (128, 128)
+// and (192, 128) (attn_pair in common.cuh) and run any hd, hd_v that are
+// multiples of 8 at the first pair that holds both (hd 32 at 64; hd 120,
+// h2o-danube3-4b's, at 128; DeepSeek-V2's MLA, q/k 128 + 64 = 192 and v
+// 128, at (192, 128); its reduced variant (48, 32) at 64).  The tiles
+// load the true columns and zero-fill the rest in shared memory, so the
+// padded columns add zeros to every score and yield zeros that the store
+// skips; the tensors stay unpadded.  The wrapper passes hd, hd_v and the
+// scale 1/sqrt(hd).  The equal-width pairs are built twice, SAME (hd_v ==
+// hd: the compiler sees one width) and not, as in flash_attention_bwd.cu.
 //
 // Numerics follow the reference: s = (q . k) * 1/sqrt(hd) with fp32
 // sums, masked scores -1e30, exp(s - m) and the rescale exp(m_old -
@@ -64,10 +69,16 @@
 // ulp at |o| >= 4 exceeds it), and l, which sums the fp32 P, no longer
 // matched the numerator.  HMMA per warp and kv tile: HD/16 * 8 for S and
 // 2 * 4 * HD/8 for P V, 64 + 128 at HD 128 and 32 + 64 at HD 64.
-// Shared memory: (BQ + 4 BK) * (HD + 8) * 2 B = 87,040 B at HD 128 and
-// 46,080 B at HD 64.  Registers (ptxas, sm_90a): O (HD/2 fp32), S (32
-// fp32) and Q (HD/4) a thread, 217 at HD 128 and 149 at HD 64, no
-// spills; the occupancy calculator gives 2 and 3 blocks an SM.  The
+// Shared memory: (BQ + 2 BK) * (HD + 8) * 2 B + 2 BK * (HD_V + 8) * 2 B
+// = 87,040 B at HD 128 and 46,080 B at HD 64 (111,616 B at (192, 128)).
+// Registers (ptxas, sm_90a): O (HD_V/2 fp32), S (32 fp32) and Q (HD/4) a
+// thread, 217 at HD 128 and 152 at HD 64, no spills; the occupancy
+// calculator gives 2 and 3 blocks an SM.  At HD 192 the Q fragments
+// (48 registers a thread) would push the block past the 255 the launch
+// bound allows beside O, so that kernel reads them from the Q tile in
+// shared memory at each kv tile instead (KS ldmatrix a warp and tile,
+// beside the 4 KS of K's B fragments): 193 registers, no spills, 2
+// blocks an SM.  The
 // launch bound's minimum of 2 blocks lets ptxas take over 200 registers
 // at HD 128 (182 without it), which ran h2o-danube3-4b's prefill shape
 // 4.5 % faster; a minimum of 4 at HD 64 (128 registers) spilled and
@@ -88,7 +99,8 @@
 // score columns tx+16j (j < 4) and output columns tx+16j (j < hd/16).
 // Shared memory holds q (scaled), k (rows padded to hd+1 floats so the
 // 16 column-owners of a warp hit 16 banks), v and the probability tile,
-// all fp32: 66,304 B at hd=64 and 115,456 B at hd=128.  Its products
+// all fp32: 66,304 B at hd=64, 115,456 B at hd=128 and 148,224 B at
+// (192, 128).  Its products
 // are fp32 FMAs out of shared memory, bound by FMA issue and
 // shared-memory bandwidth.
 
@@ -99,32 +111,33 @@ namespace {
 
 constexpr int BQ = 64, BK = 64, NT = 256;
 
-template <int HD>
+template <int HD, int HDV>
 constexpr size_t fwd_smem_bytes() {
-  return (size_t)(BQ * (HD + 1) + BK * (HD + 1) + BK * HD + BQ * (BK + 1)) *
+  return (size_t)(BQ * (HD + 1) + BK * (HD + 1) + BK * HDV + BQ * (BK + 1)) *
          sizeof(float);
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV, bool SAME>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int H, int G,
-                 int Sq, int Sk, int hd, int q_offset, int causal,
+                 int Sq, int Sk, int hd, int hd_v, int q_offset, int causal,
                  int window, float scale) {
-  constexpr int LDQ = HD + 1, LDP = BK + 1, NJ = HD / 16;
+  if (SAME) hd_v = hd;   // v as wide as q, k: one width for the compiler
+  constexpr int LDQ = HD + 1, LDP = BK + 1, NJ = HDV / 16;
   extern __shared__ float smem[];
   float* sQ = smem;                 // BQ x LDQ, pre-scaled
   float* sK = sQ + BQ * LDQ;        // BK x LDQ
-  float* sV = sK + BK * LDQ;        // BK x HD
-  float* sP = sV + BK * HD;         // BQ x LDP probabilities
+  float* sV = sK + BK * LDQ;        // BK x HDV
+  float* sP = sV + BK * HDV;        // BQ x LDP probabilities
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int q0 = blockIdx.x * BQ;
   const int bh = blockIdx.y;                       // b * H + h
   const int bkv = (bh / H) * (H / G) + (bh % H) / G;  // b * KH + h / G
   const T* kp = k + (size_t)bkv * Sk * hd;
-  const T* vp = v + (size_t)bkv * Sk * hd;
+  const T* vp = v + (size_t)bkv * Sk * hd_v;
 
   load_rows<T, HD, BQ, LDQ, NT>(sQ, q + ((size_t)bh * Sq + q0) * hd,
                                 min(BQ, Sq - q0), scale, hd);
@@ -148,7 +161,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int kv_rows = min(BK, Sk - k0);
     load_rows<T, HD, BK, LDQ, NT>(sK, kp + (size_t)k0 * hd, kv_rows, 1.f,
                                   hd);
-    load_rows<T, HD, BK, HD, NT>(sV, vp + (size_t)k0 * hd, kv_rows, 1.f, hd);
+    load_rows<T, HDV, BK, HDV, NT>(sV, vp + (size_t)k0 * hd_v, kv_rows, 1.f,
+                                   hd_v);
     __syncthreads();
 
     float s[4][4];
@@ -210,7 +224,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i) p[i] = sP[(ty * 4 + i) * LDP + kk];
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) vv[j] = sV[kk * HD + tx + 16 * j];
+      for (int j = 0; j < NJ; ++j) vv[j] = sV[kk * HDV + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -225,10 +239,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float den = fmaxf(l[i], 1e-37f);
     if (lse != nullptr && tx == 0)
       lse[(size_t)bh * Sq + r] = m[i] + logf(den);
-    T* op = o + ((size_t)bh * Sq + r) * hd;
+    T* op = o + ((size_t)bh * Sq + r) * hd_v;
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
-      if (tx + 16 * j < hd) op[tx + 16 * j] = from_float<T>(acc[i][j] / den);
+      if (tx + 16 * j < hd_v) op[tx + 16 * j] = from_float<T>(acc[i][j] / den);
   }
 }
 
@@ -236,24 +250,30 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 constexpr int TC_NT = 128, TC_BQ = 64, TC_BK = 64;
 
-template <int HD>
+template <int HD, int HDV>
 constexpr size_t tc_fwd_smem_bytes() {
-  return (size_t)(TC_BQ + 4 * TC_BK) * (HD + 8) * sizeof(bf16);
+  return ((size_t)(TC_BQ + 2 * TC_BK) * (HD + 8) +
+          (size_t)2 * TC_BK * (HDV + 8)) * sizeof(bf16);
 }
 
 // one block per (b*H + h, q tile); q tiles in reverse, heaviest first
-template <int HD>
+template <int HD, int HDV, bool SAME>
 __global__ void __launch_bounds__(TC_NT, 2)
 flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ o,
                     float* __restrict__ lse, int H, int G, int Sq, int Sk,
-                    int hd, int q_offset, int causal, int window,
+                    int hd, int hd_v, int q_offset, int causal, int window,
                     float scale) {
-  constexpr int LD = HD + 8, KS = HD / 16, NK = TC_BK / 8, ND = HD / 8;
+  if (SAME) hd_v = hd;   // v as wide as q, k: one width for the compiler
+  constexpr int LD = HD + 8, LDV = HDV + 8, KS = HD / 16, NK = TC_BK / 8,
+                ND = HDV / 8;
+  // Q's fragments stay in registers up to HD 128; wider, they are read
+  // from sQ at each kv tile (see the header)
+  constexpr bool QREG = HD <= 128;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // TC_BQ x LD
   bf16* sK = sQ + TC_BQ * LD;                      // 2 stages of TC_BK x LD
-  bf16* sV = sK + 2 * TC_BK * LD;                  // 2 stages of TC_BK x LD
+  bf16* sV = sK + 2 * TC_BK * LD;                  // 2 stages of TC_BK x LDV
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3, w0 = warp * 16;
@@ -261,7 +281,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_BQ;
   const int bkv = (bh / H) * (H / G) + (bh % H) / G;  // b * KH + h / G
   const bf16* kp = k + (size_t)bkv * Sk * hd;
-  const bf16* vp = v + (size_t)bkv * Sk * hd;
+  const bf16* vp = v + (size_t)bkv * Sk * hd_v;
   const int q_rows = min(TC_BQ, Sq - q0);
   const int row0 = q_offset + q0;   // global position of tile row 0
   int kv_begin = 0, kv_end = Sk;
@@ -274,12 +294,13 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                 hd);
   if (n_it > 0) {
     cp_tile<HD, TC_BK, LD, TC_NT>(sK, kp + (size_t)kt0 * hd, Sk - kt0, hd);
-    cp_tile<HD, TC_BK, LD, TC_NT>(sV, vp + (size_t)kt0 * hd, Sk - kt0, hd);
+    cp_tile<HDV, TC_BK, LDV, TC_NT>(sV, vp + (size_t)kt0 * hd_v, Sk - kt0,
+                                    hd_v);
   }
   cp_async_commit();
 
   // this thread's rows of the warp's 16: w0 + g and w0 + g + 8
-  uint32_t qf[KS][4];
+  uint32_t qf[QREG ? KS : 1][4];
   float acc[ND][4];
 #pragma unroll
   for (int n = 0; n < ND; ++n)
@@ -293,21 +314,22 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int nk0 = k0 + TC_BK;
       cp_tile<HD, TC_BK, LD, TC_NT>(sK + (st ^ 1) * TC_BK * LD,
                                     kp + (size_t)nk0 * hd, Sk - nk0, hd);
-      cp_tile<HD, TC_BK, LD, TC_NT>(sV + (st ^ 1) * TC_BK * LD,
-                                    vp + (size_t)nk0 * hd, Sk - nk0, hd);
+      cp_tile<HDV, TC_BK, LDV, TC_NT>(sV + (st ^ 1) * TC_BK * LDV,
+                                      vp + (size_t)nk0 * hd_v, Sk - nk0,
+                                      hd_v);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (it == 0) {
+    if (QREG && it == 0) {
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks)
-        ldsm_x4(qf[ks], a_addr(sQ, LD, w0, ks * 16, lane));
+        ldsm_x4(qf[QREG ? ks : 0], a_addr(sQ, LD, w0, ks * 16, lane));
     }
     const bf16* Ks = sK + st * TC_BK * LD;
-    const bf16* Vs = sV + st * TC_BK * LD;
+    const bf16* Vs = sV + st * TC_BK * LDV;
 
     // S = Q K^T, fp32 sums
     float s[NK][4];
@@ -317,12 +339,19 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
+      uint32_t a[4];
+      if (QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[QREG ? ks : 0][e];
+      } else {
+        ldsm_x4(a, a_addr(sQ, LD, w0, ks * 16, lane));
+      }
 #pragma unroll
       for (int np = 0; np < NK / 2; ++np) {
         uint32_t b[4];
         ldsm_x4(b, b_addr(Ks, LD, np * 16, ks * 16, lane));
-        mma_bf16(s[2 * np], qf[ks], b[0], b[1]);
-        mma_bf16(s[2 * np + 1], qf[ks], b[2], b[3]);
+        mma_bf16(s[2 * np], a, b[0], b[1]);
+        mma_bf16(s[2 * np + 1], a, b[2], b[3]);
       }
     }
     // scale in fp32; mask only where the causal edge, the window edge or
@@ -388,7 +417,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int np = 0; np < ND / 2; ++np) {
         uint32_t b[4];
-        ldsm_x4_t(b, bt_addr(Vs, LD, kk * 16, np * 16, lane));
+        ldsm_x4_t(b, bt_addr(Vs, LDV, kk * 16, np * 16, lane));
         mma_pair(acc[2 * np], acc[2 * np + 1], hi, lo, b);
       }
     }
@@ -408,11 +437,11 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float den = fmaxf(l[i], 1e-37f);
     if (lse != nullptr && t == 0)
       lse[(size_t)bh * Sq + q0 + r] = m[i] + logf(den);
-    bf16* out = o + ((size_t)bh * Sq + q0 + r) * hd;
+    bf16* out = o + ((size_t)bh * Sq + q0 + r) * hd_v;
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
       const int c = n * 8 + 2 * t;
-      if (c < hd)
+      if (c < hd_v)
         *reinterpret_cast<__nv_bfloat162*>(out + c) = __floats2bfloat162_rn(
             acc[n][2 * i] / den, acc[n][2 * i + 1] / den);
     }
@@ -423,7 +452,7 @@ struct FwdArgs {
   const void *q, *k, *v;
   void* o;
   float* lse;
-  int B, H, KH, Sq, Sk, hd, q_offset, causal, window;
+  int B, H, KH, Sq, Sk, hd, hd_v, q_offset, causal, window;
   float scale;
   int* occupancy;   // non-null: report blocks per SM instead of launching
 };
@@ -442,26 +471,28 @@ cudaError_t run(Kern kern, const FwdArgs& a, dim3 grid, int threads,
   kern<<<grid, threads, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.H,
-      a.H / a.KH, a.Sq, a.Sk, a.hd, a.q_offset, a.causal, a.window, a.scale);
+      a.H / a.KH, a.Sq, a.Sk, a.hd, a.hd_v, a.q_offset, a.causal, a.window,
+      a.scale);
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, int HDV, bool SAME>
 cudaError_t launch_f32(const FwdArgs& a, cudaStream_t st) {
-  return run<float>(flash_fwd_kernel<float, HD>, a,
+  return run<float>(flash_fwd_kernel<float, HD, HDV, SAME>, a,
                     dim3((a.Sq + BQ - 1) / BQ, a.B * a.H), NT,
-                    fwd_smem_bytes<HD>(), st);
+                    fwd_smem_bytes<HD, HDV>(), st);
 }
 
-template <int HD>
+template <int HD, int HDV, bool SAME>
 cudaError_t launch_tc(const FwdArgs& a, cudaStream_t st) {
-  return run<bf16>(flash_fwd_tc_kernel<HD>, a,
+  return run<bf16>(flash_fwd_tc_kernel<HD, HDV, SAME>, a,
                    dim3(a.B * a.H, (a.Sq + TC_BQ - 1) / TC_BQ), TC_NT,
-                   tc_fwd_smem_bytes<HD>(), st);
+                   tc_fwd_smem_bytes<HD, HDV>(), st);
 }
 
 cudaError_t dispatch(const FwdArgs& a, int dtype, cudaStream_t st) {
-  if (a.hd % 8 || a.hd < 8 || a.hd > 128) return cudaErrorInvalidValue;
+  const int pair = attn_pair(a.hd, a.hd_v);
+  if (pair < 0) return cudaErrorInvalidValue;
   if (a.occupancy == nullptr) {
     if (a.B <= 0 || a.H <= 0 || a.Sq <= 0) return cudaSuccess;
     if (a.KH <= 0 || a.H % a.KH) return cudaErrorInvalidValue;
@@ -470,10 +501,19 @@ cudaError_t dispatch(const FwdArgs& a, int dtype, cudaStream_t st) {
     if ((dtype == 0 && a.B * a.H > 65535) || (dtype == 1 && nq > 65535))
       return cudaErrorInvalidValue;
   }
+  const bool same = a.hd == a.hd_v;
   if (dtype == 0)
-    return a.hd <= 64 ? launch_f32<64>(a, st) : launch_f32<128>(a, st);
+    return pair == 2 ? launch_f32<192, 128, false>(a, st)
+           : same    ? (pair == 0 ? launch_f32<64, 64, true>(a, st)
+                                  : launch_f32<128, 128, true>(a, st))
+                     : (pair == 0 ? launch_f32<64, 64, false>(a, st)
+                                  : launch_f32<128, 128, false>(a, st));
   if (dtype == 1)
-    return a.hd <= 64 ? launch_tc<64>(a, st) : launch_tc<128>(a, st);
+    return pair == 2 ? launch_tc<192, 128, false>(a, st)
+           : same    ? (pair == 0 ? launch_tc<64, 64, true>(a, st)
+                                  : launch_tc<128, 128, true>(a, st))
+                     : (pair == 0 ? launch_tc<64, 64, false>(a, st)
+                                  : launch_tc<128, 128, false>(a, st));
   return cudaErrorInvalidValue;
 }
 
@@ -481,26 +521,29 @@ cudaError_t dispatch(const FwdArgs& a, int dtype, cudaStream_t st) {
 }  // namespace repro
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  q
-// (B,H,Sq,hd), k/v (B,KH,Sk,hd), out (B,H,Sq,hd), all contiguous, hd a
-// multiple of 8 up to 128; lse (B,H,Sq) fp32, or null for the forward
-// without it; scale 1/sqrt(hd).  Returns the launch's cudaError_t.
+// (B,H,Sq,hd), k (B,KH,Sk,hd), v (B,KH,Sk,hd_v), out (B,H,Sq,hd_v), all
+// contiguous, (hd, hd_v) multiples of 8 that a compiled pair holds
+// (attn_pair); lse (B,H,Sq) fp32, or null for the forward without it;
+// scale 1/sqrt(hd).  Returns the launch's cudaError_t.
 extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
                                void* o, void* lse, int B, int H, int KH,
-                               int Sq, int Sk, int hd, int q_offset,
-                               int causal, int window, int dtype,
-                               float scale, void* stream) {
-  const repro::FwdArgs a{q,  k,  v,  o,  static_cast<float*>(lse),
-                         B,  H,  KH, Sq, Sk, hd, q_offset, causal, window,
+                               int Sq, int Sk, int hd, int hd_v,
+                               int q_offset, int causal, int window,
+                               int dtype, float scale, void* stream) {
+  const repro::FwdArgs a{q,  k,    v,        o,      static_cast<float*>(lse),
+                         B,  H,    KH,       Sq,     Sk,
+                         hd, hd_v, q_offset, causal, window,
                          scale, nullptr};
   return repro::dispatch(a, dtype, static_cast<cudaStream_t>(stream));
 }
 
-// *blocks = the blocks of K1 that one SM holds at once for this head
-// width and dtype, as the CUDA runtime's occupancy calculator gives it for
-// the compiled kernel.
-extern "C" int repro_flash_fwd_occupancy(int hd, int dtype, int* blocks) {
+// *blocks = the blocks of K1 that one SM holds at once for these head
+// widths and dtype, as the CUDA runtime's occupancy calculator gives it
+// for the compiled kernel.
+extern "C" int repro_flash_fwd_occupancy(int hd, int hd_v, int dtype,
+                                         int* blocks) {
   const repro::FwdArgs a{nullptr, nullptr, nullptr, nullptr, nullptr,
-                         1, 1, 1, 1, 1, hd, 0, 0, 0, 1.f, blocks};
+                         1, 1, 1, 1, 1, hd, hd_v, 0, 0, 0, 1.f, blocks};
   return repro::dispatch(a, dtype, nullptr);
 }
 

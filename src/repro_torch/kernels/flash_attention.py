@@ -49,14 +49,19 @@ either forward feeds any backward), ``P = exp(s − lse)``,
 0 (the causal and window masks compare global positions; it takes no
 gradient), ragged lengths masked by index.
 
-Head widths: K1, K2 and K3 take any hd that is a multiple of 8 up to 128
-(``autotune.kernel_head_dim``; 32 for the ``reduced()`` configs, 120 for
-h2o-danube3-4b).  They are compiled at 64 and 128 and zero-fill the
-columns past hd in shared memory, so the tensors stay unpadded; the
-wrapper passes the scale 1/√hd of the true width.  The bf16 K4f and K4b
-take the same widths the same way (``autotune.mega_width``); the fp32
-ones take hd 64 and 128 only (``autotune.HEAD_DIMS``): the planner keeps
-other widths off them, and a K4 wrapper given one on the card raises.
+Head widths: q and k have width hd, v and the output hd_v.  K1, K2 and
+K3 take any pair of multiples of 8 that one of their compiled pairs
+(64, 64), (128, 128) and (192, 128) holds (``autotune.kernel_head_dim``;
+hd 32 for the ``reduced()`` configs, 120 for h2o-danube3-4b, (192, 128)
+for DeepSeek-V2's MLA heads and (48, 32) for its narrow test variant).
+They zero-fill the columns past the true widths in shared memory, so the
+tensors stay unpadded; the wrapper passes the scale 1/√hd of the true
+q/k width.  Any other pair (the absorbed MLA route's (576, 512)) raises
+``ValueError`` naming both widths.  The bf16 K4f and K4b take the widths
+up to 128 the same way (``autotune.mega_width``), with hd_v == hd; the
+fp32 ones take hd 64 and 128 only (``autotune.HEAD_DIMS``): the planner
+keeps other shapes off them, and a K4 wrapper given one on the card
+raises.
 """
 from __future__ import annotations
 
@@ -110,8 +115,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     K4f's form — a softmax over whole score rows, blocks of query rows —
     and K1's online softmax computes the same function.
 
-    q: (B, H, Sq, hd); k, v: (B, KH, Sk, hd) → out (B, H, Sq, hd_v), and
-    with ``with_lse`` also lse (B, H, Sq) fp32.
+    q: (B, H, Sq, hd); k: (B, KH, Sk, hd); v: (B, KH, Sk, hd_v) → out
+    (B, H, Sq, hd_v), and with ``with_lse`` also lse (B, H, Sq) fp32.
     """
     b, h, sq, _ = q.shape
     vf = v.float()
@@ -195,34 +200,40 @@ def _check(name, q, k, v, *rest):
 
 
 def check_head_dim(name, q, k, v):
-    """Raise ``ValueError`` unless q, k and v share a head width the
-    tiled kernels take (``autotune.kernel_head_dim``): a multiple of 8
-    up to 128.  A pure function of the shapes."""
-    hd = q.shape[-1]
+    """Raise ``ValueError`` unless k has q's head width hd, v is (B, KH,
+    Sk, hd_v) under k's (B, KH, Sk), and a compiled pair of the tiled
+    kernels holds (hd, hd_v) (``autotune.kernel_head_dim``).  A pure
+    function of the shapes."""
+    hd, hd_v = q.shape[-1], v.shape[-1]
     try:
-        autotune.kernel_head_dim(hd)
+        autotune.kernel_head_dim(hd, hd_v)
     except ValueError as e:
         raise ValueError(f"{name}: {e}") from None
-    if k.shape[-1] != hd or v.shape != k.shape:
+    if k.shape[-1] != hd or v.ndim != 4 or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"{name}: head_dim {hd}, k {tuple(k.shape)}, v "
-                         f"{tuple(v.shape)}: equal widths, v shaped as k")
+                         f"{tuple(v.shape)}: k as wide as q, v (B, KH, Sk) "
+                         "as k")
 
 
 def _check_bwd(name, q, k, v, do, lse, delta):
     _check(name, q, k, v, do, lse, delta)
     b, h, sq, _ = q.shape
-    if do.shape != q.shape or do.dtype != q.dtype:
-        raise ValueError(f"{name}: do must match q in shape and dtype")
+    if do.shape != (b, h, sq, v.shape[-1]) or do.dtype != q.dtype:
+        raise ValueError(f"{name}: do must be (B, H, Sq, hd_v) in q's "
+                         "dtype")
     for t in (lse, delta):
         if t.shape != (b, h, sq) or t.dtype != torch.float32:
             raise ValueError(f"{name}: lse and delta must be fp32 (B, H, Sq)")
 
 
-def _dims(q, k, q_offset, causal, window):
+def _dims(q, k, q_offset, causal, window, v=None):
+    """The launch's shape ints; with ``v`` (the tiled kernels) hd_v
+    follows hd."""
     b, h, sq, hd = q.shape
     _, kh, sk, _ = k.shape
-    return (b, h, kh, sq, sk, hd, int(q_offset), int(causal), int(window),
-            _DTYPES[q.dtype])
+    widths = (hd,) if v is None else (hd, v.shape[-1])
+    return (b, h, kh, sq, sk, *widths, int(q_offset), int(causal),
+            int(window), _DTYPES[q.dtype])
 
 
 def _scale(q):
@@ -237,11 +248,11 @@ def _stream(q):
 
 def _fwd_kernel(q, k, v, q_offset, causal, window, lse):
     _check("flash_attention", q, k, v)
-    out = torch.empty_like(q)
+    out = q.new_empty((*q.shape[:3], v.shape[-1]))
     err = _build.load().repro_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
-        *_dims(q, k, q_offset, causal, window), _scale(q), _stream(q))
+        *_dims(q, k, q_offset, causal, window, v), _scale(q), _stream(q))
     _build.check(err, "flash_attention launch")
     return out
 
@@ -250,7 +261,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         q_offset: int = 0, *, causal: bool = True,
                         window: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1 with the logsumexp: (out (B, H, Sq, hd), lse (B, H, Sq) fp32).
+    """K1 with the logsumexp: (out (B, H, Sq, hd_v), lse (B, H, Sq)
+    fp32).
 
     CUDA tensors launch K1 (``flash_attention_fwd.launches`` counts them);
     CPU tensors take :func:`flash_attention_plain`.
@@ -268,9 +280,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, q_offset: int = 0, *,
                            causal: bool = True, window: int = 0
                            ) -> torch.Tensor:
-    """K2's dq pass: dq (B, H, Sq, hd) like q.  ``delta`` is
-    rowsum(do · out) in fp32, (B, H, Sq).  CPU tensors take the plain
-    backward."""
+    """K2's dq pass: dq (B, H, Sq, hd) like q; ``do`` is (B, H, Sq,
+    hd_v) like the output.  ``delta`` is rowsum(do · out) in fp32, (B, H,
+    Sq).  CPU tensors take the plain backward."""
     if q.device.type == "cpu":
         return _bwd_plain(q, k, v, do, lse, delta, q_offset, causal,
                           window)[0]
@@ -279,7 +291,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, q_offset: int = 0, *,
     err = _build.load().repro_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        *_dims(q, k, q_offset, causal, window), _scale(q), _stream(q))
+        *_dims(q, k, q_offset, causal, window, v), _scale(q), _stream(q))
     _build.check(err, "flash_attention_bwd_dq launch")
     flash_attention_bwd_dq.launches += 1
     return dq
@@ -288,8 +300,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, q_offset: int = 0, *,
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, q_offset: int = 0, *,
                             causal: bool = True, window: int = 0
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2's dk/dv pass: (dk, dv) like k, summed over each kv head's G
-    query heads inside one block (no atomics)."""
+    """K2's dk/dv pass: (dk like k, dv like v), summed over each kv
+    head's G query heads inside one block (no atomics)."""
     if q.device.type == "cpu":
         return _bwd_plain(q, k, v, do, lse, delta, q_offset, causal,
                           window)[1:]
@@ -298,7 +310,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, q_offset: int = 0, *,
     err = _build.load().repro_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_dims(q, k, q_offset, causal, window), _scale(q), _stream(q))
+        *_dims(q, k, q_offset, causal, window, v), _scale(q), _stream(q))
     _build.check(err, "flash_attention_bwd_dkv launch")
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
@@ -321,11 +333,19 @@ def flash_attention_bwd_fused(q, k, v, do, lse, delta, q_offset: int = 0, *,
     err = _build.load().repro_flash_bwd_fused(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), *_dims(q, k, q_offset, causal, window), _scale(q),
+        dv.data_ptr(), *_dims(q, k, q_offset, causal, window, v), _scale(q),
         _stream(q))
     _build.check(err, "flash_attention_bwd_fused launch")
     flash_attention_bwd_fused.launches += 1
     return dq_acc.to(q.dtype), dk, dv
+
+
+def _mega_same_width(name, k, v):
+    """K4 is compiled for v as wide as k: raise for any other v (the
+    planner sends it none)."""
+    if v.shape != k.shape:
+        raise ValueError(f"{name}: k {tuple(k.shape)}, v {tuple(v.shape)}: "
+                         "K4 takes v shaped as k")
 
 
 def _mega_block(name, bwd, sk, hd, dtype):
@@ -350,8 +370,8 @@ def flash_attention_mega_fwd(q: torch.Tensor, k: torch.Tensor,
                              causal: bool = True, window: int = 0,
                              with_lse: bool = False):
     """K4f: K1's function with one block per (batch, kv head) over the
-    whole sequence.  Returns out (B, H, Sq, hd), and with ``with_lse``
-    also lse (B, H, Sq) fp32.
+    whole sequence, for v as wide as k.  Returns out (B, H, Sq, hd), and
+    with ``with_lse`` also lse (B, H, Sq) fp32.
 
     CUDA tensors launch K4f (``flash_attention_mega_fwd.launches`` counts
     every launch, ``.lse_launches`` those with the logsumexp); CPU tensors
@@ -363,8 +383,9 @@ def flash_attention_mega_fwd(q: torch.Tensor, k: torch.Tensor,
                                      window=window, with_lse=with_lse)
     name = "flash_attention_mega_fwd"
     _check(name, q, k, v)
+    _mega_same_width(name, k, v)
     rows, smem = _mega_block(name, False, k.shape[2], q.shape[3], q.dtype)
-    out = torch.empty_like(q)
+    out = q.new_empty((*q.shape[:3], v.shape[-1]))
     lse = (torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
            if with_lse else None)
     err = _build.load().repro_flash_mega_fwd(
@@ -393,6 +414,7 @@ def flash_attention_mega_bwd(q, k, v, do, lse, delta, q_offset: int = 0, *,
         return _bwd_plain(q, k, v, do, lse, delta, q_offset, causal, window)
     name = "flash_attention_mega_bwd"
     _check_bwd(name, q, k, v, do, lse, delta)
+    _mega_same_width(name, k, v)
     rows, smem = _mega_block(name, True, k.shape[2], q.shape[3], q.dtype)
     dq = torch.empty_like(q)
     # no query rows: no block runs, and dk, dv are zero
@@ -423,26 +445,31 @@ def mega_occupancy(bwd: bool, sk: int, hd: int,
     return rows, smem, blocks.value
 
 
-def fwd_occupancy(hd: int, dtype: torch.dtype) -> int:
-    """Blocks per SM of K1 at this head width and dtype (bf16: the
-    tensor-core kernel), from the CUDA runtime's occupancy calculator for
-    the compiled kernel on the current device; builds the kernels."""
+def fwd_occupancy(hd: int, dtype: torch.dtype,
+                  hd_v: Optional[int] = None) -> int:
+    """Blocks per SM of K1 at these head widths (``hd_v`` defaults to
+    ``hd``) and dtype (bf16: the tensor-core kernel), from the CUDA
+    runtime's occupancy calculator for the compiled kernel on the current
+    device; builds the kernels."""
     blocks = ctypes.c_int(0)
     err = _build.load().repro_flash_fwd_occupancy(
-        autotune.kernel_head_dim(hd), _DTYPES[dtype], ctypes.byref(blocks))
+        *autotune.kernel_head_dim(hd, hd_v), _DTYPES[dtype],
+        ctypes.byref(blocks))
     _build.check(err, "fwd_occupancy")
     return blocks.value
 
 
-def bwd_occupancy(which: str, hd: int, dtype: torch.dtype) -> int:
+def bwd_occupancy(which: str, hd: int, dtype: torch.dtype,
+                  hd_v: Optional[int] = None) -> int:
     """Blocks per SM of the backward kernel ``which`` ("dq", "dkv" or
-    "fused") at this head width and dtype, from the CUDA runtime's
-    occupancy calculator for the compiled kernel on the current device;
-    builds the kernels."""
+    "fused") at these head widths (``hd_v`` defaults to ``hd``) and
+    dtype, from the CUDA runtime's occupancy calculator for the compiled
+    kernel on the current device; builds the kernels."""
     blocks = ctypes.c_int(0)
     err = _build.load().repro_flash_bwd_occupancy(
-        ("dq", "dkv", "fused").index(which), autotune.kernel_head_dim(hd),
-        _DTYPES[dtype], ctypes.byref(blocks))
+        ("dq", "dkv", "fused").index(which),
+        *autotune.kernel_head_dim(hd, hd_v), _DTYPES[dtype],
+        ctypes.byref(blocks))
     _build.check(err, "bwd_occupancy")
     return blocks.value
 
@@ -527,7 +554,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     window: int = 0, fused_bwd: Optional[bool] = None,
                     block_q: Optional[int] = None,
                     block_k: Optional[int] = None) -> torch.Tensor:
-    """q: (B, H, Sq, hd); k, v: (B, KH, Sk, hd) → (B, H, Sq, hd).
+    """q: (B, H, Sq, hd); k: (B, KH, Sk, hd); v: (B, KH, Sk, hd_v) →
+    (B, H, Sq, hd_v).
 
     Differentiable in q, k, v.  Each call is planned by
     :func:`attention_plan`; ``block_q`` / ``block_k`` are the config's

@@ -21,7 +21,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_offset: int = 0, *, causal: bool = True,
                     window: int = 0, block_q: Optional[int] = None,
                     block_k: Optional[int] = None) -> torch.Tensor:
-    """Model layout: q (B,S,H,hd), k/v (B,S,KH,hd) → (B,S,H,hd_v).
+    """Model layout: q (B,S,H,hd), k (B,S,KH,hd), v (B,S,KH,hd_v) →
+    (B,S,H,hd_v); (hd, hd_v) is one of the widths the kernels take
+    (``autotune.kernel_head_dim``), such as MLA's (192, 128).
 
     Differentiable: the transposes are torch ops outside the kernels'
     autograd Function, so gradients come back in model layout.

@@ -1,10 +1,11 @@
 """End-to-end training driver (torch).
 
-Runs a dense, moe without MLA (arctic-480b, with its int8 AdamW
-moments), ssm (mamba2-1.3b) or hybrid (zamba2-1.2b) architecture
-(reduced or full config) through the OCR-runtime trainer on ``--device``
-(the card by default): §4 labeled step map, §5 chunked checkpoints,
-fail-stop restart, straggler watchdog.
+Runs a dense, moe (arctic-480b; deepseek-v2-236b with MLA; both with
+their int8 AdamW moments and ``train_accum_steps`` micro-batches), ssm
+(mamba2-1.3b) or hybrid (zamba2-1.2b) architecture (reduced or full
+config) through the OCR-runtime trainer on ``--device`` (the card by
+default): §4 labeled step map, §5 chunked checkpoints, fail-stop
+restart, straggler watchdog.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
       --smoke --device cpu --steps 100 --batch 8 --seq 128 \\
@@ -42,6 +43,18 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
+def optimizer_config(cfg, args: argparse.Namespace) -> OptimizerConfig:
+    """AdamW as the flags and the config say: the config's moment dtype
+    (int8 for arctic and deepseek-v2) and its ``train_accum_steps``
+    micro-batches a step (4 for both), as the reference's dry run takes
+    them."""
+    return OptimizerConfig(peak_lr=args.lr,
+                           warmup_steps=max(args.steps // 20, 5),
+                           total_steps=args.steps,
+                           state_dtype=cfg.optimizer_state_dtype,
+                           accum_steps=cfg.train_accum_steps)
+
+
 def run(args: argparse.Namespace):
     """Train as the flags say; returns (trainer, final state).  Weights
     come from a ``torch.Generator`` seeded with 0 on the model's device."""
@@ -52,9 +65,7 @@ def run(args: argparse.Namespace):
     if args.smoke:
         cfg = cfg.reduced()
     model = LanguageModel(cfg, device=args.device)
-    oc = OptimizerConfig(peak_lr=args.lr, warmup_steps=max(args.steps // 20, 5),
-                         total_steps=args.steps,
-                         state_dtype=cfg.optimizer_state_dtype)
+    oc = optimizer_config(cfg, args)
 
     if args.data in ("synthetic", "markov"):
         data = SyntheticTokens(cfg.vocab_size, args.batch, args.seq,

@@ -1,10 +1,14 @@
-"""The decoder layer (``kind`` "dense" or "moe" of
-``repro.models.blocks``) and the Mamba2 layer: init plus train, prefill
-and decode application.
+"""The decoder layer (``kind`` "dense", "moe", "mla_dense" or "mla_moe"
+of ``repro.models.blocks``) and the Mamba2 layer: init plus train,
+prefill and decode application.
 
 Pre-norm residual, as ``repro.models.blocks``.  Attention compute routes
 through ``repro_torch.dist.flash``, which picks the kernel.  The MLA
-kinds ("mla_dense", "mla_moe") are not ported yet and raise.
+kinds attend with DeepSeek-V2's multi-head latent attention: per-head q
+and k of width ``qk_nope_head_dim + qk_rope_head_dim`` and v of width
+``v_head_dim`` through the flash kernels in train and prefill, whose
+cache is the latents {"c_kv", "k_rope"}, and the absorbed latent-space
+decode.
 """
 from __future__ import annotations
 
@@ -13,7 +17,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.dist.flash import causal_attention, decode_update_and_attend
-from .attention import gqa_init, gqa_qkv
+from .attention import _mla_qkv_full, gqa_init, gqa_qkv, mla_decode, mla_init
 from .layers import (Params, _dtype, apply_rope, cast_params, mlp, mlp_init,
                      rmsnorm, rmsnorm_init, stack_trees)
 from .mamba import mamba_decode, mamba_init, mamba_prefill, mamba_train
@@ -47,30 +51,48 @@ def _attn_decode(p: Params, x: torch.Tensor, cfg,
     return o, {"k": kc, "v": vc}
 
 
+# -------------------------------------------------------------- MLA attention
+
+def _mla_apply(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
+               want_cache: bool = False):
+    """Train / prefill MLA on the full heads (q/k width dn + dr, v width
+    dv), as the reference's decoder layer runs it; with ``want_cache``
+    returns (out, latent cache {"c_kv" (B, S, rkv), "k_rope" (B, S,
+    dr)})."""
+    q, k, v, c_kv, k_rope = _mla_qkv_full(p, x, cfg, positions)
+    out = causal_attention(q, k, v, cfg=cfg)
+    o = torch.einsum("bshk,hkd->bsd", out, p["w_o"])
+    if not want_cache:
+        return o
+    return o, {"c_kv": c_kv, "k_rope": k_rope[:, :, 0, :]}
+
+
 # --------------------------------------------------------------- decoder layer
 
+_KINDS = ("dense", "moe", "mla_dense", "mla_moe")
+
+
 def _check_kind(kind: str) -> None:
-    if kind in ("mla_dense", "mla_moe"):
-        raise NotImplementedError(f"decoder layer kind {kind!r}: MLA is not "
-                                  f"ported yet (the MLA slice)")
-    if kind not in ("dense", "moe"):
+    if kind not in _KINDS:
         raise ValueError(kind)
 
 
-def _norms_attn_init(gen: torch.Generator, cfg) -> Params:
+def _norms_attn_init(gen: torch.Generator, cfg, kind: str) -> Params:
     dt = _dtype(cfg.param_dtype)
     return {"ln1": rmsnorm_init(cfg.d_model, dt, gen.device),
             "ln2": rmsnorm_init(cfg.d_model, dt, gen.device),
-            "attn": gqa_init(gen, cfg)}
+            "attn": (mla_init(gen, cfg) if kind.startswith("mla")
+                     else gqa_init(gen, cfg))}
 
 
 def decoder_layer_init(gen: torch.Generator, cfg, kind: str = "dense"
                        ) -> Params:
-    """kind ∈ {dense, moe}: the norms and attention, then the SwiGLU
-    ``mlp`` or the ``moe`` layer."""
+    """kind ∈ {dense, moe, mla_dense, mla_moe}: the norms and attention
+    (GQA, or MLA for the ``mla_`` kinds), then the SwiGLU ``mlp`` or the
+    ``moe`` layer."""
     _check_kind(kind)
-    p = _norms_attn_init(gen, cfg)
-    if kind == "moe":
+    p = _norms_attn_init(gen, cfg, kind)
+    if kind.endswith("moe"):
         p["moe"] = moe_init(gen, cfg)
     else:
         p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff,
@@ -84,10 +106,10 @@ def decoder_stack_init(gen: torch.Generator, cfg, kind: str, n: int
     at a time and stacked; a MoE stack draws its norms and attention
     layer by layer and its MoE leaves through ``moe_init(layers=n)``,
     which fills each expert bank in place, so no bank is held twice."""
-    if kind != "moe":
+    if not kind.endswith("moe"):
         return stack_trees([decoder_layer_init(gen, cfg, kind)
                             for _ in range(n)])
-    p = stack_trees([_norms_attn_init(gen, cfg) for _ in range(n)])
+    p = stack_trees([_norms_attn_init(gen, cfg, kind) for _ in range(n)])
     p["moe"] = moe_init(gen, cfg, layers=n)
     return p
 
@@ -97,9 +119,17 @@ def _ffn(p: Params, h: torch.Tensor, cfg, kind: str
     """(output, aux) of the layer's feed-forward: the MoE layer, or the
     dense MLP with zero aux."""
     _check_kind(kind)
-    if kind == "moe":
+    if kind.endswith("moe"):
         return moe_ffn(p["moe"], h, cfg)
     return mlp(p["mlp"], h), zero_aux(h.device)
+
+
+def _attn(p: Params, h: torch.Tensor, cfg, positions: torch.Tensor,
+          kind: str, want_cache: bool = False):
+    """The layer's train / prefill attention: MLA for the ``mla_`` kinds,
+    else GQA."""
+    apply = _mla_apply if kind.startswith("mla") else _attn_apply
+    return apply(p["attn"], h, cfg, positions, want_cache)
 
 
 def decoder_layer_train(p: Params, x: torch.Tensor, cfg,
@@ -111,7 +141,7 @@ def decoder_layer_train(p: Params, x: torch.Tensor, cfg,
     cast to fp32."""
     p = cast_params(p, cfg.dtype)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    x = x + _attn_apply(p["attn"], h, cfg, positions)
+    x = x + _attn(p, h, cfg, positions, kind)
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
     f, aux = _ffn(p, h, cfg, kind)
     return x + f, aux
@@ -122,7 +152,7 @@ def decoder_layer_prefill(p: Params, x: torch.Tensor, cfg,
                           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     p = cast_params(p, cfg.dtype)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    attn, cache = _attn_apply(p["attn"], h, cfg, positions, want_cache=True)
+    attn, cache = _attn(p, h, cfg, positions, kind, want_cache=True)
     x = x + attn
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
     return x + _ffn(p, h, cfg, kind)[0], cache
@@ -134,7 +164,8 @@ def decoder_layer_decode(p: Params, x: torch.Tensor, cfg,
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     p = cast_params(p, cfg.dtype)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    attn, cache = _attn_decode(p["attn"], h, cfg, cache, cur_len)
+    decode = mla_decode if kind.startswith("mla") else _attn_decode
+    attn, cache = decode(p["attn"], h, cfg, cache, cur_len)
     x = x + attn
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
     return x + _ffn(p, h, cfg, kind)[0], cache

@@ -1,5 +1,5 @@
-"""Language model for the dense, VLM (text-only), MoE (without MLA), SSM
-and hybrid families.
+"""Language model for the dense, VLM (text-only), MoE (with or without
+MLA), SSM and hybrid families.
 
 ``LanguageModel(cfg, device)`` exposes:
   init(generator)                              -> params
@@ -12,21 +12,26 @@ Parameters keep the reference's tree names and stacked shapes
 (``layers.attn.w_q`` is (L, D, H, hd), ``layers.mixer.w_x`` (L, D,
 d_inner), ``layers.moe.w_gate`` (L, E, D, F)), so one weight set feeds
 both packages; layers run as a Python loop over the stack.  A MoE model
-(arctic; deepseek without MLA) runs its ``first_k_dense`` dense layers
+(arctic, deepseek-v2) runs its ``first_k_dense`` dense layers
 (``dense_layers``, cache ``"dense"``) before its MoE layers
 (``layers``), and sums the MoE aux over layers into the train
-metrics.  The hybrid family (zamba2) applies one shared
+metrics.  Under ``use_mla`` (deepseek-v2) every decoder layer attends
+with multi-head latent attention (``layers.attn.w_uq`` (L, q_lora_rank,
+H, dn + dr), …), and the dense layers' MLP takes the full intermediate
+size (:attr:`LanguageModel._dense_cfg`).  The hybrid family (zamba2) applies one shared
 attention + MLP block (``params["shared_attn"]``, a single copy) before
 each group of ``attn_every`` Mamba layers, then the remainder layers.
 Caches follow the reference's ``cache_spec``: head-major attention
-caches (…, B, KH, S, hd), Mamba conv tails (…, B, K-1, C) and fp32
-states (…, B, H, P, N); decode updates them in place.  Training follows
+caches (…, B, KH, S, hd), MLA's latent caches c_kv (…, B, S, rkv) and
+k_rope (…, B, S, dr), Mamba conv tails (…, B, K-1, C) and fp32 states
+(…, B, H, P, N); decode updates them in place.  Training follows
 the reference's ``cfg.remat`` with ``torch.utils.checkpoint`` and its
 sequence-chunked cross entropy, which never materializes the full
 (B, S, V) logits.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -92,9 +97,6 @@ def _remat(body: Callable, cfg) -> Callable:
 
 class LanguageModel:
     def __init__(self, cfg, device="cuda"):
-        if cfg.use_mla:
-            raise NotImplementedError(
-                f"{cfg.name}: MLA attention is not ported yet (the MLA slice)")
         if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (dense, vlm, moe, "
@@ -104,7 +106,25 @@ class LanguageModel:
 
     @property
     def _kind(self) -> str:
-        return "moe" if self.cfg.family == "moe" else "dense"
+        if self.cfg.family != "moe":
+            return "dense"
+        return "mla_moe" if self.cfg.use_mla else "moe"
+
+    @property
+    def _dense_kind(self) -> str:
+        return "mla_dense" if self.cfg.use_mla else "dense"
+
+    @property
+    def _dense_cfg(self):
+        """The config of a MoE model's leading dense layers: under MLA
+        (deepseek-v2) their MLP takes the full intermediate size, 12288 at
+        d_model 5120 and otherwise 8 × ``d_ff`` (2048 for the reduced
+        config), as the reference's ``_dense_cfg``."""
+        cfg = self.cfg
+        if cfg.use_mla and cfg.first_k_dense:
+            return dataclasses.replace(
+                cfg, d_ff=12288 if cfg.d_model == 5120 else cfg.d_ff * 8)
+        return cfg
 
     def _stacked_layers(self) -> int:
         """Layers in ``params["layers"]`` (a MoE model's dense ones sit in
@@ -113,11 +133,12 @@ class LanguageModel:
 
     def _decoder_segments(self, params: Params):
         """The decoder stacks in the order they run, as (params key, cache
-        key, layers, kind): a MoE model's ``first_k_dense`` dense layers,
-        then the main stack."""
+        key, layers, kind, config): a MoE model's ``first_k_dense`` dense
+        layers (with :attr:`_dense_cfg`), then the main stack."""
         if "dense_layers" in params:
-            yield "dense_layers", "dense", self.cfg.first_k_dense, "dense"
-        yield "layers", "layers", self._stacked_layers(), self._kind
+            yield ("dense_layers", "dense", self.cfg.first_k_dense,
+                   self._dense_kind, self._dense_cfg)
+        yield "layers", "layers", self._stacked_layers(), self._kind, self.cfg
 
     # ----------------------------------------------------------------- init
 
@@ -140,7 +161,8 @@ class LanguageModel:
         else:
             if cfg.first_k_dense:
                 p["dense_layers"] = blocks.decoder_stack_init(
-                    generator, cfg, "dense", cfg.first_k_dense)
+                    generator, self._dense_cfg, self._dense_kind,
+                    cfg.first_k_dense)
             p["layers"] = blocks.decoder_stack_init(
                 generator, cfg, self._kind, self._stacked_layers())
         if cfg.family == "hybrid":
@@ -197,9 +219,9 @@ class LanguageModel:
                 x = mstep(x, p_l)
             return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
-        for key, _ck, n, kind in self._decoder_segments(params):
-            step = _remat(lambda xx, p_l, kind=kind:
-                          blocks.decoder_layer_train(p_l, xx, cfg, positions,
+        for key, _ck, n, kind, scfg in self._decoder_segments(params):
+            step = _remat(lambda xx, p_l, kind=kind, scfg=scfg:
+                          blocks.decoder_layer_train(p_l, xx, scfg, positions,
                                                      kind), cfg)
             for p_l in unstack_layers(params[key], n):
                 x, a = step(x, p_l)
@@ -269,7 +291,8 @@ class LanguageModel:
         """batch["tokens"]: (B, S) int → (last logits (B, V) fp32, cache):
         {"layers": {"k", "v"}} (L, B, KH, S, hd) for dense models (and a
         MoE model's MoE layers, with {"dense": {"k", "v"}} for its
-        leading dense ones), {"layers": mamba} for ssm, {"groups":
+        leading dense ones; under MLA {"c_kv", "k_rope"} (L, B, S, rkv |
+        dr) in their place), {"layers": mamba} for ssm, {"groups":
         {"attn", "mamba"}, "remainder": mamba} for hybrid (see
         :meth:`alloc_cache`)."""
         cfg = self.cfg
@@ -306,11 +329,12 @@ class LanguageModel:
                 x, cache["remainder"] = mamba_run(x, g * per, cfg.num_layers)
         else:
             cache = {}
-            for key, ck, n, kind in self._decoder_segments(params):
+            for key, ck, n, kind, scfg in self._decoder_segments(params):
                 kv = []
                 for i in range(n):
                     x, c = blocks.decoder_layer_prefill(
-                        layer_params(params[key], i), x, cfg, positions, kind)
+                        layer_params(params[key], i), x, scfg, positions,
+                        kind)
                     kv.append(c)
                 cache[ck] = stack_trees(kv)
         h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -349,10 +373,10 @@ class LanguageModel:
             if rem:
                 x = mamba_run(x, g * per, cfg.num_layers, cache["remainder"])
         else:
-            for key, ck, n, kind in self._decoder_segments(params):
+            for key, ck, n, kind, scfg in self._decoder_segments(params):
                 for i in range(n):
                     x, _ = blocks.decoder_layer_decode(
-                        layer_params(params[key], i), x, cfg,
+                        layer_params(params[key], i), x, scfg,
                         layer_params(cache[ck], i), cur, kind)
         h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return self._logits(params, h[:, -1]), cache
@@ -362,20 +386,27 @@ class LanguageModel:
     def alloc_cache(self, batch: int, seq: int,
                     init: Optional[Any] = None) -> Any:
         """Zeroed decode cache in the reference's ``cache_spec`` layout:
-        attention k/v (n, batch, KH, seq, hd) in the compute dtype; Mamba
+        attention k/v (n, batch, KH, seq, hd) in the compute dtype, or
+        under MLA the latents c_kv (n, batch, seq, rkv) and k_rope (n,
+        batch, seq, dr); Mamba
         conv tails (…, batch, K-1, C) in the compute dtype and states
         (…, batch, H, P, N) in fp32, both independent of ``seq``.  Dense:
         {"layers": kv}; MoE: {"layers": kv} over the MoE layers and, with
         ``first_k_dense``, {"dense": kv}; ssm: {"layers": mamba}; hybrid:
         {"groups": {"attn": kv (g, …), "mamba": mamba (g, per, …)},
         "remainder": mamba (rem, …)}.  ``init`` (a prefill cache of S ≤ seq positions)
-        is copied in: attention caches into their first S positions,
-        Mamba caches whole."""
+        is copied in: attention and latent caches into their first S
+        positions, Mamba caches whole."""
         cfg = self.cfg
         cdt = _dtype(cfg.dtype)
         dev = self.device
 
         def kv(n):
+            if cfg.use_mla:
+                return {name: torch.zeros((n, batch, seq, width), dtype=cdt,
+                                          device=dev)
+                        for name, width in (("c_kv", cfg.kv_lora_rank),
+                                            ("k_rope", cfg.qk_rope_head_dim))}
             shape = (n, batch, cfg.num_kv_heads, seq, cfg.head_dim)
             return {name: torch.zeros(shape, dtype=cdt, device=dev)
                     for name in ("k", "v")}
@@ -407,12 +438,13 @@ class LanguageModel:
 
 
 def _fill(buf: Any, src: Any) -> None:
-    """Copy a prefill cache into an allocated one: k/v into their first
-    S positions along seq, every other leaf whole."""
+    """Copy a prefill cache into an allocated one: attention k/v and MLA's
+    latents into their first S positions along seq (the second-to-last
+    dimension of each), every other leaf whole."""
     for name, b in buf.items():
         if isinstance(b, dict):
             _fill(b, src[name])
-        elif name in ("k", "v"):
+        elif name in ("k", "v", "c_kv", "k_rope"):
             b[..., : src[name].shape[-2], :] = src[name]
         else:
             b.copy_(src[name])

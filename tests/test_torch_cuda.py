@@ -7,7 +7,9 @@ reduced train step (tiled and megakernel routes) and reduced SSM /
 hybrid serving on the card against the CPU, the runtime's fused copy
 on the card against its numpy backend, and the MoE layer and a reduced
 arctic model on the card against the CPU (the layer also twice for the
-same bits).
+same bits); K1, K1-lse, K2 and K3 at DeepSeek-V2's MLA widths (q/k 192,
+v 128) and (48, 32) against their plain versions, and a reduced MLA
+model on the card against the CPU.
 They skip (from inside the fixture) where torch sees no CUDA device; on
 a machine with the card run
 
@@ -1309,6 +1311,139 @@ def test_moe_model_on_the_card_matches_the_cpu(cuda):
         loss, _m = model.train_loss(build(p), {
             k: v.to(model.device) for k, v in batch.items()})
         out.append((loss.item(), torch.autograd.grad(loss, leaves)))
+    (loss_g, grads_g), (loss_c, grads_c) = out
+    assert loss_g == pytest.approx(loss_c, rel=1e-5)
+    for a, c in zip(grads_g, grads_c):
+        assert (a.cpu() - c).abs().max().item() <= \
+            1e-4 * max(c.abs().max().item(), 1e-30)
+
+
+# ------------------------------------ MLA: v narrower than q and k (K1-K3)
+
+# DeepSeek-V2's heads, q/k 128 + 64 and v 128 (the compiled pair (192,
+# 128)), and the narrow test variant (48, 32) at (64, 64), at one kv head
+# too (the absorbed route's layout)
+MLA_CASES = [  # b, h, kh, sq, sk, hd, hd_v, dtype, window, q_offset
+    (1, 8, 8, 300, 300, 192, 128, torch.bfloat16, 0, 0),
+    (1, 8, 8, 257, 400, 192, 128, torch.float32, 0, 143),
+    (1, 4, 4, 600, 600, 192, 128, torch.bfloat16, 200, 0),
+    (2, 8, 8, 200, 200, 48, 32, torch.bfloat16, 0, 0),
+    (2, 8, 1, 150, 150, 48, 32, torch.float32, 0, 0),
+    (2, 4, 2, 333, 333, 48, 32, torch.bfloat16, 64, 0),
+]
+
+
+@pytest.mark.parametrize("b,h,kh,sq,sk,hd,hd_v,dtype,window,q_offset",
+                         MLA_CASES)
+def test_mla_widths_kernels_match_plain(cuda, b, h, kh, sq, sk, hd, hd_v,
+                                        dtype, window, q_offset):
+    """K1, K1-lse, K2 and K3 at hd_v != hd against the plain versions;
+    the output and dv are hd_v wide; K2 gives the same bits twice and K3
+    K2's dk and dv."""
+    q = _randn((b, h, sq, hd), dtype, cuda, 0)
+    k = _randn((b, kh, sk, hd), dtype, cuda, 1)
+    v = _randn((b, kh, sk, hd_v), dtype, cuda, 2)
+    do = _randn((b, h, sq, hd_v), dtype, cuda, 6)
+    kw = dict(causal=True, window=window)
+    got = fa.flash_attention(q, k, v, q_offset, **kw)
+    out, lse = fa.flash_attention_fwd(q, k, v, q_offset, **kw)
+    torch.cuda.synchronize()
+    want_out, want_lse = fa.flash_attention_plain(q, k, v, q_offset,
+                                                  with_lse=True, **kw)
+    assert got.shape == out.shape == (b, h, sq, hd_v)
+    for o in (got, out):
+        assert (o.float() - want_out.float()).abs().max().item() <= \
+            TOL[dtype]
+    _close(lse, want_lse, (1e-5, 1e-4))
+    delta = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, q_offset)
+    dq2 = fa.flash_attention_bwd_dq(*args, **kw)
+    dk2, dv2 = fa.flash_attention_bwd_dkv(*args, **kw)
+    dq3, dk3, dv3 = fa.flash_attention_bwd_fused(*args, **kw)
+    again = (fa.flash_attention_bwd_dq(*args, **kw),
+             *fa.flash_attention_bwd_dkv(*args, **kw))
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, q_offset,
+                                        causal=True, window=window)
+    for got2, got3, w, ref in zip((dq2, dk2, dv2), (dq3, dk3, dv3), want,
+                                  (q, k, v)):
+        assert got2.shape == got3.shape == w.shape == ref.shape
+        _close(got2, w, BWD_TOL[dtype])
+        _close(got3, w, BWD_TOL[dtype])
+    assert all(torch.equal(a, c) for a, c in zip(again, (dq2, dk2, dv2)))
+    assert torch.equal(dk2, dk3) and torch.equal(dv2, dv3)
+
+
+def test_wrappers_refuse_widths_no_pair_holds(cuda):
+    """The absorbed MLA route at full width, (576, 512), and v wider than
+    128: ``ValueError`` naming both widths, no launch."""
+    before = fa.flash_attention.launches
+    for hd, hd_v in ((576, 512), (192, 192), (64, 136)):
+        q = torch.zeros((1, 2, 8, hd), device=cuda, dtype=torch.bfloat16)
+        v = torch.zeros((1, 1, 8, hd_v), device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match=f"head_dim {hd}, v head_dim "
+                           f"{hd_v}"):
+            fa.flash_attention(q, q[:, :1], v)
+    assert fa.flash_attention.launches == before
+
+
+def test_mla_model_on_the_card_matches_the_cpu(cuda):
+    """Reduced fp32 deepseek with MLA at q/k 48 and v 32
+    (``attn_flash_min_seq=32``): prefill of 2 x 96 through K1 at (48,
+    32), three latent-space decode steps, and one ``train_loss`` with its
+    gradients through K1-lse and K3, on the card against the CPU's plain
+    path from the same weights; logits 1e-3, loss 1e-5 relative,
+    gradients 1e-4 of each leaf's largest entry."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LanguageModel
+    from repro_torch.optim.adamw import iter_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b").reduced(),
+                              qk_nope_head_dim=32, qk_rope_head_dim=16,
+                              v_head_dim=32, attn_flash_min_seq=32)
+    gpu, cpu = LanguageModel(cfg, device=cuda), LanguageModel(cfg, "cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    params_gpu = _tree_to(params, cuda)
+    rng = np.random.RandomState(0)
+    s = 96
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, s + 4)))
+    before = (fa.flash_attention.launches, fa.flash_attention_fwd.launches,
+              fa.flash_attention_bwd_fused.launches)
+    with torch.no_grad():
+        lg, cg = gpu.prefill(params_gpu, {"tokens": toks[:, :s].to(cuda)})
+        lc, cc = cpu.prefill(params, {"tokens": toks[:, :s]})
+        assert (lg.cpu() - lc).abs().max().item() <= 1e-3
+        cg, cc = gpu.alloc_cache(2, s + 3, init=cg), cpu.alloc_cache(
+            2, s + 3, init=cc)
+        for i in range(3):
+            tok = toks[:, s + i:s + i + 1]
+            lg, cg = gpu.decode_step(params_gpu, cg, tok.to(cuda), s + i)
+            lc, cc = cpu.decode_step(params, cc, tok, s + i)
+            assert (lg.cpu() - lc).abs().max().item() <= 1e-3
+    for part in cc:
+        for name in ("c_kv", "k_rope"):
+            assert (cg[part][name].cpu() - cc[part][name]).abs().max() \
+                .item() <= 1e-4
+    batch = {"tokens": toks[:, :s], "targets": toks[:, 1:s + 1]}
+    out = []
+    for model, p in ((gpu, params_gpu), (cpu, params)):
+        leaves = [x.detach().requires_grad_() for _p, x in iter_leaves(p)]
+        it = iter(leaves)
+
+        def build(node):
+            return {k: build(node[k]) if isinstance(node[k], dict)
+                    else next(it) for k in sorted(node)}
+        loss, _m = model.train_loss(build(p), {
+            k: v.to(model.device) for k, v in batch.items()})
+        out.append((loss.item(), torch.autograd.grad(loss, leaves)))
+    layers = cfg.num_layers
+    assert (fa.flash_attention.launches - before[0],
+            fa.flash_attention_fwd.launches - before[1],
+            fa.flash_attention_bwd_fused.launches - before[2]) == (
+        layers, 2 * layers, layers)
     (loss_g, grads_g), (loss_c, grads_c) = out
     assert loss_g == pytest.approx(loss_c, rel=1e-5)
     for a, c in zip(grads_g, grads_c):

@@ -164,7 +164,8 @@ def test_wrappers_take_multiples_of_8_up_to_128(hd, takes):
             with pytest.raises(ValueError, match="head_dim"):
                 check()
     if takes:
-        assert autotune.kernel_head_dim(hd) == (64 if hd <= 64 else 128)
+        w = 64 if hd <= 64 else 128
+        assert autotune.kernel_head_dim(hd) == (w, w)
     # K4 keeps its compiled widths: the planner sends it nothing else
     plan = autotune.plan_attention(
         40, hd, hd, 2, 66, 32,

@@ -6,7 +6,8 @@ across with ``params_from_numpy`` give the reference's prefill logits,
 ``"dense"`` / ``"layers"`` caches and decode logits; ``train_loss``, its
 MoE metrics and its gradients match ``jax.grad``; three ``Trainer``
 steps with drops (capacity factor 1.0) stamp the reference ``Trainer``'s
-dispatch gauges; an MLA config still raises.
+dispatch gauges; deepseek with its MLA builds the reference's init tree
+(``tests/test_torch_mla_model.py`` holds the MLA model itself).
 
 Tolerances as ``test_torch_model.py`` (logits 1e-4) and
 ``test_torch_train.py`` (metrics 1e-6 relative, gradients 1e-5 of each
@@ -165,22 +166,34 @@ def test_trainer_moe_gauges_match_reference(name):
     assert ts.moe_a2a_bytes == js.moe_a2a_bytes == 0
 
 
-def test_init_layout_and_mla_refused():
+def _init_layouts(jcfg, tcfg):
+    """(port init tree shapes, reference init tree shapes)."""
+    jp = JModel(jcfg).init(jax.random.PRNGKey(0))
+    tp = TModel(tcfg, device="cpu").init(torch.Generator().manual_seed(0))
+    want = {jax.tree_util.keystr(p): tuple(np.shape(x)) for p, x in
+            jax.tree_util.tree_flatten_with_path(jp)[0]}
+    got = {"".join(f"['{k}']" for k in path): tuple(x.shape)
+           for path, x in iter_leaves(tp)}
+    return got, want
+
+
+def test_init_layout_and_mla_layout():
     """``init`` gives the reference's tree (``dense_layers`` for
     ``first_k_dense``) in the config's dtypes, with int8 moments for
-    arctic's optimizer; a config with MLA still raises."""
+    arctic's optimizer; deepseek with its MLA gives the reference's MLA
+    tree (``attn.w_uq`` and no ``attn.w_q`` in both stacks, the dense
+    layer's MLP at 8 × d_ff)."""
     for name in ARCHS:
-        jm, jp, tm, _tp = _pair(name)
-        tp = tm.init(torch.Generator().manual_seed(0))
-        want = {jax.tree_util.keystr(p): tuple(np.shape(x)) for p, x in
-                jax.tree_util.tree_flatten_with_path(jp)[0]}
-        got = {"".join(f"['{k}']" for k in path): tuple(x.shape)
-               for path, x in iter_leaves(tp)}
+        jm, _jp, tm, _tp = _pair(name)
+        got, want = _init_layouts(jm.cfg, tm.cfg)
         assert got == want
     cfg = tget("arctic-480b")
     assert cfg.param_dtype == "bfloat16" and \
         cfg.optimizer_state_dtype == "int8"
-    with pytest.raises(NotImplementedError, match="MLA"):
-        TModel(tget("deepseek-v2-236b"), device="cpu")
-    with pytest.raises(NotImplementedError, match="MLA"):
-        TModel(tget("deepseek-v2-236b").reduced(), device="cpu")
+    got, want = _init_layouts(jget("deepseek-v2-236b").reduced(),
+                              tget("deepseek-v2-236b").reduced())
+    assert got == want
+    for stack in ("dense_layers", "layers"):
+        assert f"['{stack}']['attn']['w_uq']" in got
+        assert f"['{stack}']['attn']['w_q']" not in got
+    assert got["['dense_layers']['mlp']['w_gate']"] == (1, 128, 2048)
