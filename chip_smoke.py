@@ -18,9 +18,12 @@ Phases, in order; any failure raises and the script exits nonzero:
    "no single call" where none takes the shape) and its bound, at hd 64,
    at danube's 1 x 6000, at arctic-480b's serve prefill, 4 x 2100 (hd
    128, a group of 7 query heads per kv head, a ragged last tile) and
-   its 1 x 4096, and at deepseek-v2-236b's prefill 4 x 4096 at (192,
-   128), G 1 (arctic's and deepseek's, and deepseek's ragged 4 x 2100,
-   each checked twice for the same bits),
+   its 1 x 4096, at deepseek-v2-236b's prefill 4 x 4096 at (192,
+   128), G 1, at whisper-small's 1 x 4096 (12 over 12 heads, G 1, hd 64)
+   and at llava-next-mistral-7b's 2 x 5200 (G 4, hd 128, window 4096
+   binding, a ragged last tile) (arctic's, deepseek's, deepseek's ragged
+   4 x 2100, whisper's and llava's each checked twice for the same
+   bits),
    then the kernel and sdpa once more after a ~0.5 ms device spin each
    (their device work alone, without the host work the device waits on);
    the HMMA instructions ``cuobjdump -sass`` finds in each K1 kernel (the
@@ -30,7 +33,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    at the contiguous-decode shape, at danube's (hd 120, window 4096) and
    at arctic's (B=4, KH=8, G=7, hd 128, the serve phase's cache of 2116
    positions at its first and last decode step's lengths, 2101 and
-   2116, and a cache of 2128 at 2100),
+   2116, and a cache of 2128 at 2100), at whisper's (B=4, KH=12, G=1, hd
+   64, a cache of 480 at 449 and 480) and at llava's (B=2, KH=8, G=4, hd
+   128, window 4096, a cache of 5216 at 5201 and 5216),
    each case twice for the same bits; the split count and the blocks
    launched at each timed shape (at least one per SM), and the host work
    a call of K5's wrapper and of sdpa takes;
@@ -59,10 +64,12 @@ Phases, in order; any failure raises and the script exits nonzero:
    / hd 32 variants, arctic's (B=4, H=56, KH=8, S=4096, hd 128) and
    MLA's (deepseek's micro-batch B=1, H=KH=128, S=4096 at (192, 128);
    fp32, window and ragged (192, 128); (48, 32) in bf16 and fp32 and at
-   one kv head), K3 against K2, K1-lse and K2 twice the same bits; the
+   one kv head), whisper's (B=4, H=KH=12, S=4096, hd 64) and llava's
+   (B=4, H=32, KH=8, S=4096, hd 128, window 4096), K3 against K2, K1-lse
+   and K2 twice the same bits; the
    HMMA instructions ``cuobjdump -sass`` finds in the bf16 K1, K2 and K3
    kernels of each compiled width pair and their blocks per SM; then
-   timed at the training shape, at arctic's and at deepseek's (median
+   timed at the training shape, at arctic's, deepseek's and whisper's (median
    and min-max
    of 10 cold-L2 samples) beside the plain versions, the forward and the
    backward (``torch.autograd.grad``) of one
@@ -205,7 +212,36 @@ Phases, in order; any failure raises and the script exits nonzero:
 18. MLA against the CPU: deepseek at full width in fp32, dense + 1 MoE
     layer of 8 experts, 1 x 2304 (the fp32 K1, K1-lse and K3 at (192,
     128)): routing, prefill and 4 decode logits, loss and every gradient
-    on the card against the port's CPU path.
+    on the card against the port's CPU path;
+19. encoder-decoder serving: whisper-small at full width (12 encoder + 12
+    decoder layers, 12 heads of 64, 278 M parameters), fp32 master
+    weights cast to bf16 per layer, seeded weights and frames: prefill
+    of a 4 x 448 prompt (its decoder context; the dense attention) over
+    4 x 1504 frames, 32 decode steps (K5 12 times a step), both profiled
+    beside their bounds, the caches' layout (self k / v head-major, cross
+    k / v seq-major); a 1 x 4096 prefill (K1 12 times, G 1, hd 64),
+    profiled; prefill(S) + decode against prefill(S + 1) (fp32 argmax
+    agreement >= 0.95, bf16 gap reported);
+20. encoder-decoder training: the Trainer as ``launch.train`` builds it,
+    fed 4 x 1504 seeded frames a batch, 6 steps of 4 x 4096 decoder
+    tokens (ce_loss falls; K1-lse 24 and K3 12 a step; step median
+    beside its bound, peak memory, a profiled step), then 2 steps twice
+    in deterministic mode (K2): the same bits;
+21. whisper against the CPU: fp32, 2 encoder + 2 decoder layers at full
+    width, 1 x 2304 decoder tokens over 1504 frames: prefill and one
+    decode step's logits, loss and every gradient;
+22. VLM serving: llava-next-mistral-7b at full width, all 32 layers
+    (7.24 B parameters, fp32 master weights, 29 GB), seeded weights and
+    patches: prefill 2 x (576 patches + 4624 text) (K1 32 times, the
+    4096 window binding), 16 decode steps at ``cur_len`` 5200-5215 (K5
+    32 times a step), both profiled beside their bounds, the caches'
+    layout, and prefill(S) + decode against prefill(S + 1) with the
+    patches in both (1 x 5200);
+23. VLM training: 4 of llava's 32 layers at full width, 6 Trainer steps
+    of 4 x (576 seeded patches + 3520 text) (ce_loss falls; K1-lse 8 and
+    K3 4 a step; the ``tokens`` metric exactly 4 x 3520);
+24. llava against the CPU: fp32, 1 layer at full width, 1 x (576 +
+    1728): prefill and one decode step's logits, loss and every gradient.
 
 Phase 7 also runs a reduced fp32 smollm (head_dim 64,
 ``attn_flash_min_seq=32``, B 72 x S 96: B·KH = 144) on the forced K4
@@ -215,7 +251,7 @@ logits through K4f and one step's gradients through K4f and K4b; and the reduced
 
 Counters on the kernel wrappers are zeroed just before each main-path
 phase (5, 6, 6a, 6b, 6c, 6d, 8, 8a and its other route, 8b, 8c-8f, 9,
-10, each path of 12, and 13-18) and read just after: every kernel of the path must have
+10, each path of 12, and 13-24) and read just after: every kernel of the path must have
 launched.  The kernel line's
 launches are those counts alone; the reduced model of phase 7 and the
 fp32 consistency check of 8b keep theirs in their own results.  The line before the last is the kernel table as
@@ -294,20 +330,30 @@ def _randn(shape, dtype, seed):
 # hd_v; the second is phase_k4's training shape), K5 (B, KH, G, S, hd,
 # cur_len, window).  deepseek: DeepSeek-V2's MLA heads, q/k 128 + 64 and
 # v 128, 128 query heads over 128 kv heads (G 1), at the serve phase's
-# prefill 4 x 4096 and one training micro-batch 1 x 4096
+# prefill 4 x 4096 and one training micro-batch 1 x 4096.  whisper:
+# whisper-small's decoder self-attention, 12 heads over 12 kv heads (G 1)
+# of width 64, at its 1 x 4096 prefill, its 4 x 4096 train step and its
+# decode cache of 448 + 32 positions; llava: llava-next-mistral-7b's (32
+# over 8, hd 128, window 4096) at its serve prefill 2 x (576 + 4624),
+# where the window binds, and its decode cache of 5200 + 16
 K1_TIMED = {"serve": (1, 15, 5, 3008, 64, 64, 0),
             "danube": (1, 32, 8, 6000, 120, 120, 4096),
             "arctic": (4, 56, 8, 2100, 128, 128, 0),
             "arctic_4096": (1, 56, 8, 4096, 128, 128, 0),
-            "deepseek": (4, 128, 128, 4096, 192, 128, 0)}
+            "deepseek": (4, 128, 128, 4096, 192, 128, 0),
+            "whisper": (1, 12, 12, 4096, 64, 64, 0),
+            "llava": (2, 32, 8, 5200, 128, 128, 4096)}
 K1_LSE_TIMED = {"train": (4, 15, 5, 4096, 64, 64),
                 "short": (64, 15, 5, 256, 64, 64),
                 "arctic": (4, 56, 8, 4096, 128, 128),
-                "deepseek": (1, 128, 128, 4096, 192, 128)}
+                "deepseek": (1, 128, 128, 4096, 192, 128),
+                "whisper": (4, 12, 12, 4096, 64, 64)}
 K5_TIMED = {"smollm": (4, 5, 3, 2624, 64, 2600, 0),
             "danube": (1, 8, 4, 6016, 120, 6001, 4096),
             "arctic": (4, 8, 7, 2116, 128, 2116, 0),
-            "arctic_2128": (4, 8, 7, 2128, 128, 2100, 0)}
+            "arctic_2128": (4, 8, 7, 2128, 128, 2100, 0),
+            "whisper": (4, 12, 1, 480, 64, 480, 0),
+            "llava": (2, 8, 4, 5216, 128, 5216, 4096)}
 
 # cycles the device spins before a call timed with ``spin`` (~0.5 ms)
 SPIN_CYCLES = 1_000_000
@@ -636,9 +682,12 @@ def phase_k1(flush):
     # arctic-480b: hd 128, a group of 7 query heads per kv head (56 / 8),
     # at the serve prefill's 4 x 2100 (past the last whole tile) and at
     # 1 x 4096; deepseek-v2-236b's MLA heads (192, 128) at G 1, at its
-    # serve prefill 4 x 4096 and at a ragged 4 x 2100
+    # serve prefill 4 x 4096 and at a ragged 4 x 2100; whisper's G 1 at hd
+    # 64, 1 x 4096; llava's 2 x 5200 (81.25 tiles of 64 rows, the window
+    # binding on the last 1104)
     for shape, s_over in (("arctic", None), ("arctic_4096", None),
-                          ("deepseek", None), ("deepseek", 2100)):
+                          ("deepseek", None), ("deepseek", 2100),
+                          ("whisper", None), ("llava", None)):
         b, h, kh, s, hd, hd_v, win = K1_TIMED[shape]
         s = s_over or s
         dt = torch.bfloat16
@@ -648,7 +697,8 @@ def phase_k1(flush):
         got = fa.flash_attention(q, k, v, causal=True, window=win)
         again = fa.flash_attention(q, k, v, causal=True, window=win)
         torch.cuda.synchronize()
-        what = f"{shape} {b}x{s} ({hd}, {hd_v}) G{h // kh} bf16 causal"
+        what = (f"{shape} {b}x{s} ({hd}, {hd_v}) G{h // kh} bf16 causal"
+                + (f" window {win}" if win else ""))
         if not torch.equal(got, again):
             raise AssertionError(f"K1 {what}: two runs gave other bits")
         worst = max(worst, _check(
@@ -662,6 +712,9 @@ def phase_k1(flush):
     arctic = timed(*K1_TIMED["arctic"], 90)
     arctic_4096 = timed(*K1_TIMED["arctic_4096"], 90)
     deepseek = timed(*K1_TIMED["deepseek"], 93)
+    torch.cuda.empty_cache()
+    whisper = timed(*K1_TIMED["whisper"], 94)
+    llava = timed(*K1_TIMED["llava"], 95)
     torch.cuda.empty_cache()
     hmma, occupancy = _fwd_hmma()
     return {"name": "flash_attention (K1)", "route": "cuda",
@@ -678,7 +731,13 @@ def phase_k1(flush):
                             "Sq=Sk=4096 hd=128 bf16 causal (arctic, G 7)"},
             "deepseek": {**deepseek, "timed_shape": "B=4 H=KH=128 Sq=Sk=4096 "
                          "hd=192 hd_v=128 bf16 causal (deepseek-v2-236b's "
-                         "MLA prefill, G 1)"}}
+                         "MLA prefill, G 1)"},
+            "whisper": {**whisper, "timed_shape": "B=1 H=KH=12 Sq=Sk=4096 "
+                        "hd=64 bf16 causal (whisper-small's 1 x 4096 "
+                        "prefill, G 1)"},
+            "llava": {**llava, "timed_shape": "B=2 H=32 KH=8 Sq=Sk=5200 "
+                      "hd=128 bf16 causal window 4096 (llava-next-mistral-"
+                      "7b's serve prefill, 576 patches + 4624 text)"}}
 
 
 def phase_k5(flush):
@@ -771,10 +830,15 @@ def phase_k5(flush):
     danube = timed(qd, kd, vd, cur_d, win_d)
     # arctic-480b: G 7 of K5's 8 rows per block, hd 128: the serve
     # phase's cache (prefill 2100 + 16 decodes) at its first and last
-    # decode step's lengths, and a 2128-position cache at 2100
-    arctic = {}
+    # decode step's lengths, and a 2128-position cache at 2100; whisper's
+    # G 1 at hd 64 (cache 448 + 32) and llava's G 4 at hd 128 with the
+    # window binding (cache 5200 + 16), each at its first and last decode
+    # step's lengths
+    rows = {}
     for shape, curs in (("arctic", (K5_TIMED["arctic"][3] - 15,)),
-                        ("arctic_2128", ())):
+                        ("arctic_2128", ()),
+                        ("whisper", (K5_TIMED["whisper"][3] - 31,)),
+                        ("llava", (K5_TIMED["llava"][3] - 15,))):
         ba, kha, ga, sa, hda, cur_a, win_a = K5_TIMED[shape]
         qa = _randn((ba, kha, ga, hda), dt, 120)
         ka, va = (_randn((ba, kha, sa, hda), dt, 121),
@@ -782,15 +846,15 @@ def phase_k5(flush):
         for cur in (*curs, cur_a):
             cur_t = torch.full((1,), cur, dtype=torch.int32, device="cuda")
             got = fd.flash_decode(qa, ka, va, cur_t, window=win_a)
+            what = (f"{shape} hd{hda} G{ga} bf16 S {sa} cur {cur}"
+                    + (f" window {win_a}" if win_a else ""))
             if not torch.equal(got, fd.flash_decode(qa, ka, va, cur_t,
                                                     window=win_a)):
-                raise AssertionError(f"K5 arctic G 7 S {sa} cur {cur}: two "
-                                     "runs gave other bits")
+                raise AssertionError(f"K5 {what}: two runs gave other bits")
             worst = max(worst, _check(
-                f"arctic hd128 G7 bf16 S {sa} cur {cur} (twice the same "
-                "bits)", got,
+                f"{what} (twice the same bits)", got,
                 fd.flash_decode_plain(qa, ka, va, cur_t, window=win_a), dt))
-        arctic[shape] = timed(qa, ka, va, cur_a, win_a)
+        rows[shape] = timed(qa, ka, va, cur_a, win_a)
     return {"name": "flash_decode (K5)", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
             "replaces": "src/repro/kernels/flash_decode.py:34",
@@ -798,12 +862,18 @@ def phase_k5(flush):
             "timed_shape": "B=4 KH=5 G=3 S=2624 cur=2600 hd=64 bf16",
             "hd120": {**danube, "timed_shape": "B=1 KH=8 G=4 S=6016 "
                       "cur=6001 hd=120 bf16 window 4096 (h2o-danube3-4b)"},
-            "arctic": {**arctic["arctic"], "timed_shape": "B=4 KH=8 G=7 "
+            "arctic": {**rows["arctic"], "timed_shape": "B=4 KH=8 G=7 "
                        "S=2116 cur=2116 hd=128 bf16 (arctic-480b's last "
                        "decode step)"},
-            "arctic_2128": {**arctic["arctic_2128"], "timed_shape": "B=4 "
+            "arctic_2128": {**rows["arctic_2128"], "timed_shape": "B=4 "
                             "KH=8 G=7 S=2128 cur=2100 hd=128 bf16 "
-                            "(arctic)"}}
+                            "(arctic)"},
+            "whisper": {**rows["whisper"], "timed_shape": "B=4 KH=12 G=1 "
+                        "S=480 cur=480 hd=64 bf16 (whisper-small's last "
+                        "decode step)"},
+            "llava": {**rows["llava"], "timed_shape": "B=2 KH=8 G=4 "
+                      "S=5216 cur=5216 hd=128 bf16 window 4096 (llava-next-"
+                      "mistral-7b's last decode step)"}}
 
 
 SERVE_ARGS = ["--arch", "smollm-360m", "--device", "cuda", "--requests", "12",
@@ -1264,6 +1334,10 @@ def phase_k_train(flush):
          f32, 64, 0),
         ("mla absorbed reduced (48, 32) bf16 KH 1", 2, 4, 1, 600, 600, 48,
          32, bf, 0, 0),
+        ("whisper G1 hd64 4x4096 bf16", 4, 12, 12, 4096, 4096, 64, 64, bf,
+         0, 0),
+        ("llava G4 hd128 window 4096 4x4096 bf16", 4, 32, 8, 4096, 4096,
+         128, 128, bf, 4096, 0),
     ]
     worst = {k: [0.0, 0.0] for k in ("k1_lse", "k2_dq", "k2_dkv", "k3")}
 
@@ -1359,13 +1433,18 @@ def phase_k_train(flush):
                             occ("hd128"))
     deepseek = _k_train_times(K1_LSE_TIMED["deepseek"], 340, flush, worst,
                               occ("hd192/128"))
+    whisper = _k_train_times(K1_LSE_TIMED["whisper"], 360, flush, worst,
+                             occ("hd64"))
     rows = train
     for key, other, shape in (
             ("arctic", arctic, "B=4 H=56 KH=8 S=4096 hd=128 bf16 causal "
              "(arctic-480b, G 7)"),
             ("deepseek", deepseek, "B=1 H=KH=128 S=4096 hd=192 hd_v=128 "
              "bf16 causal (deepseek-v2-236b's MLA, G 1: one micro-batch of "
-             "its accumulated train step)")):
+             "its accumulated train step)"),
+            ("whisper", whisper, "B=4 H=KH=12 S=4096 hd=64 bf16 causal "
+             "(whisper-small's decoder self-attention, G 1: its train "
+             "step)")):
         rows[key] = {k: other[k] for k in ("k1_lse", "k2_dq", "k2_dkv", "k3",
                                            "library_bwd", "library_backend")}
         rows[key]["timed_shape"] = shape
@@ -2677,15 +2756,19 @@ def phase_k9b(flush):
             "hmma": hmma, "timed": timed}
 
 
-def _serve_run(model, params, tokens, steps, cache_len=None):
+def _serve_run(model, params, tokens, steps, cache_len=None, extra=None):
     """prefill(tokens), then ``steps`` greedy decode steps into a cache of
     ``cache_len`` positions (default: just enough), prefill and decode
     each timed by the host clock around work that ends in a synchronize.
-    Returns (prefill ms, ms per decode step, cache, last token)."""
+    ``extra`` joins the prefill's batch (``frames``, or ``patches``,
+    whose positions come first).  Returns (prefill ms, ms per decode
+    step, cache, last token)."""
+    extra = extra or {}
     b, s = tokens.shape
+    s += extra["patches"].shape[1] if "patches" in extra else 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, {"tokens": tokens})
+    logits, cache = model.prefill(params, {"tokens": tokens, **extra})
     torch.cuda.synchronize()
     prefill_ms = 1e3 * (time.perf_counter() - t0)
     cache = model.alloc_cache(b, cache_len or s + steps, init=cache)
@@ -4138,6 +4221,610 @@ def phase_mla_reference():
     return info
 
 
+# ---------------------------------------------- encoder-decoder and VLM
+
+WHISPER = "whisper-small"
+LLAVA = "llava-next-mistral-7b"
+# whisper's decoder context, 448 positions (arXiv:2212.04356): the serve
+# prompt
+WHISPER_PROMPT = 448
+WHISPER_TRAIN_ARGS = ["--arch", WHISPER, "--data", "markov", "--batch", "4",
+                      "--seq", "4096", "--steps", "6", "--lr", "1e-3",
+                      "--device", "cuda"]
+# 576 patches + 3520 text tokens = 4096 positions, the repo's train shape
+# for llava (launch/specs.py); lr 3e-4 as the other phases at d_model
+# 4096 and wider
+LLAVA_TRAIN_ARGS = ["--arch", LLAVA, "--data", "markov", "--batch", "4",
+                    "--seq", "3520", "--steps", "6", "--lr", "3e-4",
+                    "--device", "cuda"]
+# 4 of 32 layers: 1.135 B fp32 parameters, ~18 GB with their gradients
+# and fp32 moments before activations (all 32 would need ~116 GB)
+LLAVA_TRAIN_LAYERS = 4
+
+
+def _whisper_cfg(**over):
+    """whisper-small as registered (checked: 12 encoder + 12 decoder
+    layers, d_model 768, 12 heads over 12 kv heads of 64, d_ff 3072,
+    vocab 51865, 1504 frames, fp32 master weights, bf16 compute), then
+    ``over`` replaced."""
+    cfg = get_config(WHISPER)
+    if not (cfg.family == "encdec" and cfg.num_layers == 12
+            and cfg.num_encoder_layers == 12 and cfg.d_model == 768
+            and cfg.num_heads == cfg.num_kv_heads == 12
+            and cfg.head_dim == 64 and cfg.d_ff == 3072
+            and cfg.vocab_size == 51865 and cfg.encoder_seq == 1504
+            and cfg.param_dtype == "float32" and cfg.dtype == "bfloat16"):
+        raise AssertionError("the config is not whisper-small's")
+    return dataclasses.replace(cfg, **over)
+
+
+def _llava_cfg(**over):
+    """llava-next-mistral-7b as registered (checked: the mistral-7b
+    decoder, 32 layers, d_model 4096, 32 heads over 8 kv heads of 128,
+    d_ff 14336, window 4096, vocab 32000, 576 patches, fp32 master
+    weights, bf16 compute), then ``over`` replaced."""
+    cfg = get_config(LLAVA)
+    if not (cfg.family == "vlm" and cfg.num_layers == 32
+            and cfg.d_model == 4096 and cfg.num_heads == 32
+            and cfg.num_kv_heads == 8 and cfg.head_dim == 128
+            and cfg.d_ff == 14336 and cfg.sliding_window == 4096
+            and cfg.vocab_size == 32000 and cfg.num_patches == 576
+            and cfg.param_dtype == "float32" and cfg.dtype == "bfloat16"):
+        raise AssertionError("the config is not llava-next-mistral-7b's")
+    return dataclasses.replace(cfg, **over)
+
+
+def _embeddings(shape, seed):
+    """Seeded frontend embeddings on the card (a normal x 0.02, fp32, as
+    the reference's tests draw them): both configs' frontends are stubs
+    that take precomputed frames or patches."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return 0.02 * torch.randn(shape, generator=gen, device="cuda")
+
+
+class _Embedded:
+    """A Trainer's data object: the batches of ``tokens`` (a
+    ``SyntheticTokens``) with seeded frontend embeddings (a normal x
+    0.02, fp32 numpy) under ``key``: whisper's ``frames`` or llava's
+    ``patches``, ``length`` x d_model a row."""
+
+    def __init__(self, tokens, key, length, width, seed):
+        self.tokens, self.key, self.seed = tokens, key, seed
+        self.shape = (tokens.batch, length, width)
+
+    def get(self, step):
+        batch = dict(self.tokens.get(step))
+        rng = np.random.default_rng(self.seed + step)
+        batch[self.key] = 0.02 * rng.standard_normal(self.shape,
+                                                     dtype=np.float32)
+        return batch
+
+
+def _embedded_trainer(cfg, argv, key, length):
+    """The port's Trainer as ``launch.train`` builds it from ``argv``,
+    fed by ``_Embedded`` batches."""
+    args = train_cli.parse_args(argv)
+    oc = train_cli.optimizer_config(cfg, args)
+    data = _Embedded(SyntheticTokens(cfg.vocab_size, args.batch, args.seq,
+                                     seed=0, mode="markov"),
+                     key, length, cfg.d_model, seed=1)
+    return Trainer(LanguageModel(cfg, device="cuda"), oc, data,
+                   TrainerConfig())
+
+
+def _encdec_flops(cfg, b, s, ctx, head_rows, encode=True):
+    """FLOPs of one whisper forward of ``b`` x ``s`` decoder tokens whose
+    self-attention reads ``ctx`` positions: with ``encode`` the encoder
+    over b x ``encoder_seq`` frames (projections, MLP, unmasked
+    attention) and the cross K / V projections of its output; the
+    decoder's projections, MLP, causal self-attention and cross attention
+    over the encoder states; the LM head on ``head_rows`` rows."""
+    d, h, kh, hd, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                       cfg.head_dim, cfg.d_ff)
+    se = cfg.encoder_seq
+    t, te = b * s, b * se
+    flops = 2 * head_rows * d * cfg.vocab_size
+    if encode:
+        flops += cfg.num_encoder_layers * (8 * te * d * h * hd
+                                           + 4 * te * d * f
+                                           + 4 * hd * h * b * se * se)
+        flops += cfg.num_layers * 4 * te * d * h * hd
+    live = b * h * _live_pairs(s, ctx, ctx - s, True, 0)
+    return flops + cfg.num_layers * (
+        2 * t * d * hd * (2 * h + 2 * kh) + 4 * hd * live
+        + 4 * t * d * h * hd + 4 * hd * h * t * se + 4 * t * d * f)
+
+
+def _dense_flops(cfg, b, s, ctx, head_rows):
+    """FLOPs of one forward of llava's decoder (mistral-7b) on ``b`` x
+    ``s`` new positions (patches included) whose windowed attention
+    reads ``ctx`` positions: projections, SwiGLU MLP, attention over the
+    live pairs, the LM head on ``head_rows`` rows."""
+    d, h, kh, hd, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                       cfg.head_dim, cfg.d_ff)
+    t = b * s
+    live = b * h * _live_pairs(s, ctx, ctx - s, True, cfg.sliding_window)
+    return cfg.num_layers * (2 * t * d * hd * (2 * h + 2 * kh)
+                             + 4 * hd * live + 6 * t * d * f) \
+        + 2 * head_rows * d * cfg.vocab_size
+
+
+def _prefix_consistency(cfg, params, tokens, extra):
+    """prefill(S) + decode(token S) against prefill(S + 1)'s last logits
+    on the serve phase's weights, the same frames or patches in both
+    prefills, in fp32 and in bf16 compute; decode at ``cur_len`` = P + S
+    (P patches, 0 for frames)."""
+    b, s = tokens.shape[0], tokens.shape[1] - 1
+    pre = extra["patches"].shape[1] if "patches" in extra else 0
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        model = LanguageModel(dataclasses.replace(cfg, dtype=dtype), "cuda")
+        with torch.no_grad():
+            truth, _ = model.prefill(params, {"tokens": tokens, **extra})
+            _, cache = model.prefill(params, {"tokens": tokens[:, :-1],
+                                              **extra})
+            cache = model.alloc_cache(b, pre + s + 1, init=cache)
+            got, _ = model.decode_step(params, cache, tokens[:, -1:],
+                                       pre + s)
+        d = got.float() - truth.float()
+        out[dtype] = {
+            "batch": b, "prompt": pre + s,
+            "argmax_agreement": (got.argmax(-1) == truth.argmax(-1)).float()
+            .mean().item(),
+            "max_logit_diff": d.abs().max().item(),
+            "rms_logit_diff": d.square().mean().sqrt().item()}
+        del model, cache, got, truth
+        torch.cuda.empty_cache()
+    f32, bf16 = out["float32"], out["bfloat16"]
+    print(f"  consistency, prefill({pre} + {s}) + decode vs prefill({pre} + "
+          f"{s + 1}), B={b}: fp32 argmax agreement "
+          f"{f32['argmax_agreement']:.3f} (limit >= 0.95), max logit diff "
+          f"{f32['max_logit_diff']:.3e} (limit 5e-3); bf16 max logit diff "
+          f"{bf16['max_logit_diff']:.3e}, RMS {bf16['rms_logit_diff']:.3e}, "
+          f"argmax agreement {bf16['argmax_agreement']:.3f} (reported)")
+    if not (f32["argmax_agreement"] >= 0.95
+            and f32["max_logit_diff"] <= 5e-3):
+        raise AssertionError(f"{cfg.name}: decode disagrees with prefill")
+    return out
+
+
+def _init_report(model, seed):
+    """Seeded init on the card: (params, info) with the parameter count,
+    weight bytes, init seconds and init peak memory, printed."""
+    _release()                 # what earlier phases left in cycles
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    info = {"init_s": time.perf_counter() - t0,
+            "params_b": sum(x.numel() for _p, x in iter_leaves(params)) / 1e9,
+            "weights_gb": torch.cuda.memory_allocated() / 1e9,
+            "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"  {info['params_b']:.3f} B parameters, {info['weights_gb']:.2f} "
+          f"GB; init {info['init_s']:.1f} s, peak {info['init_peak_gb']:.2f} "
+          "GB")
+    return params, info
+
+
+def _print_bound(what, wall_ms, prof, flops, nbytes):
+    """A step's wall, device busy and idle share (from ``prof``) beside
+    its bf16 bound, printed; returns the bound."""
+    bound, by = _bound(flops, nbytes, torch.bfloat16)
+    print(f"  {what}: wall {wall_ms:.2f} ms, device busy "
+          f"{prof['device_busy_ms'] or float('nan'):.2f} ms, idle share "
+          f"{prof.get('idle_share', float('nan')):.3f}; bound {bound:.3f} ms "
+          f"({by}: {flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.2f} GB)")
+    return {"bound_ms": bound, "bound_by": by, "tflop": flops / 1e12,
+            "gb": nbytes / 1e9}
+
+
+def phase_encdec_serve():
+    """whisper-small at full width (12 encoder + 12 decoder layers, d_model
+    768, 12 heads of 64), fp32 master weights cast to bf16 per layer,
+    seeded random weights and frames: prefill of a 4 x 448 prompt (its
+    decoder context) over 4 x 1504 frames (the dense attention, as in the
+    reference), 32 decode steps (K5 12 times a step), both profiled
+    beside their bounds, the caches' layout (self k / v head-major with
+    12 kv heads, cross k / v seq-major); a 1 x 4096 prefill (K1 12
+    times, G 1, hd 64); prefill(S) + decode against prefill(S + 1)."""
+    print("== encdec serve: whisper-small full width (12 + 12 layers), fp32 "
+          "master weights, bf16 compute, frames 4 x 1504, prompt 4 x 448, "
+          "32 decodes; prefill 1 x 4096")
+    cfg = _whisper_cfg()
+    model = LanguageModel(cfg, device="cuda")
+    params, info = _init_report(model, 90)
+    b, s, steps = 4, WHISPER_PROMPT, 32
+    layers, se = cfg.num_layers, cfg.encoder_seq
+    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    frames = _embeddings((b, se, cfg.d_model), 91)
+    gen = torch.Generator(device="cuda").manual_seed(92)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s + 1), device="cuda",
+                           generator=gen)
+    long = torch.randint(0, cfg.vocab_size, (1, 4096), device="cuda",
+                         generator=gen)
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        prefill_ms, step_ms, cache, tok = _serve_run(
+            model, params, tokens[:, :s], steps, extra={"frames": frames})
+        counts = _counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = {**{k: 0 for k in counts}, "k5": layers * steps}
+        layout = {k: tuple(v.shape) for k, v in cache["layers"].items()}
+        want_layout = {"k": (layers, b, kh, s + steps, hd),
+                       "v": (layers, b, kh, s + steps, hd),
+                       "cross_k": (layers, b, se, h, hd),
+                       "cross_v": (layers, b, se, h, hd)}
+        print(f"  prefill {prefill_ms:.1f} ms (B=4 x {s}, frames 4 x {se}), "
+              f"decode step {step_ms:.3f} ms (B=4, cache {s + steps}); "
+              f"launches {counts}; peak device memory {peak_gb:.2f} GB; "
+              f"caches {layout}")
+        if counts != want:
+            raise AssertionError(f"launches {counts}, want {want}")
+        if layout != want_layout:
+            raise AssertionError(f"cache {layout}, want {want_layout}")
+        batch = {"tokens": tokens[:, :s], "frames": frames}
+        prof_pre = _profile(lambda: model.prefill(params, batch), 1)
+        _print_profile(f"whisper prefill ({b} x {s})", prof_pre,
+                       prof_pre["profiled_wall_ms"])
+        prof_dec = _profile(lambda: model.decode_step(params, cache, tok,
+                                                      s + steps - 1), 3)
+        _print_profile("whisper decode step (B=4)", prof_dec, step_ms)
+        del cache
+        long_batch = {"tokens": long, "frames": frames[:1]}
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, c_long = model.prefill(params, long_batch)
+        torch.cuda.synchronize()
+        long_ms = 1e3 * (time.perf_counter() - t0)
+        long_counts = _counts()
+        want_long = {**{k: 0 for k in long_counts}, "k1": layers}
+        print(f"  prefill 1 x 4096: {long_ms:.1f} ms; launches {long_counts}")
+        if long_counts != want_long or lg.shape != (1, cfg.vocab_size) or \
+                not torch.isfinite(lg).all():
+            raise AssertionError(f"1 x 4096 prefill: launches {long_counts}, "
+                                 f"want {want_long}; or its logits")
+        del c_long
+        prof_long = _profile(lambda: model.prefill(params, long_batch), 1)
+        _print_profile("whisper prefill (1 x 4096)", prof_long,
+                       prof_long["profiled_wall_ms"])
+    # fp32 weights read once (decode: the decoder's, less the cross K / V
+    # projections, whose output is cached); bf16 frames / tokens in,
+    # caches written or read
+    wbytes = _weight_bytes(params)
+    dec_w = sum(x.numel() * x.element_size() for path, x in
+                iter_leaves(params) if path[0] in ("dec_layers", "lm_head",
+                                                    "final_norm")
+                and path[1:3] not in (("cross", "w_k"), ("cross", "w_v")))
+    cross = layers * 2 * b * se * h * hd * 2
+
+    def kv(ctx, bb=b):
+        return layers * 2 * bb * kh * ctx * hd * 2
+    bounds = {
+        "prefill": _print_bound(
+            "prefill", prof_pre["profiled_wall_ms"], prof_pre,
+            _encdec_flops(cfg, b, s, s, b),
+            wbytes + b * se * cfg.d_model * 4 + cross + kv(s)),
+        "decode": _print_bound(
+            "decode step", step_ms, prof_dec,
+            _encdec_flops(cfg, b, 1, s + steps, b, encode=False),
+            dec_w + cross + kv(s + steps)),
+        "prefill_4096": _print_bound(
+            "prefill 1 x 4096", prof_long["profiled_wall_ms"], prof_long,
+            _encdec_flops(cfg, 1, 4096, 4096, 1),
+            wbytes + se * cfg.d_model * 4 + cross // b + kv(4096, 1))}
+    consistency = _prefix_consistency(cfg, params, tokens,
+                                      {"frames": frames})
+    info.update({"prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+                 "prefill_4096_ms": long_ms, "peak_gb": peak_gb,
+                 "launches": counts, "launches_4096": long_counts,
+                 "cache": layout, "bounds": bounds,
+                 "prefill_profile": prof_pre, "decode_profile": prof_dec,
+                 "prefill_4096_profile": prof_long,
+                 "consistency": consistency})
+    del model, params, frames, tokens, long, tok
+    _release()
+    return info
+
+
+def _train_phase(name, cfg, argv, key, length, deterministic):
+    """The Trainer as ``launch.train`` builds it from ``argv``, fed by
+    seeded frames or patches: every step's ce_loss falls from the first,
+    K1-lse twice and K3 once a decoder layer a step (remat="layer"), the
+    ``tokens`` metric exactly B x S (the text; patches carry no loss),
+    step median beside its bound, peak memory, one profiled step; with
+    ``deterministic``, 2 steps twice in deterministic mode (K2): the same
+    bits."""
+    args = train_cli.parse_args(argv)
+    layers, steps, b, s = cfg.num_layers, args.steps, args.batch, args.seq
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    tr = _embedded_trainer(cfg, argv, key, length)
+    t0 = time.perf_counter()
+    state = tr.run(tr.init_or_restore(
+        torch.Generator(device="cuda").manual_seed(0)), steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    for hh in tr.history:
+        print(f"  step {hh['step']}: ce_loss {hh['ce_loss']:.4f} tokens "
+              f"{hh['tokens']:.0f} grad_norm {hh['grad_norm']:.3f} "
+              f"{hh['step_time'] * 1e3:.1f} ms")
+    want = {**{k: 0 for k in counts}, "k1_lse": 2 * layers * steps,
+            "k3": layers * steps}
+    print(f"  launches {counts} (want {want}: with remat='layer' K1 with lse "
+          f"runs twice a decoder layer, K3 once)")
+    if counts != want:
+        raise AssertionError(f"{name} train: launches {counts}, want {want}")
+    first, last = tr.history[0]["ce_loss"], tr.history[-1]["ce_loss"]
+    if not (np.isfinite(last) and last < first):
+        raise AssertionError(f"ce_loss {first} -> {last}: did not descend")
+    if any(hh["tokens"] != b * s for hh in tr.history):
+        raise AssertionError(f"tokens {[hh['tokens'] for hh in tr.history]},"
+                             f" want {b * s} a step")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = [1e3 * hh["step_time"] for hh in tr.history]
+    n_params = sum(x.numel() for _p, x in iter_leaves(state["params"]))
+    # forward, its recompute under remat="layer" and a backward of twice
+    # the forward, the head on every position; the fp32 weights read in
+    # the forward, the recompute and the backward, fp32 gradients written
+    # then added; the update reads weights, gradients and both fp32
+    # moments and writes weights and moments
+    if cfg.family == "encdec":
+        fwd = _encdec_flops(cfg, b, s, s, b * s)
+    else:
+        fwd = _dense_flops(cfg, b, length + s, length + s,
+                           b * (length + s))
+    flops = 4 * fwd
+    nbytes = n_params * (3 * 4 + 3 * 4 + 7 * 4)
+    bound_ms, bound_by = _bound(flops, nbytes, torch.bfloat16)
+    print(f"  {n_params / 1e9:.3f} B parameters; {steps} steps in "
+          f"{wall:.1f} s wall; step median {np.median(step_ms):.1f} ms "
+          f"(steps 2-{steps} mean {np.mean(step_ms[1:]):.1f}); bound "
+          f"{bound_ms:.1f} ms ({bound_by}: {flops / 1e12:.1f} TFLOP, "
+          f"{nbytes / 1e9:.1f} GB); peak memory {peak_gb:.2f} GB")
+    step_fn = tr._build()
+    batch = {k: torch.from_numpy(v).cuda() for k, v in tr.data.get(0).items()}
+    prof = _profile(lambda: step_fn(state, batch), 1)
+    _print_profile(f"{name} train step ({b} x {s})", prof,
+                   prof["profiled_wall_ms"])
+    info = {"num_layers": layers, "params_b": n_params / 1e9,
+            "wall_s": wall, "step_ms": step_ms,
+            "ce_loss": [hh["ce_loss"] for hh in tr.history],
+            "tokens": [hh["tokens"] for hh in tr.history],
+            "grad_norm": [hh["grad_norm"] for hh in tr.history],
+            "peak_memory_gb": peak_gb, "launches": counts,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "step_profile": prof}
+    del tr, state, step_fn, batch
+    _release()
+    if not deterministic:
+        return info
+    finals, det_counts = [], []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for _ in range(2):
+            _zero_counts()
+            tr = _embedded_trainer(cfg, argv, key, length)
+            st = tr.run(tr.init_or_restore(
+                torch.Generator(device="cuda").manual_seed(0)), 2)
+            torch.cuda.synchronize()
+            det_counts.append(_counts())
+            finals.append([p.cpu() for _p, p in iter_leaves(st["params"])])
+            del tr, st
+            _release()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = all(torch.equal(a, c) for a, c in zip(*finals))
+    want = {**{k: 0 for k in det_counts[0]}, "k1_lse": 2 * layers * 2,
+            "k2_dq": layers * 2, "k2_dkv": layers * 2}
+    print(f"  deterministic mode, 2 steps twice: final parameters the same "
+          f"bits {same}; launches {det_counts[0]} (want {want})")
+    if not same:
+        raise AssertionError(f"{name}: deterministic reruns differ")
+    if det_counts[0] != want or det_counts[1] != want:
+        raise AssertionError(f"{name} deterministic: launches {det_counts}")
+    info["deterministic"] = {"bit_exact": same, "launches": det_counts[0]}
+    return info
+
+
+def phase_encdec_train():
+    """whisper-small at full width: 6 Trainer steps of 4 x 4096 decoder
+    tokens (the repo's train shape) over 4 x 1504 frames, fp32 master
+    weights and moments, bf16 compute (K1-lse 24 and K3 12 a step), then
+    2 steps twice in deterministic mode (K2)."""
+    print("== encdec train: whisper-small full width, frames 4 x 1504, "
+          + " ".join(WHISPER_TRAIN_ARGS))
+    cfg = _whisper_cfg()
+    return _train_phase("whisper", cfg, WHISPER_TRAIN_ARGS, "frames",
+                        cfg.encoder_seq, deterministic=True)
+
+
+def phase_vlm_serve():
+    """llava-next-mistral-7b at full width, all 32 layers (7.24 B
+    parameters), fp32 master weights (29.0 GB) cast to bf16 per layer,
+    seeded random weights and patches: prefill 2 x (576 patches + 4624
+    text) = 2 x 5200 positions (K1 32 times, the 4096 window binding),
+    16 decode steps at ``cur_len`` 5200-5215 (K5 32 times a step), both
+    profiled beside their bounds, the caches' layout, and prefill(S) +
+    decode against prefill(S + 1) with the patches in both (1 x 5200)."""
+    print("== vlm serve: llava-next-mistral-7b full width, 32 layers, fp32 "
+          "master weights, bf16 compute, prefill 2 x (576 patches + 4624 "
+          "text), 16 decodes")
+    cfg = _llava_cfg()
+    model = LanguageModel(cfg, device="cuda")
+    params, info = _init_report(model, 100)
+    b, s, steps, p = 2, 4624, 16, cfg.num_patches
+    layers, kh, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    patches = _embeddings((b, p, cfg.d_model), 101)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s + 1), device="cuda",
+                           generator=torch.Generator(
+                               device="cuda").manual_seed(102))
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        prefill_ms, step_ms, cache, tok = _serve_run(
+            model, params, tokens[:, :s], steps, extra={"patches": patches})
+        counts = _counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = {**{k: 0 for k in counts}, "k1": layers,
+                "k5": layers * steps}
+        layout = {k: tuple(v.shape) for k, v in cache["layers"].items()}
+        want_layout = {n: (layers, b, kh, p + s + steps, hd)
+                       for n in ("k", "v")}
+        print(f"  prefill {prefill_ms:.1f} ms (B=2 x ({p} + {s}), window "
+              f"{cfg.sliding_window}), decode step {step_ms:.3f} ms (B=2, "
+              f"cur_len {p + s}-{p + s + steps - 1}); launches {counts}; "
+              f"peak device memory {peak_gb:.2f} GB; caches {layout}")
+        if counts != want:
+            raise AssertionError(f"launches {counts}, want {want}")
+        if layout != want_layout:
+            raise AssertionError(f"cache {layout}, want {want_layout}")
+        batch = {"tokens": tokens[:, :s], "patches": patches}
+        prof_pre = _profile(lambda: model.prefill(params, batch), 1)
+        _print_profile(f"llava prefill ({b} x {p + s})", prof_pre,
+                       prof_pre["profiled_wall_ms"])
+        prof_dec = _profile(lambda: model.decode_step(
+            params, cache, tok, p + s + steps - 1), 3)
+        _print_profile("llava decode step (B=2)", prof_dec, step_ms)
+        del cache
+    wbytes = _weight_bytes(params)
+
+    def kv(ctx):
+        return layers * 2 * b * kh * min(ctx, cfg.sliding_window) * hd * 2
+    bounds = {
+        "prefill": _print_bound(
+            "prefill", prof_pre["profiled_wall_ms"], prof_pre,
+            _dense_flops(cfg, b, p + s, p + s, b),
+            wbytes + b * p * cfg.d_model * 4 + layers * 2 * b * kh
+            * (p + s) * hd * 2),
+        "decode": _print_bound(
+            "decode step", step_ms, prof_dec,
+            _dense_flops(cfg, b, 1, p + s + steps, b),
+            wbytes + kv(p + s + steps))}
+    consistency = _prefix_consistency(cfg, params, tokens[:1],
+                                      {"patches": patches[:1]})
+    info.update({"prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+                 "peak_gb": peak_gb, "launches": counts, "cache": layout,
+                 "bounds": bounds, "prefill_profile": prof_pre,
+                 "decode_profile": prof_dec, "consistency": consistency})
+    del model, params, patches, tokens, tok
+    _release()
+    return info
+
+
+def phase_vlm_train():
+    """llava-next-mistral-7b at full width, 4 of 32 layers: 6 Trainer
+    steps of 4 x (576 patches + 3520 text) at lr 3e-4, fp32 master
+    weights and moments, bf16 compute (K1-lse 8 and K3 4 a step; the
+    ``tokens`` metric exactly 4 x 3520)."""
+    print(f"== vlm train: llava-next-mistral-7b full width, "
+          f"{LLAVA_TRAIN_LAYERS} of 32 layers, patches 4 x 576, "
+          + " ".join(LLAVA_TRAIN_ARGS))
+    cfg = _llava_cfg(num_layers=LLAVA_TRAIN_LAYERS)
+    return _train_phase("llava", cfg, LLAVA_TRAIN_ARGS, "patches",
+                        cfg.num_patches, deterministic=False)
+
+
+def _prefix_reference(name, cfg, key, length, s, seed):
+    """``cfg`` in fp32 on the card against the port's CPU path from the
+    same weights, 1 x ``s`` tokens with ``length`` seeded frames or
+    patches: prefill logits and one decode step's (K1 and K5 once a
+    decoder layer), ``train_loss`` and every gradient (K1-lse twice and
+    K3 once a decoder layer), within the limits of
+    ``phase_mla_reference``."""
+    gpu, cpu = LanguageModel(cfg, device="cuda"), LanguageModel(cfg, "cpu")
+    _release()
+    params = gpu.init(torch.Generator(device="cuda").manual_seed(seed))
+    params_cpu = _tree_to(params, "cpu")
+    rng = np.random.RandomState(seed + 1)
+    toks = rng.randint(0, cfg.vocab_size, (1, s + 2))
+    extra = torch.from_numpy((0.02 * rng.standard_normal(
+        (1, length, cfg.d_model))).astype(np.float32))
+    pre = length if key == "patches" else 0
+    batch = {"tokens": torch.from_numpy(toks[:, :s]),
+             "targets": torch.from_numpy(toks[:, 1:s + 1]), key: extra}
+    runs = {}
+    for side, model, p in (("card", gpu, params), ("cpu", cpu, params_cpu)):
+        dev = model.device
+        t0 = time.perf_counter()
+        _zero_counts()
+        with torch.no_grad():
+            lg, cache = model.prefill(p, {"tokens": batch["tokens"].to(dev),
+                                          key: extra.to(dev)})
+            logits = [lg.cpu()]
+            cache = model.alloc_cache(1, pre + s + 1, init=cache)
+            lg, cache = model.decode_step(
+                p, cache, torch.from_numpy(toks[:, s:s + 1]).to(dev), pre + s)
+            logits.append(lg.cpu())
+        serve_counts = _counts()
+        del cache
+        _zero_counts()
+        loss, grads = _grads(model, p, batch, dev)
+        runs[side] = {"logits": logits, "loss": loss,
+                      "grads": [g.cpu() for g in grads],
+                      "launches_serve": serve_counts,
+                      "launches_train": _counts(),
+                      "s": time.perf_counter() - t0}
+        del grads
+    card, host = runs["card"], runs["cpu"]
+    logit_err = max((a - c).abs().max().item()
+                    for a, c in zip(card["logits"], host["logits"]))
+    loss_err = abs(card["loss"] - host["loss"]) / abs(host["loss"])
+    grad_err = max((a - c).abs().max().item()
+                   / max(c.abs().max().item(), 1e-30)
+                   for a, c in zip(card["grads"], host["grads"]))
+    layers = cfg.num_layers
+    want_serve = {**{k: 0 for k in card["launches_serve"]}, "k1": layers,
+                  "k5": layers}
+    want_train = {**{k: 0 for k in card["launches_train"]},
+                  "k1_lse": 2 * layers, "k3": layers}
+    print(f"  logits max_abs_err {logit_err:.3e} (limit 1e-3; fp32, logits "
+          f"O(1)), loss rel err {loss_err:.2e} (limit 1e-5), gradients "
+          f"{grad_err:.2e} of each leaf's max (limit 1e-4); launches serve "
+          f"{card['launches_serve']}, train {card['launches_train']}; card "
+          f"{card['s']:.1f} s, CPU {host['s']:.1f} s")
+    if card["launches_serve"] != want_serve or \
+            card["launches_train"] != want_train:
+        raise AssertionError(f"launches {card['launches_serve']} / "
+                             f"{card['launches_train']}, want {want_serve} "
+                             f"/ {want_train}")
+    if not (logit_err <= 1e-3 and loss_err <= 1e-5 and grad_err <= 1e-4):
+        raise AssertionError(f"{name}: card and CPU disagree")
+    info = {"logits_max_abs_err": logit_err, "loss_rel_err": loss_err,
+            "grad_rel_err": grad_err,
+            "launches_serve": card["launches_serve"],
+            "launches_train": card["launches_train"],
+            "card_s": card["s"], "cpu_s": host["s"]}
+    del gpu, params, params_cpu, runs, card, host
+    _release()
+    return info
+
+
+def phase_encdec_reference():
+    """whisper-small at full width in fp32 with 2 encoder + 2 decoder
+    layers, 1 x 2304 decoder tokens (> 2048: K1, K1-lse and K3 at G 1, hd
+    64) over 1504 frames, card vs CPU."""
+    print("== encdec reference: whisper-small full width, fp32, 2 + 2 "
+          "layers, 1 x 2304 over 1504 frames, card vs CPU")
+    cfg = _whisper_cfg(num_layers=2, num_encoder_layers=2, dtype="float32")
+    return _prefix_reference("whisper", cfg, "frames", cfg.encoder_seq, 2304,
+                             110)
+
+
+def phase_vlm_reference():
+    """llava-next-mistral-7b at full width in fp32 with 1 layer, 1 x (576
+    patches + 1728 text) = 2304 positions (> 2048: K1, K1-lse and K3 at G
+    4, hd 128), card vs CPU."""
+    print("== vlm reference: llava-next-mistral-7b full width, fp32, 1 "
+          "layer, 1 x (576 + 1728), card vs CPU")
+    cfg = _llava_cfg(num_layers=1, dtype="float32")
+    return _prefix_reference("llava", cfg, "patches", cfg.num_patches, 1728,
+                             120)
+
+
 def _tree_to(tree, device, copy=False):
     return {k: _tree_to(v, device, copy) if isinstance(v, dict)
             else v.to(device, copy=copy) for k, v in tree.items()}
@@ -4208,6 +4895,12 @@ def main() -> int:
     mla_serve = timed("mla_serve_s", phase_mla_serve)
     mla_train = timed("mla_train_s", phase_mla_train)
     mla_ref = timed("mla_reference_s", phase_mla_reference)
+    encdec_serve = timed("encdec_serve_s", phase_encdec_serve)
+    encdec_train = timed("encdec_train_s", phase_encdec_train)
+    encdec_ref = timed("encdec_reference_s", phase_encdec_reference)
+    vlm_serve = timed("vlm_serve_s", phase_vlm_serve)
+    vlm_train = timed("vlm_train_s", phase_vlm_train)
+    vlm_ref = timed("vlm_reference_s", phase_vlm_reference)
 
     by_phase = {"engine_ample": {"k1": eng_a["k1_launches"],
                                  "k5": eng_a["k5_launches"]},
@@ -4249,7 +4942,18 @@ def main() -> int:
                 "mla_train_deterministic":
                     mla_train["deterministic"]["launches"],
                 "mla_reference_serve": mla_ref["launches_serve"],
-                "mla_reference_train": mla_ref["launches_train"]}
+                "mla_reference_train": mla_ref["launches_train"],
+                "encdec_serve": encdec_serve["launches"],
+                "encdec_prefill_4096": encdec_serve["launches_4096"],
+                "encdec_train": encdec_train["launches"],
+                "encdec_train_deterministic":
+                    encdec_train["deterministic"]["launches"],
+                "encdec_reference_serve": encdec_ref["launches_serve"],
+                "encdec_reference_train": encdec_ref["launches_train"],
+                "vlm_serve": vlm_serve["launches"],
+                "vlm_train": vlm_train["launches"],
+                "vlm_reference_serve": vlm_ref["launches_serve"],
+                "vlm_reference_train": vlm_ref["launches_train"]}
 
     def launches(*keys):
         per = {ph: sum(c.get(k, 0) for k in keys)
@@ -4261,6 +4965,8 @@ def main() -> int:
     k1["lse_at_train_shape"] = ktrain["k1_lse"]
     k1["lse_deepseek"] = {**ktrain["deepseek"]["k1_lse"],
                           "timed_shape": ktrain["deepseek"]["timed_shape"]}
+    k1["lse_whisper"] = {**ktrain["whisper"]["k1_lse"],
+                         "timed_shape": ktrain["whisper"]["timed_shape"]}
     k5["launches"], k5["launches_by_phase"] = launches("k5")
     kernels = [k1, k5]
     src_bwd = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
@@ -4274,8 +4980,9 @@ def main() -> int:
         row = {"name": name, "route": "cuda", "source": src_bwd,
                "replaces": replaces, **ktrain[key],
                "timed_shape": "B=4 H=15 KH=5 S=4096 hd=64 bf16 causal",
-               "deepseek": {**ktrain["deepseek"][key],
-                            "timed_shape": ktrain["deepseek"]["timed_shape"]}}
+               **{shape: {**ktrain[shape][key],
+                          "timed_shape": ktrain[shape]["timed_shape"]}
+                  for shape in ("deepseek", "whisper")}}
         row["launches"], row["launches_by_phase"] = launches(key)
         kernels.append(row)
     src_copy = "src/repro_torch/kernels/csrc/partition_copy.cu"
@@ -4330,7 +5037,10 @@ def main() -> int:
               "ssm_deterministic": ssm_det, "moe_serve": moe_serve,
               "moe_train": moe_train, "moe_reference": moe_ref,
               "mla_serve": mla_serve, "mla_train": mla_train,
-              "mla_reference": mla_ref,
+              "mla_reference": mla_ref, "encdec_serve": encdec_serve,
+              "encdec_train": encdec_train, "encdec_reference": encdec_ref,
+              "vlm_serve": vlm_serve, "vlm_train": vlm_train,
+              "vlm_reference": vlm_ref,
               "library_bwd_ms": ktrain["library_bwd_ms"], "phase_s": timings,
               "build_log": _build.log_path().read_text()}
     if args.report is not None:

@@ -46,7 +46,10 @@ def params_from_numpy(tree: Dict[str, Any], cfg, device="cuda") -> Dict[str, Any
     ``attn.w_dkv`` (…, D, kv_lora_rank + qk_rope_head_dim) of both stacks
     in its place; the Mamba layers' ``layers.mixer.w_x`` (L, D, d_inner)
     for ssm and hybrid, and for hybrid also the one shared block's
-    ``shared_attn.attn.w_q`` (D, H, hd).  A mismatch raises.
+    ``shared_attn.attn.w_q`` (D, H, hd); for encdec (whisper) the encoder
+    layers' ``enc_layers.attn.w_q`` (Le, D, H, hd), and the decoder
+    layers' ``dec_layers.attn.w_q`` and ``dec_layers.cross.w_q`` (L, D, H,
+    hd) and ``dec_layers.mlp.w_in`` (L, D, d_ff).  A mismatch raises.
     """
     dev = resolve_device(device)
 
@@ -62,6 +65,12 @@ def params_from_numpy(tree: Dict[str, Any], cfg, device="cuda") -> Dict[str, Any
         checks = [(("layers", "mixer", "w_x"), (L, D, cfg.d_inner))]
         if cfg.family == "hybrid":
             checks.append((("shared_attn", "attn", "w_q"), (D, *attn)))
+    elif cfg.family == "encdec":
+        checks = [(("enc_layers", "attn", "w_q"),
+                   (cfg.num_encoder_layers, D, *attn)),
+                  (("dec_layers", "attn", "w_q"), (L, D, *attn)),
+                  (("dec_layers", "cross", "w_q"), (L, D, *attn)),
+                  (("dec_layers", "mlp", "w_in"), (L, D, cfg.d_ff))]
     elif cfg.family == "moe":
         n, k = L - cfg.first_k_dense, cfg.first_k_dense
 

@@ -1,6 +1,6 @@
 """Attention: GQA q/k/v projections, the dense reference attention,
-one-token decode attention, the flash threshold, and DeepSeek-V2's
-multi-head latent attention (MLA).
+one-token decode attention, the flash threshold, whisper's unmasked
+cross attention, and DeepSeek-V2's multi-head latent attention (MLA).
 
 Layout conventions (as in ``repro.models.attention``):
   q            : (batch, seq, n_heads, head_dim)
@@ -139,6 +139,34 @@ def gqa_qkv(params: Params, x: torch.Tensor, cfg
         k = k + params["b_k"]
         v = v + params["b_v"]
     return q, k, v
+
+
+# ------------------------------------------------------------ cross attention
+
+def cross_attn_init(gen: torch.Generator, cfg) -> Params:
+    """Encoder-decoder (whisper) attention weights: MHA (kv heads =
+    heads), q from one stream and k / v from another."""
+    d = cfg.d_model
+    h, hd = cfg.num_heads, cfg.head_dim
+    dt = _dtype(cfg.param_dtype)
+    return {
+        "w_q": dense_init(gen, d, (h, hd), dt),
+        "w_k": dense_init(gen, d, (h, hd), dt),
+        "w_v": dense_init(gen, d, (h, hd), dt),
+        "w_o": dense_init(gen, h * hd, (d,), dt).reshape(h, hd, d),
+    }
+
+
+def cross_attention(params: Params, x: torch.Tensor,
+                    enc: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, D) attends, unmasked, over enc: (B, Se, D) (the
+    encoder's self-attention passes enc = x).  Dense torch ops, as the
+    reference's jnp: no kernel."""
+    q = torch.einsum("bsd,dhk->bshk", x, params["w_q"])
+    k = torch.einsum("bsd,dhk->bshk", enc, params["w_k"])
+    v = torch.einsum("bsd,dhk->bshk", enc, params["w_v"])
+    out = full_attention(q, k, v, causal=False)
+    return torch.einsum("bshk,hkd->bsd", out, params["w_o"])
 
 
 # ----------------------------------------------------------------------- MLA

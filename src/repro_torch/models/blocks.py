@@ -1,6 +1,6 @@
 """The decoder layer (``kind`` "dense", "moe", "mla_dense" or "mla_moe"
-of ``repro.models.blocks``) and the Mamba2 layer: init plus train,
-prefill and decode application.
+of ``repro.models.blocks``), the Mamba2 layer, and whisper's encoder and
+decoder layers: init plus train, prefill and decode application.
 
 Pre-norm residual, as ``repro.models.blocks``.  Attention compute routes
 through ``repro_torch.dist.flash``, which picks the kernel.  The MLA
@@ -8,7 +8,10 @@ kinds attend with DeepSeek-V2's multi-head latent attention: per-head q
 and k of width ``qk_nope_head_dim + qk_rope_head_dim`` and v of width
 ``v_head_dim`` through the flash kernels in train and prefill, whose
 cache is the latents {"c_kv", "k_rope"}, and the absorbed latent-space
-decode.
+decode.  Whisper's layers use LayerNorm and the GELU MLP; its encoder
+self-attention and the decoder's cross attention are the unmasked
+dense ``cross_attention`` (no kernel), the decoder's self-attention the
+same RoPE'd causal GQA path as the decoder layer.
 """
 from __future__ import annotations
 
@@ -17,8 +20,11 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.dist.flash import causal_attention, decode_update_and_attend
-from .attention import _mla_qkv_full, gqa_init, gqa_qkv, mla_decode, mla_init
-from .layers import (Params, _dtype, apply_rope, cast_params, mlp, mlp_init,
+from .attention import (_mla_qkv_full, cross_attention, cross_attn_init,
+                        full_attention, gqa_init, gqa_qkv, mla_decode,
+                        mla_init)
+from .layers import (Params, _dtype, apply_rope, cast_params, gelu_mlp,
+                     gelu_mlp_init, layernorm, layernorm_init, mlp, mlp_init,
                      rmsnorm, rmsnorm_init, stack_trees)
 from .mamba import mamba_decode, mamba_init, mamba_prefill, mamba_train
 from .moe import moe_ffn, moe_init, zero_aux
@@ -200,3 +206,89 @@ def mamba_layer_decode(p: Params, x: torch.Tensor, cfg,
     h = rmsnorm(p["ln"], x, cfg.norm_eps)
     y, cache = mamba_decode(p["mixer"], h, cfg, cache)
     return x + y, cache
+
+
+# ------------------------------------------------------------- whisper blocks
+
+def enc_layer_init(gen: torch.Generator, cfg) -> Params:
+    dt = _dtype(cfg.param_dtype)
+    return {"ln1": layernorm_init(cfg.d_model, dt, gen.device),
+            "attn": cross_attn_init(gen, cfg),      # MHA weights (q,k,v,o)
+            "ln2": layernorm_init(cfg.d_model, dt, gen.device),
+            "mlp": gelu_mlp_init(gen, cfg.d_model, cfg.d_ff, dt)}
+
+
+def enc_layer_apply(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Bidirectional self-attention (``cross_attention`` with enc = h),
+    then the GELU MLP."""
+    p = cast_params(p, cfg.dtype)
+    h = layernorm(p["ln1"], x, cfg.norm_eps)
+    x = x + cross_attention(p["attn"], h, h)
+    h = layernorm(p["ln2"], x, cfg.norm_eps)
+    return x + gelu_mlp(p["mlp"], h)
+
+
+def dec_layer_init(gen: torch.Generator, cfg) -> Params:
+    dt = _dtype(cfg.param_dtype)
+    return {"ln1": layernorm_init(cfg.d_model, dt, gen.device),
+            "attn": gqa_init(gen, cfg),
+            "ln_x": layernorm_init(cfg.d_model, dt, gen.device),
+            "cross": cross_attn_init(gen, cfg),
+            "ln2": layernorm_init(cfg.d_model, dt, gen.device),
+            "mlp": gelu_mlp_init(gen, cfg.d_model, cfg.d_ff, dt)}
+
+
+def dec_layer_train(p: Params, x: torch.Tensor, enc: torch.Tensor, cfg,
+                    positions: torch.Tensor) -> torch.Tensor:
+    p = cast_params(p, cfg.dtype)
+    h = layernorm(p["ln1"], x, cfg.norm_eps)
+    x = x + _attn_apply(p["attn"], h, cfg, positions)
+    h = layernorm(p["ln_x"], x, cfg.norm_eps)
+    x = x + cross_attention(p["cross"], h, enc)
+    h = layernorm(p["ln2"], x, cfg.norm_eps)
+    return x + gelu_mlp(p["mlp"], h)
+
+
+def _cross_from_cache(p: Params, h: torch.Tensor, ck: torch.Tensor,
+                      cv: torch.Tensor) -> torch.Tensor:
+    q = torch.einsum("bsd,dhk->bshk", h, p["w_q"])
+    out = full_attention(q, ck, cv, causal=False)
+    return torch.einsum("bshk,hkd->bsd", out, p["w_o"])
+
+
+def dec_layer_prefill(p: Params, x: torch.Tensor, enc: torch.Tensor, cfg,
+                      positions: torch.Tensor
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Returns (x, cache): the self-attention's head-major {"k", "v"}
+    (B, KH, S, hd) and the cross K/V computed once from the encoder
+    states, seq-major {"cross_k", "cross_v"} (B, Se, H, hd)."""
+    p = cast_params(p, cfg.dtype)
+    h = layernorm(p["ln1"], x, cfg.norm_eps)
+    attn, cache = _attn_apply(p["attn"], h, cfg, positions, want_cache=True)
+    x = x + attn
+    h = layernorm(p["ln_x"], x, cfg.norm_eps)
+    ck = torch.einsum("bsd,dhk->bshk", enc, p["cross"]["w_k"])
+    cv = torch.einsum("bsd,dhk->bshk", enc, p["cross"]["w_v"])
+    x = x + _cross_from_cache(p["cross"], h, ck, cv)
+    h = layernorm(p["ln2"], x, cfg.norm_eps)
+    x = x + gelu_mlp(p["mlp"], h)
+    return x, {**cache, "cross_k": ck, "cross_v": cv}
+
+
+def dec_layer_decode(p: Params, x: torch.Tensor, cfg,
+                     cache: Dict[str, torch.Tensor], cur_len: int
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One token: the self-attention caches updated in place, the cross
+    caches read as they are."""
+    p = cast_params(p, cfg.dtype)
+    h = layernorm(p["ln1"], x, cfg.norm_eps)
+    attn, kv = _attn_decode(p["attn"], h, cfg,
+                            {"k": cache["k"], "v": cache["v"]}, cur_len)
+    x = x + attn
+    h = layernorm(p["ln_x"], x, cfg.norm_eps)
+    x = x + _cross_from_cache(p["cross"], h, cache["cross_k"],
+                              cache["cross_v"])
+    h = layernorm(p["ln2"], x, cfg.norm_eps)
+    x = x + gelu_mlp(p["mlp"], h)
+    return x, {**kv, "cross_k": cache["cross_k"],
+               "cross_v": cache["cross_v"]}

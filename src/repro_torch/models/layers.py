@@ -1,4 +1,5 @@
-"""Shared neural-net layers: norms, RoPE, the SwiGLU MLP, initializers.
+"""Shared neural-net layers: norms (RMSNorm, and whisper's LayerNorm),
+RoPE, the SwiGLU and GELU MLPs, initializers.
 
 Plain functions on tensors over dict parameter trees whose names and
 shapes match ``repro.models.layers``, so one weight set feeds both
@@ -87,6 +88,22 @@ def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (y * params["scale"].float()).to(x.dtype)
 
 
+def layernorm_init(dim: int, dtype: torch.dtype, device) -> Params:
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device),
+            "bias": torch.zeros((dim,), dtype=dtype, device=device)}
+
+
+def layernorm(params: Params, x: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in fp32 with the population variance (``jnp.var``'s),
+    scale and bias applied in fp32, cast back to x's dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"].float() + params["bias"].float()).to(x.dtype)
+
+
 # ------------------------------------------------------------------------ RoPE
 
 def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
@@ -133,3 +150,21 @@ def mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
     u = x @ params["w_up"]
     h = F.silu(g.float()).to(x.dtype) * u
     return h @ params["w_down"]
+
+
+def gelu_mlp_init(gen: torch.Generator, d_model: int, d_ff: int,
+                  dtype: torch.dtype) -> Params:
+    return {
+        "w_in": dense_init(gen, d_model, (d_ff,), dtype),
+        "b_in": torch.zeros((d_ff,), dtype=dtype, device=gen.device),
+        "w_out": dense_init(gen, d_ff, (d_model,), dtype),
+        "b_out": torch.zeros((d_model,), dtype=dtype, device=gen.device),
+    }
+
+
+def gelu_mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """GELU MLP (whisper): the tanh approximation (``jax.nn.gelu``'s
+    default) in fp32, cast to x's dtype."""
+    h = x @ params["w_in"] + params["b_in"]
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return h @ params["w_out"] + params["b_out"]

@@ -1,5 +1,5 @@
-"""Language model for the dense, VLM (text-only), MoE (with or without
-MLA), SSM and hybrid families.
+"""Language model for the dense, VLM, MoE (with or without MLA), SSM,
+hybrid and encoder-decoder families.
 
 ``LanguageModel(cfg, device)`` exposes:
   init(generator)                              -> params
@@ -15,16 +15,25 @@ both packages; layers run as a Python loop over the stack.  A MoE model
 (arctic, deepseek-v2) runs its ``first_k_dense`` dense layers
 (``dense_layers``, cache ``"dense"``) before its MoE layers
 (``layers``), and sums the MoE aux over layers into the train
-metrics.  Under ``use_mla`` (deepseek-v2) every decoder layer attends
-with multi-head latent attention (``layers.attn.w_uq`` (L, q_lora_rank,
-H, dn + dr), …), and the dense layers' MLP takes the full intermediate
-size (:attr:`LanguageModel._dense_cfg`).  The hybrid family (zamba2) applies one shared
-attention + MLP block (``params["shared_attn"]``, a single copy) before
-each group of ``attn_every`` Mamba layers, then the remainder layers.
-Caches follow the reference's ``cache_spec``: head-major attention
-caches (…, B, KH, S, hd), MLA's latent caches c_kv (…, B, S, rkv) and
-k_rope (…, B, S, dr), Mamba conv tails (…, B, K-1, C) and fp32 states
-(…, B, H, P, N); decode updates them in place.  Training follows
+metrics.  A VLM (llava) batch may carry ``patches`` (B, P, D): their
+embeddings go before the text's, so positions and ``cur_len`` count
+them, and ``train_loss`` pads the targets with −1 over them.  The
+encoder-decoder family (whisper) encodes ``batch["frames"]`` (B, Se, D)
+plus sinusoidal positions through ``enc_layers`` and ``enc_norm`` (both
+LayerNorm), then runs ``dec_layers``, each with a causal RoPE'd
+self-attention and a cross attention over the encoder states, into a
+LayerNorm ``final_norm``.  Under ``use_mla`` (deepseek-v2) every
+decoder layer attends with multi-head latent attention
+(``layers.attn.w_uq`` (L, q_lora_rank, H, dn + dr), …), and the dense
+layers' MLP takes the full intermediate size
+(:attr:`LanguageModel._dense_cfg`).  The hybrid family (zamba2)
+applies one shared attention + MLP block (``params["shared_attn"]``, a
+single copy) before each group of ``attn_every`` Mamba layers, then the
+remainder layers.  Caches follow the reference's ``cache_spec``:
+head-major attention caches (…, B, KH, S, hd) (whisper's cross caches
+seq-major (L, B, Se, H, hd)), MLA's latent caches c_kv (…, B, S, rkv)
+and k_rope (…, B, S, dr), Mamba conv tails (…, B, K-1, C) and fp32
+states (…, B, H, P, N); decode updates them in place.  Training follows
 the reference's ``cfg.remat`` with ``torch.utils.checkpoint`` and its
 sequence-chunked cross entropy, which never materializes the full
 (B, S, V) logits.
@@ -41,8 +50,18 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from . import blocks
-from .layers import (Params, _dtype, embed_init, resolve_device, rmsnorm,
-                     rmsnorm_init, stack_trees)
+from .layers import (Params, _dtype, embed_init, layernorm, layernorm_init,
+                     resolve_device, rmsnorm, rmsnorm_init, stack_trees)
+
+
+def _sinusoid(seq: int, dim: int) -> np.ndarray:
+    """Whisper's encoder positions: (seq, dim) fp32, the sin half then the
+    cos half."""
+    pos = np.arange(seq)[:, None]
+    i = np.arange(dim // 2)[None, :]
+    angle = pos / np.power(10000.0, 2 * i / dim)
+    out = np.concatenate([np.sin(angle), np.cos(angle)], axis=-1)
+    return out.astype(np.float32)
 
 
 def layer_params(stacked: Params, i: int) -> Params:
@@ -97,10 +116,11 @@ def _remat(body: Callable, cfg) -> Callable:
 
 class LanguageModel:
     def __init__(self, cfg, device="cuda"):
-        if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
+        if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid",
+                              "encdec"):
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (dense, vlm, moe, "
-                f"ssm, hybrid only)")
+                f"family {cfg.family!r} is not ported (dense, vlm, moe, "
+                f"ssm, hybrid, encdec only)")
         self.cfg = cfg
         self.device = resolve_device(device)
 
@@ -158,6 +178,16 @@ class LanguageModel:
         if cfg.family in ("ssm", "hybrid"):
             p["layers"] = stack_trees([blocks.mamba_layer_init(generator, cfg)
                                        for _ in range(cfg.num_layers)])
+        elif cfg.family == "encdec":
+            p["enc_layers"] = stack_trees(
+                [blocks.enc_layer_init(generator, cfg)
+                 for _ in range(cfg.num_encoder_layers)])
+            p["dec_layers"] = stack_trees(
+                [blocks.dec_layer_init(generator, cfg)
+                 for _ in range(cfg.num_layers)])
+            p["final_norm"] = layernorm_init(cfg.d_model, dt,
+                                             generator.device)
+            p["enc_norm"] = layernorm_init(cfg.d_model, dt, generator.device)
         else:
             if cfg.first_k_dense:
                 p["dense_layers"] = blocks.decoder_stack_init(
@@ -179,8 +209,37 @@ class LanguageModel:
 
     # ------------------------------------------------------------ embedding
 
-    def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embedding"][tokens.long()].to(_dtype(self.cfg.dtype))
+    def _embed(self, params: Params, tokens: torch.Tensor,
+               extra: Optional[Dict[str, torch.Tensor]] = None
+               ) -> torch.Tensor:
+        """Token embeddings in the compute dtype; a VLM batch's
+        ``patches`` (B, P, D) go before them."""
+        x = params["embedding"][tokens.long()].to(_dtype(self.cfg.dtype))
+        if self.cfg.family == "vlm" and extra is not None \
+                and "patches" in extra:
+            x = torch.cat([extra["patches"].to(x.dtype), x], dim=1)
+        return x
+
+    def _encode(self, params: Params, frames: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+        """Whisper's encoder: frames (B, Se, D) cast to ``dtype``, plus the
+        sinusoid cast to it, through ``enc_layers`` (each under
+        ``_remat`` when autograd records) and the LayerNorm ``enc_norm``."""
+        cfg = self.cfg
+        frames = frames.to(dtype)
+        pos = torch.from_numpy(_sinusoid(frames.shape[1], cfg.d_model))
+        e = frames + pos.to(frames.device)[None].to(dtype)
+        step = _remat(lambda xx, p_l: blocks.enc_layer_apply(p_l, xx, cfg),
+                      cfg)
+        for p_l in unstack_layers(params["enc_layers"],
+                                  cfg.num_encoder_layers):
+            e = step(e, p_l)
+        return layernorm(params["enc_norm"], e, cfg.norm_eps)
+
+    def _final_norm(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """``final_norm``: a LayerNorm for encdec (whisper), else RMSNorm."""
+        norm = layernorm if self.cfg.family == "encdec" else rmsnorm
+        return norm(params["final_norm"], x, self.cfg.norm_eps)
 
     def _unembed_weight(self, params: Params) -> torch.Tensor:
         if self.cfg.tie_embeddings:
@@ -193,13 +252,23 @@ class LanguageModel:
 
     # ------------------------------------------------------------ training
 
-    def _backbone_train(self, params: Params, x: torch.Tensor
+    def _backbone_train(self, params: Params, x: torch.Tensor,
+                        extra: Optional[Dict[str, torch.Tensor]] = None
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Returns (final-normed hidden, aux dict summed over layers —
-        ``moe.zero_aux``'s schema)."""
+        ``moe.zero_aux``'s schema).  ``extra`` is the batch, whose
+        ``frames`` an encoder-decoder model encodes."""
         cfg = self.cfg
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         aux = blocks.zero_aux(x.device)
+
+        if cfg.family == "encdec":
+            e = self._encode(params, extra["frames"], x.dtype)
+            dstep = _remat(lambda xx, ee, p_l: blocks.dec_layer_train(
+                p_l, xx, ee, cfg, positions), cfg)
+            for p_l in unstack_layers(params["dec_layers"], cfg.num_layers):
+                x = dstep(x, e, p_l)
+            return self._final_norm(params, x), aux
 
         if cfg.family in ("ssm", "hybrid"):
             layers = unstack_layers(params["layers"], cfg.num_layers)
@@ -217,7 +286,7 @@ class LanguageModel:
                 start = g * per
             for p_l in layers[start:]:
                 x = mstep(x, p_l)
-            return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
+            return self._final_norm(params, x), aux
 
         for key, _ck, n, kind, scfg in self._decoder_segments(params):
             step = _remat(lambda xx, p_l, kind=kind, scfg=scfg:
@@ -226,7 +295,7 @@ class LanguageModel:
             for p_l in unstack_layers(params[key], n):
                 x, a = step(x, p_l)
                 aux = {k: aux[k] + a[k] for k in aux}
-        return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
+        return self._final_norm(params, x), aux
 
     def lm_loss(self, params: Params, h: torch.Tensor, targets: torch.Tensor
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -268,14 +337,19 @@ class LanguageModel:
 
     def train_loss(self, params: Params, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """batch["tokens"], batch["targets"]: (B, S) int → (total loss,
-        metrics): loss + 0.01·aux + 1e-4·z_loss, with the MoE dispatch
-        metrics (zeros for a dense model) as the reference reports them."""
-        if "patches" in batch:
-            raise NotImplementedError("VLM patch prefixes are not ported yet")
-        x = self._embed(params, batch["tokens"])
-        h, aux = self._backbone_train(params, x)
-        loss, metrics = self.lm_loss(params, h, batch["targets"])
+        """batch["tokens"], batch["targets"]: (B, S) int (with ``patches``
+        (B, P, D) for a VLM, ``frames`` (B, Se, D) for encdec) → (total
+        loss, metrics): loss + 0.01·aux + 1e-4·z_loss, with the MoE
+        dispatch metrics (zeros for a dense model) as the reference
+        reports them.  Patch positions carry no next-token loss."""
+        x = self._embed(params, batch["tokens"], batch)
+        h, aux = self._backbone_train(params, x, batch)
+        targets = batch["targets"]
+        if self.cfg.family == "vlm" and "patches" in batch:
+            pad = torch.full((targets.shape[0], batch["patches"].shape[1]),
+                             -1, dtype=targets.dtype, device=targets.device)
+            targets = torch.cat([pad, targets], dim=1)
+        loss, metrics = self.lm_loss(params, h, targets)
         total = loss + 0.01 * aux["loss"] + 1e-4 * metrics["z_loss"]
         metrics["aux_loss"] = aux["loss"]
         metrics["moe_dropped_tokens"] = aux["dropped"]
@@ -288,17 +362,18 @@ class LanguageModel:
     # --------------------------------------------------------------- prefill
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor]):
-        """batch["tokens"]: (B, S) int → (last logits (B, V) fp32, cache):
+        """batch["tokens"]: (B, S) int (with ``patches`` / ``frames`` as in
+        :meth:`train_loss`) → (last logits (B, V) fp32, cache):
         {"layers": {"k", "v"}} (L, B, KH, S, hd) for dense models (and a
         MoE model's MoE layers, with {"dense": {"k", "v"}} for its
         leading dense ones; under MLA {"c_kv", "k_rope"} (L, B, S, rkv |
         dr) in their place), {"layers": mamba} for ssm, {"groups":
-        {"attn", "mamba"}, "remainder": mamba} for hybrid (see
-        :meth:`alloc_cache`)."""
+        {"attn", "mamba"}, "remainder": mamba} for hybrid, {"layers":
+        {"k", "v", "cross_k", "cross_v"}} for encdec (see
+        :meth:`alloc_cache`).  A VLM's cache holds the patches' positions
+        first: decode continues at ``cur_len`` = P + S."""
         cfg = self.cfg
-        if "patches" in batch:
-            raise NotImplementedError("VLM patch prefixes are not ported yet")
-        x = self._embed(params, batch["tokens"])
+        x = self._embed(params, batch["tokens"], batch)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         fam = cfg.family
 
@@ -313,6 +388,15 @@ class LanguageModel:
         if fam == "ssm":
             x, layers = mamba_run(x, 0, cfg.num_layers)
             cache = {"layers": layers}
+        elif fam == "encdec":
+            e = self._encode(params, batch["frames"], x.dtype)
+            caches = []
+            for i in range(cfg.num_layers):
+                x, c = blocks.dec_layer_prefill(
+                    layer_params(params["dec_layers"], i), x, e, cfg,
+                    positions)
+                caches.append(c)
+            cache = {"layers": stack_trees(caches)}
         elif fam == "hybrid":
             g, rem = self._hybrid_segments()
             per = cfg.attn_every
@@ -337,7 +421,7 @@ class LanguageModel:
                         kind)
                     kv.append(c)
                 cache[ck] = stack_trees(kv)
-        h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        h = self._final_norm(params, x)
         return self._logits(params, h[:, -1]), cache
 
     # ---------------------------------------------------------------- decode
@@ -360,6 +444,11 @@ class LanguageModel:
 
         if fam == "ssm":
             x = mamba_run(x, 0, cfg.num_layers, cache["layers"])
+        elif fam == "encdec":
+            for i in range(cfg.num_layers):
+                x, _ = blocks.dec_layer_decode(
+                    layer_params(params["dec_layers"], i), x, cfg,
+                    layer_params(cache["layers"], i), cur)
         elif fam == "hybrid":
             g, rem = self._hybrid_segments()
             per = cfg.attn_every
@@ -378,7 +467,7 @@ class LanguageModel:
                     x, _ = blocks.decoder_layer_decode(
                         layer_params(params[key], i), x, scfg,
                         layer_params(cache[ck], i), cur, kind)
-        h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        h = self._final_norm(params, x)
         return self._logits(params, h[:, -1]), cache
 
     # ----------------------------------------------------------------- cache
@@ -394,9 +483,13 @@ class LanguageModel:
         {"layers": kv}; MoE: {"layers": kv} over the MoE layers and, with
         ``first_k_dense``, {"dense": kv}; ssm: {"layers": mamba}; hybrid:
         {"groups": {"attn": kv (g, …), "mamba": mamba (g, per, …)},
-        "remainder": mamba (rem, …)}.  ``init`` (a prefill cache of S ≤ seq positions)
+        "remainder": mamba (rem, …)}; encdec: {"layers": kv and the cross
+        caches "cross_k" / "cross_v" (L, batch, encoder_seq, H, hd)}.  The
+        self-attention caches have KH heads, as the prefill makes them
+        (the reference's ``cache_spec`` says H for encdec, which differs
+        where KH < H).  ``init`` (a prefill cache of S ≤ seq positions)
         is copied in: attention and latent caches into their first S
-        positions, Mamba caches whole."""
+        positions, Mamba and cross caches whole."""
         cfg = self.cfg
         cdt = _dtype(cfg.dtype)
         dev = self.device
@@ -423,6 +516,12 @@ class LanguageModel:
 
         if cfg.family == "ssm":
             out = {"layers": mamba(cfg.num_layers)}
+        elif cfg.family == "encdec":
+            n, shape = cfg.num_layers, (batch, cfg.encoder_seq,
+                                        cfg.num_heads, cfg.head_dim)
+            out = {"layers": {**kv(n), **{
+                name: torch.zeros((n, *shape), dtype=cdt, device=dev)
+                for name in ("cross_k", "cross_v")}}}
         elif cfg.family == "hybrid":
             g, rem = self._hybrid_segments()
             out = {"groups": {"attn": kv(g), "mamba": mamba(g, cfg.attn_every)}}

@@ -9,7 +9,10 @@ on the card against its numpy backend, and the MoE layer and a reduced
 arctic model on the card against the CPU (the layer also twice for the
 same bits); K1, K1-lse, K2 and K3 at DeepSeek-V2's MLA widths (q/k 192,
 v 128) and (48, 32) against their plain versions, and a reduced MLA
-model on the card against the CPU.
+model on the card against the CPU; K1, K1-lse, K2, K3 and K5 at
+whisper-small's shapes (G 1, hd 64) against their plain versions, and
+reduced whisper (encoder-decoder) and llava (patch prefix) models on the
+card against the CPU.
 They skip (from inside the fixture) where torch sees no CUDA device; on
 a machine with the card run
 
@@ -1444,6 +1447,137 @@ def test_mla_model_on_the_card_matches_the_cpu(cuda):
             fa.flash_attention_fwd.launches - before[1],
             fa.flash_attention_bwd_fused.launches - before[2]) == (
         layers, 2 * layers, layers)
+    (loss_g, grads_g), (loss_c, grads_c) = out
+    assert loss_g == pytest.approx(loss_c, rel=1e-5)
+    for a, c in zip(grads_g, grads_c):
+        assert (a.cpu() - c).abs().max().item() <= \
+            1e-4 * max(c.abs().max().item(), 1e-30)
+
+
+# ------------------------------------------- whisper and llava (G 1, hd 64)
+
+@pytest.mark.parametrize("b,sq,dtype,window", [
+    (1, 1100, torch.bfloat16, 0),
+    (2, 333, torch.float32, 0),
+    (1, 700, torch.bfloat16, 256),
+])
+def test_whisper_shape_kernels_match_plain(cuda, b, sq, dtype, window):
+    """whisper-small's decoder self-attention: 12 heads over 12 kv heads
+    (G 1) of width 64.  K1, K1-lse, K2 and K3 against their plain
+    versions; K1 and K2 twice the same bits, K3 K2's dk and dv."""
+    h = kh = 12
+    q = _randn((b, h, sq, 64), dtype, cuda, 10)
+    k = _randn((b, kh, sq, 64), dtype, cuda, 11)
+    v = _randn((b, kh, sq, 64), dtype, cuda, 12)
+    do = _randn((b, h, sq, 64), dtype, cuda, 13)
+    kw = dict(causal=True, window=window)
+    got = fa.flash_attention(q, k, v, **kw)
+    assert torch.equal(got, fa.flash_attention(q, k, v, **kw))
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want_out, want_lse = fa.flash_attention_plain(q, k, v, with_lse=True,
+                                                  **kw)
+    for o in (got, out):
+        assert (o.float() - want_out.float()).abs().max().item() <= \
+            TOL[dtype]
+    _close(lse, want_lse, (1e-5, 1e-4))
+    delta = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, do, lse, delta)
+    dq2 = fa.flash_attention_bwd_dq(*args, **kw)
+    dk2, dv2 = fa.flash_attention_bwd_dkv(*args, **kw)
+    dq3, dk3, dv3 = fa.flash_attention_bwd_fused(*args, **kw)
+    again = (fa.flash_attention_bwd_dq(*args, **kw),
+             *fa.flash_attention_bwd_dkv(*args, **kw))
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=True,
+                                        window=window)
+    for got2, got3, w in zip((dq2, dk2, dv2), (dq3, dk3, dv3), want):
+        _close(got2, w, BWD_TOL[dtype])
+        _close(got3, w, BWD_TOL[dtype])
+    assert all(torch.equal(a, c) for a, c in zip(again, (dq2, dk2, dv2)))
+    assert torch.equal(dk2, dk3) and torch.equal(dv2, dv3)
+
+
+@pytest.mark.parametrize("cur,dtype", [(449, torch.bfloat16),
+                                       (480, torch.bfloat16),
+                                       (300, torch.float32)])
+def test_whisper_shape_decode_matches_plain(cuda, cur, dtype):
+    """K5 at whisper's decode: B 4, 12 kv heads of one query head each (G
+    1), hd 64, a 480-position cache; twice the same bits."""
+    q = _randn((4, 12, 1, 64), dtype, cuda, 20)
+    kc = _randn((4, 12, 480, 64), dtype, cuda, 21)
+    vc = _randn((4, 12, 480, 64), dtype, cuda, 22)
+    cur_t = torch.full((1,), cur, dtype=torch.int32, device=cuda)
+    got = fd.flash_decode(q, kc, vc, cur_t)
+    assert torch.equal(got, fd.flash_decode(q, kc, vc, cur_t))
+    want = fd.flash_decode_plain(q, kc, vc, cur_t)
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "llava-next-mistral-7b"])
+def test_encdec_and_vlm_models_on_the_card_match_the_cpu(cuda, arch):
+    """Reduced fp32 whisper (24 frames) and llava (8 patches before the
+    text, window 16) with ``attn_flash_min_seq=32``: prefill of 2 x 96
+    positions through K1, three decode steps through K5 (at ``cur_len``
+    counting the patches), and one ``train_loss`` with its gradients
+    through K1-lse and K3, on the card against the CPU's plain path from
+    the same weights; logits 1e-3, caches 1e-4, loss 1e-5 relative,
+    gradients 1e-4 of each leaf's largest entry."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LanguageModel
+    from repro_torch.optim.adamw import iter_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              attn_flash_min_seq=32)
+    gpu, cpu = LanguageModel(cfg, device=cuda), LanguageModel(cfg, "cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    params_gpu = _tree_to(params, cuda)
+    rng = np.random.RandomState(0)
+    if cfg.family == "encdec":
+        key, width, pre = "frames", cfg.encoder_seq, 0
+    else:
+        key, width, pre = "patches", cfg.num_patches, cfg.num_patches
+    s = 96 - pre
+    extra = torch.from_numpy((0.02 * rng.randn(2, width, cfg.d_model))
+                             .astype(np.float32))
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, s + 4)))
+    counters = (fa.flash_attention, fd.flash_decode, fa.flash_attention_fwd,
+                fa.flash_attention_bwd_fused)
+    before = [c.launches for c in counters]
+    with torch.no_grad():
+        lg, cg = gpu.prefill(params_gpu, {"tokens": toks[:, :s].to(cuda),
+                                          key: extra.to(cuda)})
+        lc, cc = cpu.prefill(params, {"tokens": toks[:, :s], key: extra})
+        assert (lg.cpu() - lc).abs().max().item() <= 1e-3
+        cg, cc = gpu.alloc_cache(2, 99, init=cg), cpu.alloc_cache(
+            2, 99, init=cc)
+        for i in range(3):
+            tok = toks[:, s + i:s + i + 1]
+            lg, cg = gpu.decode_step(params_gpu, cg, tok.to(cuda),
+                                     pre + s + i)
+            lc, cc = cpu.decode_step(params, cc, tok, pre + s + i)
+            assert (lg.cpu() - lc).abs().max().item() <= 1e-3
+    for name, leaf in cc["layers"].items():
+        assert (cg["layers"][name].cpu() - leaf).abs().max().item() <= 1e-4
+    batch = {"tokens": toks[:, :s], "targets": toks[:, 1:s + 1], key: extra}
+    out = []
+    for model, p in ((gpu, params_gpu), (cpu, params)):
+        leaves = [x.detach().requires_grad_() for _p, x in iter_leaves(p)]
+        it = iter(leaves)
+
+        def build(node):
+            return {k: build(node[k]) if isinstance(node[k], dict)
+                    else next(it) for k in sorted(node)}
+        loss, metrics = model.train_loss(build(p), {
+            k: v.to(model.device) for k, v in batch.items()})
+        assert float(metrics["tokens"]) == 2 * s
+        out.append((loss.item(), torch.autograd.grad(loss, leaves)))
+    layers = cfg.num_layers
+    assert [c.launches - n for c, n in zip(counters, before)] == \
+        [layers, 3 * layers, 2 * layers, layers]
     (loss_g, grads_g), (loss_c, grads_c) = out
     assert loss_g == pytest.approx(loss_c, rel=1e-5)
     for a, c in zip(grads_g, grads_c):
