@@ -241,7 +241,32 @@ Phases, in order; any failure raises and the script exits nonzero:
     of 4 x (576 seeded patches + 3520 text) (ce_loss falls; K1-lse 8 and
     K3 4 a step; the ``tokens`` metric exactly 4 x 3520);
 24. llava against the CPU: fp32, 1 layer at full width, 1 x (576 +
-    1728): prefill and one decode step's logits, loss and every gradient.
+    1728): prefill and one decode step's logits, loss and every gradient;
+25. the mesh (2 ranks sharing one H100 over gloo: no time of it is a
+    multi-card time): ``launch.mesh.spawn`` starts 2 rank processes on
+    cuda:0 after the kernels are built here, mesh (1, 2) ("data",
+    "model"); each collective the mesh paths use on CUDA tensors
+    (all_reduce sum and max, all_gather_into_tensor, the list all_gather,
+    reduce_scatter_tensor, all_to_all_single); at full-width shapes in
+    bf16, each against the same call on one rank: head-parallel
+    ``causal_attention`` at llama3.2-3b's 24 / 8 heads (4 x 4096, forward
+    and backward: K1-lse and K3 on 12 / 4 local heads), context-parallel
+    at smollm-360m's 15 / 5 heads (2 x 8192: K1-lse and K3 on stripes of
+    4096 at q_offset 0 and 4096), the lse-combine decode at smollm's heads
+    against an 8192-slot cache, the head-parallel decode (K5 on 4 local kv
+    heads) at llama's and MLA's head-sharded decode at deepseek-v2's 128
+    heads; two arctic-width MoE layers (32 experts, 16 a rank) through the
+    a2a dispatch, forward and backward, against the no-mesh oracle with
+    no drops; smollm-360m (all 32 layers, 2 x 8192) and llama3.2-3b (4
+    of 28 layers, 4 x 4096) trained at full width through
+    ``Trainer(mesh=...)`` (K1-lse twice and K3 once a layer a step on each
+    rank), each with an fp32 depth-cut step held against one rank's (loss
+    1e-3, parameters 3e-4); both served in fp32 under the mesh against one
+    rank (smollm prefill 4 x 4608: K1 on stripes of 2304); then, in this
+    process, the §6 ranges of a TP-sharded llama leaf through
+    ``db_partition`` and one K7 fused copy that reassembles it from the
+    two ranks' shards bit for bit, and K1-lse / K3 on a stripe and K5 on
+    local kv heads timed with the card to themselves.
 
 Phase 7 also runs a reduced fp32 smollm (head_dim 64,
 ``attn_flash_min_seq=32``, B 72 x S 96: B·KH = 144) on the forced K4
@@ -251,8 +276,9 @@ logits through K4f and one step's gradients through K4f and K4b; and the reduced
 
 Counters on the kernel wrappers are zeroed just before each main-path
 phase (5, 6, 6a, 6b, 6c, 6d, 8, 8a and its other route, 8b, 8c-8f, 9,
-10, each path of 12, and 13-24) and read just after: every kernel of the path must have
-launched.  The kernel line's
+10, each path of 12, 13-24, and in each rank each part of 25) and read
+just after: every kernel of the path must have launched (25's counts
+are both ranks' sums).  The kernel line's
 launches are those counts alone; the reduced model of phase 7 and the
 fp32 consistency check of 8b keep theirs in their own results.  The line before the last is the kernel table as
 JSON; the last line is ``{"ok": true, "device": {...}}``.  Exits nonzero
@@ -552,6 +578,16 @@ def _sdpa_call(q, k, v, **kw):
         return None
     return lambda: F.scaled_dot_product_attention(  # noqa: E731
         q, k, v, enable_gqa=True, **kw)
+
+
+def _sdpa_backward(q, k, v, do, **kw):
+    """The backward alone of one ``scaled_dot_product_attention`` call on
+    copies of these tensors: ``autograd.grad`` through a kept graph
+    (nothing added into ``.grad``).  The closure holds the graph."""
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, enable_gqa=True, **kw)
+    return lambda: torch.autograd.grad(  # noqa: E731
+        out, leaves, do, retain_graph=True)
 
 
 def _ptxas_report(pattern):
@@ -4825,6 +4861,695 @@ def phase_vlm_reference():
                              120)
 
 
+# --------------------------------------------------------------- the mesh
+
+MESH_NOTE = "2 ranks sharing one H100 over gloo; not a multi-card time"
+MESH_STEPS = 3
+MESH_SMOLLM_ARGS = ["--arch", "smollm-360m", "--data", "markov", "--batch",
+                    "2", "--seq", "8192", "--steps", str(MESH_STEPS),
+                    "--lr", "1e-3"]
+MESH_LLAMA_ARGS = ["--arch", "llama3.2-3b", "--data", "markov", "--batch",
+                   "4", "--seq", "4096", "--steps", str(MESH_STEPS),
+                   "--lr", "1e-3"]
+MESH_LLAMA_LAYERS = 4
+MESH_MOE_EXPERTS = 32
+# (batch, seq[, cached positions | decodes]) of each part of the phase
+MESH_SHAPES = {"head_attn": (4, 4096), "ctx_attn": (2, 8192),
+               "decode": (4, 8192, 8000), "mla": (4, 4096, 4000),
+               "moe": (2, 1024), "fp32_smollm": (1, 8192),
+               "fp32_llama": (1, 4096), "serve_smollm": (4, 4608, 8),
+               "serve_llama": (4, 4096, 8)}
+
+
+def _want_launches(what, counts, want):
+    """Fail unless each kernel of ``want`` launched exactly that often."""
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, want {want}")
+
+
+def _wall(fn, reps=3):
+    """Median host wall of ``fn`` in ms, synchronized before and after
+    each of ``reps`` calls (after one warm call)."""
+    fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+    return float(np.median(ms))
+
+
+def _mesh_collectives(rank):
+    """Each collective the mesh paths use, on CUDA tensors over gloo; a
+    refusal raises here, with the backend's error."""
+    import torch.distributed as dist
+    x = torch.arange(4, dtype=torch.float32, device="cuda") + rank
+
+    def reduce(op):
+        y = x.clone()
+        dist.all_reduce(y, op=op)
+        return y
+
+    def into(fn, n):
+        y = torch.empty(n, device="cuda")
+        fn(y, x)
+        return y
+
+    def listed():
+        parts = [torch.empty_like(x) for _ in range(2)]
+        dist.all_gather(parts, x)
+        return torch.cat(parts)
+
+    cases = (("all_reduce sum", lambda: reduce(dist.ReduceOp.SUM),
+              [1, 3, 5, 7]),
+             ("all_reduce max", lambda: reduce(dist.ReduceOp.MAX),
+              [1, 2, 3, 4]),
+             ("all_gather_into_tensor",
+              lambda: into(dist.all_gather_into_tensor, 8),
+              [0, 1, 2, 3, 1, 2, 3, 4]),
+             ("all_gather (list)", listed, [0, 1, 2, 3, 1, 2, 3, 4]),
+             ("reduce_scatter_tensor",
+              lambda: into(dist.reduce_scatter_tensor, 2),
+              [[1, 3], [5, 7]][rank]),
+             ("all_to_all_single", lambda: into(dist.all_to_all_single, 4),
+              [[0, 1, 1, 2], [2, 3, 3, 4]][rank]))
+    out = {}
+    for name, fn, want in cases:
+        got = fn()
+        torch.cuda.synchronize()
+        vals = got.cpu().tolist()
+        print(f"  {name} on cuda tensors: rank {rank} got {vals}")
+        if got.device != x.device or vals != [float(w) for w in want]:
+            raise AssertionError(f"{name}: rank {rank} got {vals}, want "
+                                 f"{want}")
+        out[name] = vals
+    return out
+
+
+def _mesh_attention_call(name, cfg, b, s, seed, mesh, rank):
+    """``causal_attention`` forward and backward (bf16) under the mesh
+    against the same call with no mesh on rank 0."""
+    import torch.distributed as dist
+    from repro_torch.dist import flash as dflash
+    from repro_torch.dist.sharding import use_mesh
+    dt = torch.bfloat16
+    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v, do = (_randn((b, s, h, hd), dt, seed),
+                   _randn((b, s, kh, hd), dt, seed + 1),
+                   _randn((b, s, kh, hd), dt, seed + 2),
+                   _randn((b, s, h, hd), dt, seed + 3))
+
+    def run(m):
+        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+        with use_mesh(m):
+            o = dflash.causal_attention(qq, kk, vv, cfg=cfg,
+                                        window=cfg.sliding_window)
+            g = torch.autograd.grad(o, (qq, kk, vv), do)
+        return o.detach(), g
+
+    _zero_counts()
+    got = run(mesh)
+    torch.cuda.synchronize()
+    counts = _counts()
+    print(f"  {name}: B={b} S={s} H={h} KH={kh} hd={hd} bf16, rank "
+          f"{rank} launches {counts}")
+    _want_launches(name, counts, {"k1_lse": 1, "k3": 1})
+    info = {"launches": counts}
+    if rank == 0:
+        want = run(None)
+        info["max_abs_err"] = _check(f"{name} out vs one rank", got[0],
+                                     want[0], dt)
+        for n, a, w in zip("qkv", got[1], want[1]):
+            _check_rel(f"{name} d{n} vs one rank", a, w, dt)
+        info["one_rank_ms"] = _wall(lambda: run(None))
+        del want
+    del got
+    dist.barrier()
+    info["mesh_ms"] = _wall(lambda: run(mesh))
+    print(f"  {name}: forward + backward {info['mesh_ms']:.2f} ms a rank "
+          f"under the mesh ({MESH_NOTE})"
+          + (f", {info['one_rank_ms']:.2f} ms on one rank alone"
+             if rank == 0 else ""))
+    return info
+
+
+def _mesh_decode_call(name, h, kh, hd, b, smax, cur, seed, mesh, rank):
+    """``decode_update_and_attend`` (bf16) under the mesh against the
+    same call with no mesh on rank 0 (K5 there)."""
+    import torch.distributed as dist
+    from repro_torch.dist import flash as dflash
+    from repro_torch.dist.sharding import use_mesh
+    dt = torch.bfloat16
+    q = _randn((b, 1, h, hd), dt, seed)
+    kn, vn = _randn((b, 1, kh, hd), dt, seed + 1), _randn((b, 1, kh, hd),
+                                                          dt, seed + 2)
+    kc, vc = _randn((b, kh, smax, hd), dt, seed + 3), _randn(
+        (b, kh, smax, hd), dt, seed + 4)
+
+    def run(m):
+        with use_mesh(m):
+            return dflash.decode_update_and_attend(
+                q, kn, vn, kc.clone(), vc.clone(), cur)[0]
+
+    _zero_counts()
+    got = run(mesh)
+    torch.cuda.synchronize()
+    counts = _counts()
+    info = {"launches": counts}
+    print(f"  {name}: B={b} H={h} KH={kh} hd={hd} cache {smax} at {cur}, "
+          f"rank {rank} launches {counts}")
+    # head-parallel: K5 on the rank's kv heads; lse-combine: torch ops
+    _want_launches(name, counts, {"k5": int(h % 2 == 0 and kh % 2 == 0)})
+    if rank == 0:
+        info["max_abs_err"] = _check(f"{name} vs one rank", got,
+                                     run(None), dt)
+        info["one_rank_ms"] = _wall(lambda: run(None))
+    dist.barrier()
+    info["mesh_ms"] = _wall(lambda: run(mesh))
+    return info
+
+
+def _mesh_mla_call(mesh, rank):
+    """``mla_decode_attend`` at deepseek-v2's 128 heads, rkv 512, dr 64
+    (bf16), heads sharded, against one rank."""
+    from repro_torch.dist import flash as dflash
+    from repro_torch.dist.sharding import use_mesh
+    cfg = get_config(DEEPSEEK)
+    dt = torch.bfloat16
+    b, smax, cur = MESH_SHAPES["mla"]
+    h, rkv, dr = cfg.num_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    ql, qr = _randn((b, 1, h, rkv), dt, 61), _randn((b, 1, h, dr), dt, 62)
+    cn, kn = _randn((b, 1, rkv), dt, 63), _randn((b, 1, dr), dt, 64)
+    ckv, kr = _randn((b, smax, rkv), dt, 65), _randn((b, smax, dr), dt, 66)
+    scale = 1.0 / np.sqrt(cfg.qk_nope_head_dim + dr)
+
+    def run(m):
+        with use_mesh(m):
+            return dflash.mla_decode_attend(ql, qr, cn, kn, ckv.clone(),
+                                            kr.clone(), cur, scale=scale)[0]
+
+    got = run(mesh)
+    info = {"mesh_ms": _wall(lambda: run(mesh))}
+    print(f"  mla_decode_attend: B={b} H={h} rkv={rkv} dr={dr} cache "
+          f"{smax} at {cur}, heads sharded")
+    if rank == 0:
+        info["max_abs_err"] = _check("mla decode vs one rank", got, run(None),
+                                     dt)
+    return info
+
+
+def _mesh_trainer(cfg, argv, mesh):
+    """The port's Trainer under ``mesh`` as ``launch.train`` builds it
+    from ``argv`` (a fresh seeded state cut to this rank's shards)."""
+    args = train_cli.parse_args(argv + ["--device", "cuda"])
+    oc = train_cli.optimizer_config(cfg, args)
+    data = SyntheticTokens(cfg.vocab_size, args.batch, args.seq, seed=0,
+                           mode="markov")
+    tr = Trainer(LanguageModel(cfg, device="cuda"), oc, data,
+                 TrainerConfig(), mesh=mesh)
+    state = tr.init_or_restore(torch.Generator(device="cuda").manual_seed(0))
+    return tr, tr.run(state, args.steps)
+
+
+def _mesh_train(name, cfg, argv, rank, mesh):
+    """Steps of ``cfg`` at full width through ``Trainer(mesh=...)``:
+    K1-lse twice and K3 once a layer a step on each rank."""
+    _zero_counts()
+    t0 = time.perf_counter()
+    tr, state = _mesh_trainer(cfg, argv, mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    layers, steps = cfg.num_layers, len(tr.history)
+    want = {"k1_lse": 2 * layers * steps, "k3": layers * steps}
+    times = [h["step_time"] * 1e3 for h in tr.history]
+    losses = [h["ce_loss"] for h in tr.history]
+    print(f"  {name}: {layers} layers at full width, {steps} steps; rank "
+          f"{rank} launches {counts} (want {want}); step ms "
+          f"{[round(t, 1) for t in times]} ({MESH_NOTE}); ce_loss "
+          f"{[round(x, 4) for x in losses]}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    _want_launches(name, counts, want)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: losses {losses}")
+    return {"launches": counts, "step_ms": times, "ce_loss": losses,
+            "wall_s": wall, "layers": layers}, tr, state
+
+
+def _mesh_fp32_step(name, cfg, b, s, rank, mesh, device="cuda"):
+    """One fp32 step under the mesh against the one-rank step on the same
+    weights and batch: ce_loss within 1e-3, every parameter within 3e-4
+    and the clip's global gradient norm within 1e-4 of it (relative).
+    The optimizer is the reference test's (peak lr 1e-3, warmup 2: lr
+    5e-4 at step 1), so AdamW's first step moves each entry by about
+    5e-4: a gradient of the wrong sign or left at zero moves its entry
+    past the 3e-4 limit.  AdamW's first step does not see a gradient's
+    scale, so the gradient norm holds that.  ``device`` "cpu" runs the
+    same check on gloo ranks of the CPU."""
+    import torch.distributed as dist
+    from repro_torch.convert import place_state
+    from repro_torch.dist.sharding import (full_tensor, param_shardings,
+                                           use_mesh)
+    from repro_torch.models.model import param_shapes
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    model = LanguageModel(cfg, device=device)
+    oc = OptimizerConfig(peak_lr=1e-3, warmup_steps=2, total_steps=50)
+    data = SyntheticTokens(cfg.vocab_size, b, s, seed=5, mode="markov")
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in data.get(0).items()}
+    step = make_train_step(model, oc)
+
+    def fresh():
+        p = model.init(torch.Generator(device=device).manual_seed(3))
+        return {"params": p, "opt": init_opt_state(p, oc)}
+
+    one = None
+    if rank == 0:
+        one, m1 = step(fresh(), batch)
+    dist.barrier()
+    state = place_state(fresh(), mesh)
+    _release()
+    with use_mesh(mesh) as ctx:
+        state, m2 = step(state, batch)
+        sh = param_shardings(param_shapes(cfg), ctx)
+        worst = 0.0
+        for path, leaf in iter_leaves(state["params"]):
+            spec = sh
+            for key in path:
+                spec = spec[key]
+            full = full_tensor(leaf, spec.spec, ctx)
+            if one is not None:
+                want = one["params"]
+                for key in path:
+                    want = want[key]
+                d = ((full - want).abs() - 3e-4 * want.abs()).max().item()
+                worst = max(worst, d)
+            del full
+    info = {"ce_loss": float(m2["ce_loss"])}
+    if rank == 0:
+        ce = abs(float(m1["ce_loss"]) - float(m2["ce_loss"]))
+        gn, gn1 = float(m2["grad_norm"]), float(m1["grad_norm"])
+        gn_rel = abs(gn - gn1) / max(abs(gn1), 1e-30)
+        print(f"  {name} fp32 step ({cfg.num_layers} layers, {b} x {s}, "
+              f"peak lr {oc.peak_lr:g}, warmup {oc.warmup_steps}) vs one "
+              f"rank: ce_loss diff {ce:.2e} (limit "
+              f"1e-3), params max(|diff| - 3e-4 |want|) {worst:.2e} (limit "
+              f"3e-4), grad_norm {gn:.6f} vs {gn1:.6f}, relative diff "
+              f"{gn_rel:.2e} (limit 1e-4)")
+        if not (ce <= 1e-3 and worst <= 3e-4 and gn_rel <= 1e-4):
+            raise AssertionError(f"{name}: the mesh step differs from one "
+                                 f"rank's")
+        info.update(ce_diff=ce, param_excess=worst, grad_norm_rel=gn_rel)
+    del one, state
+    _release()
+    return info
+
+
+def _mesh_serve(name, cfg, b, s, decodes, rank, mesh):
+    """fp32 prefill and greedy decodes under the mesh, against the same
+    serve on one rank (rank 0): prefill logits within 1e-3 (fp32, logits
+    O(1)) and the greedy tokens agreeing at >= 0.95."""
+    import torch.distributed as dist
+    from repro_torch.dist.sharding import use_mesh
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    model = LanguageModel(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(4))
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                         device="cuda")
+
+    def serve(m, walls=None):
+        with use_mesh(m):
+            t = time.perf_counter()
+            logits, cache = model.prefill(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            if walls is not None:
+                walls["prefill_ms"] = 1e3 * (time.perf_counter() - t)
+            first = logits
+            cache = model.alloc_cache(b, s + decodes, init=cache)
+            out, tok = [], logits.argmax(-1)
+            t = time.perf_counter()
+            for i in range(decodes):
+                out.append(tok)
+                logits, cache = model.decode_step(params, cache, tok[:, None],
+                                                  s + i)
+                tok = logits.argmax(-1)
+            torch.cuda.synchronize()
+            if walls is not None:
+                walls["decode_ms"] = 1e3 * (time.perf_counter() - t) / decodes
+        return first, torch.stack(out, 1)
+
+    walls = {}
+    _zero_counts()
+    first, tokens = serve(mesh, walls)
+    counts = _counts()
+    print(f"  {name} serve (fp32, {cfg.num_layers} layers): prefill {b} x "
+          f"{s} {walls['prefill_ms']:.1f} ms, {decodes} decodes "
+          f"{walls['decode_ms']:.1f} ms a step ({MESH_NOTE}); rank {rank} "
+          f"launches {counts}")
+    # prefill: K1 once a layer (on the rank's heads or sequence stripe);
+    # decode: K5 once a layer a step when the heads split, else the
+    # lse-combine's torch ops
+    heads = cfg.num_heads % 2 == 0 and cfg.num_kv_heads % 2 == 0
+    _want_launches(f"{name} serve", counts, {
+        "k1": cfg.num_layers, "k5": cfg.num_layers * decodes * heads})
+    info = {"launches": counts, **walls}
+    if rank == 0:
+        w_first, w_tokens = serve(None)
+        err = (first - w_first).abs().max().item()
+        agree = (tokens == w_tokens).float().mean().item()
+        print(f"  {name} serve vs one rank: prefill logits max_abs_err "
+              f"{err:.2e} (limit 1e-3), greedy tokens agree {agree:.3f} "
+              f"(limit 0.95)")
+        if not (err <= 1e-3 and agree >= 0.95):
+            raise AssertionError(f"{name}: mesh serve differs from one rank")
+        info.update(max_abs_err=err, token_agreement=agree)
+    del params
+    _release()
+    dist.barrier()
+    return info
+
+
+def _mesh_moe(rank, mesh):
+    """Two arctic-width MoE layers (d_model 7168, experts of 4864, top 2,
+    the dense residual; 32 experts, 16 on each rank) through the a2a
+    dispatch, forward and backward, against the no-mesh oracle on rank 0
+    at capacity factor E/k (every expert can take every token: no
+    drops)."""
+    import torch.distributed as dist
+    from repro_torch.dist.sharding import use_mesh
+    e = MESH_MOE_EXPERTS
+    cfg = dataclasses.replace(get_config(ARCTIC), num_experts=e,
+                              capacity_factor=e / 2)
+    full = [moe.moe_init(torch.Generator(device="cuda").manual_seed(90 + i),
+                         cfg) for i in range(2)]
+    dt = full[0]["w_gate"].dtype          # arctic's bf16 parameters
+    half = e // 2
+    banks = ("w_gate", "w_up", "w_down")
+    local = [{k: (v[rank * half:(rank + 1) * half].clone() if k in banks
+                  else v) for k, v in p.items()} for p in full]
+    if rank:
+        del full
+        _release()
+    x = _randn((*MESH_SHAPES["moe"], cfg.d_model), dt, 91)
+    dy = _randn((*MESH_SHAPES["moe"], cfg.d_model), dt, 92)
+
+    def run(layers, m):
+        leaves = [p[n].requires_grad_() for p in layers for n in banks]
+        with use_mesh(m):
+            h, auxs = x, []
+            for p in layers:
+                h, a = moe.moe_ffn(p, h, cfg)
+                auxs.append(a)
+            grads = torch.autograd.grad(h, leaves, dy)
+        for p in layers:
+            for n in banks:
+                p[n].requires_grad_(False)
+        return h.detach(), auxs, grads
+
+    _zero_counts()
+    t = time.perf_counter()
+    y, auxs, grads = run(local, mesh)
+    torch.cuda.synchronize()
+    mesh_ms = 1e3 * (time.perf_counter() - t)
+    dropped = [float(a["dropped"]) for a in auxs]
+    a2a = [float(a["a2a_bytes"]) for a in auxs]
+    norms = torch.stack([torch.linalg.vector_norm(
+        g, dim=(1, 2), dtype=torch.float32) for g in grads])
+    parts = [torch.empty_like(norms) for _ in range(2)]
+    dist.all_gather(parts, norms)
+    info = {"mesh_ms": mesh_ms, "dropped": dropped, "a2a_bytes": a2a}
+    print(f"  moe a2a: 2 layers, {e} experts ({half} a rank), "
+          f"{tuple(x.shape[:2])} tokens bf16: forward + backward {mesh_ms:.1f} ms ({MESH_NOTE}), "
+          f"dropped {dropped}, a2a bytes a layer {a2a}")
+    if rank == 0:
+        t = time.perf_counter()
+        wy, waux, wgrads = run(full, None)
+        torch.cuda.synchronize()
+        info["one_rank_ms"] = 1e3 * (time.perf_counter() - t)
+        info["max_abs_err"] = _check("moe y vs no-mesh oracle", y, wy, dt)
+        for n, g, w in zip(("w_gate 1", "w_up 1", "w_down 1", "w_gate 2",
+                            "w_up 2", "w_down 2"), grads, wgrads):
+            _check_rel(f"moe d{n} (rank 0's experts) vs oracle", g,
+                       w[:half], dt)
+        wn = torch.stack([torch.linalg.vector_norm(
+            g, dim=(1, 2), dtype=torch.float32) for g in wgrads])
+        got = torch.cat(parts, dim=1)
+        rel = ((got - wn).abs() / wn.clamp(min=1e-30)).max().item()
+        print(f"  moe: every expert's gradient norm (both ranks) vs the "
+              f"oracle's: max relative diff {rel:.2e} (limit 1e-2); oracle "
+              f"dropped {[float(a['dropped']) for a in waux]}")
+        if rel > 1e-2 or any(dropped) or not all(b > 0 for b in a2a):
+            raise AssertionError("moe a2a differs from the oracle")
+        info["grad_norm_rel"] = rel
+        del full, wy, wgrads
+    del local, grads
+    _release()
+    dist.barrier()
+    return info
+
+
+def _mesh_rank(rank, world):
+    """Everything one rank of the mesh phase runs (the module-level
+    entry ``launch.mesh.spawn`` starts on cuda:0); rank 1 prints only its
+    collectives' lines.  Returns the rank's numbers."""
+    import torch.distributed as dist
+    from repro_torch.dist.sharding import full_tensor, param_shardings
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import param_shapes
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.load()                      # the parent built it: a load
+    mesh = make_host_mesh(model=world, device_type="cuda")
+    out = {"collectives": _mesh_collectives(rank)}
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    print(f"== mesh ({MESH_NOTE}): call level at full width, bf16")
+    llama, smollm = get_config("llama3.2-3b"), get_config("smollm-360m")
+    sh = MESH_SHAPES
+    out["head_parallel"] = _mesh_attention_call(
+        "head-parallel causal_attention (llama3.2-3b heads)", llama,
+        *sh["head_attn"], 71, mesh, rank)
+    out["context_parallel"] = _mesh_attention_call(
+        "context-parallel causal_attention (smollm-360m heads)", smollm,
+        *sh["ctx_attn"], 72, mesh, rank)
+    out["lse_decode"] = _mesh_decode_call(
+        "lse-combine decode (smollm-360m heads)", smollm.num_heads,
+        smollm.num_kv_heads, smollm.head_dim, *sh["decode"], 73, mesh, rank)
+    out["head_decode"] = _mesh_decode_call(
+        "head-parallel decode (llama3.2-3b heads, K5)", llama.num_heads,
+        llama.num_kv_heads, llama.head_dim, *sh["decode"], 74, mesh, rank)
+    out["mla_decode"] = _mesh_mla_call(mesh, rank)
+    out["moe"] = _mesh_moe(rank, mesh)
+
+    print(f"== mesh train ({MESH_NOTE})")
+    out["train_smollm"], tr, state = _mesh_train(
+        "smollm-360m (15 heads: context-parallel)", smollm, MESH_SMOLLM_ARGS,
+        rank, mesh)
+    del tr, state
+    _release()
+    llama4 = dataclasses.replace(llama, num_layers=MESH_LLAMA_LAYERS)
+    out["train_llama"], tr, state = _mesh_train(
+        "llama3.2-3b (24 / 8 heads: head-parallel)", llama4,
+        MESH_LLAMA_ARGS, rank, mesh)
+    # one TP-sharded leaf's local shard, for the §6 copy in the parent
+    from repro_torch.dist.sharding import use_mesh
+    with use_mesh(mesh) as ctx:
+        spec = param_shardings(param_shapes(llama4),
+                               ctx)["layers"]["attn"]["w_k"].spec[1:]
+        shard = state["params"]["layers"]["attn"]["w_k"][0]
+        out["k7_leaf"] = {"spec": spec, "shard": shard.cpu(),
+                          "full": full_tensor(shard, spec, ctx).cpu()}
+    del tr, state
+    _release()
+    out["fp32_smollm"] = _mesh_fp32_step(
+        "smollm-360m", dataclasses.replace(smollm, num_layers=4),
+        *sh["fp32_smollm"], rank, mesh)
+    out["fp32_llama"] = _mesh_fp32_step(
+        "llama3.2-3b", dataclasses.replace(llama, num_layers=2),
+        *sh["fp32_llama"], rank, mesh)
+
+    print(f"== mesh serve ({MESH_NOTE})")
+    out["serve_smollm"] = _mesh_serve("smollm-360m", smollm,
+                                      *sh["serve_smollm"], rank, mesh)
+    out["serve_llama"] = _mesh_serve("llama3.2-3b", llama4,
+                                     *sh["serve_llama"], rank, mesh)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    dist.barrier()
+    return out
+
+
+def _mesh_k7(ranks):
+    """The §6 ranges of a TP-sharded llama leaf (layer 0's w_k, fp32,
+    kv heads over "model": 3072 rows x 2 ranges) handed to db_partition
+    on ``Runtime(copy_backend="cuda")``: one fused copy (K7, ranges on
+    the card) reassembles the leaf from the two ranks' local shards, bit
+    for bit."""
+    from repro_torch.dist.sharding import (MeshLayout, NamedSharding,
+                                           device_ranges_of)
+    leaf = ranks[0]["k7_leaf"]
+    full, spec = leaf["full"], leaf["spec"]
+    sh = NamedSharding(MeshLayout((1, 2), ("data", "model")), spec)
+    per_rank = device_ranges_of(tuple(full.shape), full.element_size(), sh)
+    distinct = sorted({r for _rank, rs in per_rank for r in rs})
+    src = np.concatenate([r["k7_leaf"]["shard"].numpy().reshape(-1).view(
+        np.uint8) for r in ranks])
+    want = full.numpy().reshape(-1).view(np.uint8)
+    copies, cursor = [], 0
+    for _rank, rs in per_rank:
+        for off, n in rs:
+            copies.append((off, cursor, n))
+            cursor += n
+
+    def body(api, out):
+        dst, _ = api.db_create(want.size)
+        api.db_release(dst)
+        out["parts"] = len(api.db_partition(dst, distinct))
+        block, ptr = api.db_create(src.size)
+        ptr[:] = src
+        api.db_release(block)
+        for d_off, s_off, n in copies:
+            api.db_copy(dst, d_off, block, s_off, n)
+        out["db"] = dst
+
+    _zero_copy_counts()
+    got, stats, run_ms = _run_program(body, "cuda")
+    counts = _copy_counts()
+    ok = bool(np.array_equal(got, want))
+    print(f"  §6 ranges of layers.attn.w_k[0] {tuple(full.shape)} spec "
+          f"{spec}: {len(distinct)} ranges through db_partition; "
+          f"Runtime(copy_backend='cuda') reassembled the leaf from both "
+          f"ranks' shards {'bit for bit' if ok else 'WRONG'}: launches "
+          f"{counts}, fused copies {stats.fused_copies}, run {run_ms:.1f} ms")
+    if not ok or counts["k7"] != 1 or stats.fused_copies != 1:
+        raise AssertionError("the §6 reassembly through K7 failed")
+    return {"ranges": len(distinct), "launches": counts, "run_ms": run_ms}
+
+
+def _shard_kernel_times(flush):
+    """The kernels at the shard shapes the mesh phase gave them, timed on
+    the card alone (no other rank running): K1-lse and K3 on a
+    context-parallel stripe (smollm's B=2, H=15, KH=5, hd 64: Sq 4096
+    against Sk 8192 at q_offset 4096), and K5 on 4 local kv heads
+    (llama's B=4, G=3, hd 128, a cache of 8192 at 8001)."""
+    dt = torch.bfloat16
+    b, h, kh, sq, sk, hd, off = 2, 15, 5, 4096, 8192, 64, 4096
+    q, k, v, do = (_randn((b, h, sq, hd), dt, 81), _randn((b, kh, sk, hd),
+                                                          dt, 82),
+                   _randn((b, kh, sk, hd), dt, 83), _randn((b, h, sq, hd),
+                                                           dt, 84))
+    out, lse = fa.flash_attention_fwd(q, k, v, off)
+    want, want_lse = fa.flash_attention_plain(q, k, v, off, with_lse=True)
+    e_fwd = _check("K1-lse stripe", out, want, dt)
+    delta = (do.float() * out.float()).sum(-1)
+    grads = fa.flash_attention_bwd_fused(q, k, v, do, lse, delta, off)
+    wgrads = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, off)
+    e_bwd = max(_check_rel(f"K3 stripe d{n}", g, w, dt)[0]
+                for n, g, w in zip("qkv", grads, wgrads))
+    live = b * h * _live_pairs(sq, sk, off, True, 0)
+    el = q.element_size()
+    qb, kb, rowb = q.numel() * el, k.numel() * el, b * h * sq * 4
+    mask = _window_mask(sq, sk, off, sk + 1)
+    lib = _sdpa_call(q, k, v, attn_mask=mask)
+    libs = {"k1_lse": lib, "k3": (_sdpa_backward(q, k, v, do, attn_mask=mask)
+                                  if lib is not None else None)}
+    rows = {}
+    for key, fn, plain, flops, nbytes, err in (
+            ("k1_lse", lambda: fa.flash_attention_fwd(q, k, v, off),
+             lambda: fa.flash_attention_plain(q, k, v, off, with_lse=True),
+             4 * hd * live, qb + 2 * kb + qb + rowb, e_fwd),
+            ("k3", lambda: fa.flash_attention_bwd_fused(q, k, v, do, lse,
+                                                        delta, off),
+             lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, do, off),
+             10 * hd * live, 3 * qb + 4 * kb + 2 * rowb, e_bwd)):
+        st = _time_stats(fn, 10, flush)
+        bound_ms, bound_by = _bound(flops, nbytes, dt)
+        rows[key] = {"timed_shape": f"B={b} H={h} KH={kh} Sq={sq} Sk={sk} "
+                     f"hd={hd} q_offset={off} bf16 causal (a context-"
+                     f"parallel stripe)", "ms": st["median"],
+                     "ms_min": st["min"], "ms_max": st["max"],
+                     "plain_ms": _time_ms(plain, 3, flush),
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "max_abs_err": err,
+                     "library_ms": (_time_ms(libs[key], 10, flush)
+                                    if libs[key] else None)}
+        print(f"  {key} at the stripe: {_fmt(st)}, plain "
+              f"{rows[key]['plain_ms']:.3f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), library {rows[key]['library_ms']}")
+    del q, k, v, do, out, lse, want, grads, wgrads, mask, lib, libs
+    b, kh, g, hd, s, cur = 4, 4, 3, 128, 8192, 8001
+    qd = _randn((b, kh, g, hd), dt, 85)
+    kc, vc = _randn((b, kh, s, hd), dt, 86), _randn((b, kh, s, hd), dt, 87)
+    valid = torch.full((1,), cur, dtype=torch.int32, device="cuda")
+    got = fd.flash_decode(qd, kc, vc, valid)
+    err = _check("K5 on 4 local kv heads", got,
+                 fd.flash_decode_plain(qd, kc, vc, valid), dt)
+    st = _time_stats(lambda: fd.flash_decode(qd, kc, vc, valid), 10, flush)
+    # the library: sdpa (GQA) of the rank's query heads over the live cache
+    q4, k_live, v_live = (qd.reshape(b, kh * g, 1, hd), kc[:, :, :cur],
+                          vc[:, :, :cur])
+    lib_k5 = _time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k_live, v_live, enable_gqa=True), 10, flush)
+    nbytes = 2 * b * kh * cur * hd * 2 + 2 * qd.numel() * 2
+    bound_ms, bound_by = _bound(4 * b * kh * g * cur * hd, nbytes, dt)
+    rows["k5"] = {"timed_shape": f"B={b} KH={kh} G={g} hd={hd} cache {s} "
+                  f"at {cur} bf16 (a rank's kv heads, head-parallel)",
+                  "ms": st["median"], "ms_min": st["min"], "ms_max": st["max"],
+                  "plain_ms": _time_ms(lambda: fd.flash_decode_plain(
+                      qd, kc, vc, valid), 3, flush),
+                  "bound_ms": bound_ms, "bound_by": bound_by,
+                  "max_abs_err": err, "library_ms": lib_k5}
+    print(f"  k5 on local kv heads: {_fmt(st)}, plain "
+          f"{rows['k5']['plain_ms']:.3f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}), library (sdpa, GQA) {lib_k5:.4f} ms")
+    del qd, kc, vc, q4, k_live, v_live
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_mesh():
+    """Two ranks on cuda:0 over gloo, mesh (1, 2) ("data", "model"),
+    started by ``launch.mesh.spawn`` after the parent built the kernels:
+    each collective on CUDA tensors; head- and context-parallel attention,
+    lse-combine and head-parallel decode and MLA's head-sharded decode at
+    full-width shapes against one rank; arctic-width MoE a2a against the
+    no-mesh oracle; smollm-360m (all 32 layers) and llama3.2-3b (4 layers)
+    trained at full width through ``Trainer(mesh=...)``, each with an
+    fp32 step held against one rank; both served under the mesh (fp32)
+    against one rank; then, in the parent, the §6 ranges of a sharded
+    leaf through K7 and the kernels timed at their shard shapes."""
+    from repro_torch.launch import mesh as mesh_launch
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(f"== mesh: 2 ranks on cuda:0 over gloo, mesh (1, 2) "
+          f"('data', 'model'); {smi}; {MESH_NOTE}")
+    _release()
+    t0 = time.perf_counter()
+    ranks = mesh_launch.spawn(_mesh_rank, 2, backend="gloo",
+                              devices=["cuda:0", "cuda:0"], timeout_s=900)
+    wall = time.perf_counter() - t0
+    print(f"  the ranks ran {wall:.1f} s ({MESH_NOTE}; {smi})")
+    for r, res in enumerate(ranks):
+        print(f"  rank {r}: train launches smollm "
+              f"{res['train_smollm']['launches']}, llama "
+              f"{res['train_llama']['launches']}; serve smollm "
+              f"{res['serve_smollm']['launches']}, llama "
+              f"{res['serve_llama']['launches']}; peak memory "
+              f"{res['peak_gb']:.2f} GB")
+    k7 = _mesh_k7(ranks)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    shard_rows = _shard_kernel_times(flush)
+    del flush
+    for res in ranks:
+        res.pop("k7_leaf")
+    return {"ranks": ranks, "wall_s": wall, "k7": k7,
+            "shard_kernels": shard_rows, "device": smi, "note": MESH_NOTE}
+
+
 def _tree_to(tree, device, copy=False):
     return {k: _tree_to(v, device, copy) if isinstance(v, dict)
             else v.to(device, copy=copy) for k, v in tree.items()}
@@ -4901,6 +5626,11 @@ def main() -> int:
     vlm_serve = timed("vlm_serve_s", phase_vlm_serve)
     vlm_train = timed("vlm_train_s", phase_vlm_train)
     vlm_ref = timed("vlm_reference_s", phase_vlm_reference)
+    mesh = timed("mesh_s", phase_mesh)
+
+    def both(key):
+        return {k: sum(r[key]["launches"][k] for r in mesh["ranks"])
+                for k in mesh["ranks"][0][key]["launches"]}
 
     by_phase = {"engine_ample": {"k1": eng_a["k1_launches"],
                                  "k5": eng_a["k5_launches"]},
@@ -4953,7 +5683,12 @@ def main() -> int:
                 "vlm_serve": vlm_serve["launches"],
                 "vlm_train": vlm_train["launches"],
                 "vlm_reference_serve": vlm_ref["launches_serve"],
-                "vlm_reference_train": vlm_ref["launches_train"]}
+                "vlm_reference_train": vlm_ref["launches_train"],
+                # both ranks' launches (2 ranks sharing the card)
+                "mesh_train_smollm": both("train_smollm"),
+                "mesh_train_llama": both("train_llama"),
+                "mesh_serve_smollm": both("serve_smollm"),
+                "mesh_serve_llama": both("serve_llama")}
 
     def launches(*keys):
         per = {ph: sum(c.get(k, 0) for k in keys)
@@ -4968,6 +5703,8 @@ def main() -> int:
     k1["lse_whisper"] = {**ktrain["whisper"]["k1_lse"],
                          "timed_shape": ktrain["whisper"]["timed_shape"]}
     k5["launches"], k5["launches_by_phase"] = launches("k5")
+    k1["mesh_stripe_lse"] = mesh["shard_kernels"]["k1_lse"]
+    k5["mesh_local_heads"] = mesh["shard_kernels"]["k5"]
     kernels = [k1, k5]
     src_bwd = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
     for key, name, replaces in (
@@ -4984,11 +5721,14 @@ def main() -> int:
                           "timed_shape": ktrain[shape]["timed_shape"]}
                   for shape in ("deepseek", "whisper")}}
         row["launches"], row["launches_by_phase"] = launches(key)
+        if key == "k3":
+            row["mesh_stripe"] = mesh["shard_kernels"]["k3"]
         kernels.append(row)
     src_copy = "src/repro_torch/kernels/csrc/partition_copy.cu"
     copy_phase = {"ops_partition_copy_bytes": copy_paths["ops"],
                   "runtime_4mib": copy_paths["runtime_4mib"]["launches"],
-                  "runtime_256mib": copy_paths["runtime_256mib"]["launches"]}
+                  "runtime_256mib": copy_paths["runtime_256mib"]["launches"],
+                  "mesh_leaf_reassembly": mesh["k7"]["launches"]}
     for key, name, replaces in (
             ("k6", "partition_copy (K6)",
              "src/repro/kernels/partition_copy.py:52"),
@@ -5040,7 +5780,7 @@ def main() -> int:
               "mla_reference": mla_ref, "encdec_serve": encdec_serve,
               "encdec_train": encdec_train, "encdec_reference": encdec_ref,
               "vlm_serve": vlm_serve, "vlm_train": vlm_train,
-              "vlm_reference": vlm_ref,
+              "vlm_reference": vlm_ref, "mesh": mesh,
               "library_bwd_ms": ktrain["library_bwd_ms"], "phase_s": timings,
               "build_log": _build.log_path().read_text()}
     if args.report is not None:

@@ -1,20 +1,44 @@
-"""Attention dispatch, single-device branches of ``repro.dist.flash``.
+"""Mesh-strategy dispatch for attention compute (torch port of
+``repro.dist.flash``).
 
-* prefill/training attention: the flash kernels above the length
-  threshold (K4f or K1 forward; with the logsumexp and the K4b, K3 or K2
-  backward when autograd records the call), the dense reference below
-  it;
-* contiguous-cache decode: insert the new token, then K5 flash-decode
-  on the card, or, for CPU tensors, the dense ``decode_attention`` on
-  seq-major views of the caches, as the reference's CPU decode takes its
-  jnp oracle (so the probabilities round to the input dtype as there);
-* paged decode over §6 pages of a shared cache pool, as torch ops (the
-  reference has no kernel for it);
-* MLA decode in the compressed latent space (``mla_decode_attend``), as
-  torch ops, as the reference's is jnp with no Pallas kernel.
+One place decides how attention parallelizes, so the model blocks never
+mention the mesh.  Under an active mesh (``dist.sharding.use_mesh``) the
+reference's ``shard_map`` regions run as the port's region functions
+(``sharding.split`` / ``whole`` / ``gather``) around the same local
+functions as one device, with collectives over the "model" group:
 
-The mesh branches (head-, context-parallel, lse-combine decode, MLA's
-head-sharded decode) come with the multi-device slice.
+* **head-parallel** — when the head and kv-head counts both divide the
+  "model" axis, each rank runs the local kernel on its heads; the output
+  heads are gathered.  No collective inside (attention is independent
+  per head).
+* **context/sequence-parallel** — otherwise, when the sequence divides
+  the "model" axis: q shards over sequence, k/v stay whole, and each rank
+  computes its q stripe against the full context with ``q_offset`` =
+  rank · S/m (a Python int from the mesh coordinate) keeping the causal
+  mask globally positioned.  The flash threshold applies to the stripe.
+  Each rank's k/v gradient is a partial sum, summed once over "model" in
+  the backward.  Used for training and prefill.
+* **lse-combine flash decode** — one-token decode against a cache whose
+  *sequence* dim stripes over "model" (when the heads do not divide it):
+  each rank computes a partial softmax over its §6 stripe, and the
+  partials combine through a global max and two sums (the log-sum-exp
+  trick), torch ops as the reference's are jnp.
+* **single device** — no mesh (or ``pure_dp``): the flash kernels above
+  the length threshold (K4f or K1 forward; with the logsumexp and the
+  K4b, K3 or K2 backward when autograd records the call), the dense
+  reference below it; contiguous-cache decode through K5 on the card, or,
+  for CPU tensors, the dense ``decode_attention`` on seq-major views of
+  the caches, as the reference's CPU decode takes its jnp oracle.
+
+Paged decode over §6 pages of a shared cache pool is torch ops (the
+reference has no kernel for it).  MLA decode in the compressed latent
+space (``mla_decode_attend``) is torch ops too, its heads sharded over
+"model" when they divide it.  Decode caches stay whole on every rank and
+update in place; the mesh branches read the rank's heads or stripe.
+
+The §6 reading: a decode cache is one data block; the sequence stripes
+the lse-combine path walks are exactly the disjoint partitions
+``partition_tree_of`` emits for the cache's ``kv_seq`` sharding.
 """
 from __future__ import annotations
 
@@ -26,6 +50,7 @@ import torch
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.attention import (decode_attention, flash_min_seq,
                                           full_attention)
+from .sharding import all_gather, all_reduce, current_ctx, gather, split, whole
 
 NEG_INF = -1e30
 
@@ -53,12 +78,31 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q: (B, S, H, hd); k, v: (B, S, KH, hd) → (B, S, H, hd_v).  The
     config's tile pins (``attn_block_q`` / ``attn_block_k``) ride to the
-    planner, as the reference's ``_blocks`` carries them.
+    planner, as the reference's ``_blocks`` carries them.  Under a mesh:
+    head-parallel, else context-parallel, else local (module docs).
     """
-    return _attn_local(q, k, v, window=window,
-                       block_q=getattr(cfg, "attn_block_q", None),
-                       block_k=getattr(cfg, "attn_block_k", None),
-                       min_seq=flash_min_seq(cfg))
+    ctx = current_ctx()
+    s, h = q.shape[1], q.shape[2]
+    kh = k.shape[2]
+    m = ctx.model_size
+
+    def local(ql, kl, vl, q_offset=0):
+        return _attn_local(ql, kl, vl, window=window,
+                           block_q=getattr(cfg, "attn_block_q", None),
+                           block_k=getattr(cfg, "attn_block_k", None),
+                           min_seq=flash_min_seq(cfg), q_offset=q_offset)
+
+    if not ctx.active or ctx.pure_dp or m <= 1:
+        return local(q, k, v)
+    if h % m == 0 and kh % m == 0:
+        out = local(*(split(t, 2, "model", ctx) for t in (q, k, v)))
+        return gather(out, 2, "model", ctx)
+    if s % m == 0:
+        off = ctx.coord("model") * (s // m)
+        out = local(split(q, 1, "model", ctx), whole(k, "model", ctx),
+                    whole(v, "model", ctx), q_offset=off)
+        return gather(out, 1, "model", ctx)
+    return local(q, k, v)
 
 
 # ------------------------------------------------------------------- decode
@@ -99,14 +143,65 @@ def decode_update_and_attend(q: torch.Tensor, k_new: torch.Tensor,
     As the reference's ``dynamic_update_slice``, a start at or past the
     cache end clamps to the last slot, which the new token overwrites;
     the attention still counts ``cur_len + 1`` valid entries.
+
+    Under a mesh the caches are whole on every rank (each writes the new
+    token into its copy): head-parallel takes the rank's kv heads
+    (contiguous copies, which K5 needs), else the lse-combine over the
+    rank's sequence stripe, else the local decode.
     """
     pos = min(max(cur_len, 0), k_cache.shape[2] - 1)
     k_cache[:, :, pos] = k_new[:, 0].to(k_cache.dtype)
     v_cache[:, :, pos] = v_new[:, 0].to(v_cache.dtype)
     valid = torch.full((1,), cur_len + 1, dtype=torch.int32,
                        device=q.device)
-    out = _decode_local(q, k_cache, v_cache, valid, window)
+    ctx = current_ctx()
+    h, kh, smax = q.shape[2], k_cache.shape[1], k_cache.shape[2]
+    m = ctx.model_size
+    if not ctx.active or ctx.pure_dp or m <= 1:
+        out = _decode_local(q, k_cache, v_cache, valid, window)
+    elif h % m == 0 and kh % m == 0:
+        r = ctx.coord("model")
+        hl, khl = h // m, kh // m
+        out = _decode_local(
+            q[:, :, r * hl:(r + 1) * hl].contiguous(),
+            k_cache[:, r * khl:(r + 1) * khl].contiguous(),
+            v_cache[:, r * khl:(r + 1) * khl].contiguous(), valid, window)
+        out = all_gather(out, 2, "model", ctx)
+    elif smax % m == 0:
+        out = _lse_combine(q, k_cache, v_cache, cur_len, window, ctx)
+    else:
+        out = _decode_local(q, k_cache, v_cache, valid, window)
     return out, k_cache, v_cache
+
+
+def _lse_combine(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, cur_len: int, window: int, ctx
+                 ) -> torch.Tensor:
+    """Decode over this rank's §6 stripe of the cache's sequence: a partial
+    softmax in fp32, merged over "model" through a global max and two
+    sums (num, den)."""
+    b, _, h, hd = q.shape
+    kh, smax = k_cache.shape[1], k_cache.shape[2]
+    g = h // kh
+    chunk = smax // ctx.model_size
+    lo = ctx.coord("model") * chunk
+    pos = lo + torch.arange(chunk, device=q.device)
+    valid = pos < cur_len + 1
+    if window > 0:
+        valid &= pos >= max(cur_len + 1 - window, 0)
+    scale = 1.0 / np.sqrt(hd)
+    qg = q[:, 0].reshape(b, kh, g, hd).float()
+    s = torch.einsum("bkgh,bksh->bkgs", qg,
+                     k_cache[:, :, lo:lo + chunk].float()) * scale
+    s = torch.where(valid, s, NEG_INF)
+    m_all = all_reduce(s.amax(dim=-1), "model", ctx, op="max")
+    p = torch.where(valid, torch.exp(s - m_all[..., None]), 0.0)
+    num = all_reduce(torch.einsum("bkgs,bksh->bkgh", p,
+                                  v_cache[:, :, lo:lo + chunk].float()),
+                     "model", ctx)
+    den = all_reduce(p.sum(dim=-1), "model", ctx)
+    out = num / torch.clamp(den, min=1e-37)[..., None]
+    return out.reshape(b, 1, h, -1).to(q.dtype)
 
 
 # ------------------------------------------------------------- paged decode
@@ -184,8 +279,7 @@ def mla_decode_attend(q_latent: torch.Tensor, q_rope: torch.Tensor,
                       c_new: torch.Tensor, kr_new: torch.Tensor,
                       c_kv: torch.Tensor, k_rope: torch.Tensor,
                       cur_len: int, *, scale: float):
-    """Absorbed-matrix MLA decode in the compressed latent space, the
-    reference's no-mesh branch.
+    """Absorbed-matrix MLA decode in the compressed latent space.
 
     q_latent: (B, 1, H, rkv); q_rope: (B, 1, H, dr); new latents c_new
     (B, 1, rkv) / kr_new (B, 1, dr); caches c_kv (B, S, rkv) / k_rope (B,
@@ -195,15 +289,29 @@ def mla_decode_attend(q_latent: torch.Tensor, q_rope: torch.Tensor,
     input dtype and are scaled, masked and softmaxed in fp32; the
     probabilities are cast to the input dtype before the product with
     c_kv, as there.  Returns (out_latent (B, 1, H, rkv), c_kv, k_rope).
+    Under a mesh whose "model" axis divides H, each rank attends with its
+    heads (the caches are head-shared latents: no collective inside) and
+    the heads are gathered.
     """
     pos = min(max(cur_len, 0), c_kv.shape[1] - 1)
     c_kv[:, pos] = c_new[:, 0].to(c_kv.dtype)
     k_rope[:, pos] = kr_new[:, 0].to(k_rope.dtype)
-    s = (torch.einsum("bshr,btr->bhst", q_latent, c_kv)
-         + torch.einsum("bshk,btk->bhst", q_rope, k_rope)).float()
-    s = s * scale
-    valid = torch.arange(c_kv.shape[1], device=c_kv.device) < cur_len + 1
-    s = torch.where(valid[None, None, None, :], s, NEG_INF)
-    probs = torch.softmax(s, dim=-1).to(q_latent.dtype)
-    out = torch.einsum("bhst,btr->bshr", probs, c_kv)
-    return out, c_kv, k_rope
+
+    def attend(ql, qr):
+        s = (torch.einsum("bshr,btr->bhst", ql, c_kv)
+             + torch.einsum("bshk,btk->bhst", qr, k_rope)).float()
+        s = s * scale
+        valid = torch.arange(c_kv.shape[1], device=c_kv.device) < cur_len + 1
+        s = torch.where(valid[None, None, None, :], s, NEG_INF)
+        probs = torch.softmax(s, dim=-1).to(ql.dtype)
+        return torch.einsum("bhst,btr->bshr", probs, c_kv)
+
+    ctx = current_ctx()
+    m = ctx.model_size
+    if ctx.active and not ctx.pure_dp and m > 1 and q_latent.shape[2] % m == 0:
+        hl = q_latent.shape[2] // m
+        r = ctx.coord("model")
+        out = attend(q_latent[:, :, r * hl:(r + 1) * hl],
+                     q_rope[:, :, r * hl:(r + 1) * hl])
+        return all_gather(out, 2, "model", ctx), c_kv, k_rope
+    return attend(q_latent, q_rope), c_kv, k_rope

@@ -40,6 +40,7 @@ sequence-chunked cross entropy, which never materializes the full
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -49,9 +50,13 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.dist.sharding import (_entry_axes, all_reduce, batch_split,
+                                      chunk_of, current_ctx, gather_param,
+                                      installed, param_shardings, psum)
 from . import blocks
-from .layers import (Params, _dtype, embed_init, layernorm, layernorm_init,
-                     resolve_device, rmsnorm, rmsnorm_init, stack_trees)
+from .layers import (_FP32_LEAVES, Params, _dtype, embed_init, layernorm,
+                     layernorm_init, resolve_device, rmsnorm, rmsnorm_init,
+                     stack_trees)
 
 
 def _sinusoid(seq: int, dim: int) -> np.ndarray:
@@ -97,21 +102,89 @@ def _dots_policy(ctx, op, *args, **kwargs):
 def _remat(body: Callable, cfg) -> Callable:
     """``cfg.remat`` as ``torch.utils.checkpoint``: "none" saves every
     activation, "layer" recomputes the whole body in the backward, "dots"
-    recomputes all but the matmul outputs."""
+    recomputes all but the matmul outputs.  The recomputation runs under
+    the sharding context the forward saw, whenever the backward runs."""
     if cfg.remat == "none":
         return body
-    kw: Dict[str, Any] = {}
-    if cfg.remat == "dots":
-        kw["context_fn"] = functools.partial(
-            create_selective_checkpoint_contexts, _dots_policy)
 
     def run(*args):
         if not torch.is_grad_enabled():
             return body(*args)
+        seen = current_ctx()
+
+        def contexts():
+            if cfg.remat == "dots":
+                fwd, rec = create_selective_checkpoint_contexts(_dots_policy)
+            else:
+                fwd, rec = contextlib.nullcontext(), contextlib.nullcontext()
+            return fwd, _both(rec, installed(seen))
+
         # the bodies draw no random numbers: no RNG state to replay
         return checkpoint(body, *args, use_reentrant=False,
-                          preserve_rng_state=False, **kw)
+                          preserve_rng_state=False, context_fn=contexts)
     return run
+
+
+@contextlib.contextmanager
+def _both(first, second):
+    with first, second:
+        yield
+
+
+class _MetaGenerator(torch.Generator):
+    """A CPU generator whose ``device`` reads "meta": ``init`` then
+    allocates every leaf on the meta device and draws nothing."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+@functools.lru_cache(maxsize=None)
+def param_shapes(cfg) -> Params:
+    """The parameter tree of ``cfg`` on the meta device (shapes and
+    dtypes, no storage), as ``jax.eval_shape`` gives the reference's."""
+    return LanguageModel(cfg, device="meta").init(_MetaGenerator())
+
+
+# stacks whose leaves the layers cast to the compute dtype (cast_params)
+_CAST_STACKS = ("layers", "dense_layers", "enc_layers", "dec_layers",
+                "shared_attn")
+_BANKS = ("w_gate", "w_up", "w_down")
+
+
+def gather_params(params: Params, cfg, ctx) -> Params:
+    """A mesh entry point's parameters: each leaf that ``param_shardings``
+    cuts, given as this rank's shard, gathered whole — in the compute
+    dtype where ``cast_params`` would cast it, so the gather moves the
+    compute dtype — except the MoE expert banks, which the MoE region
+    takes as they come.  A leaf given whole stays whole.  While a
+    training step splits its batch, every leaf passes through one gather
+    node, whose backward sums the gradient over "dp"."""
+    shardings = param_shardings(param_shapes(cfg), ctx)
+    shapes = param_shapes(cfg)
+    dt = _dtype(cfg.dtype)
+
+    def walk(node, sh, shp, path, cast):
+        out = {}
+        for k, v in node.items():
+            if isinstance(v, dict):
+                out[k] = walk(v, sh[k], shp[k], path + (k,),
+                              cast or k in _CAST_STACKS)
+                continue
+            if cast and k not in _FP32_LEAVES and v.dtype == torch.float32:
+                v = v.to(dt)
+            if path and path[-1] == "moe" and k in _BANKS:
+                out[k] = v
+                continue
+            whole = tuple(v.shape) == tuple(shp[k].shape)
+            spec = (None,) * v.ndim if whole else sh[k].spec
+            if ctx.split_batch or not whole:
+                v = gather_param(v, spec, ctx)
+            out[k] = v
+        return out
+
+    return walk(params, shardings, shapes, (), False)
 
 
 class LanguageModel:
@@ -329,6 +402,11 @@ class LanguageModel:
                                   targets[:, c0:c0 + chunk])
             loss_sum, z_sum = loss_sum + l_, z_sum + z_
             correct, count = correct + c_, count + n_
+        dp = current_ctx().split_batch
+        if dp:      # every rank's rows: the sums run over the whole batch
+            loss_sum, z_sum = psum(loss_sum, dp), psum(z_sum, dp)
+            correct = all_reduce(correct.detach().clone(), dp, current_ctx())
+            count = all_reduce(count.detach().clone(), dp, current_ctx())
         count = torch.clamp(count, min=1.0)
         loss = loss_sum / count
         metrics = {"ce_loss": loss, "z_loss": z_sum / count,
@@ -341,7 +419,26 @@ class LanguageModel:
         (B, P, D) for a VLM, ``frames`` (B, Se, D) for encdec) → (total
         loss, metrics): loss + 0.01·aux + 1e-4·z_loss, with the MoE
         dispatch metrics (zeros for a dense model) as the reference
-        reports them.  Patch positions carry no next-token loss."""
+        reports them.  Patch positions carry no next-token loss.
+
+        Under a mesh ``params`` are this rank's shards (or whole leaves)
+        and ``batch`` the whole batch, the same on every rank: the rank
+        computes its "dp" rows, the sums of the loss and its statistics
+        run over every rank's rows, and so the returned loss is the whole
+        batch's on every rank; the gradient of each shard sums over
+        "dp"."""
+        ctx = current_ctx()
+        if not ctx.active:
+            return self._train_loss(params, batch)
+        dp = _entry_axes(ctx.resolve("dp", batch["tokens"].shape[0]))
+        with batch_split(dp) as sctx:
+            if dp:
+                batch = {k: chunk_of(v, 0, dp, sctx) for k, v in batch.items()}
+            return self._train_loss(gather_params(params, self.cfg, sctx),
+                                    batch)
+
+    def _train_loss(self, params: Params, batch: Dict[str, torch.Tensor]
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         x = self._embed(params, batch["tokens"], batch)
         h, aux = self._backbone_train(params, x, batch)
         targets = batch["targets"]
@@ -371,8 +468,13 @@ class LanguageModel:
         {"attn", "mamba"}, "remainder": mamba} for hybrid, {"layers":
         {"k", "v", "cross_k", "cross_v"}} for encdec (see
         :meth:`alloc_cache`).  A VLM's cache holds the patches' positions
-        first: decode continues at ``cur_len`` = P + S."""
+        first: decode continues at ``cur_len`` = P + S.  Under a mesh
+        every rank computes every row: logits and caches are whole on
+        each."""
         cfg = self.cfg
+        ctx = current_ctx()
+        if ctx.active:
+            params = gather_params(params, cfg, ctx)
         x = self._embed(params, batch["tokens"], batch)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         fam = cfg.family
@@ -429,9 +531,14 @@ class LanguageModel:
     def decode_step(self, params: Params, cache: Any, token: torch.Tensor,
                     cur_len):
         """token: (B, 1) int; cur_len: int (or one-element tensor), tokens
-        already cached.  The cache is updated in place and returned."""
+        already cached.  The cache is updated in place and returned.
+        Under a mesh, as :meth:`prefill` (pass whole leaves to skip the
+        gather each step)."""
         cfg = self.cfg
         cur = int(cur_len)
+        ctx = current_ctx()
+        if ctx.active:
+            params = gather_params(params, cfg, ctx)
         x = self._embed(params, token)
         fam = cfg.family
 

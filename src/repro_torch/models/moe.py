@@ -1,4 +1,4 @@
-"""Mixture-of-Experts layer on one device: the no-mesh branch of
+"""Mixture-of-Experts layer: the no-mesh and mesh branches of
 ``repro.models.moe``.
 
 Routing runs in fp32 (top-k of the router's softmax, renormalized);
@@ -22,10 +22,29 @@ on the card, with no global deterministic switch.  Nothing reads the
 card: the capacity comes from shapes, and the dispatch stats stay
 tensors until the trainer reads its metrics.
 
-Not ported yet (the multi-device slice): ``_exchange``,
-``_a2a_experts``, ``_a2a_capacity`` and the two ``shard_map``
-branches.  Without a mesh the reference takes this branch whatever
-``cfg.moe_dispatch`` says, and so does the port.
+Under a mesh (``dist.sharding.use_mesh``) whose "model" axis divides the
+expert count, expert banks shard E → "model" (EP) and the experts run
+in a region over the "model" group (the reference's ``shard_map``), on
+the same dispatch, expert products and combine:
+
+* ``cfg.moe_dispatch="a2a"`` (the default): tokens shard S → "model";
+  each rank packs per-destination-expert capacity buckets (E, C, D) of
+  its own tokens (``_a2a_capacity``), :func:`_exchange` (an
+  ``all_to_all_single``, whose backward is the reverse exchange) hands
+  each peer the §6 range of its experts, the local experts run on the
+  received (E/m, m·C, D), and a second exchange brings the results home
+  for the combine;
+* ``"psum"``: tokens replicate over "model"; every rank computes its
+  local experts (global ids from ``e_off = rank · E/m``) against all
+  tokens and a sum over "model" combines them.
+
+Banks whose d_model dim is FSDP-sharded are re-gathered over it
+(``_gather_banks``).  When a call's batch is whole on every rank, the
+region also splits it over "dp", as the reference's ``shard_map`` does,
+so each shard's capacity counts its own tokens; a training step that
+has split its batch over "dp" already sums the balance loss's means and
+the drop counts over "dp".  Without a mesh the reference takes the
+no-mesh branch whatever ``cfg.moe_dispatch`` says, and so does the port.
 """
 from __future__ import annotations
 
@@ -35,6 +54,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import (_entry_axes, all_gather, all_reduce,
+                                      chunk_of, current_ctx, gather,
+                                      gather_param, moe_bucket_ranges, psum,
+                                      split, whole)
 from .layers import Params, _dtype, dense_init, mlp, mlp_init, stack_trees
 
 # (token, choice) rows one chunk of the dispatch / combine loops takes
@@ -47,6 +70,8 @@ def _bank(gen: torch.Generator, lead: Tuple[int, ...], fan_in: int,
     once and drawn one (fan_in, fan_out) matrix at a time in fp32, cast
     on write: a full-width bank is never held in fp32, nor twice."""
     out = torch.empty((*lead, fan_in, fan_out), dtype=dtype, device=gen.device)
+    if out.device.type == "meta":          # shapes only (``launch.specs``)
+        return out
     for w in out.view(-1, fan_in, fan_out):
         w.copy_(torch.randn((fan_in, fan_out), generator=gen,
                             device=gen.device) / np.sqrt(fan_in))
@@ -102,13 +127,21 @@ def _route(logits: torch.Tensor, k: int, renormalize: bool = True
 
 
 def load_balance_loss(logits: torch.Tensor, idx: torch.Tensor,
-                      num_experts: int) -> torch.Tensor:
+                      num_experts: int, dp=()) -> torch.Tensor:
     """Switch-style auxiliary loss over all k routed choices:
     E · Σ_e f_e · P_e, with f_e the fraction of (token, choice) slots
-    routed to expert e and P_e its mean router probability."""
+    routed to expert e and P_e its mean router probability.  With ``dp``
+    axes (a training step's batch split over them) both means run over
+    every rank's tokens."""
     probs = torch.softmax(logits, dim=-1)
-    f = F.one_hot(idx.reshape(-1), num_experts).float().mean(dim=0)
-    return num_experts * torch.sum(f * probs.mean(dim=0))
+    if not dp:
+        f = F.one_hot(idx.reshape(-1), num_experts).float().mean(dim=0)
+        return num_experts * torch.sum(f * probs.mean(dim=0))
+    counts = F.one_hot(idx.reshape(-1), num_experts).float().sum(dim=0)
+    n = torch.full((1,), float(idx.shape[0]), device=logits.device)
+    n = all_reduce(n, dp, current_ctx())
+    f = all_reduce(counts, dp, current_ctx()) / (n * idx.shape[1])
+    return num_experts * torch.sum(f * psum(probs.sum(dim=0), dp) / n)
 
 
 def zero_aux(device=None) -> Dict[str, torch.Tensor]:
@@ -139,6 +172,14 @@ def _capacity(cfg, tokens: int) -> int:
     c = int(np.ceil(cfg.experts_per_token * tokens * cfg.capacity_factor
                     / cfg.num_experts))
     return max(8, int(np.ceil(c / 8) * 8))
+
+
+def _a2a_capacity(cfg, tokens: int) -> int:
+    """The a2a path's per-source bucket capacity: its GEMM batches m·C
+    rows, so small buckets stay tight (no rounding to 8)."""
+    c = int(np.ceil(cfg.experts_per_token * tokens * cfg.capacity_factor
+                    / cfg.num_experts))
+    return max(1, c)
 
 
 def _chunked(t: int, k: int):
@@ -236,19 +277,94 @@ _dispatch = _Dispatch.apply
 _combine = _Combine.apply
 
 
+def _experts(x_grouped: torch.Tensor, w_gate: torch.Tensor,
+             w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU expert products over (E, C, D) buckets: silu in fp32,
+    cast to the input dtype, times the up projection."""
+    g = torch.bmm(x_grouped, w_gate)
+    u = torch.bmm(x_grouped, w_up)
+    h = F.silu(g.float()).to(x_grouped.dtype) * u
+    return torch.bmm(h, w_down)
+
+
 def _grouped_experts(x_flat: torch.Tensor, gates: torch.Tensor,
                      idx: torch.Tensor, w_gate: torch.Tensor,
-                     w_up: torch.Tensor, w_down: torch.Tensor, capacity: int
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Capacity-bucketed grouped-GEMM over every expert.
+                     w_up: torch.Tensor, w_down: torch.Tensor, capacity: int,
+                     e_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Capacity-bucketed grouped-GEMM over one shard's local experts,
+    global ids ``e_offset`` … ``e_offset + E_loc − 1``.
 
-    x_flat: (T, D); gates / idx: (T, k); w_*: (E, D, F) / (E, F, D).
-    Returns ``(y, kept)``: (T, D) sum of the experts' contributions, pairs
-    past ``capacity`` dropped, and each token's count of choices that kept
-    their slot."""
+    x_flat: (T, D); gates / idx: (T, k); w_*: (E_loc, D, F) / (E_loc, F,
+    D).  Returns ``(y, kept)``: (T, D) sum of the local experts'
+    contributions, pairs past ``capacity`` dropped, and each token's count
+    of choices that landed on a local expert and kept their slot."""
     t, _d = x_flat.shape
     k = idx.shape[1]
     e_loc = w_gate.shape[0]
+    n = t * k
+    flat_e = idx.reshape(n)
+    flat_g = gates.reshape(n)
+    pos = _expert_positions(flat_e, n)
+    local_e = flat_e - e_offset
+    valid = ((local_e >= 0) & (local_e < e_loc) & (pos < capacity)
+             & (flat_g > 0))
+    safe_e = torch.where(valid, local_e, 0)
+    safe_pos = torch.where(valid, pos, capacity)          # row C: trash
+    w = flat_g * valid
+    x_grouped = _dispatch(x_flat, safe_e, safe_pos, w, k, e_loc, capacity)
+    y_grouped = _experts(x_grouped, w_gate, w_up, w_down)   # (E, C, D)
+    y = _combine(y_grouped, safe_e, safe_pos, w, k)
+    kept = valid.view(t, k).sum(dim=1).float()
+    return y.to(x_flat.dtype), kept
+
+
+# ------------------------------------------------------ all-to-all exchange
+
+class _Exchange(torch.autograd.Function):
+    """Bucket exchange over "model": the leading dim m is the per-peer
+    split — peer j receives our block j, we receive every peer's block i
+    at position i (source-major).  The backward is the reverse exchange
+    (the peer-block permutation is an involution)."""
+
+    @staticmethod
+    def forward(ctx, buckets, sctx):
+        ctx.sctx = sctx
+        return _all_to_all(buckets, sctx)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.sctx), None
+
+
+def _all_to_all(x: torch.Tensor, sctx) -> torch.Tensor:
+    import torch.distributed as dist
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=sctx.group("model"))
+    return out
+
+
+def _exchange(buckets: torch.Tensor, sctx=None) -> torch.Tensor:
+    return _Exchange.apply(buckets, sctx or current_ctx())
+
+
+def _a2a_experts(x_flat: torch.Tensor, gates: torch.Tensor,
+                 idx: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+                 w_down: torch.Tensor, capacity: int, m: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Capacity-bucketed all-to-all dispatch (inside the "model" region).
+
+    x_flat: (T_loc, D), this rank's disjoint tokens; w_*: the E/m local
+    experts.  Packs the routed pairs into per-destination-expert buckets
+    (E, C, D) by the same stable-sort positions as
+    :func:`_grouped_experts`, exchanges peer j's §6 range (its experts
+    [j·E/m, (j+1)·E/m)), runs the local experts on the received (E/m,
+    m·C, D) and reverse-exchanges the results for the gate-weighted
+    combine.  Returns ``(y (T_loc, D), kept (T_loc,))``."""
+    t, d = x_flat.shape
+    k = idx.shape[1]
+    e_loc = w_gate.shape[0]
+    e = e_loc * m
     n = t * k
     flat_e = idx.reshape(n)
     flat_g = gates.reshape(n)
@@ -257,12 +373,12 @@ def _grouped_experts(x_flat: torch.Tensor, gates: torch.Tensor,
     safe_e = torch.where(valid, flat_e, 0)
     safe_pos = torch.where(valid, pos, capacity)          # row C: trash
     w = flat_g * valid
-    x_grouped = _dispatch(x_flat, safe_e, safe_pos, w, k, e_loc, capacity)
-    g = torch.bmm(x_grouped, w_gate)
-    u = torch.bmm(x_grouped, w_up)
-    h = F.silu(g.float()).to(x_flat.dtype) * u
-    y_grouped = torch.bmm(h, w_down)                      # (E, C, D)
-    y = _combine(y_grouped, safe_e, safe_pos, w, k)
+    buckets = _dispatch(x_flat, safe_e, safe_pos, w, k, e, capacity)
+    recv = _exchange(buckets.reshape(m, e_loc, capacity, d))
+    x_grouped = recv.movedim(0, 1).reshape(e_loc, m * capacity, d)
+    y_grouped = _experts(x_grouped, w_gate, w_up, w_down)  # (E/m, m·C, D)
+    back = _exchange(y_grouped.reshape(e_loc, m, capacity, d).movedim(1, 0))
+    y = _combine(back.reshape(e, capacity, d), safe_e, safe_pos, w, k)
     kept = valid.view(t, k).sum(dim=1).float()
     return y.to(x_flat.dtype), kept
 
@@ -271,25 +387,114 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """MoE feed-forward.  x: (B, S, D) → (y, aux): the balance ``loss``,
     the ``dropped`` and ``routed`` (token, choice) counts and
-    ``a2a_bytes`` (0: one device exchanges nothing); then the shared
-    experts' and the dense residual MLPs are added to y."""
+    ``a2a_bytes`` (the bytes one rank's two exchanges move a layer; 0
+    without the a2a); then the shared experts' and the dense residual
+    MLPs are added to y.
+
+    Routing runs on every token (replicated over "model"); under a mesh
+    whose "model" axis divides E the experts run in the a2a or psum
+    region (module docs).  Expert banks may come whole or as this rank's
+    shard (E/m experts, the FSDP dim cut or not)."""
+    ctx = current_ctx()
     b, s, d = x.shape
     t = b * s
     k = cfg.experts_per_token
+    e = cfg.num_experts
+    m = ctx.model_size
+    use_region = ctx.active and m > 1 and e % m == 0 and not ctx.pure_dp
+    use_a2a = (use_region and getattr(cfg, "moe_dispatch", "a2a") == "a2a"
+               and ctx.resolve("sp", s) is not None)
+    # a training step that split its batch: statistics sum over "dp"
+    dp_sum = ctx.split_batch if ctx.active else ()
+    if dp_sum and not use_region:
+        raise NotImplementedError(
+            "MoE under a batch split over 'dp' runs only the expert-"
+            "parallel branch (num_experts divisible by the 'model' axis, "
+            "not pure_dp): the reference's global view places every "
+            "token's bucket slot over the whole batch")
     logits = x.reshape(t, d).float() @ params["router"]
     gates, idx = _route(logits, k)
-    aux = load_balance_loss(logits, idx, cfg.num_experts)
-    y, kept = _grouped_experts(x.reshape(t, d), gates, idx,
-                               params["w_gate"], params["w_up"],
-                               params["w_down"], _capacity(cfg, t))
-    y = y.view(b, s, d)
+    aux = load_balance_loss(logits, idx, e, dp_sum)
     routed = torch.full((), float(t * k), dtype=torch.float32,
                         device=x.device)
-    auxd = {"loss": aux, "dropped": routed - kept.sum(), "routed": routed,
-            "a2a_bytes": torch.zeros((), dtype=torch.float32,
-                                     device=x.device)}
+    a2a_bytes = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    if not use_region:
+        w_gate, w_up, w_down = _gather_banks(params, d, e, ctx, False, ())
+        y, kept = _grouped_experts(x.reshape(t, d), gates, idx, w_gate,
+                                   w_up, w_down, _capacity(cfg, t))
+        y = y.view(b, s, d)
+        kept_sum = kept.sum()
+    else:
+        # a batch whole on every rank splits over "dp" in the region too
+        dp = () if ctx.split_batch else _entry_axes(ctx.resolve("dp", b))
+        w_gate, w_up, w_down = _gather_banks(params, d, e, ctx, True, dp)
+        gates_b, idx_b = gates.view(b, s, k), idx.view(b, s, k)
+        dims = ((0, dp), (1, "model")) if use_a2a else ((0, dp),)
+        xl, gl, il = x, gates_b, idx_b
+        for dim, axes in dims:
+            if axes:
+                xl, gl = split(xl, dim, axes), split(gl, dim, axes)
+                il = chunk_of(il, dim, axes, ctx)
+        bl, sl, _ = xl.shape
+        tl = bl * sl
+        if use_a2a:
+            cap = _a2a_capacity(cfg, tl)
+            ranges = moe_bucket_ranges(e, cap, d, x.element_size(), ctx)
+            a2a_bytes = a2a_bytes + 2.0 * sum(sz for _, sz in ranges)
+            yl, kept = _a2a_experts(xl.reshape(tl, d), gl.reshape(tl, k),
+                                    il.reshape(tl, k), w_gate, w_up, w_down,
+                                    cap, m)
+        else:
+            # every rank's local experts see all tokens: each use is part
+            # of the tokens' gradient, summed over "model"
+            xl, gl = whole(xl, "model"), whole(gl, "model")
+            yl, kept = _grouped_experts(
+                xl.reshape(tl, d), gl.reshape(tl, k), il.reshape(tl, k),
+                w_gate, w_up, w_down, _capacity(cfg, tl),
+                ctx.coord("model") * (e // m))
+            # each choice is kept by exactly one owning shard (or dropped)
+            yl = psum(yl, "model")
+            kept = all_reduce(kept, "model", ctx)
+        y, kept = yl.view(bl, sl, d), kept.view(bl, sl)
+        for dim, axes in reversed(dims):
+            if axes:
+                y = gather(y, dim, axes)
+                kept = all_gather(kept, dim, axes, ctx)
+        kept_sum = kept.sum()
+    if dp_sum:
+        routed = all_reduce(routed.clone(), dp_sum, ctx)
+        kept_sum = all_reduce(kept_sum.clone(), dp_sum, ctx)
+    auxd = {"loss": aux, "dropped": routed - kept_sum, "routed": routed,
+            "a2a_bytes": a2a_bytes}
     if "shared" in params:
         y = y + mlp(params["shared"], x)
     if "dense_residual" in params:
         y = y + mlp(params["dense_residual"], x)
     return y, auxd
+
+
+def _gather_banks(params: Params, d: int, e: int, ctx, region: bool, dp
+                  ) -> Tuple[torch.Tensor, ...]:
+    """The three expert banks as the branch computes with them: a whole
+    bank (E experts) cut to this rank's E/m in the expert-parallel
+    region, an FSDP-cut d_model dim gathered back (the reference's
+    ``_gather_banks``), and, when the region splits a whole batch over
+    ``dp``, the bank entered whole on those ranks (its gradient sums over
+    them)."""
+    out = []
+    for name, fdim in (("w_gate", 1), ("w_up", 1), ("w_down", 2)):
+        w = params[name]
+        if region and w.shape[0] == e:
+            w = split(w, 0, "model")
+        spec = [None] * w.ndim
+        if w.shape[fdim] != d:
+            spec[fdim] = ctx.resolve("fsdp", d)
+        if ctx.active:
+            # the leaf's one gather node: a training step's gradient sums
+            # over its "dp" axes here (the model's entry leaves banks be)
+            w = gather_param(w, tuple(spec))
+        if dp:
+            w = whole(w, dp)
+        out.append(w)
+    return tuple(out)

@@ -16,6 +16,12 @@ scales, as the reference does for the ≥100B configs:
 Unlike the reference, which returns new arrays, :func:`adamw_update`
 updates the parameters and the optimizer state **in place** (a training
 step then needs no second copy of either) and returns the same objects.
+
+Under a mesh it takes each leaf's sharding and updates the rank's local
+shards (the update is elementwise).  Two parts are not: the clip's
+global norm adds each leaf's local Σ g² over the ranks that split it
+(a replicated leaf counts once), and an int8 moment's row scale, a max
+over the last axis, takes the max over the ranks that split that axis.
 """
 from __future__ import annotations
 
@@ -54,8 +60,17 @@ def lr_at(oc: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
 
 # ----------------------------------------------------------- int8 compansion
 
-def _quant_m(m: torch.Tensor) -> Dict[str, torch.Tensor]:
-    scale = m.abs().amax(dim=-1, keepdim=True) / 127.0
+def _row_max(x: torch.Tensor, row_axes) -> torch.Tensor:
+    """Max over the last axis, and over the mesh axes that split it."""
+    out = x.amax(dim=-1, keepdim=True)
+    if row_axes:
+        from repro_torch.dist.sharding import all_reduce, current_ctx
+        out = all_reduce(out, row_axes, current_ctx(), op="max")
+    return out
+
+
+def _quant_m(m: torch.Tensor, row_axes=()) -> Dict[str, torch.Tensor]:
+    scale = _row_max(m.abs(), row_axes) / 127.0
     scale = torch.clamp(scale, min=1e-20)
     q = torch.clamp(torch.round(m / scale), -127, 127).to(torch.int8)
     return {"q": q, "scale": scale.float()}
@@ -65,8 +80,8 @@ def _dequant_m(s: Dict[str, torch.Tensor]) -> torch.Tensor:
     return s["q"].float() * s["scale"]
 
 
-def _quant_v(v: torch.Tensor) -> Dict[str, torch.Tensor]:
-    vmax = torch.clamp(v.amax(dim=-1, keepdim=True), min=1e-30)
+def _quant_v(v: torch.Tensor, row_axes=()) -> Dict[str, torch.Tensor]:
+    vmax = torch.clamp(_row_max(v, row_axes), min=1e-30)
     q = torch.round(255.0 * torch.sqrt(torch.sqrt(v / vmax)))
     return {"q": torch.clamp(q, 0, 255).to(torch.uint8),
             "scale": vmax.float()}
@@ -127,9 +142,21 @@ def _sum_squares(leaf: torch.Tensor) -> torch.Tensor:
     return sum(torch.sum(torch.square(c.float())) for c in flat.split(n))
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    return torch.sqrt(sum(_sum_squares(leaf)
-                          for _path, leaf in iter_leaves(tree)))
+def global_norm(tree: Any, shardings: Any = None) -> torch.Tensor:
+    """√Σ g² over every leaf.  With ``shardings`` (the leaves are this
+    rank's shards) the local sums of the leaves split over the same mesh
+    axes are added, then summed over those axes; a replicated leaf's sum
+    is its own."""
+    if shardings is None:
+        return torch.sqrt(sum(_sum_squares(leaf)
+                              for _path, leaf in iter_leaves(tree)))
+    from repro_torch.dist.sharding import all_reduce, current_ctx
+    groups: Dict[Tuple[str, ...], torch.Tensor] = {}
+    for path, leaf in iter_leaves(tree):
+        axes = _at(shardings, path).sharded_axes()
+        groups[axes] = groups.get(axes, 0) + _sum_squares(leaf)
+    return torch.sqrt(sum(all_reduce(sq, axes, current_ctx())
+                          for axes, sq in groups.items()))
 
 
 _NO_DECAY = {"scale", "bias", "A_log", "dt_bias", "D", "b_q", "b_k", "b_v",
@@ -153,21 +180,24 @@ def _slice(s, i):
 
 @torch.no_grad()
 def adamw_update(oc: OptimizerConfig, grads: Any, params: Any,
-                 opt_state: Dict[str, Any]
+                 opt_state: Dict[str, Any], shardings: Any = None
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step, in place on ``params`` and ``opt_state``.  Returns
-    (params, opt_state, metrics) — the same objects, updated."""
+    (params, opt_state, metrics) — the same objects, updated.  Under a
+    mesh ``shardings`` (the parameters' ``NamedSharding`` tree) says how
+    the leaves are cut: the norm and the int8 row scales then run over
+    the ranks (module docs)."""
     quant = oc.state_dtype == "int8"
     step = opt_state["step"]
     step += 1
     lr = lr_at(oc, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, shardings)
     clip = torch.clamp(oc.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     t = step.float()
     bc1 = 1.0 - torch.pow(oc.b1, t)
     bc2 = 1.0 - torch.pow(oc.b2, t)
 
-    def leaf_update(p, g, m_s, v_s, decay: bool):
+    def leaf_update(p, g, m_s, v_s, decay: bool, row_axes):
         g = g.float() * clip
         m = _dequant_m(m_s) if quant else m_s
         v = _dequant_v(v_s) if quant else v_s
@@ -178,10 +208,10 @@ def adamw_update(oc: OptimizerConfig, grads: Any, params: Any,
             upd = upd + oc.weight_decay * p.float()
         p.copy_((p.float() - lr * upd).to(p.dtype))
         if quant:
-            _assign(m_s, _quant_m(m))
-            _assign(v_s, _quant_v(v))
+            _assign(m_s, _quant_m(m, row_axes))
+            _assign(v_s, _quant_v(v, row_axes))
 
-    def chunked_update(p, g, m_s, v_s, decay: bool):
+    def chunked_update(p, g, m_s, v_s, decay: bool, row_axes=()):
         # chunk only over a genuine stack dim (small leading extent, ndim
         # >= 3), as the reference does for layers; the update is
         # elementwise and the int8 scales are per row of the last dim, so
@@ -190,13 +220,18 @@ def adamw_update(oc: OptimizerConfig, grads: Any, params: Any,
                 1 < p.shape[0] <= 256:
             for i in range(p.shape[0]):
                 chunked_update(p[i], g[i], _slice(m_s, i), _slice(v_s, i),
-                               decay)
+                               decay, row_axes)
         else:
-            leaf_update(p, g, m_s, v_s, decay)
+            leaf_update(p, g, m_s, v_s, decay, row_axes)
 
     for path, p in iter_leaves(params):
         g = _at(grads, path)
         m_s, v_s = _at(opt_state["m"], path), _at(opt_state["v"], path)
         decay = bool(oc.weight_decay) and path[-1] not in _NO_DECAY
-        chunked_update(p, g, m_s, v_s, decay)
+        row_axes = ()
+        if shardings is not None and p.ndim:
+            spec = _at(shardings, path).spec[-1]
+            row_axes = () if spec is None else (
+                (spec,) if isinstance(spec, str) else tuple(spec))
+        chunked_update(p, g, m_s, v_s, decay, row_axes)
     return params, opt_state, {"lr": lr, "grad_norm": gnorm}

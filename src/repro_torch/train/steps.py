@@ -9,6 +9,12 @@ place: gradients come from ``torch.autograd.grad`` on detached views of
 the parameters, and ``adamw_update`` writes the new parameters and
 moments into the same tensors, where the reference donates the state
 buffers to its jitted step.
+
+Under a mesh (``dist.sharding.use_mesh`` around the call) the state is
+this rank's shards (``dist.sharding.state_shardings_of``) and the batch
+the whole batch: ``train_loss`` computes the rank's "dp" rows and sums
+each shard's gradient over "dp", and ``adamw_update`` takes the
+parameters' shardings for the norm and the int8 row scales.
 """
 from __future__ import annotations
 
@@ -16,7 +22,8 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.models.model import LanguageModel
+from repro_torch.dist.sharding import current_ctx, param_shardings
+from repro_torch.models.model import LanguageModel, param_shapes
 from repro_torch.optim import OptimizerConfig, adamw_update, init_opt_state
 from repro_torch.optim.adamw import iter_leaves
 
@@ -88,8 +95,11 @@ def make_train_step(model: LanguageModel, oc: OptimizerConfig):
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         grads, metrics = grads_accum(state["params"], batch)
+        ctx = current_ctx()
+        shardings = (param_shardings(param_shapes(model.cfg), ctx)
+                     if ctx.active else None)
         _params, _opt, opt_metrics = adamw_update(
-            oc, grads, state["params"], state["opt"])
+            oc, grads, state["params"], state["opt"], shardings)
         return state, {**metrics, **opt_metrics}
 
     return train_step

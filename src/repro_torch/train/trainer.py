@@ -21,7 +21,16 @@ a Mamba layer's scan runs K9 forward and K9b backward.  A MoE
 model's dispatch stats (``moe_dropped_tokens``, ``moe_overflow_rate``,
 ``moe_a2a_bytes``) land in each step's history and, from the last
 step, in the runtime's stats, as in the reference.
-Single device only: a ``mesh`` raises ``NotImplementedError``.
+
+Under a ``mesh`` (a ``DeviceMesh`` over the initialized process group)
+every rank runs the same step loop with its own OCR ``Runtime``: a
+fresh state drawn from the seeded generator, or a restored host-leaf
+checkpoint, is cut to the rank's shards by the parameter rules (the
+reference's reshard-on-restore); each step takes ``data.get(i)``, the
+same on every rank, and splits it over "dp"; the metrics are the whole
+batch's on every rank.  Saving a checkpoint under a mesh is not ported
+(``ROADMAP.md`` Queue 1 item 6, sharded checkpoints: each rank writes
+its own ranges, with no gather to the host) and raises.
 """
 from __future__ import annotations
 
@@ -33,9 +42,10 @@ import numpy as np
 import torch
 
 from repro_torch import ckpt
-from repro_torch.convert import state_from_numpy, state_to_numpy
+from repro_torch.convert import place_state, state_from_numpy, state_to_numpy
 from repro_torch.core import (DbMode, EDT_PROP_MAPPED, NULL_GUID,
                               Runtime, UNINITIALIZED_GUID, spawn_main)
+from repro_torch.dist.sharding import use_mesh
 from repro_torch.models.model import LanguageModel
 from repro_torch.optim import OptimizerConfig
 from .steps import init_train_state, make_train_step
@@ -54,11 +64,14 @@ class TrainerConfig:
 class Trainer:
     def __init__(self, model: LanguageModel, oc: OptimizerConfig,
                  data, tc: TrainerConfig, mesh=None):
-        if mesh is not None:
+        if mesh is not None and tc.ckpt_every and tc.ckpt_dir:
             raise NotImplementedError(
-                "the torch trainer runs on one device; meshes are not "
-                "ported yet")
+                "saving a checkpoint under a mesh is ROADMAP.md Queue 1 "
+                "item 6 (sharded checkpoints: each rank writes its own "
+                "ranges); restoring a host-leaf checkpoint onto a mesh "
+                "works — set ckpt_every=0")
         self.model = model
+        self.mesh = mesh
         self.oc = oc
         self.data = data
         self.tc = tc
@@ -76,14 +89,16 @@ class Trainer:
 
     def init_or_restore(self, generator: torch.Generator) -> Dict[str, Any]:
         """The last committed checkpoint under ``tc.ckpt_dir`` on the
-        model's device, else a fresh state drawn from ``generator``."""
+        model's device, else a fresh state drawn from ``generator``;
+        under a mesh, this rank's shards of either."""
         tc = self.tc
         if tc.ckpt_dir and ckpt.latest_step(tc.ckpt_dir) is not None:
             tree, step = ckpt.restore(tc.ckpt_dir)
             self.start_step = step
-            return state_from_numpy(tree, self.model.device)
+            return state_from_numpy(tree, self.model.device, mesh=self.mesh)
         self.start_step = 0
-        return init_train_state(self.model, generator, self.oc)
+        state = init_train_state(self.model, generator, self.oc)
+        return state if self.mesh is None else place_state(state, self.mesh)
 
     # ----------------------------------------------------------------- run
 
@@ -109,7 +124,8 @@ class Trainer:
             batch = self.data.get(i)
             batch = {k: torch.from_numpy(v).to(device)
                      for k, v in batch.items()}
-            holder["state"], metrics = step_fn(holder["state"], batch)
+            with use_mesh(self.mesh):
+                holder["state"], metrics = step_fn(holder["state"], batch)
             # reading the metrics waits for the step's device work
             m = {k: float(v) for k, v in metrics.items()}
             dt = time.perf_counter() - t0
