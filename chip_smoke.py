@@ -261,7 +261,15 @@ Phases, in order; any failure raises and the script exits nonzero:
     of 28 layers, 4 x 4096) trained at full width through
     ``Trainer(mesh=...)`` (K1-lse twice and K3 once a layer a step on each
     rank), each with an fp32 depth-cut step held against one rank's (loss
-    1e-3, parameters 3e-4); both served in fp32 under the mesh against one
+    1e-3, parameters 3e-4); smollm's mesh-trained state (~4.3 GB of fp32
+    params, m and v) saved by its Trainer inside the last step on the §6
+    sharded path by both ranks (no leaf gathered: ``host_gathers`` 0;
+    sharded and replicated leaves both), resumed by a second
+    ``Trainer(mesh=...)`` on the same directory (start step 3, each
+    rank's shards bit for bit) and, in this process after the ranks
+    exit, restored on one device with no mesh (each rank's ``shard_of``
+    of every whole leaf hashes to what that rank held), with every wall
+    printed; both served in fp32 under the mesh against one
     rank (smollm prefill 4 x 4608: K1 on stripes of 2304); then, in this
     process, the §6 ranges of a TP-sharded llama leaf through
     ``db_partition`` and one K7 fused copy that reassembles it from the
@@ -289,6 +297,7 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import hashlib
 import json
 import os
 import re
@@ -1248,7 +1257,7 @@ def phase_danube_train():
           "K2 in deterministic mode) vs CPU")
     cfg = dataclasses.replace(get_config(DANUBE), num_layers=2,
                               dtype="float32", param_dtype="float32")
-    cpu = LanguageModel(cfg, "cpu")
+    cpu = _cpu_model(cfg)
     params = cpu.init(torch.Generator().manual_seed(62))
     gpu = LanguageModel(cfg, "cuda")
     params_gpu = _tree_to(params, "cuda", copy=True)
@@ -2439,8 +2448,12 @@ def phase_train_reference():
     with lse, K3) against the CPU's plain path from the same weights."""
     print("== train reference: 2-layer full width fp32, B=1 S=2100, card "
           "vs CPU")
+    # loss chunks of 700 positions: the default 1024 halves down to 4
+    # (the largest power of two dividing 2100), 525 chunks that re-read
+    # the 189 MB unembedding each, most of the CPU side's minute
     cfg = dataclasses.replace(get_config("smollm-360m"), num_layers=2,
-                              dtype="float32", param_dtype="float32")
+                              dtype="float32", param_dtype="float32",
+                              loss_chunk=700)
     oc = OptimizerConfig(peak_lr=1e-3, warmup_steps=1, total_steps=10)
     cpu = LanguageModel(cfg, "cpu")
     params = cpu.init(torch.Generator().manual_seed(6))
@@ -2449,7 +2462,7 @@ def phase_train_reference():
              "targets": torch.from_numpy(toks[:, 1:])}
     out = {}
     for dev in ("cuda", "cpu"):
-        model = LanguageModel(cfg, dev)
+        model = LanguageModel(cfg, dev) if dev == "cuda" else _cpu_model(cfg)
         p = _tree_to(params, dev, copy=True)
         state = {"params": p, "opt": init_opt_state(p, oc)}
         _zero_counts()
@@ -4771,7 +4784,7 @@ def _prefix_reference(name, cfg, key, length, s, seed):
     decoder layer), ``train_loss`` and every gradient (K1-lse twice and
     K3 once a decoder layer), within the limits of
     ``phase_mla_reference``."""
-    gpu, cpu = LanguageModel(cfg, device="cuda"), LanguageModel(cfg, "cpu")
+    gpu, cpu = LanguageModel(cfg, device="cuda"), _cpu_model(cfg)
     _release()
     params = gpu.init(torch.Generator(device="cuda").manual_seed(seed))
     params_cpu = _tree_to(params, "cpu")
@@ -5061,25 +5074,27 @@ def _mesh_mla_call(mesh, rank):
     return info
 
 
-def _mesh_trainer(cfg, argv, mesh):
+def _mesh_trainer(cfg, argv, mesh, tc=None):
     """The port's Trainer under ``mesh`` as ``launch.train`` builds it
-    from ``argv`` (a fresh seeded state cut to this rank's shards)."""
+    from ``argv`` (a fresh seeded state cut to this rank's shards), run
+    for ``args.steps`` steps with ``tc`` (no checkpoints by default)."""
     args = train_cli.parse_args(argv + ["--device", "cuda"])
     oc = train_cli.optimizer_config(cfg, args)
     data = SyntheticTokens(cfg.vocab_size, args.batch, args.seq, seed=0,
                            mode="markov")
     tr = Trainer(LanguageModel(cfg, device="cuda"), oc, data,
-                 TrainerConfig(), mesh=mesh)
+                 tc or TrainerConfig(), mesh=mesh)
     state = tr.init_or_restore(torch.Generator(device="cuda").manual_seed(0))
     return tr, tr.run(state, args.steps)
 
 
-def _mesh_train(name, cfg, argv, rank, mesh):
+def _mesh_train(name, cfg, argv, rank, mesh, tc=None):
     """Steps of ``cfg`` at full width through ``Trainer(mesh=...)``:
-    K1-lse twice and K3 once a layer a step on each rank."""
+    K1-lse twice and K3 once a layer a step on each rank (the wall
+    includes the saves that ``tc`` asks for)."""
     _zero_counts()
     t0 = time.perf_counter()
-    tr, state = _mesh_trainer(cfg, argv, mesh)
+    tr, state = _mesh_trainer(cfg, argv, mesh, tc)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _counts()
@@ -5312,7 +5327,96 @@ def _mesh_moe(rank, mesh):
     return info
 
 
-def _mesh_rank(rank, world):
+def _sha1(t):
+    return hashlib.sha1(t.detach().contiguous().cpu().numpy()
+                        .reshape(-1).view(np.uint8)).hexdigest()
+
+
+def _mesh_ckpt(tr, state, rank, mesh, full_layers):
+    """smollm's mesh-trained state through the §6 sharded checkpoint, as
+    ``launch.train --tp 2 --ckpt-dir`` runs it: ``tr`` saved it inside
+    its last step (every rank its own ranges of its live shards, no leaf
+    gathered); a second ``Trainer(mesh=)`` on the same directory resumes
+    from it (``init_or_restore``: each rank reads its shards' ranges
+    under ``Trainer.state_shardings()``) and must start at that step with
+    every shard bit for bit the live one.  Returns each local shard's
+    sha1 for the one-device restore in the parent.  A depth below
+    ``full_layers`` is the disk-space cut."""
+    import torch.distributed as dist
+    from repro_torch.launch.specs import state_specs
+    smi = _smi()
+    cfg, layers = tr.model.cfg, tr.model.cfg.num_layers
+    if not tr.saves or tr.saves[-1]["step"] != MESH_STEPS:
+        raise AssertionError(f"rank {rank}: the Trainer saved at "
+                             f"{[s['step'] for s in tr.saves]}, not at "
+                             f"step {MESH_STEPS}")
+    save_s, st = tr.saves[-1]["wall_s"], tr.saves[-1]["stats"]
+    sh, shapes = tr.state_shardings(), state_specs(cfg, tr.oc)
+    flat = {"/".join(p): (v, _at(sh, p)) for p, v in iter_leaves(state)}
+    sharded = sum(any(e is not None for e in s.spec) for _v, s in
+                  flat.values())
+    # this rank's share of the write table: the ranges it owns
+    mine = [size for p, (v, s) in flat.items()
+            for _node, _off, size, r, _piece in ckpt.range_owners(
+                tuple(_at(shapes, p.split("/")).shape), v.element_size(),
+                s, mesh.size()) if r == rank]
+    owned, n_mine = sum(mine), len(mine)
+    dist.barrier()
+    tr2 = Trainer(LanguageModel(cfg, device="cuda"), tr.oc, tr.data,
+                  tr.tc, mesh=mesh)
+    t0 = time.perf_counter()
+    got = tr2.init_or_restore(torch.Generator(device="cuda").manual_seed(99))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    same = all(torch.equal(v, _at(got, p.split("/")))
+               for p, (v, _s) in flat.items())
+    info = {"layers": layers, "reduced": (f"{layers} of {full_layers} "
+                                          f"layers (disk space)"
+                                          if layers < full_layers else None),
+            "leaves_sharded": sharded,
+            "leaves_replicated": len(flat) - sharded,
+            "save_s": save_s, "bytes_owned": owned, "ranges_owned": n_mine,
+            "save_gb_s": owned / save_s / 1e9,
+            "save_us_a_range": save_s / max(n_mine, 1) * 1e6,
+            "restore_mesh_s": restore_s,
+            "host_gathers": st.host_gathers, "committed": st.committed,
+            "stats": st.snapshot(), "restored_step": tr2.start_step,
+            "restored_bits_equal": same,
+            "sha1": {p: _sha1(v) for p, (v, _s) in flat.items()}}
+    print(f"  sharded checkpoint of smollm-360m's mesh-trained state "
+          f"({layers} layers{', reduced: cut for disk space' if info['reduced'] else ''}; "
+          f"{len(flat)} leaves: {sharded} sharded, "
+          f"{len(flat) - sharded} replicated), saved by the Trainer after "
+          f"step {MESH_STEPS}: rank {rank} wrote its own {n_mine} ranges, "
+          f"{owned / 1e9:.3f} GB, in {save_s:.2f} s "
+          f"({info['save_gb_s']:.3f} GB/s, {info['save_us_a_range']:.1f} "
+          f"us a range), host_gathers {st.host_gathers}, "
+          f"{st.chunks_written} ranges in all; a new Trainer(mesh=) resumed "
+          f"at step {tr2.start_step} in {restore_s:.2f} s, its shards "
+          f"{'bit for bit the live ones' if same else 'DIFFERENT'} "
+          f"({MESH_NOTE}; {smi})")
+    del got, tr2
+    if st.host_gathers or not st.committed or not same or \
+            info["restored_step"] != MESH_STEPS or not sharded or \
+            sharded == len(flat):
+        raise AssertionError(f"sharded checkpoint on rank {rank}: "
+                             f"{ {k: v for k, v in info.items() if k != 'sha1'} }")
+    return info
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _smi():
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+
+
+def _mesh_rank(rank, world, ckpt_dir, ckpt_layers):
     """Everything one rank of the mesh phase runs (the module-level
     entry ``launch.mesh.spawn`` starts on cuda:0); rank 1 prints only its
     collectives' lines.  Returns the rank's numbers."""
@@ -5346,9 +5450,15 @@ def _mesh_rank(rank, world):
     out["moe"] = _mesh_moe(rank, mesh)
 
     print(f"== mesh train ({MESH_NOTE})")
+    # smollm saves on the §6 sharded path inside its last step, at the
+    # whole depth unless the disk is too small for the state
+    smollm_ck = dataclasses.replace(smollm, num_layers=ckpt_layers)
     out["train_smollm"], tr, state = _mesh_train(
-        "smollm-360m (15 heads: context-parallel)", smollm, MESH_SMOLLM_ARGS,
-        rank, mesh)
+        "smollm-360m (15 heads: context-parallel)", smollm_ck,
+        MESH_SMOLLM_ARGS, rank, mesh,
+        TrainerConfig(ckpt_dir=ckpt_dir, ckpt_every=MESH_STEPS,
+                      async_ckpt=False))
+    out["ckpt"] = _mesh_ckpt(tr, state, rank, mesh, smollm.num_layers)
     del tr, state
     _release()
     llama4 = dataclasses.replace(llama, num_layers=MESH_LLAMA_LAYERS)
@@ -5516,23 +5626,29 @@ def phase_mesh():
     each collective on CUDA tensors; head- and context-parallel attention,
     lse-combine and head-parallel decode and MLA's head-sharded decode at
     full-width shapes against one rank; arctic-width MoE a2a against the
-    no-mesh oracle; smollm-360m (all 32 layers) and llama3.2-3b (4 layers)
-    trained at full width through ``Trainer(mesh=...)``, each with an
+    no-mesh oracle; smollm-360m (all 32 layers, saving a sharded
+    checkpoint that a second mesh Trainer resumes) and llama3.2-3b (4
+    layers) trained at full width through ``Trainer(mesh=...)``, each with an
     fp32 step held against one rank; both served under the mesh (fp32)
     against one rank; then, in the parent, the §6 ranges of a sharded
     leaf through K7 and the kernels timed at their shard shapes."""
     from repro_torch.launch import mesh as mesh_launch
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
+    smi = _smi()
     print(f"== mesh: 2 ranks on cuda:0 over gloo, mesh (1, 2) "
           f"('data', 'model'); {smi}; {MESH_NOTE}")
     _release()
-    t0 = time.perf_counter()
-    ranks = mesh_launch.spawn(_mesh_rank, 2, backend="gloo",
-                              devices=["cuda:0", "cuda:0"], timeout_s=900)
-    wall = time.perf_counter() - t0
-    print(f"  the ranks ran {wall:.1f} s ({MESH_NOTE}; {smi})")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_ckpt_")
+    try:
+        layers = _mesh_ckpt_layers(ckpt_dir)
+        t0 = time.perf_counter()
+        ranks = mesh_launch.spawn(_mesh_rank, 2, backend="gloo",
+                                  devices=["cuda:0", "cuda:0"],
+                                  args=(ckpt_dir, layers), timeout_s=900)
+        wall = time.perf_counter() - t0
+        print(f"  the ranks ran {wall:.1f} s ({MESH_NOTE}; {smi})")
+        one_rank = _mesh_ckpt_one_device(ranks, ckpt_dir, layers)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
     for r, res in enumerate(ranks):
         print(f"  rank {r}: train launches smollm "
               f"{res['train_smollm']['launches']}, llama "
@@ -5540,6 +5656,13 @@ def phase_mesh():
               f"{res['serve_smollm']['launches']}, llama "
               f"{res['serve_llama']['launches']}; peak memory "
               f"{res['peak_gb']:.2f} GB")
+        ck = res["ckpt"]
+        print(f"  rank {r}: the Trainer's sharded save {ck['save_s']:.2f} "
+              f"s for its own {ck['ranges_owned']} ranges, "
+              f"{ck['bytes_owned'] / 1e9:.3f} GB ({ck['save_gb_s']:.3f} "
+              f"GB/s, {ck['save_us_a_range']:.1f} us a range), "
+              f"host_gathers {ck['host_gathers']}; the mesh Trainer's "
+              f"resume {ck['restore_mesh_s']:.2f} s ({MESH_NOTE}; {smi})")
     k7 = _mesh_k7(ranks)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
     shard_rows = _shard_kernel_times(flush)
@@ -5547,7 +5670,71 @@ def phase_mesh():
     for res in ranks:
         res.pop("k7_leaf")
     return {"ranks": ranks, "wall_s": wall, "k7": k7,
-            "shard_kernels": shard_rows, "device": smi, "note": MESH_NOTE}
+            "ckpt_one_device": one_rank, "shard_kernels": shard_rows,
+            "device": smi, "note": MESH_NOTE}
+
+
+def _mesh_ckpt_layers(ckpt_dir):
+    """smollm's depth for the mesh checkpoint: all 32 layers unless the
+    disk cannot hold the ~4.3 GB state twice."""
+    cfg = get_config("smollm-360m")
+    state_bytes = 12 * _n_params(cfg)     # fp32 params, m and v
+    free = shutil.disk_usage(ckpt_dir).free
+    layers = cfg.num_layers
+    if free < 2 * state_bytes:
+        layers = max(2, int(cfg.num_layers * free / (2 * state_bytes)))
+    print(f"  mesh checkpoint: smollm-360m's train state "
+          f"{state_bytes / 1e9:.2f} GB, {free / 1e9:.1f} GB free at "
+          f"{ckpt_dir}; depth {layers}"
+          f"{' (reduced: cut for disk space)' if layers < cfg.num_layers else ''}")
+    return layers
+
+
+def _mesh_ckpt_one_device(ranks, ckpt_dir, layers):
+    """The ranks' sharded checkpoint restored on one device with no mesh
+    (whole leaves: ``restore`` then ``state_from_numpy`` onto the card):
+    each rank's ``shard_of`` every whole leaf must hash to the sha1 that
+    rank returned of its live shard."""
+    from repro_torch.dist.sharding import MeshLayout, ShardCtx, shard_of
+    from repro_torch.launch.specs import state_shardings
+    cfg = dataclasses.replace(get_config("smollm-360m"), num_layers=layers)
+    args = train_cli.parse_args(MESH_SMOLLM_ARGS)
+    sh = state_shardings(cfg, train_cli.optimizer_config(cfg, args),
+                         ShardCtx(MeshLayout((1, 2), ("data", "model"))))
+    t0 = time.perf_counter()
+    tree, step = ckpt.restore(ckpt_dir)
+    read_s = time.perf_counter() - t0
+    state = state_from_numpy(tree, "cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    nbytes = sum(a.nbytes for _p, a in iter_leaves(tree))
+    del tree
+    bad = [f"rank {r}: {'/'.join(p)}" for p, v in iter_leaves(state)
+           for r, res in enumerate(ranks)
+           if _sha1(shard_of(v, _at(sh, p), r))
+           != res["ckpt"]["sha1"]["/".join(p)]]
+    smi = _smi()
+    print(f"  the checkpoint restored on one device with no mesh: "
+          f"{nbytes / 1e9:.3f} GB read in {read_s:.2f} s, on the card in "
+          f"{restore_s:.2f} s; every leaf's shard_of for both ranks "
+          f"{'hashes to what the rank held' if not bad else 'DIFFERS'} "
+          f"({smi})")
+    del state
+    torch.cuda.empty_cache()
+    if bad or step != MESH_STEPS:
+        raise AssertionError(f"one-device restore: step {step}, {bad[:5]}")
+    return {"read_s": read_s, "restore_s": restore_s, "bytes": nbytes,
+            "step": step, "layers": layers}
+
+
+def _cpu_model(cfg):
+    """The CPU side of a card-vs-CPU check: the same model with every
+    activation kept for the backward.  ``cfg.remat`` only trades memory
+    for a second forward, which on the CPU gives the same bits, and that
+    forward is a quarter of the CPU's share of these phases.  (The MoE
+    phases keep it: their routing records count the recompute's calls
+    on both sides.)"""
+    return LanguageModel(dataclasses.replace(cfg, remat="none"), "cpu")
 
 
 def _tree_to(tree, device, copy=False):
@@ -5563,6 +5750,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 stays fp32
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5782,11 +5970,13 @@ def main() -> int:
               "vlm_serve": vlm_serve, "vlm_train": vlm_train,
               "vlm_reference": vlm_ref, "mesh": mesh,
               "library_bwd_ms": ktrain["library_bwd_ms"], "phase_s": timings,
+              "total_s": time.perf_counter() - t_start,
               "build_log": _build.log_path().read_text()}
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)
         args.report.write_text(json.dumps(report, indent=1))
-    print(f"phases (s): {json.dumps(timings)}")
+    print(f"phases (s): {json.dumps(timings)}; all of the run "
+          f"{report['total_s']:.1f} s")
     print(smi)     # again near the end, where a cut log still shows it
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,2 +1,2 @@
-from .checkpoint import (CkptStats, async_save, latest_step, restore,
-                         save)
+from .checkpoint import (CkptStats, async_save, io_cost, latest_step,
+                         range_owners, restore, save)

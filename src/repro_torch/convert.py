@@ -123,33 +123,21 @@ def state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
     return conv(state)
 
 
-def state_from_numpy(tree: Dict[str, Any], device="cuda",
-                     mesh=None) -> Dict[str, Any]:
+def state_from_numpy(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
     """Nested dict of numpy arrays (a restored checkpoint, from either
-    package) → the same tree of tensors on ``device``.  With ``mesh`` (a
-    ``DeviceMesh`` over the initialized process group) each leaf is cut
-    to this rank's shard by ``dist.sharding.state_shardings_of`` first:
-    the host tree holds whole leaves, whatever mesh wrote them."""
+    package) → the same tree of tensors on ``device``.  (Under a mesh a
+    rank restores only its shards: ``ckpt.restore(shardings=)``.)"""
     dev = resolve_device(device)
-    shardings = rank = None
-    if mesh is not None:
-        import torch.distributed as dist
-        from repro_torch.dist.sharding import ShardCtx, state_shardings_of
-        shardings = state_shardings_of(tree, ShardCtx(mesh))
-        rank = dist.get_rank()
 
-    def conv(node, sh):
+    def conv(node):
         if isinstance(node, dict):
-            return {k: conv(v, None if sh is None else sh[k])
-                    for k, v in node.items()}
+            return {k: conv(v) for k, v in node.items()}
         arr = np.asarray(node)
         if arr.dtype not in _STATE_DTYPES:
             raise TypeError(f"train-state leaf of dtype {arr.dtype}: only "
                             f"fp32, int8, uint8 and int32 are restored")
-        if sh is not None:
-            arr = arr[sh.index_of(arr.shape, rank)]
         return torch.from_numpy(np.array(arr, copy=True)).to(dev)
-    return conv(tree, shardings)
+    return conv(tree)
 
 
 def place_state(state: Dict[str, Any], mesh,

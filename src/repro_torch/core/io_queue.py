@@ -41,7 +41,10 @@ from __future__ import annotations
 
 import dataclasses
 import heapq
+import itertools
 from typing import Dict, List, Optional, Tuple, TYPE_CHECKING
+
+from .objects import SpanIndex
 
 if TYPE_CHECKING:                                       # pragma: no cover
     from .guid import Guid
@@ -70,6 +73,7 @@ class IoOp:
     enqueued_at: float = 0.0
     start: float = 0.0                # disk busy interval [start, done)
     done: float = 0.0
+    seq: int = -1                     # submission order of a pending write
 
 
 class IoQueue:
@@ -83,9 +87,12 @@ class IoQueue:
         # timestamp flush together (mirrors the §6.3 copy batching)
         self._write_buffer: List[IoOp] = []
         self._flush_scheduled = False
-        # elevator pass: submitted write ops whose disk slot hasn't started
-        # yet, indexed by (node, path) — later flushes merge into them
-        self._pending_writes: Dict[Tuple[int, str], List[IoOp]] = {}
+        # elevator pass: submitted write ops whose completion hasn't been
+        # seen, by (node, path) and sorted by offset (keyed by ``seq``, the
+        # submission order) — later flushes merge into the unstarted ones
+        self._pending_writes: Dict[Tuple[int, str], SpanIndex] = {}
+        self._pending_ops: Dict[int, IoOp] = {}
+        self._seq = itertools.count()
         self.inflight = 0                 # ops submitted, completion not seen
         self.reads_inflight = 0
         # monitoring only (rt._mon is not None): per-node start times of
@@ -117,8 +124,11 @@ class IoQueue:
             self.rt.stats.io_write_ops += 1
         self.rt.send(MIoDone(op=op), op.node, op.node, at=done)
         if op.kind == "write" and not op.performed:
-            self._pending_writes.setdefault((op.node, op.path),
-                                            []).append(op)
+            op.seq = next(self._seq)
+            self._pending_ops[op.seq] = op
+            self._pending_writes.setdefault(
+                (op.node, op.path), SpanIndex()).add(op.seq, op.offset,
+                                                     op.size)
         if self.rt._mon is not None:
             # publish the io.* gauges live at submit (not at run() return)
             self._queued_starts.setdefault(op.node, []).append(op.start)
@@ -135,9 +145,9 @@ class IoQueue:
         elif op.kind == "write":
             pend = self._pending_writes.get((op.node, op.path))
             if pend is not None:
-                if op in pend:
-                    pend.remove(op)
-                if not pend:
+                if self._pending_ops.pop(op.seq, None) is op:
+                    pend.remove(op.seq)
+                if not len(pend):
                     del self._pending_writes[(op.node, op.path)]
         if self.rt._mon is not None:
             lst = self._queued_starts.get(op.node)
@@ -244,12 +254,14 @@ class IoQueue:
         riding an earlier one.
         """
         now = self.rt.clock
-        pend = self._pending_writes.get((op.node, op.path), ())
-        for prior in pend:
-            if prior.offset < op.offset + op.size and \
-                    op.offset < prior.offset + prior.size:
-                return False
-        for prior in pend:
+        pend = self._pending_writes.get((op.node, op.path))
+        if pend is None:
+            return False
+        for _seq in pend.overlapping(op.offset, op.size):
+            return False
+        # the first candidate in submission order takes the op
+        for seq in sorted(pend.touching(op.offset, op.size)):
+            prior = self._pending_ops[seq]
             if prior.performed or prior.data is None or prior.start <= now:
                 continue
             if op.offset == prior.offset + prior.size:
@@ -260,6 +272,8 @@ class IoQueue:
             else:
                 continue
             prior.size += op.size
+            pend.remove(seq)
+            pend.add(seq, prior.offset, prior.size)
             prior.chunks += op.chunks
             self.rt.stats.io_coalesced_writes += op.chunks
             return True

@@ -9,7 +9,9 @@ two tasks in RW on the whole parent serialize.
 """
 from __future__ import annotations
 
+import bisect
 import dataclasses
+import itertools
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -444,16 +446,80 @@ class FileObj:
     chunks: Dict[Guid, Tuple[int, int]] = dataclasses.field(default_factory=dict)
     released: bool = False
     closed: bool = False
+    # the live chunks again, sorted by offset (``chunks`` keeps them by guid)
+    spans: "SpanIndex" = dataclasses.field(default_factory=lambda: SpanIndex())
 
     @property
     def writable(self) -> bool:
         return "+" in self.mode or self.mode.startswith("w")
 
     def chunk_overlaps(self, offset: int, size: int) -> bool:
-        for (o, s) in self.chunks.values():
+        return any(True for _ in self.spans.overlapping(offset, size))
+
+    def add_chunk(self, guid: Guid, offset: int, size: int) -> None:
+        self.chunks[guid] = (offset, size)
+        self.spans.add(guid, offset, size)
+
+    def drop_chunk(self, guid: Guid) -> None:
+        if self.chunks.pop(guid, None) is not None:
+            self.spans.remove(guid)
+
+
+class SpanIndex:
+    """Live ``(offset, size)`` spans under hashable keys, sorted by offset.
+
+    Finds the spans that overlap or touch a range by bisection instead of
+    a scan of every live span (a checkpoint maps tens of thousands of
+    chunks of one file).  A query scans the spans whose offset lies within
+    the largest live size of the range, so it is exact for any spans.
+    """
+
+    def __init__(self) -> None:
+        self._order = itertools.count()
+        self._sorted: List[Tuple[int, int]] = []     # (offset, order)
+        self._by_order: Dict[int, Tuple[Any, int]] = {}  # order -> (key, size)
+        self._where: Dict[Any, Tuple[int, int]] = {}     # key -> (offset, order)
+        self._max_size = 0
+
+    def __len__(self) -> int:
+        return len(self._where)
+
+    def add(self, key: Any, offset: int, size: int) -> None:
+        order = next(self._order)
+        bisect.insort(self._sorted, (offset, order))
+        self._by_order[order] = (key, size)
+        self._where[key] = (offset, order)
+        self._max_size = max(self._max_size, size)
+
+    def remove(self, key: Any) -> None:
+        offset, order = self._where.pop(key)
+        del self._sorted[bisect.bisect_left(self._sorted, (offset, order))]
+        del self._by_order[order]
+        if not self._where:
+            self._max_size = 0
+
+    def _from(self, lo: int, hi: int) -> Iterator[Tuple[Any, int, int]]:
+        """(key, offset, size) of the spans with ``lo <= offset < hi``."""
+        i = bisect.bisect_left(self._sorted, (lo, -1))
+        while i < len(self._sorted) and self._sorted[i][0] < hi:
+            offset, order = self._sorted[i]
+            key, size = self._by_order[order]
+            yield key, offset, size
+            i += 1
+
+    def overlapping(self, offset: int, size: int) -> Iterator[Any]:
+        """Keys of the spans ``(o, s)`` with ``offset < o + s`` and
+        ``o < offset + size``."""
+        for key, o, s in self._from(offset - self._max_size, offset + size):
             if offset < o + s and o < offset + size:
-                return True
-        return False
+                yield key
+
+    def touching(self, offset: int, size: int) -> Iterator[Any]:
+        """Keys of the spans that end at ``offset`` or start at
+        ``offset + size``."""
+        for key, o, s in self._from(offset - self._max_size, offset + size + 1):
+            if o + s == offset or o == offset + size:
+                yield key
 
 
 @dataclasses.dataclass

@@ -1549,7 +1549,7 @@ class Runtime:
                     self.stats.file_bytes_written += db.size
             elif f.writable and db.file_offset + db.size > _file_size(f.path):
                 _enlarge_file(f.path, db.file_offset + db.size)
-            f.chunks.pop(db.guid, None)
+            f.drop_chunk(db.guid)
             if f.released and not f.chunks:
                 f.closed = True
         db.destroyed = True
@@ -1862,8 +1862,7 @@ class Runtime:
             self._finish_compact(op)
         else:
             if not op.performed and op.data is not None:
-                _write_file_region(op.path, op.offset,
-                                   np.frombuffer(op.data, dtype=np.uint8))
+                _write_file_region(op.path, op.offset, op.data)
                 self.stats.file_bytes_written += op.size
                 self._log("IO done (write)",
                           f"{op.path}[{op.offset},+{op.size}) x{op.chunks}")
@@ -1937,22 +1936,28 @@ def _file_size(path: str) -> int:
 
 
 def _read_file_region(path: str, offset: int, size: int) -> np.ndarray:
+    """``size`` bytes at ``offset``; past the end of the file, zeros."""
     buf = np.zeros(size, dtype=np.uint8)
     try:
         with open(path, "rb") as f:
             f.seek(offset)
-            data = f.read(size)
-        buf[: len(data)] = np.frombuffer(data, dtype=np.uint8)
+            f.readinto(buf)
     except OSError:
         pass
     return buf
 
 
-def _write_file_region(path: str, offset: int, buf: np.ndarray) -> None:
-    mode = "r+b" if os.path.exists(path) else "w+b"
-    with open(path, mode) as f:
-        f.seek(offset)
-        f.write(buf.tobytes())
+def _write_file_region(path: str, offset: int, buf) -> None:
+    """Write ``buf`` (any contiguous bytes-like) at ``offset``, creating
+    the file if it is missing; one open and positioned writes, no copy."""
+    data = memoryview(buf).cast("B")
+    fd = os.open(path, os.O_RDWR | os.O_CREAT, 0o666)
+    try:
+        done = 0
+        while done < len(data):
+            done += os.pwrite(fd, data[done:], offset + done)
+    finally:
+        os.close(fd)
 
 
 def _enlarge_file(path: str, new_size: int) -> None:
@@ -2293,7 +2298,7 @@ class TaskCtx:
         db.ready = True
         db.pending_deps = []
         self.rt.nodes[self.node].objects.insert(db)
-        f.chunks[g] = (offset, size)
+        f.add_chunk(g, offset, size)
         if db.lazy_file_read and self.rt.io_mode == "async" \
                 and self.rt.read_ahead:
             # §5 read-ahead: the fetch streams on the node's IO queue from

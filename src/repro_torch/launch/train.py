@@ -4,7 +4,7 @@ Runs a dense, moe (arctic-480b; deepseek-v2-236b with MLA; both with
 their int8 AdamW moments and ``train_accum_steps`` micro-batches), ssm
 (mamba2-1.3b) or hybrid (zamba2-1.2b) architecture (reduced or full
 config) through the OCR-runtime trainer on ``--device`` (the card by
-default): §4 labeled step map, §5 chunked checkpoints, fail-stop
+default): §4 labeled step map, §5 / §6 checkpoints, fail-stop
 restart, straggler watchdog.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
@@ -15,7 +15,10 @@ Under a mesh: ``--tp N`` (and ``--ranks R``, N by default) starts R rank
 processes with ``launch.mesh.spawn`` over ``--backend`` (gloo or nccl,
 named by the caller: ranks that share a card, as on one H100, run gloo)
 and trains on ``make_host_mesh(N)``, (R / N, N) over ("data", "model");
-rank 0 prints.  Under ``torchrun`` (``RANK`` / ``WORLD_SIZE`` set) each
+rank 0 prints.  ``--ckpt-dir`` / ``--ckpt-every`` then save sharded
+(each rank writes its own §6 ranges), and a rerun resumes from the
+newest step on this mesh or another (rank 0's first line gives
+``start_step``).  Under ``torchrun`` (``RANK`` / ``WORLD_SIZE`` set) each
 process joins the group from the environment instead:
 
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\

@@ -4,8 +4,9 @@ The torch port of ``repro.train.trainer``.  The step sequence is built
 with the paper's §4 labeled-GUID map: a map of step tasks indexed by step
 number whose creator wires step *i* to depend on step *i−1*'s output
 event — the 1-D degenerate case of the paper's 2-D wavefront.
-Checkpoint tasks hang off every k-th step and write the host copy of the
-state through the §5 chunked file layer (``repro_torch.ckpt``).
+Checkpoint tasks hang off every k-th step and write the state through
+the §5 file layer (``repro_torch.ckpt``): the host copy in fixed-size
+chunks, or under a mesh each rank's own §6 ranges.
 
 Fault tolerance: ``run`` stops cleanly at a simulated failure step
 (``kill_node(0)``); a new ``Trainer`` with the same config resumes from
@@ -24,13 +25,14 @@ step, in the runtime's stats, as in the reference.
 
 Under a ``mesh`` (a ``DeviceMesh`` over the initialized process group)
 every rank runs the same step loop with its own OCR ``Runtime``: a
-fresh state drawn from the seeded generator, or a restored host-leaf
-checkpoint, is cut to the rank's shards by the parameter rules (the
-reference's reshard-on-restore); each step takes ``data.get(i)``, the
-same on every rank, and splits it over "dp"; the metrics are the whole
-batch's on every rank.  Saving a checkpoint under a mesh is not ported
-(``ROADMAP.md`` Queue 1 item 6, sharded checkpoints: each rank writes
-its own ranges, with no gather to the host) and raises.
+fresh state drawn from the seeded generator is cut to the rank's shards
+by the parameter rules; each step takes ``data.get(i)``, the same on
+every rank, and splits it over "dp"; the metrics are the whole batch's
+on every rank.  A save takes the §6 sharded path on the live local
+shards (``ckpt.save(shardings=)``: each rank writes its own ranges, no
+leaf is gathered), and a restart reads each rank's shard of the last
+committed checkpoint under this run's mesh, whatever mesh or package
+wrote it (``ckpt.restore(shardings=)``: reshard-on-restore).
 """
 from __future__ import annotations
 
@@ -45,7 +47,7 @@ from repro_torch import ckpt
 from repro_torch.convert import place_state, state_from_numpy, state_to_numpy
 from repro_torch.core import (DbMode, EDT_PROP_MAPPED, NULL_GUID,
                               Runtime, UNINITIALIZED_GUID, spawn_main)
-from repro_torch.dist.sharding import use_mesh
+from repro_torch.dist.sharding import ShardCtx, use_mesh
 from repro_torch.models.model import LanguageModel
 from repro_torch.optim import OptimizerConfig
 from .steps import init_train_state, make_train_step
@@ -64,12 +66,6 @@ class TrainerConfig:
 class Trainer:
     def __init__(self, model: LanguageModel, oc: OptimizerConfig,
                  data, tc: TrainerConfig, mesh=None):
-        if mesh is not None and tc.ckpt_every and tc.ckpt_dir:
-            raise NotImplementedError(
-                "saving a checkpoint under a mesh is ROADMAP.md Queue 1 "
-                "item 6 (sharded checkpoints: each rank writes its own "
-                "ranges); restoring a host-leaf checkpoint onto a mesh "
-                "works — set ckpt_every=0")
         self.model = model
         self.mesh = mesh
         self.oc = oc
@@ -79,6 +75,19 @@ class Trainer:
         self.history: List[Dict[str, float]] = []
         self.straggler_steps: List[int] = []
         self._ckpt_threads: List[Any] = []
+        # one entry a save: {"step", "wall_s" (the call's host wall),
+        # "stats" (its CkptStats; under a mesh the same on every rank)}
+        self.saves: List[Dict[str, Any]] = []
+        self._shardings = None
+
+    def state_shardings(self) -> Any:
+        """The ``NamedSharding`` of every train-state leaf on this run's
+        mesh, from the whole shapes (meta tensors), not the local ones."""
+        if self._shardings is None:
+            from repro_torch.launch.specs import state_shardings
+            self._shardings = state_shardings(self.model.cfg, self.oc,
+                                              ShardCtx(self.mesh))
+        return self._shardings
 
     # ------------------------------------------------------------ lifecycle
 
@@ -93,9 +102,16 @@ class Trainer:
         under a mesh, this rank's shards of either."""
         tc = self.tc
         if tc.ckpt_dir and ckpt.latest_step(tc.ckpt_dir) is not None:
+            if self.mesh is not None:
+                # each rank reads only its own shard's byte ranges
+                state, step = ckpt.restore(
+                    tc.ckpt_dir, shardings=self.state_shardings(),
+                    device=self.model.device)
+                self.start_step = step
+                return state
             tree, step = ckpt.restore(tc.ckpt_dir)
             self.start_step = step
-            return state_from_numpy(tree, self.model.device, mesh=self.mesh)
+            return state_from_numpy(tree, self.model.device)
         self.start_step = 0
         state = init_train_state(self.model, generator, self.oc)
         return state if self.mesh is None else place_state(state, self.mesh)
@@ -146,14 +162,24 @@ class Trainer:
             if rt._mon is not None:
                 reg.histogram("train.step_wall_s").observe(dt)
             if tc.ckpt_every and tc.ckpt_dir and (i + 1) % tc.ckpt_every == 0:
-                # checkpoint hangs off this step's event; §5 chunked write
-                # of the host copy, §3 issue-now/resolve-later
-                host = state_to_numpy(holder["state"])
-                if tc.async_ckpt:
-                    self._ckpt_threads.append(
-                        ckpt.async_save(tc.ckpt_dir, host, i + 1))
+                # checkpoint hangs off this step's event, §3 issue-now/
+                # resolve-later: §5 chunks of the host copy, or under a
+                # mesh each rank's own §6 ranges of its live shards
+                if self.mesh is not None:
+                    state_now = holder["state"]
+                    kw = {"shardings": self.state_shardings()}
                 else:
-                    ckpt.save(tc.ckpt_dir, host, i + 1)
+                    state_now, kw = state_to_numpy(holder["state"]), {}
+                t_save = time.perf_counter()
+                if tc.async_ckpt:
+                    handle = ckpt.async_save(tc.ckpt_dir, state_now, i + 1,
+                                             **kw)
+                    self._ckpt_threads.append(handle)
+                    stats = handle.stats
+                else:
+                    stats = ckpt.save(tc.ckpt_dir, state_now, i + 1, **kw)
+                self.saves.append({"step": i + 1, "stats": stats,
+                                   "wall_s": time.perf_counter() - t_save})
             # the paper's wavefront pattern: this task satisfies the next
             # step task's pre-slot via the §4 labeled map
             if idx + 1 < num_steps:

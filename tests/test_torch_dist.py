@@ -23,7 +23,8 @@ reference's own (``tests/test_dist.py``, ``tests/test_partition_bridge.py``):
   deepseek-v2 with MLA, whisper, llava) under the mesh: the same limits;
 * ``Trainer(mesh=...)`` for 2 steps from a host-leaf checkpoint the
   single-device Trainer wrote (reshard-on-restore), against the
-  single-device Trainer resumed from it; a save under a mesh raises;
+  single-device Trainer resumed from it; a save under a mesh commits
+  (``tests/test_torch_ckpt_sharded.py`` holds it against the reference);
 * ``launch.train --tp 2 --backend gloo --device cpu``.
 """
 import dataclasses
@@ -216,14 +217,17 @@ def _rank_cases(rank, world, path):
     with use_mesh(mesh) as ctx:
         params = _gathered(state["params"],
                            param_shardings(param_shapes(cfg), ctx), ctx)
-    try:
-        Trainer(model, oc, data, TrainerConfig(
-            ckpt_dir=inp["ckpt_dir"], ckpt_every=1), mesh=mesh)
-        refused = ""
-    except NotImplementedError as e:
-        refused = str(e)
+    # a save under the mesh (its own directory: the reference reads the
+    # host checkpoint's meanwhile)
+    from repro_torch import ckpt
+    saved_dir = os.path.join(path, "mesh_ckpt")
+    saver = Trainer(model, oc, data, TrainerConfig(
+        ckpt_dir=saved_dir, ckpt_every=1, async_ckpt=False), mesh=mesh)
+    saver.run(saver.init_or_restore(torch.Generator().manual_seed(2)), 1)
+    with open(os.path.join(saved_dir, "step_1", "manifest.json")) as f:
+        saved = (ckpt.latest_step(saved_dir), '"ranges"' in f.read())
     out["trainer"] = (start, [h["ce_loss"] for h in tr.history], params,
-                      refused, ShardCtx(mesh).axis_sizes)
+                      saved, ShardCtx(mesh).axis_sizes)
     return out
 
 
@@ -456,12 +460,12 @@ def test_trainer_on_mesh_reshards_a_host_checkpoint(runs):
     results, ref = runs
     want_loss, want_p = ref["trainer"]
     for r in results:
-        start, losses, params, refused, sizes = r["trainer"]
+        start, losses, params, saved, sizes = r["trainer"]
         assert sizes == {"data": 2, "model": 2}
         assert start == 2
         np.testing.assert_allclose(losses, want_loss, rtol=1e-4)
         _params_close(params, want_p)
-        assert "item 6" in refused
+        assert saved == (1, True)        # committed, with §6 range tables
 
 
 def test_launch_train_tp2_on_cpu():

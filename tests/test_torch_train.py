@@ -312,11 +312,11 @@ def test_checkpoints_cross_between_frameworks(tmp_path, arch):
 
 def test_multi_device_requests_and_unsaved_dtypes_raise():
     """Multi-device requests the port cannot serve raise: ``--tp > 1``
-    outside a rank process (no mesh to train on), a mesh run without a
-    named backend, and a checkpoint save under a mesh (sharded
-    checkpoints are not ported; ``tests/test_torch_dist.py`` runs the
-    mesh itself); train-state leaves of a dtype the checkpoints do not
-    carry (bf16 would need ml_dtypes on the host) raise."""
+    outside a rank process (no mesh to train on) and a mesh run without
+    a named backend; a Trainer that saves under a mesh is built (the
+    sharded save itself runs in ``tests/test_torch_ckpt_sharded.py``);
+    train-state leaves of a dtype the checkpoints do not carry (bf16
+    would need ml_dtypes on the host) raise."""
     from repro_torch.launch import train as train_cli
     with pytest.raises(ValueError, match="mesh"):
         train_cli.run(train_cli.parse_args(["--smoke", "--device", "cpu",
@@ -324,10 +324,10 @@ def test_multi_device_requests_and_unsaved_dtypes_raise():
     with pytest.raises(SystemExit):
         train_cli.main(["--smoke", "--device", "cpu", "--tp", "2"])
     model = TModel(tget("smollm-360m").reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        Trainer(model, OptimizerConfig(), None,
-                TrainerConfig(ckpt_dir="unused", ckpt_every=1),
-                mesh=object())
+    mesh = object()
+    tr = Trainer(model, OptimizerConfig(), None,
+                 TrainerConfig(ckpt_dir="unused", ckpt_every=1), mesh=mesh)
+    assert tr.mesh is mesh and tr.tc.ckpt_every == 1
     with pytest.raises(TypeError):
         state_from_numpy({"w": np.zeros(2, np.float16)}, "cpu")
     with pytest.raises(TypeError):
