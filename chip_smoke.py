@@ -4962,46 +4962,77 @@ def _mesh_collectives(rank):
     return out
 
 
+def _model_share(t, dim, mesh):
+    """This rank's chunk of ``t`` along ``dim`` over "model" (contiguous:
+    the operand a tensor-parallel layer hands on)."""
+    from repro_torch.dist.sharding import ShardCtx
+    ctx = ShardCtx(mesh)
+    n = t.shape[dim] // ctx.model_size
+    return t.narrow(dim, ctx.coord("model") * n, n).contiguous()
+
+
 def _mesh_attention_call(name, cfg, b, s, seed, mesh, rank):
-    """``causal_attention`` forward and backward (bf16) under the mesh
-    against the same call with no mesh on rank 0."""
+    """``causal_attention`` forward and backward (bf16) as the layers run
+    it under the mesh, each rank on its share: its heads where the heads
+    and kv heads divide the mesh, else its stripe of the sequence at its
+    ``q_offset`` against k / v gathered by ``gather_seq`` (whose backward
+    reduce-scatters their gradients).  Rank 0 holds its share against the
+    same share of the call on one rank alone."""
     import torch.distributed as dist
     from repro_torch.dist import flash as dflash
-    from repro_torch.dist.sharding import use_mesh
+    from repro_torch.dist.sharding import gather_seq, use_mesh
     dt = torch.bfloat16
     h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q, k, v, do = (_randn((b, s, h, hd), dt, seed),
                    _randn((b, s, kh, hd), dt, seed + 1),
                    _randn((b, s, kh, hd), dt, seed + 2),
                    _randn((b, s, h, hd), dt, seed + 3))
+    heads = h % 2 == 0 and kh % 2 == 0
+    dim = 2 if heads else 1
 
-    def run(m):
-        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
-        with use_mesh(m):
-            o = dflash.causal_attention(qq, kk, vv, cfg=cfg,
-                                        window=cfg.sliding_window)
-            g = torch.autograd.grad(o, (qq, kk, vv), do)
+    def share(t):
+        return _model_share(t, dim, mesh)
+
+    def run_mesh():
+        qq, kk, vv = (share(t).requires_grad_() for t in (q, k, v))
+        with use_mesh(mesh):
+            if heads:
+                o = dflash.causal_attention(qq, kk, vv, cfg=cfg,
+                                            window=cfg.sliding_window)
+            else:
+                o = dflash.causal_attention(
+                    qq, gather_seq(kk), gather_seq(vv), cfg=cfg,
+                    window=cfg.sliding_window,
+                    q_offset=mesh.get_local_rank("model") * qq.shape[1])
+            g = torch.autograd.grad(o, (qq, kk, vv), share(do))
         return o.detach(), g
 
+    def run_one():
+        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+        o = dflash.causal_attention(qq, kk, vv, cfg=cfg,
+                                    window=cfg.sliding_window)
+        return o.detach(), torch.autograd.grad(o, (qq, kk, vv), do)
+
     _zero_counts()
-    got = run(mesh)
+    got = run_mesh()
     torch.cuda.synchronize()
     counts = _counts()
-    print(f"  {name}: B={b} S={s} H={h} KH={kh} hd={hd} bf16, rank "
+    print(f"  {name}: B={b} S={s} H={h} KH={kh} hd={hd} bf16, each rank "
+          f"its {'heads' if heads else 'stripe of the sequence'}, rank "
           f"{rank} launches {counts}")
     _want_launches(name, counts, {"k1_lse": 1, "k3": 1})
     info = {"launches": counts}
     if rank == 0:
-        want = run(None)
+        want = run_one()
         info["max_abs_err"] = _check(f"{name} out vs one rank", got[0],
-                                     want[0], dt)
+                                     share(want[0]), dt)
         for n, a, w in zip("qkv", got[1], want[1]):
-            _check_rel(f"{name} d{n} vs one rank", a, w, dt)
-        info["one_rank_ms"] = _wall(lambda: run(None))
+            _check_rel(f"{name} d{n} vs one rank", a, share(w), dt)
+        info["one_rank_ms"] = _wall(run_one)
         del want
     del got
     dist.barrier()
-    info["mesh_ms"] = _wall(lambda: run(mesh))
+    info["mesh_ms"] = _wall(run_mesh)
     print(f"  {name}: forward + backward {info['mesh_ms']:.2f} ms a rank "
           f"under the mesh ({MESH_NOTE})"
           + (f", {info['one_rank_ms']:.2f} ms on one rank alone"
@@ -5010,8 +5041,12 @@ def _mesh_attention_call(name, cfg, b, s, seed, mesh, rank):
 
 
 def _mesh_decode_call(name, h, kh, hd, b, smax, cur, seed, mesh, rank):
-    """``decode_update_and_attend`` (bf16) under the mesh against the
-    same call with no mesh on rank 0 (K5 there)."""
+    """One decode (bf16) as the layers run it under the mesh against the
+    caches at rest: ``decode_update_and_attend`` on the rank's kv heads
+    (K5) where the heads divide the mesh, else
+    ``stripe_update_and_attend`` (the lse-combine, torch ops) on the
+    rank's stripe of a whole-head cache.  Rank 0 holds its output against
+    its share of the same decode on one rank alone (K5 there)."""
     import torch.distributed as dist
     from repro_torch.dist import flash as dflash
     from repro_torch.dist.sharding import use_mesh
@@ -5021,33 +5056,49 @@ def _mesh_decode_call(name, h, kh, hd, b, smax, cur, seed, mesh, rank):
                                                           dt, seed + 2)
     kc, vc = _randn((b, kh, smax, hd), dt, seed + 3), _randn(
         (b, kh, smax, hd), dt, seed + 4)
+    heads = h % 2 == 0 and kh % 2 == 0
+    if heads:
+        ql, knl, vnl = (_model_share(t, 2, mesh) for t in (q, kn, vn))
+        kcl, vcl = (_model_share(t, 1, mesh) for t in (kc, vc))
+    else:
+        ql, knl, vnl = q, kn, vn
+        kcl, vcl = (_model_share(t, 2, mesh) for t in (kc, vc))
 
-    def run(m):
-        with use_mesh(m):
-            return dflash.decode_update_and_attend(
-                q, kn, vn, kc.clone(), vc.clone(), cur)[0]
+    def run_mesh():
+        attend = (dflash.decode_update_and_attend if heads
+                  else dflash.stripe_update_and_attend)
+        with use_mesh(mesh):
+            return attend(ql, knl, vnl, kcl.clone(), vcl.clone(), cur)[0]
+
+    def run_one():
+        return dflash.decode_update_and_attend(q, kn, vn, kc.clone(),
+                                               vc.clone(), cur)[0]
 
     _zero_counts()
-    got = run(mesh)
+    got = run_mesh()
     torch.cuda.synchronize()
     counts = _counts()
     info = {"launches": counts}
     print(f"  {name}: B={b} H={h} KH={kh} hd={hd} cache {smax} at {cur}, "
-          f"rank {rank} launches {counts}")
-    # head-parallel: K5 on the rank's kv heads; lse-combine: torch ops
-    _want_launches(name, counts, {"k5": int(h % 2 == 0 and kh % 2 == 0)})
+          f"each rank its {'kv heads' if heads else 'stripe'}, rank {rank} "
+          f"launches {counts}")
+    # the rank's kv heads: K5; the lse-combine: torch ops
+    _want_launches(name, counts, {"k5": int(heads)})
     if rank == 0:
-        info["max_abs_err"] = _check(f"{name} vs one rank", got,
-                                     run(None), dt)
-        info["one_rank_ms"] = _wall(lambda: run(None))
+        want = run_one()
+        info["max_abs_err"] = _check(
+            f"{name} vs one rank", got,
+            _model_share(want, 2, mesh) if heads else want, dt)
+        info["one_rank_ms"] = _wall(run_one)
     dist.barrier()
-    info["mesh_ms"] = _wall(lambda: run(mesh))
+    info["mesh_ms"] = _wall(run_mesh)
     return info
 
 
 def _mesh_mla_call(mesh, rank):
     """``mla_decode_attend`` at deepseek-v2's 128 heads, rkv 512, dr 64
-    (bf16), heads sharded, against one rank."""
+    (bf16), each rank on its heads against the whole latent caches, as
+    the layers run it; rank 0 against its heads of one rank's call."""
     from repro_torch.dist import flash as dflash
     from repro_torch.dist.sharding import use_mesh
     cfg = get_config(DEEPSEEK)
@@ -5058,19 +5109,22 @@ def _mesh_mla_call(mesh, rank):
     cn, kn = _randn((b, 1, rkv), dt, 63), _randn((b, 1, dr), dt, 64)
     ckv, kr = _randn((b, smax, rkv), dt, 65), _randn((b, smax, dr), dt, 66)
     scale = 1.0 / np.sqrt(cfg.qk_nope_head_dim + dr)
+    qll, qrl = _model_share(ql, 2, mesh), _model_share(qr, 2, mesh)
 
-    def run(m):
-        with use_mesh(m):
-            return dflash.mla_decode_attend(ql, qr, cn, kn, ckv.clone(),
+    def run_mesh():
+        with use_mesh(mesh):
+            return dflash.mla_decode_attend(qll, qrl, cn, kn, ckv.clone(),
                                             kr.clone(), cur, scale=scale)[0]
 
-    got = run(mesh)
-    info = {"mesh_ms": _wall(lambda: run(mesh))}
+    got = run_mesh()
+    info = {"mesh_ms": _wall(run_mesh)}
     print(f"  mla_decode_attend: B={b} H={h} rkv={rkv} dr={dr} cache "
-          f"{smax} at {cur}, heads sharded")
+          f"{smax} at {cur}, each rank its {qll.shape[2]} heads")
     if rank == 0:
-        info["max_abs_err"] = _check("mla decode vs one rank", got, run(None),
-                                     dt)
+        want = dflash.mla_decode_attend(ql, qr, cn, kn, ckv.clone(),
+                                        kr.clone(), cur, scale=scale)[0]
+        info["max_abs_err"] = _check("mla decode vs one rank", got,
+                                     _model_share(want, 2, mesh), dt)
     return info
 
 
@@ -5184,9 +5238,13 @@ def _mesh_fp32_step(name, cfg, b, s, rank, mesh, device="cuda"):
 
 
 def _mesh_serve(name, cfg, b, s, decodes, rank, mesh):
-    """fp32 prefill and greedy decodes under the mesh, against the same
-    serve on one rank (rank 0): prefill logits within 1e-3 (fp32, logits
-    O(1)) and the greedy tokens agreeing at >= 0.95."""
+    """fp32 prefill and decodes under the mesh, against the same serve on
+    one rank (rank 0): prefill logits within 1e-3 (fp32, logits O(1)),
+    the greedy tokens agreeing at >= 0.95, and, on a second copy of the
+    cache, decodes of the same given tokens: every step's logits within
+    1e-3 and each rank's caches within 1e-3 of its share of the one-rank
+    caches (its kv heads, or for whole-head attention its stripe of the
+    sequence: ``LanguageModel.alloc_cache``)."""
     import torch.distributed as dist
     from repro_torch.dist.sharding import use_mesh
     cfg = dataclasses.replace(cfg, dtype="float32")
@@ -5195,6 +5253,8 @@ def _mesh_serve(name, cfg, b, s, decodes, rank, mesh):
     gen = torch.Generator(device="cuda").manual_seed(6)
     toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
                          device="cuda")
+    given = torch.randint(0, cfg.vocab_size, (decodes, b, 1), generator=gen,
+                          device="cuda")
 
     def serve(m, walls=None):
         with use_mesh(m):
@@ -5205,6 +5265,7 @@ def _mesh_serve(name, cfg, b, s, decodes, rank, mesh):
                 walls["prefill_ms"] = 1e3 * (time.perf_counter() - t)
             first = logits
             cache = model.alloc_cache(b, s + decodes, init=cache)
+            forced = _tree_to(cache, "cuda", copy=True)
             out, tok = [], logits.argmax(-1)
             t = time.perf_counter()
             for i in range(decodes):
@@ -5215,35 +5276,159 @@ def _mesh_serve(name, cfg, b, s, decodes, rank, mesh):
             torch.cuda.synchronize()
             if walls is not None:
                 walls["decode_ms"] = 1e3 * (time.perf_counter() - t) / decodes
-        return first, torch.stack(out, 1)
+            del cache
+            steps = [model.decode_step(params, forced, given[i], s + i)[0]
+                     for i in range(decodes)]
+        return first, torch.stack(out, 1), torch.stack(steps), forced
 
     walls = {}
     _zero_counts()
-    first, tokens = serve(mesh, walls)
+    first, tokens, steps, cache = serve(mesh, walls)
     counts = _counts()
     print(f"  {name} serve (fp32, {cfg.num_layers} layers): prefill {b} x "
           f"{s} {walls['prefill_ms']:.1f} ms, {decodes} decodes "
           f"{walls['decode_ms']:.1f} ms a step ({MESH_NOTE}); rank {rank} "
           f"launches {counts}")
     # prefill: K1 once a layer (on the rank's heads or sequence stripe);
-    # decode: K5 once a layer a step when the heads split, else the
-    # lse-combine's torch ops
+    # decode (greedy, then the given tokens): K5 once a layer a step when
+    # the heads split, else the lse-combine's torch ops
     heads = cfg.num_heads % 2 == 0 and cfg.num_kv_heads % 2 == 0
     _want_launches(f"{name} serve", counts, {
-        "k1": cfg.num_layers, "k5": cfg.num_layers * decodes * heads})
+        "k1": cfg.num_layers, "k5": 2 * cfg.num_layers * decodes * heads})
+    # every rank's caches, for rank 0 to hold against the one-rank caches
+    parts = {}
+    for path, leaf in iter_leaves(cache):
+        got = [torch.empty_like(leaf) for _ in range(dist.get_world_size())]
+        dist.all_gather(got, leaf.contiguous())
+        parts["/".join(path)] = got
+    del cache
     info = {"launches": counts, **walls}
     if rank == 0:
-        w_first, w_tokens = serve(None)
+        w_first, w_tokens, w_steps, w_cache = serve(None)
         err = (first - w_first).abs().max().item()
         agree = (tokens == w_tokens).float().mean().item()
+        step_err = (steps - w_steps).abs().max().item()
+        cache_err, layouts = 0.0, set()
+        for path, whole in iter_leaves(w_cache):
+            for r, got in enumerate(parts["/".join(path)]):
+                if got.shape == whole.shape:
+                    want, lay = whole, "whole"
+                elif got.shape[2] != whole.shape[2]:      # the rank's heads
+                    n = got.shape[2]
+                    want, lay = whole[:, :, r * n:(r + 1) * n], "heads"
+                else:                          # the rank's sequence stripe
+                    n = got.shape[3]
+                    want = whole[:, :, :, r * n:(r + 1) * n]
+                    got = got[:, :, :, :want.shape[3]]
+                    lay = "seq"
+                layouts.add(f"{path[-1]}: {lay}")
+                cache_err = max(cache_err, (got - want).abs().max().item())
         print(f"  {name} serve vs one rank: prefill logits max_abs_err "
               f"{err:.2e} (limit 1e-3), greedy tokens agree {agree:.3f} "
-              f"(limit 0.95)")
-        if not (err <= 1e-3 and agree >= 0.95):
+              f"(limit 0.95); {decodes} decodes of given tokens: logits "
+              f"max_abs_err {step_err:.2e} (limit 1e-3), every rank's "
+              f"caches vs its share of the one-rank caches "
+              f"({', '.join(sorted(layouts))}) max_abs_err {cache_err:.2e} "
+              f"(limit 1e-3)")
+        if not (err <= 1e-3 and agree >= 0.95 and step_err <= 1e-3
+                and cache_err <= 1e-3):
             raise AssertionError(f"{name}: mesh serve differs from one rank")
-        info.update(max_abs_err=err, token_agreement=agree)
-    del params
+        info.update(max_abs_err=err, token_agreement=agree,
+                    decode_max_abs_err=step_err, cache_max_abs_err=cache_err,
+                    cache_layouts=sorted(layouts))
+        del w_cache
+    del params, parts
     _release()
+    dist.barrier()
+    return info
+
+
+# PR 25's llama3.2-3b mesh train steps, GEMMs replicated over "model"
+# (PERF.md §5; H100 80GB HBM3, 700 W, 2 ranks over gloo)
+MESH_PR25_LLAMA_MS = (4686.9, 4469.0)
+
+
+def _gemm_step(tr, state, mesh):
+    """One more step of ``tr``'s model on its data's first batch, under
+    ``FlopCounterMode``: (this rank's GEMM FLOPs — the attention kernels
+    are not aten ops and are not counted —, the step's wall in ms, the
+    collectives it handed gloo {kind: [calls, bytes, largest]})."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.dist import sharding
+    from repro_torch.dist.sharding import use_mesh
+    batch = {k: torch.from_numpy(v).to("cuda")
+             for k, v in tr.data.get(0).items()}
+    step = make_train_step(tr.model, tr.oc)
+    torch.cuda.synchronize()
+    sharding.reset_traffic()
+    t = time.perf_counter()
+    with use_mesh(mesh), FlopCounterMode(display=False) as fc:
+        step(state, batch)
+    torch.cuda.synchronize()
+    return (int(fc.get_total_flops()), 1e3 * (time.perf_counter() - t),
+            {k: list(v) for k, v in sharding.TRAFFIC.items()})
+
+
+def _mesh_llama_one_rank(cfg, rank):
+    """llama's bf16 Trainer steps on rank 0 alone (no mesh, the same
+    argv), and one more step counted: its GEMM FLOPs, walls and peak
+    memory above what the rank held before (the other rank waits)."""
+    import torch.distributed as dist
+    info = None
+    if rank == 0:
+        _release()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        tr, state = _mesh_trainer(cfg, MESH_LLAMA_ARGS, None)
+        flops, ms, _ = _gemm_step(tr, state, None)
+        info = {"gemm_flops": flops, "counted_step_ms": ms,
+                "step_ms": [h["step_time"] * 1e3 for h in tr.history],
+                "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
+        del tr, state
+        _release()
+    dist.barrier()
+    return info
+
+
+def _mesh_tp(tr, state, mesh, rank, train, one, base):
+    """What tensor parallelism does to llama's bf16 mesh step (4 layers,
+    4 x 4096 on each rank's half of every head, hidden unit and vocab
+    row): the rank's GEMM FLOPs against one rank's, peak memory, the
+    bytes a step hands gloo by kind and the walls beside PR 25's.  Fails
+    if a rank's GEMM FLOPs exceed 0.6 of one rank's or the step gathers
+    any parameter over "model" (the replicated design gathered every
+    sharded leaf whole, the 788 MB bf16 embedding among them)."""
+    import torch.distributed as dist
+    cfg = tr.model.cfg
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    flops, ms, traffic = _gemm_step(tr, state, mesh)
+    smi = _smi()
+    info = {"gemm_flops": flops, "peak_gb": peak, "counted_step_ms": ms,
+            "traffic": traffic, "step_ms": train["step_ms"],
+            "pr25_step_ms": list(MESH_PR25_LLAMA_MS), "device": smi}
+    if rank == 0:
+        ratio = flops / one["gemm_flops"]
+        info.update(one_rank=one, flop_ratio=ratio)
+        print(f"  llama3.2-3b bf16 mesh step under tensor parallelism "
+              f"({cfg.num_layers} layers, 4 x 4096): GEMM FLOPs a rank "
+              f"{flops / 1e12:.3f} T, one rank alone "
+              f"{one['gemm_flops'] / 1e12:.3f} T (ratio {ratio:.3f}, "
+              f"limit 0.6); peak memory a rank {peak:.2f} GB, one rank "
+              f"alone {one['peak_gb']:.2f} GB; a step hands gloo "
+              + ", ".join(f"{k} {c} calls {b / 1e6:.1f} MB (largest "
+                          f"{big / 1e6:.1f} MB)"
+                          for k, (c, b, big) in sorted(traffic.items()))
+              + f"; step walls {[round(t, 1) for t in train['step_ms']]} "
+              f"ms (PR 25, GEMMs replicated: {list(MESH_PR25_LLAMA_MS)}; "
+              f"one rank alone {[round(t, 1) for t in one['step_ms']]}); "
+              f"the counted step {ms:.1f} ms ({MESH_NOTE}; {smi})")
+        if ratio > 0.6:
+            raise AssertionError(f"llama's mesh step: {ratio:.3f} of one "
+                                 f"rank's GEMM FLOPs on a rank")
+    over_model = [k for k in traffic if k == "param_gather/model"]
+    if over_model:
+        raise AssertionError(f"rank {rank}: the step gathered parameters "
+                             f"over 'model': {traffic[over_model[0]]}")
     dist.barrier()
     return info
 
@@ -5454,7 +5639,8 @@ def _mesh_rank(rank, world, ckpt_dir, ckpt_layers):
     # whole depth unless the disk is too small for the state
     smollm_ck = dataclasses.replace(smollm, num_layers=ckpt_layers)
     out["train_smollm"], tr, state = _mesh_train(
-        "smollm-360m (15 heads: context-parallel)", smollm_ck,
+        "smollm-360m (15 heads: context-parallel; MLP and vocab "
+        "tensor-parallel)", smollm_ck,
         MESH_SMOLLM_ARGS, rank, mesh,
         TrainerConfig(ckpt_dir=ckpt_dir, ckpt_every=MESH_STEPS,
                       async_ckpt=False))
@@ -5462,9 +5648,14 @@ def _mesh_rank(rank, world, ckpt_dir, ckpt_layers):
     del tr, state
     _release()
     llama4 = dataclasses.replace(llama, num_layers=MESH_LLAMA_LAYERS)
+    one = _mesh_llama_one_rank(llama4, rank)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     out["train_llama"], tr, state = _mesh_train(
-        "llama3.2-3b (24 / 8 heads: head-parallel)", llama4,
+        "llama3.2-3b (24 / 8 heads: tensor-parallel)", llama4,
         MESH_LLAMA_ARGS, rank, mesh)
+    out["tp_llama"] = _mesh_tp(tr, state, mesh, rank, out["train_llama"],
+                               one, base)
     # one TP-sharded leaf's local shard, for the §6 copy in the parent
     from repro_torch.dist.sharding import use_mesh
     with use_mesh(mesh) as ctx:
@@ -5623,15 +5814,20 @@ def _shard_kernel_times(flush):
 def phase_mesh():
     """Two ranks on cuda:0 over gloo, mesh (1, 2) ("data", "model"),
     started by ``launch.mesh.spawn`` after the parent built the kernels:
-    each collective on CUDA tensors; head- and context-parallel attention,
-    lse-combine and head-parallel decode and MLA's head-sharded decode at
-    full-width shapes against one rank; arctic-width MoE a2a against the
+    each collective on CUDA tensors; attention (head- and
+    context-parallel), decode (the rank's kv heads, and the lse-combine
+    over its stripe) and MLA's decode on each rank's share at full-width
+    shapes against that share of one rank's call; arctic-width MoE a2a against the
     no-mesh oracle; smollm-360m (all 32 layers, saving a sharded
     checkpoint that a second mesh Trainer resumes) and llama3.2-3b (4
-    layers) trained at full width through ``Trainer(mesh=...)``, each with an
-    fp32 step held against one rank; both served under the mesh (fp32)
-    against one rank; then, in the parent, the §6 ranges of a sharded
-    leaf through K7 and the kernels timed at their shard shapes."""
+    layers) trained at full width through ``Trainer(mesh=...)`` with
+    tensor parallelism (each rank its heads, hidden units and vocab rows;
+    llama's GEMM FLOPs, peak memory, gloo bytes and walls against one
+    rank alone), each with an fp32 step held against one rank; both
+    served under the mesh (fp32) against one rank, every rank's caches
+    against its share of the one-rank caches; then, in the parent, the §6
+    ranges of a sharded leaf through K7 and the kernels timed at their
+    shard shapes."""
     from repro_torch.launch import mesh as mesh_launch
     smi = _smi()
     print(f"== mesh: 2 ranks on cuda:0 over gloo, mesh (1, 2) "

@@ -8,9 +8,11 @@ into a temporary directory, plants the fault in the copy's
 ``repro_torch/dist/sharding.py`` and runs
 ``chip_smoke._mesh_fp32_step`` on two gloo ranks of the CPU (reduced
 configs, a 2 x 64 batch) for three meshes: smollm-360m cut to 3 heads
-over 1 kv head on (1, 2) (context-parallel attention), llama3.2-3b on
-(1, 2) (head-parallel) and llama3.2-3b on (2, 1) (data-parallel).  The
-repository itself is never changed.
+over 1 kv head on (1, 2) (context-parallel attention on the sequence-
+split stream, its MLP and vocab tensor-parallel), llama3.2-3b on (1, 2)
+(tensor-parallel: the rank's heads, hidden units and vocab rows) and
+llama3.2-3b on (2, 1) (data-parallel).  The repository itself is never
+changed.
 
 Faults:
 
@@ -18,8 +20,14 @@ Faults:
 * ``whole_half``: the context-parallel k/v gradient sum (``_Whole``'s
   backward) halved;
 * ``gather_half``: every gathered parameter's gradient halved
-  (``_GatherParam``'s backward);
-* ``no_dp_sum``: the gradient's sum over "dp" dropped.
+  (``_GatherParam``'s backward; since tensor parallelism keeps each
+  leaf's "model" share, only the (2, 1) mesh gathers, so only it sees
+  this fault and ``no_dp_sum``);
+* ``no_dp_sum``: the gradient's sum over "dp" dropped;
+* ``gather_seq_half``: the reduce-scatter of ``gather_seq``'s backward
+  (the column-parallel entry from the sequence-split stream) halved;
+* ``scatter_seq_half``: the all-gather of ``scatter_seq``'s backward
+  (the row-parallel exit into the stream) halved.
 
 ``--old-check`` runs the check as it stood before it took the
 reference test's optimizer and the gradient norm (peak lr 1e-4, warmup
@@ -47,6 +55,15 @@ FAULTS = {
     "no_dp_sum": (
         "        g = all_reduce(g.clone(), ctx.dp, ctx.sctx) if ctx.dp else g\n",
         "        g = g\n"),
+    "gather_seq_half": (
+        "        return reduce_scatter(g, ctx.dim, \"model\", ctx.sctx), None, "
+        "None\n",
+        "        return 0.5 * reduce_scatter(g, ctx.dim, \"model\", ctx.sctx), "
+        "None, None\n"),
+    "scatter_seq_half": (
+        "        return all_gather(g, ctx.dim, \"model\", ctx.sctx), None, None\n",
+        "        return 0.5 * all_gather(g, ctx.dim, \"model\", ctx.sctx), "
+        "None, None\n"),
 }
 OLD_CHECK = (
     ("OptimizerConfig(peak_lr=1e-3, warmup_steps=2, total_steps=50)",

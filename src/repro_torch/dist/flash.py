@@ -1,43 +1,37 @@
-"""Mesh-strategy dispatch for attention compute (torch port of
-``repro.dist.flash``).
+"""Attention compute for one rank (torch port of ``repro.dist.flash``).
 
-One place decides how attention parallelizes, so the model blocks never
-mention the mesh.  Under an active mesh (``dist.sharding.use_mesh``) the
-reference's ``shard_map`` regions run as the port's region functions
-(``sharding.split`` / ``whole`` / ``gather``) around the same local
-functions as one device, with collectives over the "model" group:
+The reference's ``shard_map`` regions decide from the shapes they are
+given how attention parallelizes.  In the port the layers decide
+(``models.tp``, from the resolved spec of their own leaves) and hand
+these functions operands already cut to the rank's share, so nothing
+here splits or gathers heads:
 
-* **head-parallel** — when the head and kv-head counts both divide the
-  "model" axis, each rank runs the local kernel on its heads; the output
-  heads are gathered.  No collective inside (attention is independent
-  per head).
-* **context/sequence-parallel** — otherwise, when the sequence divides
-  the "model" axis: q shards over sequence, k/v stay whole, and each rank
-  computes its q stripe against the full context with ``q_offset`` =
-  rank · S/m (a Python int from the mesh coordinate) keeping the causal
-  mask globally positioned.  The flash threshold applies to the stripe.
-  Each rank's k/v gradient is a partial sum, summed once over "model" in
-  the backward.  Used for training and prefill.
-* **lse-combine flash decode** — one-token decode against a cache whose
-  *sequence* dim stripes over "model" (when the heads do not divide it):
-  each rank computes a partial softmax over its §6 stripe, and the
-  partials combine through a global max and two sums (the log-sum-exp
-  trick), torch ops as the reference's are jnp.
-* **single device** — no mesh (or ``pure_dp``): the flash kernels above
-  the length threshold (K4f or K1 forward; with the logsumexp and the
-  K4b, K3 or K2 backward when autograd records the call), the dense
-  reference below it; contiguous-cache decode through K5 on the card, or,
-  for CPU tensors, the dense ``decode_attention`` on seq-major views of
-  the caches, as the reference's CPU decode takes its jnp oracle.
+* **causal attention** (train, prefill): q / k / v of the rank's heads
+  (head-parallel), or a q stripe whose row 0 sits at global position
+  ``q_offset`` against k / v that the layer gathered over the sequence
+  (context-parallel; their gradients reduce-scatter in
+  ``sharding.gather_seq``).  The flash kernels above the length
+  threshold (K4f or K1 forward; with the logsumexp and the K4b, K3 or K2
+  backward when autograd records the call), the dense reference below
+  it; the threshold applies to the stripe.
+* **decode** against caches at rest in the layer's layout:
+  :func:`decode_update_and_attend` on caches holding the rank's kv heads
+  (or every head off the mesh), through K5 on the card, or, for CPU
+  tensors, the dense ``decode_attention`` on seq-major views of the
+  caches, as the reference's CPU decode takes its jnp oracle;
+  :func:`stripe_update_and_attend` on whole-head caches holding the
+  rank's stripe of the sequence: the rank that owns the new position
+  writes it, and each rank's partial softmax merges over "model"
+  through a global max and two sums (the log-sum-exp trick), torch ops
+  as the reference's are jnp.
 
 Paged decode over §6 pages of a shared cache pool is torch ops (the
 reference has no kernel for it).  MLA decode in the compressed latent
-space (``mla_decode_attend``) is torch ops too, its heads sharded over
-"model" when they divide it.  Decode caches stay whole on every rank and
-update in place; the mesh branches read the rank's heads or stripe.
+space (``mla_decode_attend``) is torch ops too, on the heads it is given
+against latents that every head shares.
 
 The §6 reading: a decode cache is one data block; the sequence stripes
-the lse-combine path walks are exactly the disjoint partitions
+the lse-combine walks are exactly the disjoint partitions
 ``partition_tree_of`` emits for the cache's ``kv_seq`` sharding.
 """
 from __future__ import annotations
@@ -50,7 +44,7 @@ import torch
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.attention import (decode_attention, flash_min_seq,
                                           full_attention)
-from .sharding import all_gather, all_reduce, current_ctx, gather, split, whole
+from .sharding import all_reduce, current_ctx
 
 NEG_INF = -1e30
 
@@ -73,36 +67,20 @@ def _attn_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                     cfg=None, window: int = 0) -> torch.Tensor:
-    """Causal (optionally sliding-window) attention.
+                     cfg=None, window: int = 0, q_offset: int = 0
+                     ) -> torch.Tensor:
+    """Causal (optionally sliding-window) attention of the heads and rows
+    it is given.
 
-    q: (B, S, H, hd); k, v: (B, S, KH, hd) → (B, S, H, hd_v).  The
-    config's tile pins (``attn_block_q`` / ``attn_block_k``) ride to the
-    planner, as the reference's ``_blocks`` carries them.  Under a mesh:
-    head-parallel, else context-parallel, else local (module docs).
+    q: (B, Sq, H, hd); k, v: (B, S, KH, hd) → (B, Sq, H, hd_v); q row 0
+    sits at global position ``q_offset`` (a context-parallel stripe).
+    The config's tile pins (``attn_block_q`` / ``attn_block_k``) ride to
+    the planner, as the reference's ``_blocks`` carries them.
     """
-    ctx = current_ctx()
-    s, h = q.shape[1], q.shape[2]
-    kh = k.shape[2]
-    m = ctx.model_size
-
-    def local(ql, kl, vl, q_offset=0):
-        return _attn_local(ql, kl, vl, window=window,
-                           block_q=getattr(cfg, "attn_block_q", None),
-                           block_k=getattr(cfg, "attn_block_k", None),
-                           min_seq=flash_min_seq(cfg), q_offset=q_offset)
-
-    if not ctx.active or ctx.pure_dp or m <= 1:
-        return local(q, k, v)
-    if h % m == 0 and kh % m == 0:
-        out = local(*(split(t, 2, "model", ctx) for t in (q, k, v)))
-        return gather(out, 2, "model", ctx)
-    if s % m == 0:
-        off = ctx.coord("model") * (s // m)
-        out = local(split(q, 1, "model", ctx), whole(k, "model", ctx),
-                    whole(v, "model", ctx), q_offset=off)
-        return gather(out, 1, "model", ctx)
-    return local(q, k, v)
+    return _attn_local(q, k, v, window=window,
+                       block_q=getattr(cfg, "attn_block_q", None),
+                       block_k=getattr(cfg, "attn_block_k", None),
+                       min_seq=flash_min_seq(cfg), q_offset=q_offset)
 
 
 # ------------------------------------------------------------------- decode
@@ -135,69 +113,67 @@ def decode_update_and_attend(q: torch.Tensor, k_new: torch.Tensor,
                              window: int = 0):
     """Insert the new token at ``cur_len`` and attend over ``cur_len + 1``.
 
-    q, k_new, v_new: (B, 1, H|KH, hd); caches head-major (B, KH, S, hd);
-    cur_len: int, tokens already cached.  The caches are updated in place
-    (the reference returns new arrays); returns (out (B, 1, H, hd_v),
+    q, k_new, v_new: (B, 1, H|KH, hd); caches head-major (B, KH, S, hd),
+    every position (under a mesh, of the rank's kv heads); cur_len: int,
+    tokens already cached.  The caches are updated in place (the
+    reference returns new arrays); returns (out (B, 1, H, hd_v),
     k_cache, v_cache).
 
     As the reference's ``dynamic_update_slice``, a start at or past the
     cache end clamps to the last slot, which the new token overwrites;
     the attention still counts ``cur_len + 1`` valid entries.
-
-    Under a mesh the caches are whole on every rank (each writes the new
-    token into its copy): head-parallel takes the rank's kv heads
-    (contiguous copies, which K5 needs), else the lse-combine over the
-    rank's sequence stripe, else the local decode.
     """
     pos = min(max(cur_len, 0), k_cache.shape[2] - 1)
     k_cache[:, :, pos] = k_new[:, 0].to(k_cache.dtype)
     v_cache[:, :, pos] = v_new[:, 0].to(v_cache.dtype)
     valid = torch.full((1,), cur_len + 1, dtype=torch.int32,
                        device=q.device)
+    return (_decode_local(q, k_cache, v_cache, valid, window), k_cache,
+            v_cache)
+
+
+def stripe_update_and_attend(q: torch.Tensor, k_new: torch.Tensor,
+                             v_new: torch.Tensor, k_stripe: torch.Tensor,
+                             v_stripe: torch.Tensor, cur_len: int, *,
+                             window: int = 0):
+    """:func:`decode_update_and_attend` against whole-head caches that
+    hold this rank's stripe of the sequence: (B, KH, C, hd), positions
+    ``rank · C`` … of the C · m the cache holds over "model".  The rank
+    that owns ``cur_len`` (clamped to the last slot) writes the new
+    token; every rank attends over its stripe, and the partials merge
+    over "model" (:func:`_lse_combine`).  Returns (out (B, 1, H, hd_v),
+    k_stripe, v_stripe)."""
     ctx = current_ctx()
-    h, kh, smax = q.shape[2], k_cache.shape[1], k_cache.shape[2]
-    m = ctx.model_size
-    if not ctx.active or ctx.pure_dp or m <= 1:
-        out = _decode_local(q, k_cache, v_cache, valid, window)
-    elif h % m == 0 and kh % m == 0:
-        r = ctx.coord("model")
-        hl, khl = h // m, kh // m
-        out = _decode_local(
-            q[:, :, r * hl:(r + 1) * hl].contiguous(),
-            k_cache[:, r * khl:(r + 1) * khl].contiguous(),
-            v_cache[:, r * khl:(r + 1) * khl].contiguous(), valid, window)
-        out = all_gather(out, 2, "model", ctx)
-    elif smax % m == 0:
-        out = _lse_combine(q, k_cache, v_cache, cur_len, window, ctx)
-    else:
-        out = _decode_local(q, k_cache, v_cache, valid, window)
-    return out, k_cache, v_cache
-
-
-def _lse_combine(q: torch.Tensor, k_cache: torch.Tensor,
-                 v_cache: torch.Tensor, cur_len: int, window: int, ctx
-                 ) -> torch.Tensor:
-    """Decode over this rank's §6 stripe of the cache's sequence: a partial
-    softmax in fp32, merged over "model" through a global max and two
-    sums (num, den)."""
-    b, _, h, hd = q.shape
-    kh, smax = k_cache.shape[1], k_cache.shape[2]
-    g = h // kh
-    chunk = smax // ctx.model_size
+    chunk = k_stripe.shape[2]
     lo = ctx.coord("model") * chunk
+    pos = min(max(cur_len, 0), chunk * ctx.model_size - 1) - lo
+    if 0 <= pos < chunk:
+        k_stripe[:, :, pos] = k_new[:, 0].to(k_stripe.dtype)
+        v_stripe[:, :, pos] = v_new[:, 0].to(v_stripe.dtype)
+    return (_lse_combine(q, k_stripe, v_stripe, cur_len, window, ctx, lo),
+            k_stripe, v_stripe)
+
+
+def _lse_combine(q: torch.Tensor, k_stripe: torch.Tensor,
+                 v_stripe: torch.Tensor, cur_len: int, window: int, ctx,
+                 lo: int) -> torch.Tensor:
+    """Decode over this rank's §6 stripe of the cache's sequence (the
+    positions ``lo`` …): a partial softmax in fp32, merged over "model"
+    through a global max and two sums (num, den)."""
+    b, _, h, hd = q.shape
+    kh, chunk = k_stripe.shape[1], k_stripe.shape[2]
+    g = h // kh
     pos = lo + torch.arange(chunk, device=q.device)
     valid = pos < cur_len + 1
     if window > 0:
         valid &= pos >= max(cur_len + 1 - window, 0)
     scale = 1.0 / np.sqrt(hd)
     qg = q[:, 0].reshape(b, kh, g, hd).float()
-    s = torch.einsum("bkgh,bksh->bkgs", qg,
-                     k_cache[:, :, lo:lo + chunk].float()) * scale
+    s = torch.einsum("bkgh,bksh->bkgs", qg, k_stripe.float()) * scale
     s = torch.where(valid, s, NEG_INF)
     m_all = all_reduce(s.amax(dim=-1), "model", ctx, op="max")
     p = torch.where(valid, torch.exp(s - m_all[..., None]), 0.0)
-    num = all_reduce(torch.einsum("bkgs,bksh->bkgh", p,
-                                  v_cache[:, :, lo:lo + chunk].float()),
+    num = all_reduce(torch.einsum("bkgs,bksh->bkgh", p, v_stripe.float()),
                      "model", ctx)
     den = all_reduce(p.sum(dim=-1), "model", ctx)
     out = num / torch.clamp(den, min=1e-37)[..., None]
@@ -281,37 +257,23 @@ def mla_decode_attend(q_latent: torch.Tensor, q_rope: torch.Tensor,
                       cur_len: int, *, scale: float):
     """Absorbed-matrix MLA decode in the compressed latent space.
 
-    q_latent: (B, 1, H, rkv); q_rope: (B, 1, H, dr); new latents c_new
-    (B, 1, rkv) / kr_new (B, 1, dr); caches c_kv (B, S, rkv) / k_rope (B,
-    S, dr), updated in place at ``cur_len`` (the reference returns new
-    arrays; a start past the end clamps to the last slot, as its
+    q_latent: (B, 1, H, rkv); q_rope: (B, 1, H, dr) — every head, or under
+    a mesh the rank's; new latents c_new (B, 1, rkv) / kr_new (B, 1, dr);
+    caches c_kv (B, S, rkv) / k_rope (B, S, dr), shared by every head and
+    updated in place at ``cur_len`` (the reference returns new arrays; a
+    start past the end clamps to the last slot, as its
     ``dynamic_update_slice`` does).  The scores sum both products in the
     input dtype and are scaled, masked and softmaxed in fp32; the
     probabilities are cast to the input dtype before the product with
     c_kv, as there.  Returns (out_latent (B, 1, H, rkv), c_kv, k_rope).
-    Under a mesh whose "model" axis divides H, each rank attends with its
-    heads (the caches are head-shared latents: no collective inside) and
-    the heads are gathered.
     """
     pos = min(max(cur_len, 0), c_kv.shape[1] - 1)
     c_kv[:, pos] = c_new[:, 0].to(c_kv.dtype)
     k_rope[:, pos] = kr_new[:, 0].to(k_rope.dtype)
-
-    def attend(ql, qr):
-        s = (torch.einsum("bshr,btr->bhst", ql, c_kv)
-             + torch.einsum("bshk,btk->bhst", qr, k_rope)).float()
-        s = s * scale
-        valid = torch.arange(c_kv.shape[1], device=c_kv.device) < cur_len + 1
-        s = torch.where(valid[None, None, None, :], s, NEG_INF)
-        probs = torch.softmax(s, dim=-1).to(ql.dtype)
-        return torch.einsum("bhst,btr->bshr", probs, c_kv)
-
-    ctx = current_ctx()
-    m = ctx.model_size
-    if ctx.active and not ctx.pure_dp and m > 1 and q_latent.shape[2] % m == 0:
-        hl = q_latent.shape[2] // m
-        r = ctx.coord("model")
-        out = attend(q_latent[:, :, r * hl:(r + 1) * hl],
-                     q_rope[:, :, r * hl:(r + 1) * hl])
-        return all_gather(out, 2, "model", ctx), c_kv, k_rope
-    return attend(q_latent, q_rope), c_kv, k_rope
+    s = (torch.einsum("bshr,btr->bhst", q_latent, c_kv)
+         + torch.einsum("bshk,btk->bhst", q_rope, k_rope)).float()
+    s = s * scale
+    valid = torch.arange(c_kv.shape[1], device=c_kv.device) < cur_len + 1
+    s = torch.where(valid[None, None, None, :], s, NEG_INF)
+    probs = torch.softmax(s, dim=-1).to(q_latent.dtype)
+    return torch.einsum("bhst,btr->bshr", probs, c_kv), c_kv, k_rope

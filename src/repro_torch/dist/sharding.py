@@ -26,23 +26,44 @@ same dim names.
 
 The port runs a mesh as SPMD over plain local tensors.  Every rank runs
 the same program: parameters and moments are stored as the local shards
-``param_shardings`` gives (:func:`shard_tree`); an entry point gathers
-them (``models.model.gather_params`` through :func:`gather_param`, in the
-compute dtype where the reference's ``cast_params`` casts) and computes
-replicated over "model", split over "dp" in training.  No tensor is a
-``DTensor``, so the reference's ``constrain`` points (the embedding, the
-residual stream, the loss's logits, the cast weights, the MoE input)
-have nothing to redistribute and are not ported.  The reference's
-``shard_map`` regions become the autograd functions below around the
-same local functions the single device path calls, with explicit
-collectives over the mesh dim's group:
-:func:`split` / :func:`whole` enter a region (a shard of a replicated
-tensor, or the whole of it), :func:`gather` / :func:`psum` leave it.
-Each backward is the transpose: the gradient of ``whole`` is summed over
-the region's ranks (each rank's use is a partial contribution), that of
-``split`` gathered, that of ``gather`` cut back to the rank's shard, that
-of ``psum`` passed through.  A parameter gathered for a training step
-sums its gradient over "dp" before it is cut back to the local shard.
+``param_shardings`` gives (:func:`shard_tree`).  An entry point gathers
+each leaf over its FSDP ("pod", "data") entries only
+(``models.model.gather_params`` through :func:`gather_param`, in the
+compute dtype where the reference's ``cast_params`` casts) and keeps its
+"model" entry local, so a rank computes what the reference's GSPMD gives
+one device: the q / k / v, gate / up, ``w_in`` and MLA up-projection
+columns of its own heads and hidden units, the rows of ``w_o`` /
+``w_down`` / ``w_out`` that go with them, and its vocab shard of the
+embedding and the logits; the residual stream between sublayers holds
+the rank's stripe of the sequence (``ShardCtx.seq_split``, where the
+reference's ``("dp", "sp", None)`` constraint resolves).  A dim that
+does not divide its axis stays whole, and a layer whose leaf came whole
+computes with it whole (``models.tp``).  No tensor is a ``DTensor``: the
+collectives are explicit autograd functions over the mesh dim's group,
+Megatron's pair for a tensor-parallel region and its sequence-parallel
+pair:
+
+  ==============  ====================  ======================
+  region call     forward               backward
+  ==============  ====================  ======================
+  :func:`whole`   identity              all-reduce
+  :func:`psum`    all-reduce            identity
+  gather_seq      all-gather            reduce-scatter
+  scatter_seq     reduce-scatter        all-gather
+  :func:`split`   this rank's chunk     all-gather
+  :func:`gather`  all-gather            this rank's chunk
+  ==============  ====================  ======================
+
+``whole`` / ``gather_seq`` enter a region whose ranks each contribute
+part of the input's gradient (a column-parallel projection), ``psum`` /
+``scatter_seq`` leave it with the partial outputs summed; ``split`` /
+``gather`` cut and rebuild a tensor whose gradient is the same on every
+rank (the reference's ``shard_map`` regions in ``dist.flash`` and
+``models.moe``).  A parameter gathered for a training step sums its
+gradient over "dp" before it is cut back to the local shard; a leaf kept
+at its "model" share already has the whole gradient of its columns, so
+nothing sums it over "model".  :data:`TRAFFIC` counts the calls and the
+bytes each collective kind hands the backend on this rank.
 
 Logical → physical axis mapping:
 
@@ -126,11 +147,14 @@ class ShardCtx:
     """Ambient sharding context: a mesh plus the logical-axis dictionary.
     ``split_batch`` names the "dp" axes a training entry point has split
     its batch over while it computes its own rows (its parameter
-    gradients and loss statistics then sum over them)."""
+    gradients and loss statistics then sum over them); ``seq_split`` says
+    that the residual stream a layer receives holds this rank's stripe
+    of the sequence over "model" (``models.tp``)."""
 
     mesh: Any = None
     pure_dp: bool = False
     split_batch: Tuple[str, ...] = ()
+    seq_split: bool = False
 
     @property
     def active(self) -> bool:
@@ -232,6 +256,12 @@ def installed(ctx: ShardCtx):
         yield ctx
     finally:
         _CTX_STACK.pop()
+
+
+def seq_sharded(on: bool):
+    """The ambient context with the residual stream's rows split over
+    "model" (``on``) or whole on every rank."""
+    return installed(dataclasses.replace(current_ctx(), seq_split=bool(on)))
 
 
 def batch_split(axes: Tuple[str, ...]):
@@ -487,22 +517,44 @@ def shard_tree(tree: Any, shardings: Any, rank: int) -> Any:
 
 # -------------------------------------------------------- collectives
 
+# {"kind/axis": [calls, bytes, largest call's bytes]} this rank handed
+# the backend: the input tensor's bytes of each all_reduce, all_gather,
+# reduce_scatter and all_to_all, and apart from them the all-gathers of
+# a parameter's shard ("param_gather", :func:`gather_param`)
+TRAFFIC: Dict[str, List[int]] = {}
+
+
+def count_traffic(kind: str, x: torch.Tensor) -> None:
+    entry = TRAFFIC.setdefault(kind, [0, 0, 0])
+    n = x.numel() * x.element_size()
+    entry[0] += 1
+    entry[1] += n
+    entry[2] = max(entry[2], n)
+
+
+def reset_traffic() -> None:
+    TRAFFIC.clear()
+
+
 def all_reduce(x: torch.Tensor, axes, ctx: ShardCtx, op: str = "sum"
                ) -> torch.Tensor:
     """In place over every axis of ``axes`` (a name or a tuple); returns
     ``x``.  A backend that refuses the tensor raises."""
     import torch.distributed as dist
-    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+           "min": dist.ReduceOp.MIN}[op]
     for a in _entry_axes(axes):
         if ctx.axis_sizes.get(a, 1) > 1:
+            count_traffic("all_reduce/" + a, x)
             dist.all_reduce(x, op=red, group=ctx.group(a))
     return x
 
 
-def all_gather(x: torch.Tensor, dim: int, axes, ctx: ShardCtx
-               ) -> torch.Tensor:
+def all_gather(x: torch.Tensor, dim: int, axes, ctx: ShardCtx,
+               kind: str = "all_gather") -> torch.Tensor:
     """Concatenate the shards of every rank of ``axes`` along ``dim``
-    (the first axis major, as a spec entry orders them)."""
+    (the first axis major, as a spec entry orders them); ``kind`` names
+    the call in :data:`TRAFFIC`."""
     import torch.distributed as dist
     for a in reversed(_entry_axes(axes)):
         n = ctx.axis_sizes.get(a, 1)
@@ -510,9 +562,25 @@ def all_gather(x: torch.Tensor, dim: int, axes, ctx: ShardCtx
             continue
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(n)]
+        count_traffic(f"{kind}/{a}", x)
         dist.all_gather(parts, x, group=ctx.group(a))
         x = torch.cat(parts, dim=dim)
     return x
+
+
+def reduce_scatter(x: torch.Tensor, dim: int, axis: str, ctx: ShardCtx
+                   ) -> torch.Tensor:
+    """Sum ``x`` over the ranks of ``axis`` and keep this rank's chunk
+    along ``dim`` (``dim`` must divide)."""
+    import torch.distributed as dist
+    n = ctx.axis_sizes.get(axis, 1)
+    if n <= 1:
+        return x
+    front = x.movedim(dim, 0).contiguous()
+    out = front.new_empty((front.shape[0] // n, *front.shape[1:]))
+    count_traffic("reduce_scatter/" + axis, front)
+    dist.reduce_scatter_tensor(out, front, group=ctx.group(axis))
+    return out.movedim(0, dim)
 
 
 def chunk_of(x: torch.Tensor, dim: int, axes, ctx: ShardCtx) -> torch.Tensor:
@@ -584,6 +652,46 @@ class _Psum(torch.autograd.Function):
         return g, None, None
 
 
+class _GatherSeq(torch.autograd.Function):
+    """Enter a column-parallel region from the sequence-sharded stream:
+    every rank's rows, concatenated; each rank's gradient is a partial
+    sum, so the backward reduce-scatters it."""
+
+    @staticmethod
+    def forward(ctx, x, dim, sctx):
+        ctx.dim, ctx.sctx = dim, sctx
+        return all_gather(x, dim, "model", sctx)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.dim, "model", ctx.sctx), None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """Leave a row-parallel region into the sequence-sharded stream: the
+    partial outputs summed, this rank's rows kept; the backward gathers
+    every rank's rows of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dim, sctx):
+        ctx.dim, ctx.sctx = dim, sctx
+        return reduce_scatter(x, dim, "model", sctx)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.dim, "model", ctx.sctx), None, None
+
+
+def gather_seq(x: torch.Tensor, dim: int = 1,
+               ctx: Optional[ShardCtx] = None) -> torch.Tensor:
+    return _GatherSeq.apply(x, dim, ctx or current_ctx())
+
+
+def scatter_seq(x: torch.Tensor, dim: int = 1,
+                ctx: Optional[ShardCtx] = None) -> torch.Tensor:
+    return _ScatterSeq.apply(x, dim, ctx or current_ctx())
+
+
 def split(x: torch.Tensor, dim: int, axes="model",
           ctx: Optional[ShardCtx] = None) -> torch.Tensor:
     return _Split.apply(x, dim, axes, ctx or current_ctx())
@@ -618,7 +726,7 @@ class _GatherParam(torch.autograd.Function):
         ctx.dp = sctx.split_batch
         for d, entry in enumerate(spec):
             if entry is not None:
-                x = all_gather(x, d, entry, sctx)
+                x = all_gather(x, d, entry, sctx, kind="param_gather")
         return x
 
     @staticmethod

@@ -12,6 +12,15 @@ place per token, so the cache does not grow with the sequence.
 
 Parameter names and shapes match the reference's, so one weight set
 feeds both packages.
+
+Under tensor parallelism (``models.tp``) a mixer whose ``w_x`` came as
+the rank's share of ``d_inner`` runs a region on its channels and SSM
+heads: ``w_z`` / ``w_x`` / ``conv_x`` / ``conv_b_x`` as they came,
+``A_log`` / ``D`` / ``dt_bias``, the ``w_dt`` columns and the norm's
+scale cut to them (those leaves are stored whole), B and C (and their
+convolutions) computed whole from every row (``tp.shared``), the gated
+RMSNorm's mean square summed over "model", and ``out_proj`` row-
+parallel.  Its caches hold the rank's conv channels and state heads.
 """
 from __future__ import annotations
 
@@ -21,7 +30,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import current_ctx, psum, split, whole
 from repro_torch.kernels import ops as kernel_ops
+from . import tp
 from .layers import Params, _dtype, dense_init, rmsnorm, rmsnorm_init
 
 
@@ -92,36 +103,93 @@ def _mamba_proj(params: Params, x: torch.Tensor, cfg):
 
 
 def _mamba_out(params: Params, y_heads: torch.Tensor, xh: torch.Tensor,
-               z: torch.Tensor, cfg, lead_shape) -> torch.Tensor:
+               z: torch.Tensor, cfg, lead_shape, split_: bool = False
+               ) -> torch.Tensor:
     y = y_heads.float() + params["D"].float()[:, None] * xh.float()
-    y = y.reshape(*lead_shape, cfg.d_inner).to(z.dtype)
+    y = y.reshape(*lead_shape, -1).to(z.dtype)
     y = y * F.silu(z.float()).to(z.dtype)
-    y = rmsnorm(params["norm"], y, cfg.norm_eps)
-    return y @ params["out_proj"]
+    if not split_:
+        y = rmsnorm(params["norm"], y, cfg.norm_eps)
+        return y @ params["out_proj"]
+    # the gated RMSNorm over all of d_inner: the mean square of every
+    # rank's channels (summed both ways: each rank's use of it is part
+    # of its gradient)
+    yf = y.float()
+    ss = whole(psum(yf.square().sum(dim=-1, keepdim=True), "model"), "model")
+    yn = yf * torch.rsqrt(ss / cfg.d_inner + cfg.norm_eps)
+    y = (yn * params["norm"]["scale"].float()).to(y.dtype)
+    return tp.leave(y @ params["out_proj"])
+
+
+def _region(params: Params, cfg) -> Tuple[Params, int, bool]:
+    """(the mixer's leaves as the layer computes with them, SSM heads,
+    whether they are this rank's share): under tensor parallelism, when
+    ``w_x`` came split, the per-head and per-channel leaves stored whole
+    are cut to the rank's heads and channels and B / C's leaves are
+    shared (module docs)."""
+    h = cfg.ssm_heads
+    if not tp.split_dim(params["w_x"].shape[-1], cfg.d_inner):
+        return params, h, False
+    m = current_ctx().model_size
+    if h % m:
+        raise NotImplementedError(
+            f"d_inner {cfg.d_inner} splits over 'model' ({m}) but the "
+            f"{h} SSM heads do not")
+    p = dict(params)
+    for name in ("A_log", "D", "dt_bias"):
+        p[name] = split(params[name], 0, "model")
+    p["w_dt"] = split(params["w_dt"], params["w_dt"].ndim - 1, "model")
+    p["norm"] = {"scale": split(params["norm"]["scale"], 0, "model")}
+    for name in ("w_B", "w_C", "conv_B", "conv_b_B", "conv_C", "conv_b_C"):
+        p[name] = tp.shared(params[name])
+    return p, h // m, True
 
 
 def mamba_train(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     """Full-sequence Mamba2 block.  The scan is ``ops.ssd_scan``: K9 on
     a CUDA tensor, whose backward is K9b; its plain chunked version on a
     CPU tensor, which autograd differentiates.  The final state is
-    dropped, so the scan's backward sees no state gradient."""
-    h, pdim = cfg.ssm_heads, cfg.ssm_head_dim
-    z, xs, B, C, dt, A, _ = _mamba_proj(params, x, cfg)
-    xh = xs.reshape(*xs.shape[:-1], h, pdim)
+    dropped, so the scan's backward sees no state gradient.  A mixer on
+    the rank's share takes every row of the stream (``tp.enter``) and
+    hands back its summed output in the stream's layout; a whole one
+    runs every row on every rank."""
+    p, h, split_ = _region(params, cfg)
+    if not split_:
+        return tp.replicated(lambda xx: _train(p, xx, cfg, h, False), x)
+    return _train(p, tp.enter(x), cfg, h, True)
+
+
+def _train(p: Params, x: torch.Tensor, cfg, h: int, split_: bool):
+    z, xs, B, C, dt, A, _ = _mamba_proj(p, x, cfg)
+    xh = xs.reshape(*xs.shape[:-1], h, cfg.ssm_head_dim)
     y, _ = kernel_ops.ssd_scan(xh, dt, A, B, C, chunk=cfg.ssm_chunk)
-    return _mamba_out(params, y, xh, z, cfg, xs.shape[:-1])
+    return _mamba_out(p, y, xh, z, cfg, xs.shape[:-1], split_)
 
 
 def mamba_prefill(params: Params, x: torch.Tensor, cfg
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Prefill returning the recurrent cache (conv tails + SSD state).
     The scan goes through ``ops.ssd_scan``: K9 on the card, whose final
-    state is the cache (the reference runs ``ssd_chunked`` here)."""
-    h, pdim, ck = cfg.ssm_heads, cfg.ssm_head_dim, cfg.conv_kernel
-    z, xs, B, C, dt, A, (xr, Br, Cr) = _mamba_proj(params, x, cfg)
-    xh = xs.reshape(*xs.shape[:-1], h, pdim)
+    state is the cache (the reference runs ``ssd_chunked`` here).  On the
+    rank's share, as :func:`mamba_train`; the cache then holds its conv
+    channels and state heads."""
+    p, h, split_ = _region(params, cfg)
+    box = {}
+
+    def run(xx):
+        out, box["cache"] = _prefill(p, xx, cfg, h, split_)
+        return out
+
+    out = run(tp.enter(x)) if split_ else tp.replicated(run, x)
+    return out, box["cache"]
+
+
+def _prefill(p: Params, x: torch.Tensor, cfg, h: int, split_: bool):
+    ck = cfg.conv_kernel
+    z, xs, B, C, dt, A, (xr, Br, Cr) = _mamba_proj(p, x, cfg)
+    xh = xs.reshape(*xs.shape[:-1], h, cfg.ssm_head_dim)
     y, state = kernel_ops.ssd_scan(xh, dt, A, B, C, chunk=cfg.ssm_chunk)
-    out = _mamba_out(params, y, xh, z, cfg, xs.shape[:-1])
+    out = _mamba_out(p, y, xh, z, cfg, xs.shape[:-1], split_)
     # pre-activation conv tails, copied: a view would keep the whole
     # (B, S, C) projection alive for as long as the cache lives
     cache = {
@@ -147,8 +215,13 @@ def mamba_decode(params: Params, x: torch.Tensor, cfg,
                  cache: Dict[str, torch.Tensor]
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token recurrent step.  x: (B, 1, D).  The cache's tensors are
-    updated in place (the reference returns new arrays) and returned."""
-    h, pdim = cfg.ssm_heads, cfg.ssm_head_dim
+    updated in place (the reference returns new arrays) and returned.  On
+    the rank's share (its conv channels and state heads), as
+    :func:`mamba_train`."""
+    params, h, split_ = _region(params, cfg)
+    if split_:
+        x = tp.enter(x)
+    pdim = cfg.ssm_head_dim
     z = x @ params["w_z"]
     xr = x @ params["w_x"]
     Br = x @ params["w_B"]
@@ -170,7 +243,8 @@ def mamba_decode(params: Params, x: torch.Tensor, cfg,
     state = cache["state"]
     state.mul_(dA[:, :, None, None]).add_(dBx)
     y = torch.einsum("bhpn,bn->bhp", state, C1.float())[:, None]  # (B,1,H,P)
-    out = _mamba_out(params, y, xh[:, None], z, cfg, (x.shape[0], 1))
+    out = _mamba_out(params, y, xh[:, None], z, cfg, (x.shape[0], 1),
+                     split_)
     for name, tail in (("conv_x", conv_x), ("conv_B", conv_B),
                        ("conv_C", conv_C)):
         cache[name].copy_(tail)

@@ -37,6 +37,14 @@ states (…, B, H, P, N); decode updates them in place.  Training follows
 the reference's ``cfg.remat`` with ``torch.utils.checkpoint`` and its
 sequence-chunked cross entropy, which never materializes the full
 (B, S, V) logits.
+
+Under a mesh an entry point keeps each leaf at its "model" share
+(:func:`gather_params`) and splits the residual stream's rows over
+"model" where S divides (``dist.sharding.seq_sharded``): the layers
+compute the rank's share (``models.tp``), the embedding looks up the
+rank's vocab rows and sums them over "model", and the loss combines its
+vocab shard's statistics (:func:`vocab_parallel_stats`), as the
+reference's GSPMD layout does on each device.
 """
 from __future__ import annotations
 
@@ -50,10 +58,12 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.dist.sharding import (_entry_axes, all_reduce, batch_split,
-                                      chunk_of, current_ctx, gather_param,
-                                      installed, param_shardings, psum)
-from . import blocks
+from repro_torch.dist.sharding import (_entry_axes, all_gather, all_reduce,
+                                      batch_split, chunk_of, current_ctx,
+                                      gather_param, installed,
+                                      param_shardings, psum, seq_sharded,
+                                      split)
+from . import blocks, tp
 from .layers import (_FP32_LEAVES, Params, _dtype, embed_init, layernorm,
                      layernorm_init, resolve_device, rmsnorm, rmsnorm_init,
                      stack_trees)
@@ -153,17 +163,26 @@ _CAST_STACKS = ("layers", "dense_layers", "enc_layers", "dec_layers",
 _BANKS = ("w_gate", "w_up", "w_down")
 
 
+def _is_model(entry) -> bool:
+    return "model" in _entry_axes(entry)
+
+
 def gather_params(params: Params, cfg, ctx) -> Params:
     """A mesh entry point's parameters: each leaf that ``param_shardings``
-    cuts, given as this rank's shard, gathered whole — in the compute
-    dtype where ``cast_params`` would cast it, so the gather moves the
-    compute dtype — except the MoE expert banks, which the MoE region
-    takes as they come.  A leaf given whole stays whole.  While a
-    training step splits its batch, every leaf passes through one gather
-    node, whose backward sums the gradient over "dp"."""
+    cuts, given as this rank's shard, gathered over its FSDP entries —
+    in the compute dtype where ``cast_params`` would cast it, so the
+    gather moves the compute dtype — and kept at its "model" share
+    (a whole leaf is cut to it), so the layers compute the rank's heads,
+    hidden units, Mamba channels and vocab rows (``models.tp``);
+    ``pure_dp`` takes every leaf whole.  The MoE
+    expert banks go to the MoE region as they come.  While a training
+    step splits its batch, every leaf passes through one gather node,
+    whose backward sums the gradient over "dp" (never over "model": a
+    local column's gradient is already whole)."""
     shardings = param_shardings(param_shapes(cfg), ctx)
     shapes = param_shapes(cfg)
     dt = _dtype(cfg.dtype)
+    keep_model = tp.active(ctx)
 
     def walk(node, sh, shp, path, cast):
         out = {}
@@ -177,14 +196,52 @@ def gather_params(params: Params, cfg, ctx) -> Params:
             if path and path[-1] == "moe" and k in _BANKS:
                 out[k] = v
                 continue
+            spec = sh[k].spec
             whole = tuple(v.shape) == tuple(shp[k].shape)
-            spec = (None,) * v.ndim if whole else sh[k].spec
-            if ctx.split_batch or not whole:
-                v = gather_param(v, spec, ctx)
+            gather = tuple(None if whole or (keep_model and _is_model(e))
+                           else e for e in spec)
+            if ctx.split_batch or any(e is not None for e in gather):
+                v = gather_param(v, gather, ctx)
+            if whole and keep_model:
+                for d, e in enumerate(spec):
+                    if _is_model(e):
+                        v = split(v, d, "model", ctx)
             out[k] = v
         return out
 
     return walk(params, shardings, shapes, (), False)
+
+
+def vocab_parallel_stats(logits: torch.Tensor, targets: torch.Tensor,
+                         lo, reduce: Callable):
+    """The cross entropy's per-row statistics from one vocab shard of the
+    fp32 logits (…, V_local), whose first column is global vocab index
+    ``lo``: (lse, the target's logit, the argmax).  ``reduce(x, op)``
+    combines a per-row tensor over the shards ("max", "sum", "min"); the
+    "sum" carries the gradient.  lse is the global max (no gradient) plus
+    the log of the summed exp; the target's logit is summed from the shard
+    that holds it; the argmax is ``jnp.argmax``'s over the whole vocab:
+    the largest value and, among equal ones, the smallest global index."""
+    nv = logits.shape[-1]
+    top = reduce(logits.detach().amax(dim=-1), "max")
+    lse = top + torch.log(reduce(torch.exp(logits - top[..., None]).sum(-1),
+                                 "sum"))
+    t = targets - lo
+    inside = (t >= 0) & (t < nv)
+    ll = torch.gather(logits, -1, torch.where(inside, t, 0)[..., None])[..., 0]
+    ll = reduce(torch.where(inside, ll, 0.0), "sum")
+    arg = torch.argmax(logits, dim=-1)
+    best = torch.gather(logits, -1, arg[..., None])[..., 0].detach()
+    cand = torch.where(best == top, arg + lo,
+                       torch.iinfo(torch.int64).max)
+    return lse, ll, reduce(cand, "min")
+
+
+def _model_reduce(x: torch.Tensor, op: str) -> torch.Tensor:
+    """:func:`vocab_parallel_stats`' combine over "model" on a live mesh."""
+    if op == "sum":
+        return psum(x, "model")
+    return all_reduce(x.clone(), "model", current_ctx(), op=op)
 
 
 class LanguageModel:
@@ -282,12 +339,30 @@ class LanguageModel:
 
     # ------------------------------------------------------------ embedding
 
+    def _rows(self, seq: int):
+        """The context for a stream of ``seq`` positions: its rows split
+        over "model" where the reference's ``_sp`` resolves."""
+        return seq_sharded(tp.rows_for(seq))
+
     def _embed(self, params: Params, tokens: torch.Tensor,
                extra: Optional[Dict[str, torch.Tensor]] = None
                ) -> torch.Tensor:
-        """Token embeddings in the compute dtype; a VLM batch's
-        ``patches`` (B, P, D) go before them."""
-        x = params["embedding"][tokens.long()].to(_dtype(self.cfg.dtype))
+        """Token embeddings in the compute dtype, every row on every rank;
+        a VLM batch's ``patches`` (B, P, D) go before them.  An embedding
+        that came as the rank's vocab rows looks up the tokens it holds
+        and sums the rows over "model" (each token's row is on one
+        rank)."""
+        emb, dt = params["embedding"], _dtype(self.cfg.dtype)
+        lo, nv = tp.vocab_shard(emb.shape[0], self.cfg.vocab_size)
+        if nv == self.cfg.vocab_size:
+            x = emb[tokens.long()].to(dt)
+        else:
+            t = tokens.long() - lo
+            inside = ((t >= 0) & (t < nv))[..., None]
+            x = emb[torch.where(inside[..., 0], t, 0)].to(dt)
+            x = psum(torch.where(inside, x, torch.zeros((), dtype=dt,
+                                                        device=x.device)),
+                     "model")
         if self.cfg.family == "vlm" and extra is not None \
                 and "patches" in extra:
             x = torch.cat([extra["patches"].to(x.dtype), x], dim=1)
@@ -297,22 +372,34 @@ class LanguageModel:
                 dtype: torch.dtype) -> torch.Tensor:
         """Whisper's encoder: frames (B, Se, D) cast to ``dtype``, plus the
         sinusoid cast to it, through ``enc_layers`` (each under
-        ``_remat`` when autograd records) and the LayerNorm ``enc_norm``."""
+        ``_remat`` when autograd records) and the LayerNorm ``enc_norm``.
+        Under tensor parallelism the encoder's rows split as its own
+        stream, and the states come back with every row, entered for
+        cross attention on the rank's heads (``tp.enter``) or handed to
+        whole-head cross attention as every rank computes it."""
         cfg = self.cfg
         frames = frames.to(dtype)
         pos = torch.from_numpy(_sinusoid(frames.shape[1], cfg.d_model))
         e = frames + pos.to(frames.device)[None].to(dtype)
         step = _remat(lambda xx, p_l: blocks.enc_layer_apply(p_l, xx, cfg),
                       cfg)
-        for p_l in unstack_layers(params["enc_layers"],
-                                  cfg.num_encoder_layers):
-            e = step(e, p_l)
-        return layernorm(params["enc_norm"], e, cfg.norm_eps)
+        with self._rows(e.shape[1]):
+            e = tp.split_rows(e)
+            for p_l in unstack_layers(params["enc_layers"],
+                                      cfg.num_encoder_layers):
+                e = step(e, p_l)
+            e = layernorm(tp.on_rows(params["enc_norm"]), e, cfg.norm_eps)
+            if not tp.active():
+                return e
+            cross = params["dec_layers"]["cross"]["w_q"]
+            if tp.split_dim(cross.shape[-2], cfg.num_heads):
+                return tp.enter(e)
+            return tp.gather_rows(e)
 
     def _final_norm(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         """``final_norm``: a LayerNorm for encdec (whisper), else RMSNorm."""
         norm = layernorm if self.cfg.family == "encdec" else rmsnorm
-        return norm(params["final_norm"], x, self.cfg.norm_eps)
+        return norm(tp.on_rows(params["final_norm"]), x, self.cfg.norm_eps)
 
     def _unembed_weight(self, params: Params) -> torch.Tensor:
         if self.cfg.tie_embeddings:
@@ -320,19 +407,34 @@ class LanguageModel:
         return params["lm_head"]
 
     def _logits(self, params: Params, h: torch.Tensor) -> torch.Tensor:
-        """(…, D) final hidden → (…, V) fp32 logits."""
-        return (h @ self._unembed_weight(params).to(h.dtype)).float()
+        """(…, D) final hidden, the same on every rank → (…, V) fp32
+        logits (a vocab-parallel unembedding gathers the shards)."""
+        w = self._unembed_weight(params)
+        logits = (h @ w.to(h.dtype)).float()
+        if tp.split_dim(w.shape[1], self.cfg.vocab_size):
+            logits = all_gather(logits, logits.ndim - 1, "model",
+                                current_ctx())
+        return logits
+
+    def _last_row(self, x: torch.Tensor) -> torch.Tensor:
+        """The stream's last position (B, D), on every rank."""
+        if not tp.rows_split():
+            return x[:, -1]
+        return all_gather(x[:, -1:], 1, "model", current_ctx())[:, -1]
 
     # ------------------------------------------------------------ training
 
     def _backbone_train(self, params: Params, x: torch.Tensor,
-                        extra: Optional[Dict[str, torch.Tensor]] = None
+                        extra: Optional[Dict[str, torch.Tensor]] = None,
+                        positions: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Returns (final-normed hidden, aux dict summed over layers —
-        ``moe.zero_aux``'s schema).  ``extra`` is the batch, whose
-        ``frames`` an encoder-decoder model encodes."""
+        ``moe.zero_aux``'s schema), on the stream's rows.  ``extra`` is
+        the batch, whose ``frames`` an encoder-decoder model encodes;
+        ``positions`` the global (1, S) (default: x's rows)."""
         cfg = self.cfg
-        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        if positions is None:
+            positions = torch.arange(x.shape[1], device=x.device)[None, :]
         aux = blocks.zero_aux(x.device)
 
         if cfg.family == "encdec":
@@ -374,39 +476,57 @@ class LanguageModel:
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Sequence-chunked cross entropy: fp32 logits one ``loss_chunk``
         of positions at a time (each chunk under ``_remat``), targets < 0
-        masked."""
+        masked.  ``h`` is on the stream's rows and ``targets`` (B, S) every
+        row.  An unembedding that came as the rank's vocab columns takes
+        every row (``tp.enter``) and combines its shard's statistics over
+        "model" (:func:`vocab_parallel_stats`); a whole one takes the
+        rank's rows, and the sums then run over "model" too."""
         cfg = self.cfg
-        b, s, d = h.shape
         w = self._unembed_weight(params).to(h.dtype)
+        lo, nv = tp.vocab_shard(w.shape[1], cfg.vocab_size)
+        vocab = nv != cfg.vocab_size
+        rows = tp.rows_split()
+        targets = targets.long()
+        if vocab:
+            h = tp.enter(h)
+        elif rows:
+            w = tp.shared(w)
+            targets = chunk_of(targets, 1, "model", current_ctx())
+        b, s, d = h.shape
         chunk = min(cfg.loss_chunk, s)
         while s % chunk:
             chunk //= 2
 
         def chunk_fn(h_i, t_i):
             logits = (h_i @ w).float()
-            lse = torch.logsumexp(logits, dim=-1)
             safe_t = torch.clamp(t_i, min=0)
-            ll = torch.gather(logits, -1, safe_t[..., None])[..., 0]
+            if vocab:
+                lse, ll, pred = vocab_parallel_stats(logits, safe_t, lo,
+                                                     _model_reduce)
+            else:
+                lse = torch.logsumexp(logits, dim=-1)
+                ll = torch.gather(logits, -1, safe_t[..., None])[..., 0]
+                # argmax takes the first maximum, as jnp.argmax does
+                pred = torch.argmax(logits, dim=-1)
             mask = (t_i >= 0).float()
-            # argmax takes the first maximum, as jnp.argmax does
-            pred = torch.argmax(logits, dim=-1)
             return (((lse - ll) * mask).sum(), (lse.square() * mask).sum(),
                     ((pred == safe_t).float() * mask).sum(), mask.sum())
 
         step = _remat(chunk_fn, cfg)
         zero = torch.zeros((), dtype=torch.float32, device=h.device)
         loss_sum = z_sum = correct = count = zero
-        targets = targets.long()
         for c0 in range(0, s, chunk):
             l_, z_, c_, n_ = step(h[:, c0:c0 + chunk],
                                   targets[:, c0:c0 + chunk])
             loss_sum, z_sum = loss_sum + l_, z_sum + z_
             correct, count = correct + c_, count + n_
-        dp = current_ctx().split_batch
-        if dp:      # every rank's rows: the sums run over the whole batch
-            loss_sum, z_sum = psum(loss_sum, dp), psum(z_sum, dp)
-            correct = all_reduce(correct.detach().clone(), dp, current_ctx())
-            count = all_reduce(count.detach().clone(), dp, current_ctx())
+        # every rank's rows: the sums run over the whole batch
+        axes = current_ctx().split_batch + (("model",) if rows and not vocab
+                                            else ())
+        if axes:
+            loss_sum, z_sum = psum(loss_sum, axes), psum(z_sum, axes)
+            correct = all_reduce(correct.detach().clone(), axes, current_ctx())
+            count = all_reduce(count.detach().clone(), axes, current_ctx())
         count = torch.clamp(count, min=1.0)
         loss = loss_sum / count
         metrics = {"ce_loss": loss, "z_loss": z_sum / count,
@@ -423,10 +543,12 @@ class LanguageModel:
 
         Under a mesh ``params`` are this rank's shards (or whole leaves)
         and ``batch`` the whole batch, the same on every rank: the rank
-        computes its "dp" rows, the sums of the loss and its statistics
-        run over every rank's rows, and so the returned loss is the whole
-        batch's on every rank; the gradient of each shard sums over
-        "dp"."""
+        computes its "dp" rows, and within them its "model" share of
+        each layer (``gather_params``; the stream's rows split over
+        "model" between sublayers); the sums of the loss and its
+        statistics run over every rank's rows, and so the returned loss
+        is the whole batch's on every rank; the gradient of each shard
+        sums over "dp"."""
         ctx = current_ctx()
         if not ctx.active:
             return self._train_loss(params, batch)
@@ -440,13 +562,16 @@ class LanguageModel:
     def _train_loss(self, params: Params, batch: Dict[str, torch.Tensor]
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         x = self._embed(params, batch["tokens"], batch)
-        h, aux = self._backbone_train(params, x, batch)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
         targets = batch["targets"]
         if self.cfg.family == "vlm" and "patches" in batch:
             pad = torch.full((targets.shape[0], batch["patches"].shape[1]),
                              -1, dtype=targets.dtype, device=targets.device)
             targets = torch.cat([pad, targets], dim=1)
-        loss, metrics = self.lm_loss(params, h, targets)
+        with self._rows(x.shape[1]):
+            h, aux = self._backbone_train(params, tp.split_rows(x), batch,
+                                          positions)
+            loss, metrics = self.lm_loss(params, h, targets)
         total = loss + 0.01 * aux["loss"] + 1e-4 * metrics["z_loss"]
         metrics["aux_loss"] = aux["loss"]
         metrics["moe_dropped_tokens"] = aux["dropped"]
@@ -469,14 +594,28 @@ class LanguageModel:
         {"k", "v", "cross_k", "cross_v"}} for encdec (see
         :meth:`alloc_cache`).  A VLM's cache holds the patches' positions
         first: decode continues at ``cur_len`` = P + S.  Under a mesh
-        every rank computes every row: logits and caches are whole on
-        each."""
+        every rank runs every batch row, with its "model" share of each
+        layer and its stripe of the sequence (as ``train_loss``); the
+        logits are whole on every rank, and each cache is at rest in its
+        decode layout (:meth:`alloc_cache`): the rank's kv heads, or its
+        stripe of the sequence for whole-head attention; MLA's latents
+        whole."""
         cfg = self.cfg
         ctx = current_ctx()
         if ctx.active:
             params = gather_params(params, cfg, ctx)
         x = self._embed(params, batch["tokens"], batch)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        with self._rows(x.shape[1]):
+            x, cache = self._prefill_layers(params, tp.split_rows(x),
+                                            positions, batch)
+            last = self._last_row(x)
+        return self._logits(params, self._final_norm(params, last)), cache
+
+    def _prefill_layers(self, params: Params, x: torch.Tensor,
+                        positions: torch.Tensor,
+                        batch: Dict[str, torch.Tensor]):
+        cfg = self.cfg
         fam = cfg.family
 
         def mamba_run(x, lo, hi):
@@ -523,8 +662,7 @@ class LanguageModel:
                         kind)
                     kv.append(c)
                 cache[ck] = stack_trees(kv)
-        h = self._final_norm(params, x)
-        return self._logits(params, h[:, -1]), cache
+        return x, cache
 
     # ---------------------------------------------------------------- decode
 
@@ -532,8 +670,8 @@ class LanguageModel:
                     cur_len):
         """token: (B, 1) int; cur_len: int (or one-element tensor), tokens
         already cached.  The cache is updated in place and returned.
-        Under a mesh, as :meth:`prefill` (pass whole leaves to skip the
-        gather each step)."""
+        Under a mesh, as :meth:`prefill`, on every row (S = 1), against
+        the caches :meth:`alloc_cache` lays out."""
         cfg = self.cfg
         cur = int(cur_len)
         ctx = current_ctx()
@@ -596,10 +734,22 @@ class LanguageModel:
         (the reference's ``cache_spec`` says H for encdec, which differs
         where KH < H).  ``init`` (a prefill cache of S ≤ seq positions)
         is copied in: attention and latent caches into their first S
-        positions, Mamba and cross caches whole."""
+        positions, Mamba and cross caches whole.
+
+        Under tensor parallelism each cache holds this rank's share, as
+        the layers lay it out (:meth:`_kv_share`): the kv heads of its q
+        heads (KH/m; when only q splits, the kv heads those read), or,
+        for whole-head attention, every kv head over its stripe of
+        ⌈seq/m⌉ positions (the lse-combine; ``init``'s stripes are
+        gathered and cut again); MLA's latents whole; the cross caches
+        the rank's H/m heads; a Mamba mixer's conv tail its channels and
+        its state its heads."""
         cfg = self.cfg
         cdt = _dtype(cfg.dtype)
         dev = self.device
+        kh, striped = self._kv_share(cfg.num_heads, cfg.num_kv_heads)
+        m = current_ctx().model_size
+        kv_seq = -(-seq // m) if striped else seq
 
         def kv(n):
             if cfg.use_mla:
@@ -607,17 +757,22 @@ class LanguageModel:
                                           device=dev)
                         for name, width in (("c_kv", cfg.kv_lora_rank),
                                             ("k_rope", cfg.qk_rope_head_dim))}
-            shape = (n, batch, cfg.num_kv_heads, seq, cfg.head_dim)
+            shape = (n, batch, kh, kv_seq, cfg.head_dim)
             return {name: torch.zeros(shape, dtype=cdt, device=dev)
                     for name in ("k", "v")}
+
+        # a mixer on the rank's share: its conv channels and state heads
+        ctx = current_ctx()
+        mm = m if tp.active(ctx) and ctx.resolve("tp", cfg.d_inner) else 1
 
         def mamba(*lead):
             ck = cfg.conv_kernel - 1
             z = functools.partial(torch.zeros, device=dev)
-            return {"conv_x": z((*lead, batch, ck, cfg.d_inner), dtype=cdt),
+            return {"conv_x": z((*lead, batch, ck, cfg.d_inner // mm),
+                                dtype=cdt),
                     "conv_B": z((*lead, batch, ck, cfg.ssm_state), dtype=cdt),
                     "conv_C": z((*lead, batch, ck, cfg.ssm_state), dtype=cdt),
-                    "state": z((*lead, batch, cfg.ssm_heads,
+                    "state": z((*lead, batch, cfg.ssm_heads // mm,
                                 cfg.ssm_head_dim, cfg.ssm_state),
                                dtype=torch.float32)}
 
@@ -625,7 +780,9 @@ class LanguageModel:
             out = {"layers": mamba(cfg.num_layers)}
         elif cfg.family == "encdec":
             n, shape = cfg.num_layers, (batch, cfg.encoder_seq,
-                                        cfg.num_heads, cfg.head_dim)
+                                        self._kv_share(cfg.num_heads,
+                                                       cfg.num_heads)[0],
+                                        cfg.head_dim)
             out = {"layers": {**kv(n), **{
                 name: torch.zeros((n, *shape), dtype=cdt, device=dev)
                 for name in ("cross_k", "cross_v")}}}
@@ -639,17 +796,40 @@ class LanguageModel:
             if cfg.first_k_dense:
                 out["dense"] = kv(cfg.first_k_dense)
         if init is not None:
-            _fill(out, init)
+            _fill(out, init, striped)
         return out
 
+    def _kv_share(self, h: int, kh: int) -> Tuple[int, bool]:
+        """(kv heads, striped over the sequence) of an attention cache of
+        ``h`` / ``kh`` heads at rest: what the layer's leaves give it
+        (``blocks._attn_apply``), from the same resolved spec as
+        ``gather_params`` ("tp" on the head dim of w_q and w_k)."""
+        ctx = current_ctx()
+        if not tp.active(ctx):
+            return kh, False
+        if ctx.resolve("tp", h) is None:
+            return kh, True
+        if ctx.resolve("tp", kh) is not None:
+            return kh // ctx.model_size, False
+        return len(tp.kv_heads_read(h // ctx.model_size, h, kh)), False
 
-def _fill(buf: Any, src: Any) -> None:
+
+def _fill(buf: Any, src: Any, striped: bool = False) -> None:
     """Copy a prefill cache into an allocated one: attention k/v and MLA's
     latents into their first S positions along seq (the second-to-last
-    dimension of each), every other leaf whole."""
+    dimension of each), every other leaf whole.  ``striped`` k / v hold a
+    stripe of the sequence on each rank: the prefill's stripes are
+    gathered and this rank's stripe of the new length cut from them."""
     for name, b in buf.items():
         if isinstance(b, dict):
-            _fill(b, src[name])
+            _fill(b, src[name], striped)
+        elif name in ("k", "v") and striped:
+            full = all_gather(src[name], src[name].ndim - 2, "model",
+                              current_ctx())
+            chunk = b.shape[-2]
+            lo = current_ctx().coord("model") * chunk
+            part = full[..., lo:lo + chunk, :]
+            b[..., : part.shape[-2], :] = part
         elif name in ("k", "v", "c_kv", "k_rope"):
             b[..., : src[name].shape[-2], :] = src[name]
         else:

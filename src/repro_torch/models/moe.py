@@ -55,10 +55,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.dist.sharding import (_entry_axes, all_gather, all_reduce,
-                                      chunk_of, current_ctx, gather,
-                                      gather_param, moe_bucket_ranges, psum,
+                                      chunk_of, count_traffic, current_ctx,
+                                      gather, gather_param, gather_seq,
+                                      moe_bucket_ranges, psum, scatter_seq,
                                       split, whole)
-from .layers import Params, _dtype, dense_init, mlp, mlp_init, stack_trees
+from . import tp
+from .layers import Params, _dtype, dense_init, mlp_init, stack_trees
 
 # (token, choice) rows one chunk of the dispatch / combine loops takes
 CHUNK_ROWS = 16384
@@ -340,6 +342,7 @@ def _all_to_all(x: torch.Tensor, sctx) -> torch.Tensor:
     import torch.distributed as dist
     x = x.contiguous()
     out = torch.empty_like(x)
+    count_traffic("all_to_all/model", x)
     dist.all_to_all_single(out, x, group=sctx.group("model"))
     return out
 
@@ -389,21 +392,29 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg
     the ``dropped`` and ``routed`` (token, choice) counts and
     ``a2a_bytes`` (the bytes one rank's two exchanges move a layer; 0
     without the a2a); then the shared experts' and the dense residual
-    MLPs are added to y.
+    MLPs (tensor-parallel where their hidden units came split) are added
+    to y.
 
-    Routing runs on every token (replicated over "model"); under a mesh
-    whose "model" axis divides E the experts run in the a2a or psum
-    region (module docs).  Expert banks may come whole or as this rank's
-    shard (E/m experts, the FSDP dim cut or not)."""
+    Routing runs on the tokens this rank holds: every token, or under
+    tensor parallelism its stripe of the sequence (``tp.rows_split``),
+    whose balance-loss means and drop counts then sum over "model".
+    Under a mesh whose "model" axis divides E the experts run in the a2a
+    or psum region (module docs): the a2a takes a stripe as its own
+    split of the sequence, the psum region gathers the stripe's tokens
+    (``gather_seq``) and sums its partial outputs back into the stripe
+    (``scatter_seq``).  y leaves in x's layout.  Expert banks may come
+    whole or as this rank's shard (E/m experts, the FSDP dim cut or
+    not)."""
     ctx = current_ctx()
     b, s, d = x.shape
     t = b * s
     k = cfg.experts_per_token
     e = cfg.num_experts
     m = ctx.model_size
+    rows = tp.rows_split()
     use_region = ctx.active and m > 1 and e % m == 0 and not ctx.pure_dp
     use_a2a = (use_region and getattr(cfg, "moe_dispatch", "a2a") == "a2a"
-               and ctx.resolve("sp", s) is not None)
+               and (rows or ctx.resolve("sp", s) is not None))
     # a training step that split its batch: statistics sum over "dp"
     dp_sum = ctx.split_batch if ctx.active else ()
     if dp_sum and not use_region:
@@ -412,15 +423,17 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg
             "parallel branch (num_experts divisible by the 'model' axis, "
             "not pure_dp): the reference's global view places every "
             "token's bucket slot over the whole batch")
-    logits = x.reshape(t, d).float() @ params["router"]
+    stat_axes = dp_sum + (("model",) if rows else ())
+    logits = x.reshape(t, d).float() @ tp.on_rows(params["router"])
     gates, idx = _route(logits, k)
-    aux = load_balance_loss(logits, idx, e, dp_sum)
+    aux = load_balance_loss(logits, idx, e, stat_axes)
     routed = torch.full((), float(t * k), dtype=torch.float32,
                         device=x.device)
     a2a_bytes = torch.zeros((), dtype=torch.float32, device=x.device)
 
     if not use_region:
-        w_gate, w_up, w_down = _gather_banks(params, d, e, ctx, False, ())
+        w_gate, w_up, w_down = tp.on_rows(
+            _gather_banks(params, d, e, ctx, False, ()))
         y, kept = _grouped_experts(x.reshape(t, d), gates, idx, w_gate,
                                    w_up, w_down, _capacity(cfg, t))
         y = y.view(b, s, d)
@@ -429,9 +442,13 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg
         # a batch whole on every rank splits over "dp" in the region too
         dp = () if ctx.split_batch else _entry_axes(ctx.resolve("dp", b))
         w_gate, w_up, w_down = _gather_banks(params, d, e, ctx, True, dp)
-        gates_b, idx_b = gates.view(b, s, k), idx.view(b, s, k)
-        dims = ((0, dp), (1, "model")) if use_a2a else ((0, dp),)
-        xl, gl, il = x, gates_b, idx_b
+        xl, gl, il = x, gates.view(b, s, k), idx.view(b, s, k)
+        if rows and not use_a2a:        # the psum region takes every token
+            xl, gl = gather_seq(xl), gather_seq(gl)
+            il = all_gather(il, 1, "model", ctx)
+        dims = ((0, dp),)
+        if use_a2a and not rows:
+            dims += ((1, "model"),)
         for dim, axes in dims:
             if axes:
                 xl, gl = split(xl, dim, axes), split(gl, dim, axes)
@@ -446,31 +463,38 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg
                                     il.reshape(tl, k), w_gate, w_up, w_down,
                                     cap, m)
         else:
-            # every rank's local experts see all tokens: each use is part
-            # of the tokens' gradient, summed over "model"
-            xl, gl = whole(xl, "model"), whole(gl, "model")
+            if not rows:
+                # every rank's local experts see all tokens: each use is
+                # part of the tokens' gradient, summed over "model"
+                xl, gl = whole(xl, "model"), whole(gl, "model")
             yl, kept = _grouped_experts(
                 xl.reshape(tl, d), gl.reshape(tl, k), il.reshape(tl, k),
                 w_gate, w_up, w_down, _capacity(cfg, tl),
                 ctx.coord("model") * (e // m))
             # each choice is kept by exactly one owning shard (or dropped)
-            yl = psum(yl, "model")
             kept = all_reduce(kept, "model", ctx)
-        y, kept = yl.view(bl, sl, d), kept.view(bl, sl)
+            yl = yl.view(bl, sl, d)
+            if rows:
+                yl = scatter_seq(yl)
+                kept = chunk_of(kept.view(bl, sl), 1, "model", ctx)
+            else:
+                yl = psum(yl, "model")
+        y, kept = yl.view(bl, -1, d), kept.reshape(bl, -1)
         for dim, axes in reversed(dims):
             if axes:
                 y = gather(y, dim, axes)
                 kept = all_gather(kept, dim, axes, ctx)
         kept_sum = kept.sum()
-    if dp_sum:
-        routed = all_reduce(routed.clone(), dp_sum, ctx)
-        kept_sum = all_reduce(kept_sum.clone(), dp_sum, ctx)
+    if stat_axes:
+        routed = all_reduce(routed.clone(), stat_axes, ctx)
+        kept_sum = all_reduce(kept_sum.clone(), stat_axes, ctx)
     auxd = {"loss": aux, "dropped": routed - kept_sum, "routed": routed,
             "a2a_bytes": a2a_bytes}
+    f = cfg.moe_d_ff or cfg.d_ff
     if "shared" in params:
-        y = y + mlp(params["shared"], x)
+        y = y + tp.mlp(params["shared"], x, f * cfg.num_shared_experts)
     if "dense_residual" in params:
-        y = y + mlp(params["dense_residual"], x)
+        y = y + tp.mlp(params["dense_residual"], x, cfg.d_ff)
     return y, auxd
 
 

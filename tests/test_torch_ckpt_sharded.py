@@ -23,6 +23,10 @@ marker files in the shared temporary directory.  Cases:
   saves) on reduced smollm end bit-equal to the uninterrupted mesh run,
   from a restored state bit-equal to the saved one; a restart with no
   mesh ends within the dist tests' 3e-4;
+* a state trained one step under tensor parallelism on the (2, 2) mesh
+  (reduced llama3.2-3b: each rank computing its heads, hidden units and
+  vocab rows) saves sharded, restores on one device with no mesh, and
+  matches the no-mesh step within the dist tests' 3e-4;
 * ``launch.train --tp 2 --ckpt-dir`` resumes at the saved step.
 """
 import os
@@ -228,6 +232,29 @@ def _trainer_cases(rank, tmp, mesh, spy):
     return out
 
 
+def _tp_step(mesh=None):
+    """One train step of reduced llama3.2-3b from seeded weights, under
+    ``mesh`` (the rank's shards) or on one device: (cfg, oc, state)."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import place_state
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.dist.sharding import use_mesh
+    from repro_torch.models.model import LanguageModel
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.train.steps import init_train_state, make_train_step
+    cfg = get_config("llama3.2-3b").reduced()
+    oc = OptimizerConfig(**OPT)
+    model = LanguageModel(cfg, device="cpu")
+    state = init_train_state(model, torch.Generator().manual_seed(7), oc)
+    batch = {k: torch.from_numpy(v) for k, v in SyntheticTokens(
+        cfg.vocab_size, batch=4, seq=32, seed=8).get(0).items()}
+    if mesh is None:
+        return cfg, oc, make_train_step(model, oc)(state, batch)[0]
+    state = place_state(state, mesh)
+    with use_mesh(mesh):
+        return cfg, oc, make_train_step(model, oc)(state, batch)[0]
+
+
 def _rank_cases(rank, world, tmp):
     from repro_torch import ckpt
     from repro_torch.dist.sharding import (ShardCtx, param_shardings,
@@ -279,6 +306,12 @@ def _rank_cases(rank, world, tmp):
                              device="cpu")
     out["from_jax"] = (step, _tree_np(got))
     out["trainer"] = _trainer_cases(rank, tmp, mesh, spy)
+
+    from repro_torch.dist.sharding import ShardCtx as Ctx
+    from repro_torch.launch.specs import state_shardings
+    cfg, oc, state = _tp_step(mesh)
+    ckpt.save(os.path.join(tmp, "tp_step"), state, 1,
+              shardings=state_shardings(cfg, oc, Ctx(mesh)))
     return out
 
 
@@ -343,6 +376,10 @@ def runs(tmp_path_factory):
         ref = pickle.load(f)
     ranks = torch.load(tmp / "ranks.pt", weights_only=False)
     nomesh = {m: _nomesh_restart(tmp, m) for m in ("sync", "async")}
+    from repro_torch import ckpt
+    restored, step = ckpt.restore(str(tmp / "tp_step"))
+    nomesh["tp_step"] = (step, restored["params"],
+                         _tree_np(_tp_step()[2]["params"]))
     return tmp, ranks, ref, nomesh
 
 
@@ -496,6 +533,16 @@ def test_trainer_restart_without_mesh(runs, mode):
     assert sorted(params) == sorted(want)
     for k in want:
         np.testing.assert_allclose(params[k], want[k], atol=3e-4, rtol=3e-4,
+                                   err_msg=k)
+
+
+def test_tp_trained_state_restores_on_one_device(runs):
+    step, restored, want = runs[3]["tp_step"]
+    assert step == 1
+    got = _tree_np(restored)
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        np.testing.assert_allclose(got[k], w, atol=3e-4, rtol=3e-4,
                                    err_msg=k)
 
 

@@ -9,18 +9,41 @@ clock; each case is then its own test.  The reference's outputs come
 from its no-mesh functions on the same numpy inputs.  Tolerances are the
 reference's own (``tests/test_dist.py``, ``tests/test_partition_bridge.py``):
 
-* ``causal_attention`` head-parallel (6 heads over 2 kv heads) and
-  context-parallel (3 heads over 1 kv head; once above the flash
-  threshold with a pinned 16-row tile, so the stripes take the flash
-  path with ``q_offset`` 48): output 2e-4, q/k/v gradients 5e-4;
-* ``decode_update_and_attend`` head-parallel and lse-combine: output
-  2e-4, caches 1e-6; ``mla_decode_attend`` head-sharded: 2e-4;
+* ``causal_attention`` as the layers call it under the mesh, each rank
+  on its share: head-parallel (the rank's 3 of 6 heads and 1 of 2 kv
+  heads) and context-parallel (3 heads over 1 kv head: the rank's q
+  stripe at its ``q_offset`` against k / v gathered over the sequence
+  by ``gather_seq``; once above the flash threshold with a pinned
+  16-row tile, so the stripes take the flash path with ``q_offset``
+  48): the rank's slice of the output 2e-4, of the q/k/v gradients 5e-4;
+* ``decode_update_and_attend`` on caches of the rank's kv heads, and
+  ``stripe_update_and_attend`` (the lse-combine) on the rank's stripe of
+  a whole-head cache: output 2e-4, the rank's caches 1e-6;
+  ``mla_decode_attend`` on the rank's heads: 2e-4;
 * a train step of reduced llama3.2-3b, of reduced deepseek-v2-236b
   without MLA (int8 moments: the clip norm and the row scales on split
-  axes) and, in ``pure_dp`` mode, of reduced smollm-360m: ce_loss 1e-3,
-  parameters 3e-4;
-* a train step of each other family (reduced mamba2, zamba2,
+  axes; once through the psum dispatch) and, in ``pure_dp`` mode, of
+  reduced smollm-360m: ce_loss 1e-3, parameters 3e-4;
+* a train step of each other family (reduced qwen2-7b with its qkv
+  biases, h2o-danube3-4b with its window, arctic's MoE, mamba2, zamba2,
   deepseek-v2 with MLA, whisper, llava) under the mesh: the same limits;
+* prefill and 4 decodes of reduced llama3.2-3b and whisper under the
+  (2, 2) mesh, and of llama under a (1, 4) mesh of the same ranks (KH 2
+  < 4: ``w_q`` splits, ``w_k`` / ``w_v`` stay whole): logits 2e-4, and
+  each rank's caches its slice of the reference's (the kv heads its q
+  heads read; whisper's cross caches its H/m heads) at 1e-5 (computed
+  through the layers, they carry fp32 summation order, up to ~2.6e-6
+  from the reference and as far from the port's own one-device caches;
+  the one-device model tests hold the same caches at 1e-4);
+* a train step of reduced llama on the (1, 4) mesh;
+* whole leaves under the mesh (``WHOLE``: 3 heads over 1 kv head, d_ff
+  255, vocab 257, none of which 2 divides): a train step of reduced
+  llama (context-parallel attention on the stream's stripe, the MLP on
+  its rows, a whole tied unembedding on the stripe), of deepseek-v2
+  with MLA (every row on every rank) and of whisper (its encoder's
+  self-attention and cross attention on every row), and prefill + 4
+  decodes of llama and whisper, each rank's self-attention caches its
+  stripe of the sequence (the lse-combine's layout at rest);
 * ``Trainer(mesh=...)`` for 2 steps from a host-leaf checkpoint the
   single-device Trainer wrote (reshard-on-restore), against the
   single-device Trainer resumed from it; a save under a mesh commits
@@ -43,7 +66,20 @@ MESH_MODEL = 2
 GROUP_TIMEOUT_S = 400
 OPT = dict(peak_lr=1e-3, warmup_steps=2, total_steps=50)
 FAMILIES = ("mamba2-1.3b", "zamba2-1.2b", "deepseek-v2-236b",
-            "whisper-small", "llava-next-mistral-7b")
+            "whisper-small", "llava-next-mistral-7b", "qwen2-7b",
+            "h2o-danube-3-4b", "arctic-480b")
+# a reduced config whose heads, kv heads, d_ff and vocab 2 does not divide:
+# every such leaf stays whole on the (2, 2) mesh
+WHOLE = {"num_heads": 3, "num_kv_heads": 1, "d_ff": 255, "vocab_size": 257}
+WHOLE_MHA = dict(WHOLE, num_kv_heads=3)    # whisper's and MLA's heads
+SERVE_CASES = {  # name: (arch, config overrides, "model" axis of the mesh)
+    "llama": ("llama3.2-3b", {}, 2),
+    "whisper": ("whisper-small", {}, 2),
+    "llama_model4": ("llama3.2-3b", {}, 4),
+    "llama_whole": ("llama3.2-3b", WHOLE, 2),
+    "whisper_whole": ("whisper-small", WHOLE_MHA, 2),
+}
+SERVE_B, SERVE_S, SERVE_STEPS = 2, 16, 4
 
 
 # ------------------------------------------------------------ inputs
@@ -62,6 +98,20 @@ ATTN_CASES = {  # name: (heads, kv heads, seq, config overrides)
     "context_parallel_flash": (3, 1, 96, {"attn_flash_min_seq": 32}),
 }
 DECODE_CASES = {"head_parallel": (4, 2), "lse_combine": (3, 1)}
+
+
+def _share_dim(name):
+    """The dim of the rank's share in an attention case: heads for the
+    head-parallel ones, the sequence for the others."""
+    return 2 if name == "head_parallel" else 1
+
+
+def _share(x, dim, coord, m=MESH_MODEL):
+    """Rank ``coord``'s chunk of ``x`` along ``dim``."""
+    n = x.shape[dim] // m
+    if isinstance(x, np.ndarray):
+        return x.take(np.arange(coord * n, (coord + 1) * n), axis=dim)
+    return x.narrow(dim, coord * n, n)
 
 
 def _attn_cfg(module_get, over):
@@ -101,15 +151,15 @@ def _tokens(vocab, b, s, seed):
     return {"tokens": toks[:, :-1], "targets": toks[:, 1:].copy()}
 
 
-def _family_batch(cfg, seed):
-    batch = _tokens(cfg.vocab_size, 4, 32, seed)
+def _family_batch(cfg, seed, b=4):
+    batch = _tokens(cfg.vocab_size, b, 32, seed)
     rng = np.random.RandomState(seed + 1)
     if cfg.family == "encdec":
         batch["frames"] = (0.02 * rng.standard_normal(
-            (4, cfg.encoder_seq, cfg.d_model))).astype(np.float32)
+            (b, cfg.encoder_seq, cfg.d_model))).astype(np.float32)
     if cfg.family == "vlm":
         batch["patches"] = (0.02 * rng.standard_normal(
-            (4, cfg.num_patches, cfg.d_model))).astype(np.float32)
+            (b, cfg.num_patches, cfg.d_model))).astype(np.float32)
     return batch
 
 
@@ -147,11 +197,32 @@ def _step_on_mesh(cfg, params_np, batch, oc, mesh, pure_dp=False):
                 _gathered(state["params"], sh["params"], ctx))
 
 
+def _serve_on_mesh(cfg, params_np, inp, mesh):
+    """Prefill, ``alloc_cache`` and the decodes under the mesh: every
+    step's logits and the rank's caches at the end."""
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.dist.sharding import use_mesh
+    from repro_torch.models.model import LanguageModel
+    model = LanguageModel(cfg, device="cpu")
+    params = params_from_numpy(params_np, cfg, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in inp["batch"].items()}
+    with use_mesh(mesh):
+        logits, cache = model.prefill(params, batch)
+        cache = model.alloc_cache(SERVE_B, SERVE_S + SERVE_STEPS, init=cache)
+        out = [logits.numpy()]
+        for i, tok in enumerate(inp["decode"]):
+            logits, cache = model.decode_step(params, cache,
+                                              torch.from_numpy(tok),
+                                              SERVE_S + i)
+            out.append(logits.numpy())
+    return out, _tree_np(cache)
+
+
 def _rank_cases(rank, world, path):
     """Every case of this file on one rank; returns {case: result}."""
     from repro_torch.configs import get_config
     from repro_torch.dist import flash
-    from repro_torch.dist.sharding import use_mesh
+    from repro_torch.dist.sharding import gather_seq, use_mesh
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.model import LanguageModel
     from repro_torch.optim import OptimizerConfig
@@ -160,13 +231,21 @@ def _rank_cases(rank, world, path):
 
     inp = torch.load(os.path.join(path, "inputs.pt"), weights_only=False)
     mesh = make_host_mesh(model=MESH_MODEL)
-    out = {}
+    coord = mesh.get_local_rank("model")
+    out = {"coord": coord}
     for name, (h, kh, s, over) in ATTN_CASES.items():
         cfg = _attn_cfg(get_config, over)
-        q, k, v = (torch.from_numpy(inp["attn"][name][n]).requires_grad_()
+        dim = _share_dim(name)
+        q, k, v = (_share(torch.from_numpy(inp["attn"][name][n]), dim,
+                          coord).contiguous().requires_grad_()
                    for n in ("q", "k", "v"))
         with use_mesh(mesh):
-            o = flash.causal_attention(q, k, v, cfg=cfg)
+            if dim == 2:             # the rank's heads
+                o = flash.causal_attention(q, k, v, cfg=cfg)
+            else:                    # the rank's stripe, as blocks runs it
+                o = flash.causal_attention(
+                    q, gather_seq(k), gather_seq(v), cfg=cfg,
+                    q_offset=coord * q.shape[1])
             grads = torch.autograd.grad(torch.sin(o).sum(), (q, k, v))
         out["attn_" + name] = [o.detach().numpy()] + [g.numpy()
                                                       for g in grads]
@@ -174,15 +253,24 @@ def _rank_cases(rank, world, path):
         d = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
              for k, v in inp["decode"][name].items()}
         with use_mesh(mesh):
-            o, kc, vc = flash.decode_update_and_attend(
-                d["q"], d["kn"], d["vn"], d["kc"], d["vc"], d["cur"])
+            if name == "head_parallel":       # the rank's heads
+                o, kc, vc = flash.decode_update_and_attend(
+                    *(_share(d[n], 2, coord).contiguous()
+                      for n in ("q", "kn", "vn")),
+                    *(_share(d[n], 1, coord).contiguous()
+                      for n in ("kc", "vc")), d["cur"])
+            else:                             # the rank's sequence stripe
+                o, kc, vc = flash.stripe_update_and_attend(
+                    d["q"], d["kn"], d["vn"],
+                    *(_share(d[n], 2, coord).contiguous()
+                      for n in ("kc", "vc")), d["cur"])
         out["decode_" + name] = [o.numpy(), kc.numpy(), vc.numpy()]
     d = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
          for k, v in inp["mla"].items()}
     with use_mesh(mesh):
         o, ckv, kr = flash.mla_decode_attend(
-            d["ql"], d["qr"], d["cn"], d["krn"], d["ckv"], d["kr"],
-            d["cur"], scale=d["scale"])
+            _share(d["ql"], 2, coord), _share(d["qr"], 2, coord), d["cn"],
+            d["krn"], d["ckv"], d["kr"], d["cur"], scale=d["scale"])
     out["mla_decode"] = [o.numpy(), ckv.numpy(), kr.numpy()]
 
     for name, (arch, over, pure_dp) in STEP_CASES.items():
@@ -201,6 +289,17 @@ def _rank_cases(rank, world, path):
                                                   mesh)
         except NotImplementedError as e:
             out["family_" + arch] = ("refused", str(e))
+
+    meshes = {2: mesh, 4: make_host_mesh(model=4)}
+    for name, (arch, over, m) in SERVE_CASES.items():
+        cfg = dataclasses.replace(get_config(arch).reduced(), **over)
+        out["serve_" + name] = (_serve_on_mesh(
+            cfg, inp["serve"][name]["params"], inp["serve"][name],
+            meshes[m]), meshes[m].get_local_rank("model"))
+    cfg = get_config("llama3.2-3b").reduced()
+    out["step_llama_model4"] = _step_on_mesh(
+        cfg, inp["steps"]["llama"]["params"], inp["steps"]["llama"]["batch"],
+        OptimizerConfig(**OPT), meshes[4])
 
     # Trainer: reshard-on-restore of the single-device Trainer's checkpoint
     cfg = get_config("llama3.2-3b").reduced()
@@ -234,7 +333,16 @@ def _rank_cases(rank, world, path):
 STEP_CASES = {  # name: (arch, config overrides, pure_dp)
     "llama": ("llama3.2-3b", {}, False),
     "moe_int8": ("deepseek-v2-236b", {"use_mla": False}, False),
+    # the psum region on the sequence-split stream (gather_seq in,
+    # scatter_seq out)
+    "moe_psum": ("deepseek-v2-236b", {"use_mla": False,
+                                      "moe_dispatch": "psum"}, False),
     "pure_dp": ("smollm-360m", {}, True),
+    # whole leaves: context-parallel GQA, every row for MLA and whisper's
+    # encoder and cross attention, MLPs on the rows, a whole unembedding
+    "llama_whole": ("llama3.2-3b", WHOLE, False),
+    "mla_whole": ("deepseek-v2-236b", WHOLE_MHA, False),
+    "whisper_whole": ("whisper-small", WHOLE_MHA, False),
 }
 
 
@@ -275,13 +383,26 @@ def _inputs(tmp):
         inp["decode"][name] = _decode_inputs(h, kh, seed=20 + i)
     inp["mla"] = _mla_inputs(get_config("deepseek-v2-236b").reduced(), 30)
     for i, (name, (arch, over, pure)) in enumerate(STEP_CASES.items()):
-        vocab = get_config(arch).reduced().vocab_size
+        cfg = dataclasses.replace(get_config(arch).reduced(), **over)
         inp["steps"][name] = {"params": _params_np(arch, over),
-                              "batch": _tokens(vocab, 8 if pure else 4, 32,
-                                               40 + i)}
+                              "batch": _family_batch(cfg, 40 + i,
+                                                     8 if pure else 4)}
     for i, arch in enumerate(FAMILIES):
         inp["families"][arch] = (_params_np(arch, {}), _family_batch(
             get_config(arch).reduced(), 50 + i))
+    inp["serve"] = {}
+    for i, (name, (arch, over, _m)) in enumerate(SERVE_CASES.items()):
+        cfg = dataclasses.replace(get_config(arch).reduced(), **over)
+        rng = np.random.RandomState(60 + i)
+        batch = {"tokens": rng.randint(0, cfg.vocab_size, (
+            SERVE_B, SERVE_S)).astype(np.int32)}
+        if cfg.family == "encdec":
+            batch["frames"] = (0.02 * rng.standard_normal(
+                (SERVE_B, cfg.encoder_seq, cfg.d_model))).astype(np.float32)
+        inp["serve"][name] = {
+            "params": _params_np(arch, over), "batch": batch,
+            "decode": [rng.randint(0, cfg.vocab_size, (SERVE_B, 1)).astype(
+                np.int32) for _ in range(SERVE_STEPS)]}
     cfg = get_config("llama3.2-3b").reduced()
     data = SyntheticTokens(cfg.vocab_size, batch=4, seq=32, seed=3)
     inp["ckpt_dir"] = str(tmp / "ckpt")
@@ -345,6 +466,10 @@ def _reference(inp):
     for arch in FAMILIES:
         ref["family_" + arch] = step(jget(arch).reduced(),
                                      *inp["families"][arch])
+    for name, (arch, over, _m) in SERVE_CASES.items():
+        ref["serve_" + name] = _reference_serve(
+            dataclasses.replace(jget(arch).reduced(), **over),
+            inp["serve"][name])
 
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticTokens
@@ -359,6 +484,29 @@ def _reference(inp):
     ref["trainer"] = ([h["ce_loss"] for h in tr.history],
                       _tree_np(state["params"]))
     return ref
+
+
+def _reference_serve(cfg, inp):
+    """The reference's no-mesh prefill and decodes: every step's logits
+    and the caches at the end (the self-attention caches padded by the
+    decodes' positions, as ``alloc_cache`` lays them out)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models.model import LanguageModel as JModel
+    jm = JModel(cfg)
+    jp = jax.tree_util.tree_map(jnp.asarray, inp["params"])
+    logits, cache = jax.jit(jm.prefill)(
+        jp, {k: jnp.asarray(v) for k, v in inp["batch"].items()})
+    pad = [(0, 0)] * 3 + [(0, SERVE_STEPS), (0, 0)]
+    cache = {"layers": {k: jnp.pad(v, pad) if k in ("k", "v") else v
+                        for k, v in cache["layers"].items()}}
+    step = jax.jit(jm.decode_step)
+    out = [np.asarray(logits)]
+    for i, tok in enumerate(inp["decode"]):
+        logits, cache = step(jp, cache, jnp.asarray(tok),
+                             jnp.asarray(SERVE_S + i, jnp.int32))
+        out.append(np.asarray(logits))
+    return out, jax.tree_util.tree_map(np.asarray, cache)
 
 
 @pytest.fixture(scope="module")
@@ -403,9 +551,12 @@ def _params_close(got, want, tol=3e-4):
 
 @pytest.mark.parametrize("case", list(ATTN_CASES))
 def test_causal_attention_on_mesh_matches_reference(runs, case):
+    """Each rank's output and q/k/v gradients are its share of the
+    reference's (its heads, or its stripe of the sequence)."""
     results, ref = runs
-    want = ref["attn_" + case]
+    dim = _share_dim(case)
     for r in results:
+        want = [_share(t, dim, r["coord"]) for t in ref["attn_" + case]]
         got = r["attn_" + case]
         np.testing.assert_allclose(got[0], want[0], atol=2e-4, rtol=2e-4)
         for a, b, n in zip(got[1:], want[1:], "qkv"):
@@ -415,9 +566,16 @@ def test_causal_attention_on_mesh_matches_reference(runs, case):
 
 @pytest.mark.parametrize("case", list(DECODE_CASES))
 def test_decode_on_mesh_matches_reference(runs, case):
+    """Head-parallel: the rank's heads of the output and caches;
+    lse-combine: the whole output, and the rank's stripe of the caches."""
     results, ref = runs
-    want = ref["decode_" + case]
+    o, kc, vc = ref["decode_" + case]
     for r in results:
+        c = r["coord"]
+        if case == "head_parallel":
+            want = [_share(o, 2, c), _share(kc, 1, c), _share(vc, 1, c)]
+        else:
+            want = [o, _share(kc, 2, c), _share(vc, 2, c)]
         got = r["decode_" + case]
         np.testing.assert_allclose(got[0], want[0], atol=2e-4, rtol=2e-4)
         for a, b in zip(got[1:], want[1:]):
@@ -425,9 +583,11 @@ def test_decode_on_mesh_matches_reference(runs, case):
 
 
 def test_mla_decode_head_sharded_matches_reference(runs):
+    """The rank's heads of the output; the latent caches whole."""
     results, ref = runs
-    want = ref["mla_decode"]
+    o, ckv, kr = ref["mla_decode"]
     for r in results:
+        want = [_share(o, 2, r["coord"]), ckv, kr]
         got = r["mla_decode"]
         np.testing.assert_allclose(got[0], want[0], atol=2e-4, rtol=2e-4)
         for a, b in zip(got[1:], want[1:]):
@@ -452,6 +612,53 @@ def test_family_train_step_on_mesh(runs, arch):
         got = r["family_" + arch]
         assert got[0] != "refused", got
         got_m, got_p = got
+        assert abs(got_m["ce_loss"] - want_m["ce_loss"]) < 1e-3
+        _params_close(got_p, want_p)
+
+
+@pytest.mark.parametrize("case", list(SERVE_CASES))
+def test_serve_on_mesh_matches_reference(runs, case):
+    """Every step's logits, and each rank's caches as its share of the
+    reference's: the kv heads its q heads read (tensor-parallel: one of
+    two kv heads on each rank), whisper's cross caches its H/m heads;
+    where the heads stayed whole (``WHOLE``), every kv head over the
+    rank's stripe of the sequence and the cross caches whole."""
+    from repro_torch.configs import get_config
+    results, ref = runs
+    arch, over, m = SERVE_CASES[case]
+    cfg = dataclasses.replace(get_config(arch).reduced(), **over)
+    want_logits, want_cache = ref["serve_" + case]
+    h, kh = cfg.num_heads, cfg.num_kv_heads
+    split = h % m == 0
+    for r in results:
+        (logits, cache), coord = r["serve_" + case]
+        assert len(logits) == len(want_logits) == SERVE_STEPS + 1
+        for a, b in zip(logits, want_logits):
+            np.testing.assert_allclose(a, b, atol=2e-4, rtol=2e-4)
+        # the kv heads this rank's q heads read (H/m q heads a rank)
+        kv = sorted({(coord * (h // m) + i) // (h // kh)
+                     for i in range(h // m)})
+        for name, leaf in want_cache["layers"].items():
+            if name in ("k", "v") and split:
+                want = leaf[:, :, kv]
+            elif name in ("k", "v"):   # (L, B, KH, S, hd): the rank's stripe
+                want = _share(leaf, 3, coord, m)
+            elif split:    # cross caches (L, B, Se, H, hd): the rank's heads
+                want = leaf[:, :, :, coord * (h // m):(coord + 1) * (h // m)]
+            else:
+                want = leaf
+            got = cache["layers"][name]
+            assert got.shape == want.shape, (name, got.shape, want.shape)
+            np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5,
+                                       err_msg=name)
+
+
+def test_train_step_on_model4_mesh_matches_reference(runs):
+    """Reduced llama on (1, 4): q heads split, k / v whole (KH 2 < 4)."""
+    results, ref = runs
+    want_m, want_p = ref["step_llama"]
+    for r in results:
+        got_m, got_p = r["step_llama_model4"]
         assert abs(got_m["ce_loss"] - want_m["ce_loss"]) < 1e-3
         _params_close(got_p, want_p)
 
