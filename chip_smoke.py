@@ -257,12 +257,13 @@ Phases, in order; any failure raises and the script exits nonzero:
     heads) at llama's and MLA's head-sharded decode at deepseek-v2's 128
     heads; two arctic-width MoE layers (32 experts, 16 a rank) through the
     a2a dispatch, forward and backward, against the no-mesh oracle with
-    no drops; smollm-360m (all 32 layers, 2 x 8192) and llama3.2-3b (4
-    of 28 layers, 4 x 4096) trained at full width through
+    no drops; smollm-360m (MESH_SMOLLM_LAYERS = 4 of 32 layers, 2 x
+    8192) and llama3.2-3b (4 of 28 layers, 4 x 4096) trained at full
+    width through
     ``Trainer(mesh=...)`` (K1-lse twice and K3 once a layer a step on each
     rank), each with an fp32 depth-cut step held against one rank's (loss
-    1e-3, parameters 3e-4); smollm's mesh-trained state (~4.3 GB of fp32
-    params, m and v) saved by its Trainer inside the last step on the §6
+    1e-3, parameters 3e-4); smollm's mesh-trained state (fp32 params, m
+    and v) saved by its Trainer inside the last step on the §6
     sharded path by both ranks (no leaf gathered: ``host_gathers`` 0;
     sharded and replicated leaves both), resumed by a second
     ``Trainer(mesh=...)`` on the same directory (start step 3, each
@@ -329,8 +330,10 @@ from repro_torch.kernels import ops as kernel_ops  # noqa: E402
 from repro_torch.kernels import partition_copy as pc  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.kernels import autotune  # noqa: E402
+from repro_torch.kernels import counts as kcounts  # noqa: E402
 from repro_torch.kernels.autotune import plan_copy_chunk  # noqa: E402
 from repro_torch.core import NULL_GUID, Runtime, spawn_main  # noqa: E402
+from repro_torch.launch import analysis  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import blocks, moe  # noqa: E402
@@ -341,9 +344,11 @@ from repro_torch.optim.adamw import iter_leaves  # noqa: E402
 from repro_torch.train.steps import make_train_step  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet, dense): the bound of each kernel
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-PEAK_BYTES = 3.35e12
+# H100 SXM peaks (NVIDIA data sheet, dense): the bound of each kernel, the
+# dry run's roofline constants (launch.analysis)
+PEAK_FLOPS = {torch.bfloat16: analysis.H100_BF16_FLOPS,
+              torch.float32: analysis.H100_FP32_FLOPS}
+PEAK_BYTES = analysis.H100_HBM_BYTES
 # bf16 results of two fp32 computations that differ only in summation
 # order and the final rounding: one bf16 ulp is 2^-8 of |x| <= ~4 here;
 # fp32: summation order alone
@@ -553,12 +558,9 @@ def _print_profile(name, prof, wall_ms):
           + "; ".join(f"{k} {t:.3f} ms x{c}" for k, t, c in prof["top_kernels"]))
 
 
-def _live_pairs(sq, sk, q_offset, causal, window):
-    """(query, key) pairs the mask keeps: the work this input needs."""
-    pos = q_offset + np.arange(sq, dtype=np.int64)
-    hi = np.minimum(pos, sk - 1) if causal else np.full(sq, sk - 1)
-    lo = np.maximum(pos - window + 1, 0) if window > 0 else np.zeros(sq, np.int64)
-    return int(np.clip(hi - lo + 1, 0, None).sum())
+# (query, key) pairs the mask keeps: the work this input needs; the
+# kernels count their work from the same pairs (kernels.counts)
+_live_pairs = kcounts.live_pairs
 
 
 # ------------------------------------------------------------------- phases
@@ -697,11 +699,10 @@ def phase_k1(flush):
         if lib is not None:
             lib_st = _time_stats(lib, 20, flush)
             lib_dev = _time_stats(lib, 20, flush, spin=True)
-        # S over hd, P V over hd_v, per live pair
-        flops = 2 * (hd + hd_v) * h * b * _live_pairs(s, s, 0, True, win)
-        # q, k, v read once, the (B, H, S, hd_v) output written once
-        nbytes = (q.numel() + k.numel() + v.numel() * (1 + h // kh)) \
-            * q.element_size()
+        # S over hd, P V over hd_v, per live pair; q, k, v read once, the
+        # (B, H, S, hd_v) output written once (K1's own count)
+        flops, nbytes = kcounts.attention_work(
+            "k1", b, h, kh, s, s, hd, hd_v, 0, True, win, q.element_size())
         bound_ms, bound_by = _bound(flops, nbytes, dt)
         row = {"ms": st["median"], "ms_min": st["min"], "ms_max": st["max"],
                "plain_ms": plain_ms,
@@ -842,9 +843,8 @@ def phase_k5(flush):
         lib_st = _time_stats(lib, 50, flush)
         lib_dev = _time_stats(lib, 50, flush, spin=True)
         lib_host_us = _host_us(lib)
-        flops = 4 * b * kh * g * (cur - lo) * hd
-        nbytes = (2 * q.numel() + 2 * b * kh * (cur - lo) * hd) \
-            * q.element_size()
+        flops, nbytes = kcounts.decode_work(b, kh, g, cur - lo, hd,
+                                            q.element_size())
         bound_ms, bound_by = _bound(flops, nbytes, q.dtype)
         splits = fd.flash_decode.last_splits    # of the timed launches
         blocks = b * kh * splits
@@ -1547,22 +1547,11 @@ def _k_train_times(shape, seed, flush, worst, occ):
                            ql, kl, vl, is_causal=True, enable_gqa=True),
                        (ql, kl, vl), do))}
         del ql, kl, vl, lo
-    live = b * h * _live_pairs(s, s, 0, True, 0)
-    el = q.element_size()
-    qb, kb, vb, rowb = (q.numel() * el, k.numel() * el, v.numel() * el,
-                        b * h * s * 4)
-    ob = vb * h // kh                 # the output, dO: (B, H, S, hd_v)
-    work = {  # FLOP per live pair: 2 x the width of each product (S and
-        # dK, dQ over hd; dP, P V and dV over hd_v); bytes read once +
-        # written once
-        "k1_lse": (2 * (hd + hd_v) * live, qb + kb + vb + ob + rowb),
-        "k2_dq": (2 * (2 * hd + hd_v) * live,
-                  2 * qb + kb + vb + ob + 2 * rowb),
-        "k2_dkv": (2 * (2 * hd + 2 * hd_v) * live,
-                   qb + 2 * kb + 2 * vb + ob + 2 * rowb),
-        "k3": (2 * (3 * hd + 2 * hd_v) * live,
-               2 * qb + 2 * kb + 2 * vb + ob + 2 * rowb),
-    }
+    # FLOP per live pair: 2 x the width of each product (S and dK, dQ
+    # over hd; dP, P V and dV over hd_v); bytes read once + written once
+    work = {key: kcounts.attention_work(key, b, h, kh, s, s, hd, hd_v, 0,
+                                        True, 0, q.element_size())
+            for key in ("k1_lse", "k2_dq", "k2_dkv", "k3")}
     rows = {}
     names = {"k1_lse": "K1 with lse", "k2_dq": "K2 dq", "k2_dkv": "K2 dk/dv",
              "k3": "K3 fused"}
@@ -1828,12 +1817,9 @@ def phase_k4(flush):
         20, flush)
     del ql, kl, vl, lo
     b, s = MEGA_TIMED["train"]
-    live = b * h * _live_pairs(s, s, 0, True, 0)
-    el = q.element_size()
-    qb, kb, rowb = q.numel() * el, k.numel() * el, b * h * s * 4
-    work = {"k4f": (4 * hd * live, 2 * qb + 2 * kb),
-            "k4f_lse": (4 * hd * live, 2 * qb + 2 * kb + rowb),
-            "k4b": (10 * hd * live, 3 * qb + 4 * kb + 2 * rowb)}
+    work = {key: kcounts.attention_work(key, b, h, kh, s, s, hd, hd, 0, True,
+                                        0, q.element_size())
+            for key in ("k4f", "k4f_lse", "k4b")}
     plan = autotune.plan_attention(s, hd, hd, kh, b, 16, sm_count=sm)
     out_rows = {}
     names = {"k4f": "K4f", "k4f_lse": "K4f with lse", "k4b": "K4b"}
@@ -2180,11 +2166,18 @@ def _n_params(cfg):
     return cfg.vocab_size * d + d + cfg.num_layers * layer
 
 
+# smollm's depth in the restart phase (of 32), cut to keep the whole run
+# inside its time limit: the two checkpoints are host-bound
+RESTART_LAYERS = 16
+
+
 def phase_restart(ckpt_dir):
     """Deterministic mode (K2 backward): 8 uninterrupted steps against 6
-    steps that checkpoint at 4 and die at 6, resumed from 4."""
+    steps that checkpoint at 4 and die at 6, resumed from 4, with
+    ``RESTART_LAYERS`` of smollm's layers at full width."""
     print("== restart: deterministic mode, full width, bit-exact")
-    cfg = get_config("smollm-360m")
+    cfg = dataclasses.replace(get_config("smollm-360m"),
+                              num_layers=RESTART_LAYERS)
     state_bytes = 12 * _n_params(cfg)     # fp32 params, m and v
     free = shutil.disk_usage(ckpt_dir).free
     cut = None
@@ -2512,19 +2505,8 @@ def _ssd_inputs(b, h, s, p, n, dtype, seed):
     return x, dt, A, B, C
 
 
-def _ssd_work(b, h, s, p, n, chunk, el):
-    """FLOP and bytes K9's function needs for this input: per chunk of
-    v positions the causal half of C·Bᵀ and att·x, v(v+1)(N+P), and the
-    two state products 4vNP; x read and y written once, B, C, dt, A read
-    once, the fp32 state written once."""
-    q = min(chunk, s)
-    flops = 0
-    for c0 in range(0, s, q):
-        v = min(q, s - c0)
-        flops += b * h * (v * (v + 1) * (n + p) + 4 * v * n * p)
-    nbytes = (2 * b * h * s * p * el + 2 * b * s * n * el + 4 * b * h * s
-              + 4 * h + 4 * b * h * p * n)
-    return flops, nbytes
+# K9's and K9b's work: their own counts (kernels.counts)
+_ssd_work = kcounts.ssd_work
 
 
 def _ssd_tc_floor(b, h, s, p, n, chunk, el):
@@ -2654,22 +2636,7 @@ def phase_k9(flush):
             "timed": timed}
 
 
-def _ssd_bwd_work(b, h, s, p, n, chunk, el):
-    """FLOP and bytes the scan's VJP needs for this input: per chunk of v
-    positions and head, the causal half of dy·xᵀ and attᵀ·dy, 2v(v+1)P,
-    and six vPN products (the entering states, their gradients, G·Bᵀ,
-    S·Cᵀ and the state terms of dC and dB), 12vPN; per chunk and batch
-    row, the causal half of C·Bᵀ, dCB·B and dCBᵀ·C, 3v(v+1)N.  x, dy, B,
-    C, dt, A read once, dx, dB, dC, ddt, dA written once."""
-    q = min(chunk, s)
-    flops = 0
-    for c0 in range(0, s, q):
-        v = min(q, s - c0)
-        flops += b * h * (2 * v * (v + 1) * p + 12 * v * p * n)
-        flops += b * 3 * v * (v + 1) * n
-    nbytes = (3 * b * h * s * p * el + 4 * b * s * n * el + 8 * b * h * s
-              + 8 * h)
-    return flops, nbytes
+_ssd_bwd_work = kcounts.ssd_bwd_work
 
 
 # K9b's kernels: label -> a piece of the mangled name (the fp32 state pass
@@ -4885,6 +4852,10 @@ MESH_LLAMA_ARGS = ["--arch", "llama3.2-3b", "--data", "markov", "--batch",
                    "4", "--seq", "4096", "--steps", str(MESH_STEPS),
                    "--lr", "1e-3"]
 MESH_LLAMA_LAYERS = 4
+# smollm's depth under the mesh (of 32: trained, saved sharded, resumed,
+# served), cut to keep the whole run inside its time limit: the sharded
+# save is host-bound, ~0.5-0.7 ms a range, ~5,800 ranges a layer a rank
+MESH_SMOLLM_LAYERS = 4
 MESH_MOE_EXPERTS = 32
 # (batch, seq[, cached positions | decodes]) of each part of the phase
 MESH_SHAPES = {"head_attn": (4, 4096), "ctx_attn": (2, 8192),
@@ -5350,9 +5321,12 @@ MESH_PR25_LLAMA_MS = (4686.9, 4469.0)
 
 def _gemm_step(tr, state, mesh):
     """One more step of ``tr``'s model on its data's first batch, under
-    ``FlopCounterMode``: (this rank's GEMM FLOPs — the attention kernels
-    are not aten ops and are not counted —, the step's wall in ms, the
-    collectives it handed gloo {kind: [calls, bytes, largest]})."""
+    ``FlopCounterMode``: this rank's GEMM FLOPs (the attention kernels
+    are not aten ops: they count themselves, ``kernels.counts``), the
+    kernels' counts {name: [calls, flops, bytes]} and FLOPs, the step's
+    wall in ms, the collectives it handed gloo {kind: [calls, bytes,
+    largest]} and the card's peak allocated bytes during the step (the
+    state and the batch included)."""
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.dist import sharding
     from repro_torch.dist.sharding import use_mesh
@@ -5361,12 +5335,82 @@ def _gemm_step(tr, state, mesh):
     step = make_train_step(tr.model, tr.oc)
     torch.cuda.synchronize()
     sharding.reset_traffic()
+    kcounts.reset()
+    torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     with use_mesh(mesh), FlopCounterMode(display=False) as fc:
         step(state, batch)
     torch.cuda.synchronize()
-    return (int(fc.get_total_flops()), 1e3 * (time.perf_counter() - t),
-            {k: list(v) for k, v in sharding.TRAFFIC.items()})
+    return {"gemm_flops": int(fc.get_total_flops()),
+            "ms": 1e3 * (time.perf_counter() - t),
+            "traffic": {k: list(v) for k, v in sharding.TRAFFIC.items()},
+            "kernels": {k: list(v) for k, v in kcounts.KERNELS.items()},
+            "kernel_flops": sum(v[1] for v in kcounts.KERNELS.values()),
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def _mesh_layout_pass():
+    """The dry run's layout pass of llama's mesh train step
+    (``launch.dryrun.train_report``): rank 0 of ``MeshLayout((1, 2))`` on
+    the meta device, the step ``_mesh_tp`` counts on the card (4 layers,
+    the same optimizer and the same batch shapes), no process and no
+    card.  Returns its prediction: aten FLOPs, the kernels' counts and
+    FLOPs, every ``TRAFFIC`` kind's [calls, bytes], the peak bytes of the
+    storages (the state and the batch included) and its host seconds."""
+    from repro_torch.dist.sharding import MeshLayout
+    from repro_torch.launch.dryrun import train_report
+    cfg = dataclasses.replace(get_config("llama3.2-3b"),
+                              num_layers=MESH_LLAMA_LAYERS)
+    args = train_cli.parse_args(MESH_LLAMA_ARGS + ["--device", "cuda"])
+    oc = train_cli.optimizer_config(cfg, args)
+    data = SyntheticTokens(cfg.vocab_size, args.batch, args.seq, seed=0,
+                           mode="markov")
+    batch = {k: torch.empty(v.shape, dtype=torch.from_numpy(v).dtype,
+                            device="meta") for k, v in data.get(0).items()}
+    t = time.perf_counter()
+    rep = train_report(cfg, oc, batch, MeshLayout((1, 2), ("data", "model")),
+                       0)
+    secs = time.perf_counter() - t
+    pred = {"aten_flops": int(rep.aten_flops),
+            "kernel_flops": int(rep.kernel_flops), "kernels": rep.kernels,
+            "traffic": {k: [int(rep.coll_counts[k]), int(v)]
+                        for k, v in rep.coll_bytes.items()},
+            "peak_bytes": int(rep.peak_bytes), "arg_bytes": rep.arg_bytes,
+            "seconds": secs}
+    print(f"  the dry run's layout pass of llama3.2-3b's mesh step (rank 0 "
+          f"of MeshLayout((1, 2)), {MESH_LLAMA_LAYERS} layers, 4 x 4096, "
+          f"meta device): {secs:.2f} s on the host; aten FLOPs "
+          f"{rep.aten_flops / 1e12:.3f} T, kernel FLOPs "
+          f"{rep.kernel_flops / 1e12:.3f} T {rep.kernels}, peak "
+          f"{rep.peak_bytes / 1e9:.2f} GB ({rep.arg_bytes / 1e9:.2f} GB of "
+          f"state and batch), traffic {pred['traffic']}")
+    return pred
+
+
+def _check_layout_pass(pred, got, rank):
+    """Rank 0's counted step against the layout pass's prediction: GEMM
+    FLOPs, kernel FLOPs and every TRAFFIC kind's calls and bytes equal,
+    peak memory within 10 % of ``torch.cuda.max_memory_allocated``;
+    prints both and raises on a miss."""
+    traffic = {k: v[:2] for k, v in got["traffic"].items()}
+    ratio = pred["peak_bytes"] / got["peak_bytes"]
+    misses = [what for what, ok in (
+        ("GEMM FLOPs", got["gemm_flops"] == pred["aten_flops"]),
+        ("kernel FLOPs", got["kernel_flops"] == pred["kernel_flops"]),
+        ("TRAFFIC", traffic == pred["traffic"]),
+        ("peak memory", abs(ratio - 1.0) <= 0.10)) if not ok]
+    print(f"  rank {rank} against the layout pass: GEMM FLOPs "
+          f"{got['gemm_flops']} (predicted {pred['aten_flops']}); kernel "
+          f"FLOPs {got['kernel_flops']} {got['kernels']} (predicted "
+          f"{pred['kernel_flops']} {pred['kernels']}); TRAFFIC {traffic} "
+          f"(predicted {pred['traffic']}); peak "
+          f"{got['peak_bytes'] / 1e9:.3f} GB by max_memory_allocated, "
+          f"predicted {pred['peak_bytes'] / 1e9:.3f} GB (ratio {ratio:.4f}, "
+          f"limit 10 %); {'all held' if not misses else 'MISSED: ' + ', '.join(misses)}")
+    if misses:
+        raise AssertionError(f"rank {rank}: the layout pass missed "
+                             f"{misses}")
+    return {"peak_ratio": ratio, "measured": got, "predicted": pred}
 
 
 def _mesh_llama_one_rank(cfg, rank):
@@ -5380,8 +5424,9 @@ def _mesh_llama_one_rank(cfg, rank):
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         tr, state = _mesh_trainer(cfg, MESH_LLAMA_ARGS, None)
-        flops, ms, _ = _gemm_step(tr, state, None)
-        info = {"gemm_flops": flops, "counted_step_ms": ms,
+        counted = _gemm_step(tr, state, None)
+        info = {"gemm_flops": counted["gemm_flops"],
+                "counted_step_ms": counted["ms"],
                 "step_ms": [h["step_time"] * 1e3 for h in tr.history],
                 "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
         del tr, state
@@ -5390,7 +5435,7 @@ def _mesh_llama_one_rank(cfg, rank):
     return info
 
 
-def _mesh_tp(tr, state, mesh, rank, train, one, base):
+def _mesh_tp(tr, state, mesh, rank, train, one, base, prediction):
     """What tensor parallelism does to llama's bf16 mesh step (4 layers,
     4 x 4096 on each rank's half of every head, hidden unit and vocab
     row): the rank's GEMM FLOPs against one rank's, peak memory, the
@@ -5401,11 +5446,15 @@ def _mesh_tp(tr, state, mesh, rank, train, one, base):
     import torch.distributed as dist
     cfg = tr.model.cfg
     peak = (torch.cuda.max_memory_allocated() - base) / 1e9
-    flops, ms, traffic = _gemm_step(tr, state, mesh)
+    counted = _gemm_step(tr, state, mesh)
+    flops, ms, traffic = (counted["gemm_flops"], counted["ms"],
+                          counted["traffic"])
     smi = _smi()
     info = {"gemm_flops": flops, "peak_gb": peak, "counted_step_ms": ms,
             "traffic": traffic, "step_ms": train["step_ms"],
             "pr25_step_ms": list(MESH_PR25_LLAMA_MS), "device": smi}
+    if rank == 0:
+        info["layout_pass"] = _check_layout_pass(prediction, counted, rank)
     if rank == 0:
         ratio = flops / one["gemm_flops"]
         info.update(one_rank=one, flop_ratio=ratio)
@@ -5601,7 +5650,7 @@ def _smi():
                           text=True).stdout.strip()
 
 
-def _mesh_rank(rank, world, ckpt_dir, ckpt_layers):
+def _mesh_rank(rank, world, ckpt_dir, ckpt_layers, prediction):
     """Everything one rank of the mesh phase runs (the module-level
     entry ``launch.mesh.spawn`` starts on cuda:0); rank 1 prints only its
     collectives' lines.  Returns the rank's numbers."""
@@ -5644,7 +5693,7 @@ def _mesh_rank(rank, world, ckpt_dir, ckpt_layers):
         MESH_SMOLLM_ARGS, rank, mesh,
         TrainerConfig(ckpt_dir=ckpt_dir, ckpt_every=MESH_STEPS,
                       async_ckpt=False))
-    out["ckpt"] = _mesh_ckpt(tr, state, rank, mesh, smollm.num_layers)
+    out["ckpt"] = _mesh_ckpt(tr, state, rank, mesh, MESH_SMOLLM_LAYERS)
     del tr, state
     _release()
     llama4 = dataclasses.replace(llama, num_layers=MESH_LLAMA_LAYERS)
@@ -5655,7 +5704,7 @@ def _mesh_rank(rank, world, ckpt_dir, ckpt_layers):
         "llama3.2-3b (24 / 8 heads: tensor-parallel)", llama4,
         MESH_LLAMA_ARGS, rank, mesh)
     out["tp_llama"] = _mesh_tp(tr, state, mesh, rank, out["train_llama"],
-                               one, base)
+                               one, base, prediction)
     # one TP-sharded leaf's local shard, for the §6 copy in the parent
     from repro_torch.dist.sharding import use_mesh
     with use_mesh(mesh) as ctx:
@@ -5674,8 +5723,10 @@ def _mesh_rank(rank, world, ckpt_dir, ckpt_layers):
         *sh["fp32_llama"], rank, mesh)
 
     print(f"== mesh serve ({MESH_NOTE})")
-    out["serve_smollm"] = _mesh_serve("smollm-360m", smollm,
-                                      *sh["serve_smollm"], rank, mesh)
+    out["serve_smollm"] = _mesh_serve(
+        "smollm-360m", dataclasses.replace(smollm,
+                                           num_layers=MESH_SMOLLM_LAYERS),
+        *sh["serve_smollm"], rank, mesh)
     out["serve_llama"] = _mesh_serve("llama3.2-3b", llama4,
                                      *sh["serve_llama"], rank, mesh)
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -5750,9 +5801,9 @@ def _shard_kernel_times(flush):
     wgrads = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, off)
     e_bwd = max(_check_rel(f"K3 stripe d{n}", g, w, dt)[0]
                 for n, g, w in zip("qkv", grads, wgrads))
-    live = b * h * _live_pairs(sq, sk, off, True, 0)
-    el = q.element_size()
-    qb, kb, rowb = q.numel() * el, k.numel() * el, b * h * sq * 4
+    work = {key: kcounts.attention_work(key, b, h, kh, sq, sk, hd, hd, off,
+                                        True, 0, q.element_size())
+            for key in ("k1_lse", "k3")}
     mask = _window_mask(sq, sk, off, sk + 1)
     lib = _sdpa_call(q, k, v, attn_mask=mask)
     libs = {"k1_lse": lib, "k3": (_sdpa_backward(q, k, v, do, attn_mask=mask)
@@ -5761,11 +5812,11 @@ def _shard_kernel_times(flush):
     for key, fn, plain, flops, nbytes, err in (
             ("k1_lse", lambda: fa.flash_attention_fwd(q, k, v, off),
              lambda: fa.flash_attention_plain(q, k, v, off, with_lse=True),
-             4 * hd * live, qb + 2 * kb + qb + rowb, e_fwd),
+             *work["k1_lse"], e_fwd),
             ("k3", lambda: fa.flash_attention_bwd_fused(q, k, v, do, lse,
                                                         delta, off),
              lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, do, off),
-             10 * hd * live, 3 * qb + 4 * kb + 2 * rowb, e_bwd)):
+             *work["k3"], e_bwd)):
         st = _time_stats(fn, 10, flush)
         bound_ms, bound_by = _bound(flops, nbytes, dt)
         rows[key] = {"timed_shape": f"B={b} H={h} KH={kh} Sq={sq} Sk={sk} "
@@ -5818,7 +5869,7 @@ def phase_mesh():
     context-parallel), decode (the rank's kv heads, and the lse-combine
     over its stripe) and MLA's decode on each rank's share at full-width
     shapes against that share of one rank's call; arctic-width MoE a2a against the
-    no-mesh oracle; smollm-360m (all 32 layers, saving a sharded
+    no-mesh oracle; smollm-360m (4 of 32 layers, saving a sharded
     checkpoint that a second mesh Trainer resumes) and llama3.2-3b (4
     layers) trained at full width through ``Trainer(mesh=...)`` with
     tensor parallelism (each rank its heads, hidden units and vocab rows;
@@ -5827,11 +5878,15 @@ def phase_mesh():
     served under the mesh (fp32) against one rank, every rank's caches
     against its share of the one-rank caches; then, in the parent, the §6
     ranges of a sharded leaf through K7 and the kernels timed at their
-    shard shapes."""
+    shard shapes.  Before the ranks start, the parent runs the dry run's
+    layout pass of llama's step (rank 0 of a ``MeshLayout``, meta
+    tensors); rank 0's counted step must equal its GEMM FLOPs, kernel
+    FLOPs and every ``TRAFFIC`` kind, and its peak memory within 10 %."""
     from repro_torch.launch import mesh as mesh_launch
     smi = _smi()
     print(f"== mesh: 2 ranks on cuda:0 over gloo, mesh (1, 2) "
           f"('data', 'model'); {smi}; {MESH_NOTE}")
+    prediction = _mesh_layout_pass()
     _release()
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_ckpt_")
     try:
@@ -5839,7 +5894,8 @@ def phase_mesh():
         t0 = time.perf_counter()
         ranks = mesh_launch.spawn(_mesh_rank, 2, backend="gloo",
                                   devices=["cuda:0", "cuda:0"],
-                                  args=(ckpt_dir, layers), timeout_s=900)
+                                  args=(ckpt_dir, layers, prediction),
+                                  timeout_s=900)
         wall = time.perf_counter() - t0
         print(f"  the ranks ran {wall:.1f} s ({MESH_NOTE}; {smi})")
         one_rank = _mesh_ckpt_one_device(ranks, ckpt_dir, layers)
@@ -5867,13 +5923,14 @@ def phase_mesh():
         res.pop("k7_leaf")
     return {"ranks": ranks, "wall_s": wall, "k7": k7,
             "ckpt_one_device": one_rank, "shard_kernels": shard_rows,
-            "device": smi, "note": MESH_NOTE}
+            "layout_pass": prediction, "device": smi, "note": MESH_NOTE}
 
 
 def _mesh_ckpt_layers(ckpt_dir):
-    """smollm's depth for the mesh checkpoint: all 32 layers unless the
-    disk cannot hold the ~4.3 GB state twice."""
-    cfg = get_config("smollm-360m")
+    """smollm's depth for the mesh train and checkpoint:
+    ``MESH_SMOLLM_LAYERS`` unless the disk cannot hold the state twice."""
+    cfg = dataclasses.replace(get_config("smollm-360m"),
+                              num_layers=MESH_SMOLLM_LAYERS)
     state_bytes = 12 * _n_params(cfg)     # fp32 params, m and v
     free = shutil.disk_usage(ckpt_dir).free
     layers = cfg.num_layers

@@ -695,6 +695,60 @@ def _itemsize(dtype: Any) -> int:
     return np.dtype(dtype).itemsize
 
 
+def _leaf_writes(shape: Tuple[int, ...], itemsize: int, sharding: Any,
+                 num_writers: int) -> Tuple[int, int, Dict[int, int]]:
+    """(ranges, bytes, {node: write ops}) of one leaf's sharded write:
+    :func:`range_owners`' table — each distinct shard's §6 ranges,
+    written by the node of the first rank in mesh order that holds it —
+    with each node's adjacent ranges coalesced into one op, in numpy
+    (the counts of the table, without its millions of tuples)."""
+    from repro_torch.dist.sharding import mesh_ranks
+    shape = tuple(int(d) for d in shape)
+    if not shape:
+        return 1, itemsize, {0: 1}
+    if int(np.prod(shape)) == 0:
+        return 0, 0, {}
+    strides = [itemsize] * len(shape)
+    for i in range(len(shape) - 2, -1, -1):
+        strides[i] = strides[i + 1] * shape[i + 1]
+    nodes: Dict[int, List[Tuple[np.ndarray, int]]] = {}
+    seen = set()
+    for pos, rank in enumerate(int(r) for r in mesh_ranks(sharding.mesh).flat):
+        idx = sharding.index_of(shape, rank)
+        starts = [0 if sl.start is None else int(sl.start) for sl in idx]
+        lens = [d - st if sl.stop is None else int(sl.stop) - st
+                for sl, st, d in zip(idx, starts, shape)]
+        if tuple(starts) in seen:            # a replica: its ranges are seen
+            continue
+        seen.add(tuple(starts))
+        k = len(shape)
+        while k > 0 and lens[k - 1] == shape[k - 1]:
+            k -= 1
+        if k == 0:
+            offs, run = np.zeros(1, np.int64), int(np.prod(shape)) * itemsize
+        else:
+            run = lens[k - 1] * strides[k - 1]
+            offs = np.full(1, starts[k - 1] * strides[k - 1], np.int64)
+            for d in range(k - 1):
+                offs = (offs[:, None] + (starts[d] + np.arange(
+                    lens[d], dtype=np.int64))[None, :] * strides[d]
+                        ).reshape(-1)
+        nodes.setdefault(pos % num_writers, []).append((offs, run))
+    ranges = nbytes = 0
+    ops: Dict[int, int] = {}
+    for node, parts in nodes.items():
+        offs = np.concatenate([o for o, _ in parts])
+        runs = np.concatenate([np.full(len(o), r, np.int64)
+                               for o, r in parts])
+        order = np.argsort(offs, kind="stable")
+        offs, runs = offs[order], runs[order]
+        ranges += len(offs)
+        nbytes += int(runs.sum())
+        ops[node] = 1 + int(np.count_nonzero(offs[1:] != offs[:-1]
+                                             + runs[:-1]))
+    return ranges, nbytes, ops
+
+
 def io_cost(shapes: Any, shardings: Any, *, io_latency: float = 1.0,
             num_writers: Optional[int] = None) -> Dict[str, float]:
     """Model a sharded checkpoint write under the §5 latency model.
@@ -703,10 +757,11 @@ def io_cost(shapes: Any, shardings: Any, *, io_latency: float = 1.0,
     tree of anything with ``.shape`` and ``.dtype`` (meta tensors, numpy
     arrays), ``shardings`` a matching tree of ``NamedSharding`` on a
     ``MeshLayout`` or a live mesh.  Lowers every leaf to its §6 ranges,
-    dedups replicas, assigns ranges to writer nodes (:func:`range_owners`),
-    coalesces each node's adjacent ranges, and charges ``io_latency`` per
-    post-coalescing op on per-node disks: the virtual write time is the
-    busiest node's op count × the latency (the reference's ``io_cost``).
+    dedups replicas, assigns ranges to writer nodes (as
+    :func:`range_owners`), coalesces each node's adjacent ranges, and
+    charges ``io_latency`` per post-coalescing op on per-node disks: the
+    virtual write time is the busiest node's op count × the latency (the
+    reference's ``io_cost``).
     """
     from repro_torch.dist.sharding import NamedSharding, mesh_ranks
     sh_by_path = dict(_flatten(shardings))
@@ -719,16 +774,12 @@ def io_cost(shapes: Any, shardings: Any, *, io_latency: float = 1.0,
             continue
         if num_writers is None:
             num_writers = int(mesh_ranks(sharding.mesh).size)
-        by_node: Dict[int, List[Tuple[int, int]]] = {}
-        for (node, off, size, _r, _p) in range_owners(
-                tuple(leaf.shape), _itemsize(leaf.dtype), sharding,
-                num_writers):
-            by_node.setdefault(node, []).append((off, size))
-        for node, ranges in by_node.items():
-            ranges_total += len(ranges)
-            bytes_total += sum(s for _o, s in ranges)
-            ops_per_node[node] = ops_per_node.get(node, 0) \
-                + len(_node_spans(ranges))
+        ranges, nbytes, ops = _leaf_writes(
+            tuple(leaf.shape), _itemsize(leaf.dtype), sharding, num_writers)
+        ranges_total += ranges
+        bytes_total += nbytes
+        for node, n in ops.items():
+            ops_per_node[node] = ops_per_node.get(node, 0) + n
     ops = sum(ops_per_node.values())
     return {
         "ranges": ranges_total,

@@ -144,7 +144,8 @@ def place_state(state: Dict[str, Any], mesh,
                 pure_dp: bool = False) -> Dict[str, Any]:
     """A whole train state of tensors → this rank's shards on ``mesh``
     (contiguous copies on the leaves' device; in ``pure_dp`` mode every
-    leaf stays whole)."""
+    leaf stays whole).  The whole leaves leave ``state`` as their shards
+    are made (``dist.sharding.shard_tree``)."""
     import torch.distributed as dist
     from repro_torch.dist.sharding import (ShardCtx, shard_tree,
                                            state_shardings_of)

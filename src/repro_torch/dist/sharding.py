@@ -24,6 +24,14 @@ name, or a tuple of names — compared entry by entry with the reference's
 ``ShardCtx`` over a ``torch.distributed.device_mesh.DeviceMesh`` with the
 same dim names.
 
+*A layout rank* (the dry run, ``launch.dryrun``).  ``use_mesh(layout,
+rank=r)`` installs a ``ShardCtx`` that stands for rank ``r`` of a
+``MeshLayout``: its coordinates come from :func:`rank_coords`, and the
+collectives take meta tensors only — they hand back what the live call
+would (the same allocations, of the same shapes) and count :data:`TRAFFIC`
+as a live rank does, with no process group and no data.  A CPU or CUDA
+tensor on a layout raises, and so does a meta tensor on a live mesh.
+
 The port runs a mesh as SPMD over plain local tensors.  Every rank runs
 the same program: parameters and moments are stored as the local shards
 ``param_shardings`` gives (:func:`shard_tree`).  An entry point gathers
@@ -149,12 +157,15 @@ class ShardCtx:
     its batch over while it computes its own rows (its parameter
     gradients and loss statistics then sum over them); ``seq_split`` says
     that the residual stream a layer receives holds this rank's stripe
-    of the sequence over "model" (``models.tp``)."""
+    of the sequence over "model" (``models.tp``).  On a ``MeshLayout``
+    ``rank`` is the rank the context stands for (None: no rank, and
+    :meth:`coord` raises)."""
 
     mesh: Any = None
     pure_dp: bool = False
     split_batch: Tuple[str, ...] = ()
     seq_split: bool = False
+    rank: Optional[int] = None
 
     @property
     def active(self) -> bool:
@@ -223,8 +234,12 @@ class ShardCtx:
         if not self.active or axis not in self.axis_sizes:
             return 0
         if isinstance(self.mesh, MeshLayout):
-            raise RuntimeError("a MeshLayout has no live ranks; use_mesh "
-                               "takes a DeviceMesh for a live run")
+            if self.rank is None:
+                raise RuntimeError("a MeshLayout has no live ranks: use_mesh "
+                                   "takes a DeviceMesh for a live run, or "
+                                   "rank= for the rank a layout pass stands "
+                                   "for")
+            return rank_coords(self.mesh, self.rank)[axis]
         return int(self.mesh.get_local_rank(axis))
 
     def group(self, axis: str):
@@ -240,11 +255,15 @@ def current_ctx() -> ShardCtx:
     return _CTX_STACK[-1] if _CTX_STACK else _NULL_CTX
 
 
-def use_mesh(mesh, pure_dp: bool = False):
+def use_mesh(mesh, pure_dp: bool = False, rank: Optional[int] = None):
     """Install ``mesh`` (a ``DeviceMesh``; None for single-device
-    semantics) as the ambient sharding context.  In ``pure_dp`` mode the
-    batch shards over every mesh axis and weights stay replicated."""
-    return installed(ShardCtx(mesh=mesh, pure_dp=pure_dp))
+    semantics; a ``MeshLayout`` with the ``rank`` a layout pass stands
+    for) as the ambient sharding context.  In ``pure_dp`` mode the batch
+    shards over every mesh axis and weights stay replicated."""
+    if rank is not None and not isinstance(mesh, MeshLayout):
+        raise ValueError("rank= names a rank of a MeshLayout; a live mesh "
+                         "knows its own")
+    return installed(ShardCtx(mesh=mesh, pure_dp=pure_dp, rank=rank))
 
 
 @contextlib.contextmanager
@@ -504,15 +523,24 @@ def moe_bucket_ranges(num_experts: int, capacity: int, width: int,
 
 def shard_of(full: torch.Tensor, sharding: NamedSharding,
              rank: int) -> torch.Tensor:
-    """``rank``'s shard of ``full`` (a contiguous copy)."""
-    return full[sharding.index_of(full.shape, rank)].contiguous()
+    """``rank``'s shard of ``full``: a contiguous copy in storage of its
+    own (a slice of leading rows is already contiguous, and as a view it
+    would keep the whole leaf's storage alive)."""
+    return full[sharding.index_of(full.shape, rank)].clone(
+        memory_format=torch.contiguous_format)
 
 
 def shard_tree(tree: Any, shardings: Any, rank: int) -> Any:
-    """Every leaf of ``tree`` cut to ``rank``'s shard."""
-    if isinstance(tree, dict):
-        return {k: shard_tree(v, shardings[k], rank) for k, v in tree.items()}
-    return shard_of(tree, shardings, rank)
+    """Every leaf of ``tree`` cut to ``rank``'s shard.  Each leaf leaves
+    ``tree`` (a dict, emptied) once its shard is made, so a whole state
+    is never held beside its shards."""
+    if not isinstance(tree, dict):
+        return shard_of(tree, shardings, rank)
+    out = {}
+    for k in list(tree):
+        out[k] = shard_tree(tree[k], shardings[k], rank)
+        del tree[k]
+    return out
 
 
 # -------------------------------------------------------- collectives
@@ -536,6 +564,19 @@ def reset_traffic() -> None:
     TRAFFIC.clear()
 
 
+def on_layout(x: torch.Tensor, ctx: ShardCtx) -> bool:
+    """Whether a collective on ``x`` is a layout rank's (a meta tensor on
+    a ``MeshLayout``: no backend call) rather than a live one.  A meta
+    tensor on a live mesh, or a real one on a layout, raises."""
+    layout = isinstance(ctx.mesh, MeshLayout)
+    if (x.device.type == "meta") != layout:
+        raise RuntimeError(
+            f"a {x.device.type} tensor on a "
+            f"{'MeshLayout' if layout else 'live mesh'}: a layout rank "
+            f"takes meta tensors only, a live rank real ones")
+    return layout
+
+
 def all_reduce(x: torch.Tensor, axes, ctx: ShardCtx, op: str = "sum"
                ) -> torch.Tensor:
     """In place over every axis of ``axes`` (a name or a tuple); returns
@@ -546,7 +587,8 @@ def all_reduce(x: torch.Tensor, axes, ctx: ShardCtx, op: str = "sum"
     for a in _entry_axes(axes):
         if ctx.axis_sizes.get(a, 1) > 1:
             count_traffic("all_reduce/" + a, x)
-            dist.all_reduce(x, op=red, group=ctx.group(a))
+            if not on_layout(x, ctx):
+                dist.all_reduce(x, op=red, group=ctx.group(a))
     return x
 
 
@@ -563,7 +605,8 @@ def all_gather(x: torch.Tensor, dim: int, axes, ctx: ShardCtx,
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(n)]
         count_traffic(f"{kind}/{a}", x)
-        dist.all_gather(parts, x, group=ctx.group(a))
+        if not on_layout(x, ctx):
+            dist.all_gather(parts, x, group=ctx.group(a))
         x = torch.cat(parts, dim=dim)
     return x
 
@@ -579,7 +622,8 @@ def reduce_scatter(x: torch.Tensor, dim: int, axis: str, ctx: ShardCtx
     front = x.movedim(dim, 0).contiguous()
     out = front.new_empty((front.shape[0] // n, *front.shape[1:]))
     count_traffic("reduce_scatter/" + axis, front)
-    dist.reduce_scatter_tensor(out, front, group=ctx.group(axis))
+    if not on_layout(front, ctx):
+        dist.reduce_scatter_tensor(out, front, group=ctx.group(axis))
     return out.movedim(0, dim)
 
 

@@ -25,7 +25,11 @@ The CUDA sources' headers say how the TPU grids' sequential axes became
 loops inside one thread block and how the tiles fit the card.  Each
 kernel has a wrapper with a ``launches`` counter and a plain PyTorch
 version, which the wrapper takes for CPU tensors; a CUDA tensor launches
-the kernel or raises.
+the kernel or raises.  A meta tensor (the dry run, ``launch.cost``)
+takes the meta route: the checks, the outputs and the scratch the CUDA
+route allocates (lse, K3's fp32 dq accumulator), at their shapes and
+dtypes, and no launch.  Both routes add the kernel's FLOPs and bytes to
+``kernels.counts.KERNELS`` on every call.
 
 :func:`flash_attention` is differentiable and plans each call from its
 shapes, dtype and tile pins (``kernels/autotune.plan_attention``), as the
@@ -72,7 +76,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from . import _build, autotune
+from . import _build, autotune, counts
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -185,16 +189,18 @@ def _check(name, q, k, v, *rest):
     b, h, _sq, hd = q.shape
     _, kh, _sk, _ = k.shape
     tensors = (q, k, v, *rest)
-    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
-        raise ValueError(f"{name}: every tensor must lie on one CUDA device")
+    if q.device.type not in ("cuda", "meta") or any(
+            t.device != q.device for t in tensors):
+        raise ValueError(f"{name}: every tensor must lie on one CUDA device "
+                         "(or all on meta)")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
         raise TypeError(f"{name}: dtype {q.dtype} (want one of "
                         f"{list(_DTYPES)} on all of q, k, v)")
     check_head_dim(name, q, k, v)
     if h % kh or k.shape[0] != b:
         raise ValueError(f"{name}: {h} q heads over {kh} kv heads")
-    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
-               for t in tensors):
+    if q.device.type == "cuda" and not all(
+            t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors):
         raise ValueError(f"{name}: tensors must be contiguous and 16-byte "
                          "aligned")
 
@@ -246,9 +252,23 @@ def _stream(q):
     return torch.cuda.current_stream(q.device).cuda_stream
 
 
+def _count(name, q, k, v, q_offset, causal, window) -> bool:
+    """Add kernel ``name``'s work on these shapes to ``counts.KERNELS``;
+    True where the call launches it (a CUDA tensor), False on meta."""
+    b, h, sq, hd = q.shape
+    _, kh, sk, _ = k.shape
+    counts.count(name, counts.attention_work(
+        name, b, h, kh, sq, sk, hd, v.shape[-1], int(q_offset), causal,
+        window, q.element_size()))
+    return q.device.type == "cuda"
+
+
 def _fwd_kernel(q, k, v, q_offset, causal, window, lse):
     _check("flash_attention", q, k, v)
     out = q.new_empty((*q.shape[:3], v.shape[-1]))
+    if not _count("k1" if lse is None else "k1_lse", q, k, v, q_offset,
+                  causal, window):
+        return out
     err = _build.load().repro_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
@@ -273,7 +293,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, h, sq, _ = q.shape
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     out = _fwd_kernel(q, k, v, q_offset, causal, window, lse)
-    flash_attention_fwd.launches += 1
+    flash_attention_fwd.launches += q.device.type == "cuda"
     return out, lse
 
 
@@ -288,6 +308,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, q_offset: int = 0, *,
                           window)[0]
     _check_bwd("flash_attention_bwd_dq", q, k, v, do, lse, delta)
     dq = torch.empty_like(q)
+    if not _count("k2_dq", q, k, v, q_offset, causal, window):
+        return dq
     err = _build.load().repro_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
@@ -307,6 +329,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, q_offset: int = 0, *,
                           window)[1:]
     _check_bwd("flash_attention_bwd_dkv", q, k, v, do, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if not _count("k2_dkv", q, k, v, q_offset, causal, window):
+        return dk, dv
     err = _build.load().repro_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -330,6 +354,8 @@ def flash_attention_bwd_fused(q, k, v, do, lse, delta, q_offset: int = 0, *,
     _check_bwd("flash_attention_bwd_fused", q, k, v, do, lse, delta)
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if not _count("k3", q, k, v, q_offset, causal, window):
+        return dq_acc.to(q.dtype), dk, dv
     err = _build.load().repro_flash_bwd_fused(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(),
@@ -388,6 +414,9 @@ def flash_attention_mega_fwd(q: torch.Tensor, k: torch.Tensor,
     out = q.new_empty((*q.shape[:3], v.shape[-1]))
     lse = (torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
            if with_lse else None)
+    if not _count("k4f_lse" if with_lse else "k4f", q, k, v, q_offset,
+                  causal, window):
+        return (out, lse) if with_lse else out
     err = _build.load().repro_flash_mega_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
@@ -420,6 +449,8 @@ def flash_attention_mega_bwd(q, k, v, do, lse, delta, q_offset: int = 0, *,
     # no query rows: no block runs, and dk, dv are zero
     alloc = torch.zeros_like if q.shape[2] == 0 else torch.empty_like
     dk, dv = alloc(k), alloc(v)
+    if not _count("k4b", q, k, v, q_offset, causal, window):
+        return dq, dk, dv
     err = _build.load().repro_flash_mega_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
@@ -581,7 +612,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_plain(q, k, v, q_offset, causal=causal,
                                      window=window)
     out = _fwd_kernel(q, k, v, q_offset, causal, window, None)
-    flash_attention.launches += 1
+    flash_attention.launches += q.device.type == "cuda"
     return out
 
 

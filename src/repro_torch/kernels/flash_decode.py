@@ -14,13 +14,17 @@ rows at or past ``cur_len`` and, with a window, rows before
 head width that is a multiple of 8 up to 128
 (``autotune.kernel_head_dim``): compiled at 64 and 128, it zero-fills
 the columns past hd in shared memory, and the wrapper passes 1/√hd.
+A meta tensor (the dry run) takes the meta route: the checks, the
+output and the split partials at their shapes, no launch.  Both routes
+add K5's work to ``kernels.counts.KERNELS``, over every cache position
+(or the window): the wrapper never reads ``cur_len``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from . import _build, autotune
+from . import _build, autotune, counts
 from .flash_attention import _sm_count
 
 NEG_INF = -1e30
@@ -110,26 +114,32 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
         return flash_decode_plain(q, k_cache, v_cache, cur_len, window=window)
     b, kh, g, hd = q.shape
     s = k_cache.shape[2]
-    if q.device.type != "cuda" or any(
+    if q.device.type not in ("cuda", "meta") or any(
             t.device != q.device for t in (k_cache, v_cache, cur_len)):
         raise ValueError("flash_decode: all operands must share one CUDA "
-                         "device")
+                         "device (or all lie on meta)")
     if not (q.dtype == k_cache.dtype == v_cache.dtype) or q.dtype not in _DTYPES:
         raise TypeError(f"flash_decode: dtype {q.dtype} (want one of "
                         f"{list(_DTYPES)} on q and both caches)")
     if cur_len.dtype != torch.int32 or cur_len.numel() != 1:
         raise TypeError("flash_decode: cur_len must be one int32 element")
     check_shapes(q, k_cache, v_cache)
-    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
-               for t in (q, k_cache, v_cache)):
+    meta = q.device.type == "meta"
+    if not meta and not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+                            for t in (q, k_cache, v_cache)):
         raise ValueError("flash_decode: q and caches must be contiguous and "
                          "16-byte aligned")
-    splits = autotune.decode_splits(b, kh, s, int(window),
-                                    _sm_count(q.device.index))
+    splits = autotune.decode_splits(
+        b, kh, s, int(window),
+        autotune.SM_COUNT if meta else _sm_count(q.device.index))
     out = torch.empty_like(q)
     # per split and query row: acc (hd), then m, then l, all fp32
     part = torch.empty(b * kh * splits * g * (hd + 2), dtype=torch.float32,
                        device=q.device)
+    counts.count("k5", counts.decode_work(
+        b, kh, g, counts.decode_span(s, int(window)), hd, q.element_size()))
+    if meta:
+        return out
     err = _build.load().repro_flash_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         cur_len.data_ptr(), out.data_ptr(), part.data_ptr(), b, kh, g, s,

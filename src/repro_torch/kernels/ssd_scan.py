@@ -45,6 +45,11 @@ route runs K9b's CUDA-core kernels.  The scratches (the states and their
 gradients, B·H·nc·P·N·4 bytes each, 268 MB at mamba2's 4 × 4096) are
 allocated per call and freed when it returns.  On the CPU autograd
 differentiates the plain forward.
+
+A meta tensor (the dry run) takes the meta route: the checks, the
+outputs and the scratches each route allocates at their shapes, no
+launch.  Both routes add K9's and K9b's work to
+``kernels.counts.KERNELS`` (``"k9"``, ``"k9b"``).
 """
 from __future__ import annotations
 
@@ -52,7 +57,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, counts
 from .autotune import SM_COUNT
 from .flash_attention import _sm_count
 
@@ -289,8 +294,10 @@ def _check(x, dt, A, B, C, chunk):
     b, h, s, p = x.shape
     n = B.shape[-1]
     dev = x.device
-    if dev.type != "cuda" or any(t.device != dev for t in (dt, A, B, C)):
-        raise ValueError("ssd_scan: all operands must share one CUDA device")
+    if dev.type not in ("cuda", "meta") or any(
+            t.device != dev for t in (dt, A, B, C)):
+        raise ValueError("ssd_scan: all operands must share one CUDA device "
+                         "(or all lie on meta)")
     if x.dtype not in _DTYPES or B.dtype != x.dtype or C.dtype != x.dtype:
         raise TypeError(f"ssd_scan: x, B, C dtypes {x.dtype}, {B.dtype}, "
                         f"{C.dtype} (want one of {list(_DTYPES)} on all three)")
@@ -334,7 +341,9 @@ def _launch_tc(x, dt, A, B, C, chunk, stages, scratch=None):
     b, h, s, p = x.shape
     n = B.shape[-1]
     nc = -(-s // min(chunk, s))
-    x, B, C = _aligned(x), _aligned(B), _aligned(C)
+    meta = x.device.type == "meta"
+    if not meta:
+        x, B, C = _aligned(x), _aligned(B), _aligned(C)
     # y in x's layout, as the fp32 route's; the state only where K9s runs
     y = torch.empty_like(x) if stages & 2 else x
     state = torch.empty((b, h, p, n) if stages & 1 else (0,),
@@ -342,6 +351,8 @@ def _launch_tc(x, dt, A, B, C, chunk, stages, scratch=None):
     if scratch is None:
         scratch = torch.empty((b, h, nc, 2, p, n), dtype=torch.bfloat16,
                               device=x.device)
+    if meta:
+        return {1: (scratch, state), 2: y, 3: (y, state)}[stages]
     err = _build.load().repro_ssd_scan_tc(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
         C.data_ptr(), y.data_ptr(), state.data_ptr(), scratch.data_ptr(), b,
@@ -383,16 +394,23 @@ def _launch(x, dt, A, B, C, chunk):
     _check(x, dt, A, B, C, chunk)
     b, h, s, p = x.shape
     n = B.shape[-1]
-    ssd_scan.last_route = route(x.dtype, p, n, min(chunk, s))
-    ssd_scan.route_launches[ssd_scan.last_route] += 1
-    if ssd_scan.last_route == "tc":
+    counts.count("k9", counts.ssd_work(b, h, s, p, n, chunk,
+                                       x.element_size()))
+    which = route(x.dtype, p, n, min(chunk, s))
+    meta = x.device.type == "meta"
+    if not meta:
+        ssd_scan.last_route = which
+        ssd_scan.route_launches[which] += 1
+    if which == "tc":
         out = _launch_tc(x, dt, A, B, C, chunk, 3)
-        ssd_scan.launches += 1
+        ssd_scan.launches += not meta
         return out
     # empty_like keeps x's strides when x is a dense view, so a transposed
     # view of the model layout gets its output in the model layout too
     y = torch.empty_like(x)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    if meta:
+        return y, state
     err = _build.load().repro_ssd_scan(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
         C.data_ptr(), y.data_ptr(), state.data_ptr(), b, h, s, p, n, chunk,
@@ -412,6 +430,8 @@ def _dstates_tc(dy, dt, A, C, dstate, chunk):
     dy, C = _aligned(dy), _aligned(C)
     scratch = torch.empty((b, h, nc, 2, p, n), dtype=torch.bfloat16,
                           device=dy.device)
+    if dy.device.type == "meta":
+        return scratch
     err = _build.load().repro_ssd_dstates_tc(
         dy.data_ptr(), dt.data_ptr(), A.data_ptr(), C.data_ptr(),
         0 if dstate is None else dstate.data_ptr(), scratch.data_ptr(), b, h,
@@ -444,17 +464,27 @@ def _launch_bwd(x, dt, A, B, C, dy, dstate, chunk):
     if route(x.dtype, p, n, min(chunk, s)) == "tc":
         states, _ = _launch_tc(x, dt, A, B, C, chunk, 1)
         dstates = _dstates_tc(dy, dt, A, C, dstate, chunk)
-    lib = _build.load()
-    nbytes = ctypes.c_longlong(0)
-    _build.check(lib.repro_ssd_scan_bwd_workspace(
-        b, h, s, p, n, chunk, int(states is None), ctypes.byref(nbytes)),
-        "ssd_scan backward workspace")
-    work = torch.empty(nbytes.value, dtype=torch.uint8, device=x.device)
+    meta = x.device.type == "meta"
+    if meta:
+        nbytes = bwd_workspace_bytes(b, h, s, p, n, chunk, states is None)
+    else:
+        lib = _build.load()
+        size = ctypes.c_longlong(0)
+        _build.check(lib.repro_ssd_scan_bwd_workspace(
+            b, h, s, p, n, chunk, int(states is None), ctypes.byref(size)),
+            "ssd_scan backward workspace")
+        nbytes = size.value
+    work = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     dx = torch.empty_like(x)
     ddt = torch.empty_like(dt)
     dA = torch.empty_like(A)
     dB = torch.empty_like(B, memory_format=torch.contiguous_format)
     dC = torch.empty_like(C, memory_format=torch.contiguous_format)
+
+    counts.count("k9b", counts.ssd_bwd_work(b, h, s, p, n, chunk,
+                                            x.element_size()))
+    if meta:
+        return dx, ddt, dA, dB, dC
 
     def ptr(t):
         return 0 if t is None else t.data_ptr()
@@ -471,6 +501,26 @@ def _launch_bwd(x, dt, A, B, C, dy, dstate, chunk):
     _build.check(err, "ssd_scan backward launch")
     ssd_scan.bwd_launches += 1
     return dx, ddt, dA, dB, dC
+
+
+def bwd_workspace_bytes(b: int, h: int, s: int, p: int, n: int, chunk: int,
+                        own_states: bool) -> int:
+    """Bytes of K9b's fp32 workspace, as ``repro_ssd_scan_bwd_workspace``
+    (``csrc/ssd_scan_bwd.cu``) sizes it: with ``own_states`` (the fp32
+    route) the states, their gradients and the K9bg → K9bx handoff, then
+    dCB per (batch, chunk, group of 8 heads) at the padded chunk and the
+    dA shares; each piece rounded up to 64 floats."""
+    def up(k):
+        return (k + 63) // 64 * 64
+    q = min(chunk, s)
+    nc = -(-s // q)
+    bhc = b * h * nc
+    qp = 16 if q <= 16 else -(-q // 32) * 32
+    groups = -(-h // min(h, 8))
+    total = (2 * up(bhc * p * n) + up(bhc * q * p) + 2 * up(bhc * q)
+             + up(bhc) if own_states else 0)
+    total += up(b * nc * groups * qp * qp) + up(bhc)
+    return total * 4
 
 
 class _SSDScan(torch.autograd.Function):

@@ -717,6 +717,13 @@ class LanguageModel:
 
     # ----------------------------------------------------------------- cache
 
+    def cache_spec(self, batch: int, seq: int) -> Any:
+        """The decode cache tree on the meta device (shapes and dtypes, no
+        storage), as the reference's ``cache_spec`` gives it for an AOT
+        decode step: :meth:`alloc_cache`'s leaves, names and shapes —
+        under a mesh, this rank's share of each."""
+        return LanguageModel(self.cfg, device="meta").alloc_cache(batch, seq)
+
     def alloc_cache(self, batch: int, seq: int,
                     init: Optional[Any] = None) -> Any:
         """Zeroed decode cache in the reference's ``cache_spec`` layout:

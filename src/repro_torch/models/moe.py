@@ -57,8 +57,8 @@ import torch.nn.functional as F
 from repro_torch.dist.sharding import (_entry_axes, all_gather, all_reduce,
                                       chunk_of, count_traffic, current_ctx,
                                       gather, gather_param, gather_seq,
-                                      moe_bucket_ranges, psum, scatter_seq,
-                                      split, whole)
+                                      moe_bucket_ranges, on_layout, psum,
+                                      scatter_seq, split, whole)
 from . import tp
 from .layers import Params, _dtype, dense_init, mlp_init, stack_trees
 
@@ -343,7 +343,8 @@ def _all_to_all(x: torch.Tensor, sctx) -> torch.Tensor:
     x = x.contiguous()
     out = torch.empty_like(x)
     count_traffic("all_to_all/model", x)
-    dist.all_to_all_single(out, x, group=sctx.group("model"))
+    if not on_layout(x, sctx):
+        dist.all_to_all_single(out, x, group=sctx.group("model"))
     return out
 
 

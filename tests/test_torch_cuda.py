@@ -1583,3 +1583,47 @@ def test_encdec_and_vlm_models_on_the_card_match_the_cpu(cuda, arch):
     for a, c in zip(grads_g, grads_c):
         assert (a.cpu() - c).abs().max().item() <= \
             1e-4 * max(c.abs().max().item(), 1e-30)
+
+
+@pytest.mark.parametrize("b,h,s,p,n,chunk", [
+    (4, 64, 4096, 64, 128, 128), (1, 5, 100, 32, 16, 16),
+    (2, 9, 70, 64, 64, 64), (1, 3, 40, 8, 8, 128)])
+@pytest.mark.parametrize("own", [False, True])
+def test_k9b_workspace_size_mirrors_the_kernel(cuda, b, h, s, p, n, chunk,
+                                               own):
+    """The meta route sizes K9b's workspace in Python: the C entry's
+    bytes."""
+    import ctypes
+    from repro_torch.kernels import _build
+    size = ctypes.c_longlong(0)
+    _build.check(_build.load().repro_ssd_scan_bwd_workspace(
+        b, h, s, p, n, chunk, int(own), ctypes.byref(size)), "workspace")
+    assert ssd.bwd_workspace_bytes(b, h, s, p, n, chunk, own) == size.value
+
+
+def test_launches_count_what_the_meta_route_counts(cuda):
+    """A kernel on the card adds to ``kernels.counts`` exactly what its
+    meta route adds for the same shapes (the dry run's prediction)."""
+    from repro_torch.kernels import counts
+
+    def run(device):
+        counts.reset()
+        bf = torch.bfloat16
+        q = _randn((2, 8, 300, 64), bf, device, 1).requires_grad_(True)
+        k = _randn((2, 2, 300, 64), bf, device, 2).requires_grad_(True)
+        v = _randn((2, 2, 300, 64), bf, device, 3).requires_grad_(True)
+        out = fa.flash_attention(q, k, v, block_q=64, block_k=64)
+        torch.autograd.grad(out.float().sum(), (q, k, v))
+        qd = _randn((2, 2, 4, 64), bf, device, 4)
+        kc = _randn((2, 2, 300, 64), bf, device, 5)
+        cur = torch.full((1,), 250, dtype=torch.int32, device=device)
+        fd.flash_decode(qd, kc, kc, cur)
+        x, dt, A, B, C = _ssd_inputs(2, 4, 96, 32, 16, bf, device, 6)
+        x.requires_grad_(True)
+        y, _ = ssd.ssd_scan(x, dt, A, B, C, chunk=32)
+        torch.autograd.grad(y.float().sum(), (x,))
+        return {k_: list(v_) for k_, v_ in counts.KERNELS.items()}
+
+    on_card = run(cuda)
+    assert set(on_card) == {"k1_lse", "k3", "k5", "k9", "k9b"}
+    assert run(torch.device("meta")) == on_card

@@ -188,11 +188,12 @@ def _step_on_mesh(cfg, params_np, batch, oc, mesh, pure_dp=False):
     model = LanguageModel(cfg, device="cpu")
     params = params_from_numpy(params_np, cfg, device="cpu")
     whole = {"params": params, "opt": init_opt_state(params, oc)}
+    with use_mesh(mesh, pure_dp=pure_dp) as ctx:
+        sh = state_shardings_of(whole, ctx)
     state = place_state(whole, mesh, pure_dp)
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     with use_mesh(mesh, pure_dp=pure_dp) as ctx:
         state, metrics = make_train_step(model, oc)(state, tb)
-        sh = state_shardings_of(whole, ctx)
         return ({k: float(v) for k, v in metrics.items()},
                 _gathered(state["params"], sh["params"], ctx))
 

@@ -30,7 +30,9 @@ SLICES = ("repro_torch.kernels.flash_attention", "repro_torch.launch.serve",
           "repro_torch.kernels.partition_copy", "repro_torch.kernels.autotune",
           "repro_torch.models.mamba", "repro_torch.kernels.ssd_scan",
           "repro_torch.models.moe", "repro_torch.dist.sharding",
-          "repro_torch.launch.mesh", "repro_torch.launch.specs")
+          "repro_torch.launch.mesh", "repro_torch.launch.specs",
+          "repro_torch.launch.cost", "repro_torch.launch.analysis",
+          "repro_torch.launch.dryrun", "repro_torch.kernels.counts")
 
 
 def test_importing_every_module_leaves_jax_and_repro_out():

@@ -150,12 +150,22 @@ def test_ops_model_layout_is_the_kernel_layout_transposed():
     assert torch.equal(y, yk.transpose(1, 2)) and torch.equal(st, stk)
 
 
-def test_cuda_wrapper_raises_without_a_card_on_non_cpu_tensors():
+def test_cuda_wrapper_raises_without_a_card_on_non_cpu_tensors(
+        monkeypatch):
     """A tensor that is not on the CPU never takes the plain version: on
-    the meta device the wrapper refuses instead of falling back."""
+    the meta device the wrapper takes its meta route (the dry run's:
+    outputs of the kernel's shapes, no launch), and operands split
+    between the meta device and the CPU raise instead of falling back."""
+    def no_plain(*a, **k):
+        raise AssertionError("the plain version ran")
+
+    monkeypatch.setattr(tssd, "ssd_scan_plain", no_plain)
     x = torch.empty((1, 2, 16, 8), device="meta")
     dt = torch.empty((1, 2, 16), device="meta")
+    bc = torch.empty((1, 16, 8), device="meta")
+    y, st = tssd.ssd_scan(x, dt, torch.empty(2, device="meta"), bc, bc,
+                          chunk=16)
+    assert y.device.type == "meta" and y.shape == x.shape
+    assert st.shape == (1, 2, 8, 8)
     with pytest.raises(ValueError, match="CUDA"):
-        tssd.ssd_scan(x, dt, torch.empty(2, device="meta"),
-                      torch.empty((1, 16, 8), device="meta"),
-                      torch.empty((1, 16, 8), device="meta"), chunk=16)
+        tssd.ssd_scan(x, dt, torch.empty(2), bc, bc, chunk=16)

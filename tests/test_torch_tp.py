@@ -16,6 +16,11 @@ the CPU.
   one-device step's ("dp" halves the rows, "model" the heads, hidden
   units and vocab: 1/4 of it, where replicated compute over "model"
   gave 1/2).
+* The dry run's layout pass (``launch.dryrun.train_report``: one rank of
+  a ``MeshLayout`` on the meta device, no process) of the same step on
+  rank 0 and rank 3 of (2, 2) gives exactly the live rank's aten FLOPs
+  (``FlopCounterMode``) and its ``TRAFFIC``: every kind's calls and
+  bytes.
 """
 import os
 import pathlib
@@ -84,6 +89,7 @@ def _rank(rank, world, out_dir):
     import repro_torch.models.model as model_mod
     from repro_torch.configs import get_config
     from repro_torch.convert import place_state
+    from repro_torch.dist import sharding
     from repro_torch.dist.sharding import (batch_split, current_ctx,
                                            param_shardings, shard_tree,
                                            use_mesh)
@@ -122,8 +128,10 @@ def _rank(rank, world, out_dir):
     model_mod.gather_param = record
     try:
         state = place_state(fresh(), mesh)
+        sharding.reset_traffic()
         with use_mesh(mesh):
             per_rank = flops(state)
+        traffic = {k: list(v) for k, v in sharding.TRAFFIC.items()}
     finally:
         model_mod.gather_param = real
     with use_mesh(mesh) as ctx:
@@ -132,6 +140,7 @@ def _rank(rank, world, out_dir):
         with batch_split(("data",)):
             got = model_mod.gather_params(local, cfg, current_ctx())
     return {"one": one, "per_rank": per_rank, "gathered": gathered,
+            "traffic": traffic,
             "w_q": tuple(got["layers"]["attn"]["w_q"].shape),
             "w_k": tuple(got["layers"]["attn"]["w_k"].shape),
             "embedding": tuple(got["embedding"].shape),
@@ -181,3 +190,23 @@ def test_train_step_flops_per_rank_split_over_model(group):
         assert r["one"] > 0
         ratio = r["per_rank"] / r["one"]
         assert ratio <= 0.3, (r["per_rank"], r["one"], ratio)
+
+
+@pytest.mark.parametrize("rank", [0, 3])
+def test_layout_pass_equals_the_live_rank(group, rank):
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import MeshLayout
+    from repro_torch.launch.dryrun import train_report
+    from repro_torch.optim import OptimizerConfig
+    cfg = get_config("llama3.2-3b").reduced()
+    oc = OptimizerConfig(peak_lr=1e-3, warmup_steps=2, total_steps=50)
+    batch = {k: torch.empty((4, 32), dtype=torch.int64, device="meta")
+             for k in ("tokens", "targets")}
+    rep = train_report(cfg, oc, batch, MeshLayout((2, 2), ("data", "model")),
+                       rank)
+    live = group[rank]
+    assert rep.aten_flops == live["per_rank"]
+    assert rep.kernels == {}           # 32 positions: the dense attention
+    assert {k: [int(rep.coll_counts[k]), int(v)]
+            for k, v in rep.coll_bytes.items()} == \
+        {k: v[:2] for k, v in live["traffic"].items()}
