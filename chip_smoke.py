@@ -109,7 +109,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    prefill 1 x 6000 (24 K1), 16 contiguous decodes (24 K5 a step), both
    profiled, and 3 requests with 4200-5000-token prompts through
    ``ServeEngine``;
-6d. one depth-cut danube train step (2 layers, full width, fp32, 1 x
+6d. one depth-cut danube train step (1 layer, full width, fp32, 1 x
    4352) on the card through K1-lse and K3, and through K2 in
    deterministic mode, against the CPU: loss and gradients;
 7. a 2-layer full-width fp32 model on the card against the same weights
@@ -188,8 +188,9 @@ Phases, in order; any failure raises and the script exits nonzero:
     its bound, peak memory, a profiled step), then 2 steps twice in
     deterministic mode (K2): the same bits;
 15. MoE against the CPU: arctic at full width in fp32 with 1 layer and
-    8 experts, 1 x 2304: the routing of every MoE call (a choice may
-    differ only between probabilities within 1e-5), prefill and 4 decode
+    8 experts, 1 x 1152 (the flash gate lowered to 1024): the routing of
+    every MoE call (a choice may differ only between probabilities
+    within 1e-5), prefill and 4 decode
     logits, ``train_loss`` and every gradient on the card (K1, K5,
     K1-lse, K3) against the port's CPU path;
 16. MLA serving: deepseek-v2-236b at full width (128 MLA heads of q/k
@@ -210,9 +211,10 @@ Phases, in order; any failure raises and the script exits nonzero:
     profiled step), then 2 steps twice in deterministic mode (K2): the
     same bits;
 18. MLA against the CPU: deepseek at full width in fp32, dense + 1 MoE
-    layer of 8 experts, 1 x 2304 (the fp32 K1, K1-lse and K3 at (192,
-    128)): routing, prefill and 4 decode logits, loss and every gradient
-    on the card against the port's CPU path;
+    layer of 8 experts, 1 x 1152 (the flash gate lowered to 1024: the
+    fp32 K1, K1-lse and K3 at (192, 128)): routing, prefill and 4 decode
+    logits, loss and every gradient on the card against the port's CPU
+    path;
 19. encoder-decoder serving: whisper-small at full width (12 encoder + 12
     decoder layers, 12 heads of 64, 278 M parameters), fp32 master
     weights cast to bf16 per layer, seeded weights and frames: prefill
@@ -266,7 +268,7 @@ Phases, in order; any failure raises and the script exits nonzero:
     and v) saved by its Trainer inside the last step on the §6
     sharded path by both ranks (no leaf gathered: ``host_gathers`` 0;
     sharded and replicated leaves both), resumed by a second
-    ``Trainer(mesh=...)`` on the same directory (start step 3, each
+    ``Trainer(mesh=...)`` on the same directory (start step 2, each
     rank's shards bit for bit) and, in this process after the ranks
     exit, restored on one device with no mesh (each rank's ``shard_of``
     of every whole leaf hashes to what that rank held), with every wall
@@ -275,7 +277,16 @@ Phases, in order; any failure raises and the script exits nonzero:
     process, the §6 ranges of a TP-sharded llama leaf through
     ``db_partition`` and one K7 fused copy that reassembles it from the
     two ranks' shards bit for bit, and K1-lse / K3 on a stripe and K5 on
-    local kv heads timed with the card to themselves.
+    local kv heads timed with the card to themselves;
+26. the "data" axis: 2 ranks on cuda:0 over gloo, mesh (2, 1): arctic at
+    full width cut to 2 layers x 8 experts (bf16, int8 moments), 2 x
+    4096 (each rank one row: K1-lse and K3 at 1 x 4096, G 7), a
+    ``Trainer(mesh=...)`` step and a counted step held against the dry
+    run's layout pass of ``MeshLayout((2, 1))`` (FLOPs, kernel FLOPs,
+    every ``TRAFFIC`` kind, peak within 10 %), every FSDP leaf's gradient
+    reduce-scattered once; then an fp32 step of 1 layer x 8 experts at
+    capacity factor 1 (pairs drop) against one rank: drops equal,
+    parameters 3e-4.
 
 Phase 7 also runs a reduced fp32 smollm (head_dim 64,
 ``attn_flash_min_seq=32``, B 72 x S 96: B·KH = 144) on the forced K4
@@ -285,9 +296,9 @@ logits through K4f and one step's gradients through K4f and K4b; and the reduced
 
 Counters on the kernel wrappers are zeroed just before each main-path
 phase (5, 6, 6a, 6b, 6c, 6d, 8, 8a and its other route, 8b, 8c-8f, 9,
-10, each path of 12, 13-24, and in each rank each part of 25) and read
-just after: every kernel of the path must have launched (25's counts
-are both ranks' sums).  The kernel line's
+10, each path of 12, 13-24, and in each rank each part of 25 and 26)
+and read just after: every kernel of the path must have launched (25's
+and 26's counts are both ranks' sums).  The kernel line's
 launches are those counts alone; the reduced model of phase 7 and the
 fp32 consistency check of 8b keep theirs in their own results.  The line before the last is the kernel table as
 JSON; the last line is ``{"ok": true, "device": {...}}``.  Exits nonzero
@@ -1248,14 +1259,14 @@ def phase_danube():
 
 
 def phase_danube_train():
-    """One depth-cut train step of h2o-danube3-4b: 2 layers at full width,
+    """One depth-cut train step of h2o-danube3-4b: 1 layer at full width,
     fp32, 1 x 4352 tokens (the 4096 window bites on the last 256 rows):
     loss and gradients on the card through K1-lse and K3, and in
     deterministic mode through K1-lse and K2, against the CPU's plain
     path from the same weights."""
-    print("== danube train: 2 layers full width, fp32, 1 x 4352, card (K3; "
+    print("== danube train: 1 layer full width, fp32, 1 x 4352, card (K3; "
           "K2 in deterministic mode) vs CPU")
-    cfg = dataclasses.replace(get_config(DANUBE), num_layers=2,
+    cfg = dataclasses.replace(get_config(DANUBE), num_layers=1,
                               dtype="float32", param_dtype="float32")
     cpu = _cpu_model(cfg)
     params = cpu.init(torch.Generator().manual_seed(62))
@@ -1281,8 +1292,9 @@ def phase_danube_train():
     loss_c, g_cpu = _grads(cpu, params, batch, "cpu")
     cpu_s = time.perf_counter() - t0
     info = {"cpu_s": cpu_s}
-    want = {"default": {"k1_lse": 4, "k3": 2},
-            "deterministic": {"k1_lse": 4, "k2_dq": 2, "k2_dkv": 2}}
+    n = cfg.num_layers
+    want = {"default": {"k1_lse": 2 * n, "k3": n},
+            "deterministic": {"k1_lse": 2 * n, "k2_dq": n, "k2_dkv": n}}
     for mode, (loss, grads, counts, card_s) in runs.items():
         loss_err = abs(loss - loss_c) / abs(loss_c)
         grad_err = max((a - c).abs().max().item()
@@ -3730,25 +3742,34 @@ def _route_flips(card, host):
     return flips
 
 
+# the card-vs-CPU references of MoE and MLA run 1 x REFERENCE_SEQ tokens
+# with the flash gate lowered to REFERENCE_MIN_SEQ, so the fp32 kernels
+# run on the card: the CPU side's time grows with the tokens
+REFERENCE_SEQ = 1152
+REFERENCE_MIN_SEQ = 1024
+
+
 def phase_moe_reference():
     """arctic-480b at full width in fp32, 1 layer and 8 experts (1.52 B
-    parameters), 1 x 2304 tokens (> 2048: K1, K1-lse and K3 run), on the
+    parameters), 1 x ``REFERENCE_SEQ`` tokens (past the lowered flash
+    gate: K1, K1-lse and K3 run), on the
     card against the port's CPU path from the same weights: the routing
     of every MoE call (a choice may differ only between two experts whose
     probabilities lie within 1e-5), the prefill logits and 4 decode
     steps' (1e-3, fp32 logits O(1)), ``train_loss`` (1e-5 relative) and
     the gradient of every leaf (1e-4 of its largest entry): the
     tolerances of the danube train phase."""
-    print("== moe reference: arctic-480b full width, fp32, 1 layer, 8 "
-          "experts, 1 x 2304, card vs CPU")
+    print(f"== moe reference: arctic-480b full width, fp32, 1 layer, 8 "
+          f"experts, 1 x {REFERENCE_SEQ}, card vs CPU")
     cfg = dataclasses.replace(get_config(ARCTIC), num_layers=1,
                               num_experts=8, dtype="float32",
-                              param_dtype="float32")
+                              param_dtype="float32",
+                              attn_flash_min_seq=REFERENCE_MIN_SEQ)
     gpu, cpu = LanguageModel(cfg, device="cuda"), LanguageModel(cfg, "cpu")
     _release()
     params = gpu.init(torch.Generator(device="cuda").manual_seed(72))
     params_cpu = _tree_to(params, "cpu")
-    s, steps = 2304, 4
+    s, steps = REFERENCE_SEQ, 4
     toks = np.random.RandomState(73).randint(0, cfg.vocab_size,
                                              (1, s + steps + 1))
     batch = {"tokens": torch.from_numpy(toks[:, :s]),
@@ -4154,19 +4175,21 @@ def phase_mla_train():
 
 def phase_mla_reference():
     """deepseek-v2-236b at full width in fp32 with 2 layers (the dense
-    first one and 1 MoE layer of 8 experts; 1.78 B parameters), 1 x 2304
-    tokens (> 2048: the fp32 K1, K1-lse and K3 at (192, 128) run), on the
+    first one and 1 MoE layer of 8 experts; 1.78 B parameters), 1 x
+    ``REFERENCE_SEQ`` tokens (past the lowered flash gate: the fp32 K1,
+    K1-lse and K3 at (192, 128) run), on the
     card against the port's CPU path from the same weights: the routing
     of every MoE call, the prefill logits and 4 decode steps', the loss
     and every gradient, within the limits of ``phase_moe_reference``."""
-    print("== mla reference: deepseek-v2-236b full width, fp32, dense + 1 "
-          "MoE layer of 8 experts, 1 x 2304, card vs CPU")
-    cfg = _deepseek_cfg(num_layers=2, num_experts=8, dtype="float32")
+    print(f"== mla reference: deepseek-v2-236b full width, fp32, dense + 1 "
+          f"MoE layer of 8 experts, 1 x {REFERENCE_SEQ}, card vs CPU")
+    cfg = _deepseek_cfg(num_layers=2, num_experts=8, dtype="float32",
+                        attn_flash_min_seq=REFERENCE_MIN_SEQ)
     gpu, cpu = LanguageModel(cfg, device="cuda"), LanguageModel(cfg, "cpu")
     _release()
     params = gpu.init(torch.Generator(device="cuda").manual_seed(83))
     params_cpu = _tree_to(params, "cpu")
-    s, steps = 2304, 4
+    s, steps = REFERENCE_SEQ, 4
     toks = np.random.RandomState(84).randint(0, cfg.vocab_size,
                                              (1, s + steps + 1))
     batch = {"tokens": torch.from_numpy(toks[:, :s]),
@@ -4844,7 +4867,7 @@ def phase_vlm_reference():
 # --------------------------------------------------------------- the mesh
 
 MESH_NOTE = "2 ranks sharing one H100 over gloo; not a multi-card time"
-MESH_STEPS = 3
+MESH_STEPS = 2
 MESH_SMOLLM_ARGS = ["--arch", "smollm-360m", "--data", "markov", "--batch",
                     "2", "--seq", "8192", "--steps", str(MESH_STEPS),
                     "--lr", "1e-3"]
@@ -5139,16 +5162,19 @@ def _mesh_train(name, cfg, argv, rank, mesh, tc=None):
             "wall_s": wall, "layers": layers}, tr, state
 
 
-def _mesh_fp32_step(name, cfg, b, s, rank, mesh, device="cuda"):
+def _mesh_fp32_step(name, cfg, b, s, rank, mesh, device="cuda", oc=None):
     """One fp32 step under the mesh against the one-rank step on the same
-    weights and batch: ce_loss within 1e-3, every parameter within 3e-4
-    and the clip's global gradient norm within 1e-4 of it (relative).
+    weights and batch: ce_loss within 1e-3, every parameter within 3e-4,
+    the clip's global gradient norm within 1e-4 of it (relative) and the
+    MoE drop counts and overflow rate equal (zeros for a dense model).
     The optimizer is the reference test's (peak lr 1e-3, warmup 2: lr
     5e-4 at step 1), so AdamW's first step moves each entry by about
     5e-4: a gradient of the wrong sign or left at zero moves its entry
     past the 3e-4 limit.  AdamW's first step does not see a gradient's
     scale, so the gradient norm holds that.  ``device`` "cpu" runs the
-    same check on gloo ranks of the CPU."""
+    same check on gloo ranks of the CPU; ``oc`` another optimizer (its
+    moments' dtype).  The one-rank parameters wait on the host while the
+    mesh steps."""
     import torch.distributed as dist
     from repro_torch.convert import place_state
     from repro_torch.dist.sharding import (full_tensor, param_shardings,
@@ -5156,7 +5182,7 @@ def _mesh_fp32_step(name, cfg, b, s, rank, mesh, device="cuda"):
     from repro_torch.models.model import param_shapes
     cfg = dataclasses.replace(cfg, dtype="float32")
     model = LanguageModel(cfg, device=device)
-    oc = OptimizerConfig(peak_lr=1e-3, warmup_steps=2, total_steps=50)
+    oc = oc or OptimizerConfig(peak_lr=1e-3, warmup_steps=2, total_steps=50)
     data = SyntheticTokens(cfg.vocab_size, b, s, seed=5, mode="markov")
     batch = {k: torch.from_numpy(v).to(device)
              for k, v in data.get(0).items()}
@@ -5169,6 +5195,8 @@ def _mesh_fp32_step(name, cfg, b, s, rank, mesh, device="cuda"):
     one = None
     if rank == 0:
         one, m1 = step(fresh(), batch)
+        one = _tree_to(one["params"], "cpu")
+        _release()
     dist.barrier()
     state = place_state(fresh(), mesh)
     _release()
@@ -5182,27 +5210,37 @@ def _mesh_fp32_step(name, cfg, b, s, rank, mesh, device="cuda"):
                 spec = spec[key]
             full = full_tensor(leaf, spec.spec, ctx)
             if one is not None:
-                want = one["params"]
-                for key in path:
-                    want = want[key]
+                want = _at(one, path).to(full.device)
                 d = ((full - want).abs() - 3e-4 * want.abs()).max().item()
+                del want
                 worst = max(worst, d)
             del full
-    info = {"ce_loss": float(m2["ce_loss"])}
+    moe_keys = ("moe_dropped_tokens", "moe_overflow_rate")
+    info = {"ce_loss": float(m2["ce_loss"]),
+            **{k: float(m2[k]) for k in moe_keys}}
     if rank == 0:
         ce = abs(float(m1["ce_loss"]) - float(m2["ce_loss"]))
         gn, gn1 = float(m2["grad_norm"]), float(m1["grad_norm"])
         gn_rel = abs(gn - gn1) / max(abs(gn1), 1e-30)
+        moe_one = {k: float(m1[k]) for k in moe_keys}
+        same_moe = all(info[k] == moe_one[k] for k in moe_keys)
         print(f"  {name} fp32 step ({cfg.num_layers} layers, {b} x {s}, "
               f"peak lr {oc.peak_lr:g}, warmup {oc.warmup_steps}) vs one "
               f"rank: ce_loss diff {ce:.2e} (limit "
               f"1e-3), params max(|diff| - 3e-4 |want|) {worst:.2e} (limit "
               f"3e-4), grad_norm {gn:.6f} vs {gn1:.6f}, relative diff "
-              f"{gn_rel:.2e} (limit 1e-4)")
+              f"{gn_rel:.2e} (limit 1e-4); MoE pairs dropped "
+              f"{info['moe_dropped_tokens']:g}, one rank "
+              f"{moe_one['moe_dropped_tokens']:g} (equal), overflow rate "
+              f"{info['moe_overflow_rate']:.6f} (equal)")
         if not (ce <= 1e-3 and worst <= 3e-4 and gn_rel <= 1e-4):
             raise AssertionError(f"{name}: the mesh step differs from one "
                                  f"rank's")
-        info.update(ce_diff=ce, param_excess=worst, grad_norm_rel=gn_rel)
+        if not same_moe:
+            raise AssertionError(f"{name}: the mesh step's MoE drops "
+                                 f"differ from one rank's")
+        info.update(ce_diff=ce, param_excess=worst, grad_norm_rel=gn_rel,
+                    one_rank=moe_one)
     del one, state
     _release()
     return info
@@ -5349,26 +5387,27 @@ def _gemm_step(tr, state, mesh):
             "peak_bytes": torch.cuda.max_memory_allocated()}
 
 
-def _mesh_layout_pass():
-    """The dry run's layout pass of llama's mesh train step
-    (``launch.dryrun.train_report``): rank 0 of ``MeshLayout((1, 2))`` on
-    the meta device, the step ``_mesh_tp`` counts on the card (4 layers,
-    the same optimizer and the same batch shapes), no process and no
-    card.  Returns its prediction: aten FLOPs, the kernels' counts and
-    FLOPs, every ``TRAFFIC`` kind's [calls, bytes], the peak bytes of the
-    storages (the state and the batch included) and its host seconds."""
+def _mesh_layout_pass(cfg=None, argv=MESH_LLAMA_ARGS, shape=(1, 2)):
+    """The dry run's layout pass of a mesh train step
+    (``launch.dryrun.train_report``): rank 0 of ``MeshLayout(shape)`` on
+    the meta device, the step a rank counts on the card (by default
+    llama's in ``_mesh_tp``: 4 layers; the same optimizer and the same
+    batch shapes as ``argv``), no process and no card.  Returns its
+    prediction: aten FLOPs, the kernels' counts and FLOPs, every
+    ``TRAFFIC`` kind's [calls, bytes], the peak bytes of the storages
+    (the state and the batch included) and its host seconds."""
     from repro_torch.dist.sharding import MeshLayout
     from repro_torch.launch.dryrun import train_report
-    cfg = dataclasses.replace(get_config("llama3.2-3b"),
-                              num_layers=MESH_LLAMA_LAYERS)
-    args = train_cli.parse_args(MESH_LLAMA_ARGS + ["--device", "cuda"])
+    cfg = cfg or dataclasses.replace(get_config("llama3.2-3b"),
+                                     num_layers=MESH_LLAMA_LAYERS)
+    args = train_cli.parse_args(argv + ["--device", "cuda"])
     oc = train_cli.optimizer_config(cfg, args)
     data = SyntheticTokens(cfg.vocab_size, args.batch, args.seq, seed=0,
                            mode="markov")
     batch = {k: torch.empty(v.shape, dtype=torch.from_numpy(v).dtype,
                             device="meta") for k, v in data.get(0).items()}
     t = time.perf_counter()
-    rep = train_report(cfg, oc, batch, MeshLayout((1, 2), ("data", "model")),
+    rep = train_report(cfg, oc, batch, MeshLayout(shape, ("data", "model")),
                        0)
     secs = time.perf_counter() - t
     pred = {"aten_flops": int(rep.aten_flops),
@@ -5377,9 +5416,10 @@ def _mesh_layout_pass():
                         for k, v in rep.coll_bytes.items()},
             "peak_bytes": int(rep.peak_bytes), "arg_bytes": rep.arg_bytes,
             "seconds": secs}
-    print(f"  the dry run's layout pass of llama3.2-3b's mesh step (rank 0 "
-          f"of MeshLayout((1, 2)), {MESH_LLAMA_LAYERS} layers, 4 x 4096, "
-          f"meta device): {secs:.2f} s on the host; aten FLOPs "
+    print(f"  the dry run's layout pass of {cfg.name}'s mesh step (rank 0 "
+          f"of MeshLayout({shape}), {cfg.num_layers} layers, "
+          f"{args.batch} x {args.seq}, meta device): {secs:.2f} s on the "
+          f"host; aten FLOPs "
           f"{rep.aten_flops / 1e12:.3f} T, kernel FLOPs "
           f"{rep.kernel_flops / 1e12:.3f} T {rep.kernels}, peak "
           f"{rep.peak_bytes / 1e9:.2f} GB ({rep.arg_bytes / 1e9:.2f} GB of "
@@ -5926,6 +5966,155 @@ def phase_mesh():
             "layout_pass": prediction, "device": smi, "note": MESH_NOTE}
 
 
+# arctic-480b data-parallel on (2, 1) ("data", "model"): full width, cut to
+# 2 of its 35 layers and 8 of its 128 experts (bf16 masters, int8
+# moments), one micro-batch a step; each rank trains one row of 4096
+MESH_DP_LAYERS = 2
+MESH_DP_EXPERTS = 8
+# 1 Trainer step, not MESH_STEPS, then the counted step: a step hands
+# gloo ~9.4 GB (16-17 s on the card's host; the first ~26 s)
+MESH_DP_ARGS = ["--arch", ARCTIC, "--data", "markov", "--batch", "2",
+                "--seq", "4096", "--steps", "1", "--lr", "3e-4"]
+# the fp32 check: batch, seq, the lowered capacity factor (pairs drop)
+# and its depth (1 layer of 8 experts: an fp32 step of 2 layers hands
+# gloo ~19 GB)
+MESH_DP_FP32 = (2, 1024, 1.0, 1)
+
+
+def _arctic_dp_cfg(**over):
+    over = {"num_layers": MESH_DP_LAYERS, **over}
+    return dataclasses.replace(get_config(ARCTIC),
+                               num_experts=MESH_DP_EXPERTS,
+                               train_accum_steps=1, **over)
+
+
+def _fsdp_split(params, cfg, mesh):
+    """(each FSDP leaf's whole gradient bytes — its shard's bytes times
+    the "data" size —, the bytes of the leaves FSDP keeps whole): a
+    step reduce-scatters the former once each, and all-reduces over
+    "data" the latter besides the loss, MoE and optimizer statistics."""
+    from repro_torch.dist.sharding import (_entry_axes, param_shardings,
+                                           use_mesh)
+    from repro_torch.models.model import param_shapes
+    with use_mesh(mesh) as ctx:
+        sh = param_shardings(param_shapes(cfg), ctx)
+        data = ctx.axis_sizes["data"]
+    fsdp, whole = [], 0
+    for p, v in iter_leaves(params):
+        n = v.numel() * v.element_size()
+        if any("data" in _entry_axes(e) for e in _at(sh, p).spec):
+            fsdp.append(data * n)
+        else:
+            whole += n
+    return fsdp, whole
+
+
+def _mesh_dp_rank(rank, world, prediction):
+    """One rank of the data-parallel phase on cuda:0: arctic's bf16 steps
+    through ``Trainer(mesh=...)``, one more step counted against the
+    layout pass, then the fp32 step against one rank.  Rank 1 prints
+    nothing."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.load()                      # the parent built it: a load
+    mesh = make_host_mesh(model=1, device_type="cuda")
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    cfg = _arctic_dp_cfg()
+    print(f"== mesh dp ({MESH_NOTE}): arctic-480b at full width, "
+          f"{MESH_DP_LAYERS} layers x {MESH_DP_EXPERTS} experts (of "
+          f"{get_config(ARCTIC).num_layers} x "
+          f"{get_config(ARCTIC).num_experts}), bf16, int8 moments, one "
+          f"micro-batch, mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+    out = {}
+    out["train"], tr, state = _mesh_train(
+        f"arctic-480b data-parallel ({MESH_DP_LAYERS} layers x "
+        f"{MESH_DP_EXPERTS} experts, each rank 1 x 4096)", cfg, MESH_DP_ARGS,
+        rank, mesh)
+    counted = _gemm_step(tr, state, mesh)
+    traffic = counted["traffic"]
+    fsdp, whole = _fsdp_split(state["params"], cfg, mesh)
+    ar = traffic.get("all_reduce/data", [0, 0, 0])[1]
+    rs_calls, rs = traffic.get("reduce_scatter/data", [0, 0, 0])[:2]
+    out.update(counted_step_ms=counted["ms"], traffic=traffic,
+               fsdp_grad_bytes=sum(fsdp), whole_leaf_bytes=whole,
+               device=_smi())
+    if rank == 0:
+        out["layout_pass"] = _check_layout_pass(prediction, counted, rank)
+    print(f"  rank {rank}: gradients reduce-scattered over 'data' "
+          f"{rs / 1e9:.3f} GB in {rs_calls} calls (the {len(fsdp)} FSDP "
+          f"leaves' whole gradients {sum(fsdp) / 1e9:.3f} GB, the smallest "
+          f"{min(fsdp) / 1e6:.1f} MB); all-reduced over 'data' "
+          f"{ar / 1e6:.3f} MB, of which the leaves FSDP keeps whole "
+          f"{whole / 1e6:.3f} MB and the loss, MoE and int8 row-scale "
+          f"statistics the rest; the counted step {counted['ms']:.1f} ms "
+          f"({MESH_NOTE}; {out['device']})")
+    # every FSDP leaf's whole gradient reduce-scattered once, and the
+    # all-reduce too small to hold any of them beside the whole leaves
+    if rs != sum(fsdp) or not whole <= ar < min(fsdp):
+        raise AssertionError(f"rank {rank}: reduce_scatter/data {rs} B, "
+                             f"FSDP leaves {sum(fsdp)} B, all_reduce/data "
+                             f"{ar} B, whole leaves {whole} B")
+    del tr, state
+    _release()
+    b, s, cf, layers = MESH_DP_FP32
+    fp32 = _arctic_dp_cfg(capacity_factor=cf, param_dtype="float32",
+                          num_layers=layers)
+    oc = OptimizerConfig(peak_lr=1e-3, warmup_steps=2, total_steps=50,
+                         state_dtype=fp32.optimizer_state_dtype)
+    out["fp32"] = _mesh_fp32_step(
+        f"arctic-480b data-parallel ({layers} layer x {MESH_DP_EXPERTS} "
+        f"experts, capacity factor {cf:g}, int8 moments)",
+        fp32, b, s, rank, mesh, oc=oc)
+    if not out["fp32"]["moe_dropped_tokens"] > 0:
+        raise AssertionError(f"the fp32 check dropped no pair at capacity "
+                             f"factor {cf}")
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    dist.barrier()
+    return out
+
+
+def phase_mesh_dp():
+    """Two ranks on cuda:0 over gloo, mesh (2, 1) ("data", "model"): the
+    "data" axis, which ``phase_mesh``'s (1, 2) lacks.  arctic-480b at full
+    width (2 layers x 8 experts, bf16, int8 moments) trains a step
+    through ``Trainer(mesh=...)`` and one more counted, each rank its row
+    of the batch:
+    the batch split, the FSDP gathers and gradient reduce-scatters over
+    "data", MoE's global-view slots (``moe._global_positions``) and the
+    statistics' sums over "data", with K1-lse and K3 on each rank's 1 x
+    4096.  Before the ranks start the parent runs the dry run's layout
+    pass of the same step on ``MeshLayout((2, 1))``; rank 0's counted step
+    must equal it (GEMM and kernel FLOPs, every ``TRAFFIC`` kind; peak
+    memory within 10 %), every FSDP leaf's gradient reduce-scattered
+    once and only the whole leaves' all-reduced.  Then an fp32 step (1
+    layer x 8 experts, ``MESH_DP_FP32``) at a capacity factor that drops
+    pairs, against one rank's: the same drops, parameters within 3e-4."""
+    from repro_torch.launch import mesh as mesh_launch
+    smi = _smi()
+    print(f"== mesh dp: 2 ranks on cuda:0 over gloo, mesh (2, 1) "
+          f"('data', 'model'); {smi}; {MESH_NOTE}")
+    prediction = _mesh_layout_pass(_arctic_dp_cfg(), MESH_DP_ARGS, (2, 1))
+    _release()
+    t0 = time.perf_counter()
+    ranks = mesh_launch.spawn(_mesh_dp_rank, 2, backend="gloo",
+                              devices=["cuda:0", "cuda:0"],
+                              args=(prediction,), timeout_s=600)
+    wall = time.perf_counter() - t0
+    for r, res in enumerate(ranks):
+        print(f"  rank {r}: train launches {res['train']['launches']}, step "
+              f"ms {[round(t, 1) for t in res['train']['step_ms']]}, counted "
+              f"step {res['counted_step_ms']:.1f} ms, peak memory "
+              f"{res['peak_gb']:.2f} GB")
+    print(f"  the ranks ran {wall:.1f} s ({MESH_NOTE}; {smi})")
+    return {"ranks": ranks, "wall_s": wall, "layout_pass": prediction,
+            "device": smi, "note": MESH_NOTE,
+            "reduced": f"{MESH_DP_LAYERS} of 35 layers, {MESH_DP_EXPERTS} "
+                       f"of 128 experts"}
+
+
 def _mesh_ckpt_layers(ckpt_dir):
     """smollm's depth for the mesh train and checkpoint:
     ``MESH_SMOLLM_LAYERS`` unless the disk cannot hold the state twice."""
@@ -6068,10 +6257,11 @@ def main() -> int:
     vlm_train = timed("vlm_train_s", phase_vlm_train)
     vlm_ref = timed("vlm_reference_s", phase_vlm_reference)
     mesh = timed("mesh_s", phase_mesh)
+    mesh_dp = timed("mesh_dp_s", phase_mesh_dp)
 
-    def both(key):
-        return {k: sum(r[key]["launches"][k] for r in mesh["ranks"])
-                for k in mesh["ranks"][0][key]["launches"]}
+    def both(key, phase=mesh):
+        return {k: sum(r[key]["launches"][k] for r in phase["ranks"])
+                for k in phase["ranks"][0][key]["launches"]}
 
     by_phase = {"engine_ample": {"k1": eng_a["k1_launches"],
                                  "k5": eng_a["k5_launches"]},
@@ -6129,7 +6319,8 @@ def main() -> int:
                 "mesh_train_smollm": both("train_smollm"),
                 "mesh_train_llama": both("train_llama"),
                 "mesh_serve_smollm": both("serve_smollm"),
-                "mesh_serve_llama": both("serve_llama")}
+                "mesh_serve_llama": both("serve_llama"),
+                "mesh_dp_train_arctic": both("train", mesh_dp)}
 
     def launches(*keys):
         per = {ph: sum(c.get(k, 0) for k in keys)
@@ -6221,7 +6412,7 @@ def main() -> int:
               "mla_reference": mla_ref, "encdec_serve": encdec_serve,
               "encdec_train": encdec_train, "encdec_reference": encdec_ref,
               "vlm_serve": vlm_serve, "vlm_train": vlm_train,
-              "vlm_reference": vlm_ref, "mesh": mesh,
+              "vlm_reference": vlm_ref, "mesh": mesh, "mesh_dp": mesh_dp,
               "library_bwd_ms": ktrain["library_bwd_ms"], "phase_s": timings,
               "total_s": time.perf_counter() - t_start,
               "build_log": _build.log_path().read_text()}

@@ -23,7 +23,8 @@ Faults:
   (``_GatherParam``'s backward; since tensor parallelism keeps each
   leaf's "model" share, only the (2, 1) mesh gathers, so only it sees
   this fault and ``no_dp_sum``);
-* ``no_dp_sum``: the gradient's sum over "dp" dropped;
+* ``no_dp_sum``: the FSDP gradients' sum over "dp" dropped (their
+  reduce-scatter taken as a plain cut);
 * ``gather_seq_half``: the reduce-scatter of ``gather_seq``'s backward
   (the column-parallel entry from the sequence-split stream) halved;
 * ``scatter_seq_half``: the all-gather of ``scatter_seq``'s backward
@@ -53,8 +54,8 @@ FAULTS = {
     "gather_half": ("        return g.contiguous(), None, None\n",
                     "        return 0.5 * g.contiguous(), None, None\n"),
     "no_dp_sum": (
-        "        g = all_reduce(g.clone(), ctx.dp, ctx.sctx) if ctx.dp else g\n",
-        "        g = g\n"),
+        "                    g = reduce_scatter(g, d, a, ctx.sctx)\n",
+        "                    g = chunk_of(g, d, a, ctx.sctx)\n"),
     "gather_seq_half": (
         "        return reduce_scatter(g, ctx.dim, \"model\", ctx.sctx), None, "
         "None\n",

@@ -67,8 +67,9 @@ part of the input's gradient (a column-parallel projection), ``psum`` /
 ``scatter_seq`` leave it with the partial outputs summed; ``split`` /
 ``gather`` cut and rebuild a tensor whose gradient is the same on every
 rank (the reference's ``shard_map`` regions in ``dist.flash`` and
-``models.moe``).  A parameter gathered for a training step sums its
-gradient over "dp" before it is cut back to the local shard; a leaf kept
+``models.moe``).  A parameter gathered for a training step hands its
+shard the gradient summed over "dp": reduce-scattered over the "dp" axes
+its FSDP dims are sharded over, all-reduced over the rest; a leaf kept
 at its "model" share already has the whole gradient of its columns, so
 nothing sums it over "model".  :data:`TRAFFIC` counts the calls and the
 bytes each collective kind hands the backend on this rank.
@@ -760,9 +761,12 @@ def psum(x: torch.Tensor, axes="model",
 
 class _GatherParam(torch.autograd.Function):
     """A parameter's local shard → the whole leaf (or the part the caller
-    keeps local): an all-gather over each sharded dim.  The backward sums
-    the gradient over "dp" when the batch was split, then cuts it back
-    to the shard."""
+    keeps local): an all-gather over each sharded dim.  The backward
+    hands the shard its gradient summed over "dp" when the batch was
+    split: a dim sharded over "dp" axes (FSDP) reduce-scatters over them,
+    the outer axis first, as :func:`chunk_of` orders the chunks; only
+    the "dp" axes that no dim covers (a leaf left whole, ``pure_dp``)
+    all-reduce, and any other axis of the spec is cut."""
 
     @staticmethod
     def forward(ctx, x, spec, sctx):
@@ -775,10 +779,16 @@ class _GatherParam(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = all_reduce(g.clone(), ctx.dp, ctx.sctx) if ctx.dp else g
+        summed = set()
         for d, entry in enumerate(ctx.spec):
-            if entry is not None:
-                g = chunk_of(g, d, entry, ctx.sctx)
+            for a in _entry_axes(entry):
+                if a in ctx.dp:
+                    g = reduce_scatter(g, d, a, ctx.sctx)
+                    summed.add(a)
+                else:
+                    g = chunk_of(g, d, a, ctx.sctx)
+        rest = tuple(a for a in ctx.dp if a not in summed)
+        g = all_reduce(g.clone(), rest, ctx.sctx) if rest else g
         return g.contiguous(), None, None
 
 

@@ -45,6 +45,20 @@ so each shard's capacity counts its own tokens; a training step that
 has split its batch over "dp" already sums the balance loss's means and
 the drop counts over "dp".  Without a mesh the reference takes the
 no-mesh branch whatever ``cfg.moe_dispatch`` says, and so does the port.
+
+Outside the region (no mesh, a "model" axis of 1, ``pure_dp``, or
+experts that "model" does not divide) the reference routes in its
+global view: every (token, choice) pair takes its slot in token-major
+order over the whole (B, S) batch, at the capacity of B·S tokens.  A
+rank that holds only part of the batch — its rows of a training step's
+"dp" split, and under tensor parallelism its stripe of the sequence —
+computes the same slots (:func:`_global_positions`: its local positions
+plus, per expert, the pairs on every earlier (row, stripe) of other
+ranks, from one small all-gather of per-row expert counts) and keeps a
+pair while its global slot is below that capacity.  Its bucket holds
+its own kept pairs only (at most min(C, its tokens) rows an expert), so
+the expert products run over the rank's own tokens, and the balance
+loss and drop counts sum over the split axes.
 """
 from __future__ import annotations
 
@@ -165,6 +179,47 @@ def _expert_positions(flat_e: torch.Tensor, n: int) -> torch.Tensor:
     pos = torch.empty_like(arange_n)
     pos[order] = arange_n - starts
     return pos
+
+
+def _global_positions(idx: torch.Tensor, num_experts: int, dp=(),
+                      stripe: bool = False, ctx=None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(local, global) position of each (token, choice) pair of idx (b,
+    s, k) within its expert.  The local one is :func:`_expert_positions`
+    over this rank's pairs; the global one is the reference's global view,
+    the rank over the whole (B, S) batch in token-major order, where this
+    rank holds a block of rows over the ``dp`` axes and, with ``stripe``,
+    a stripe of the sequence over "model".  It adds to the local position
+    the pairs of the same expert on every (row, stripe) that comes earlier
+    in that order and is not this rank's: an exclusive prefix over a (b,
+    E) int32 count table gathered over the axes.  With no split both are
+    the same tensor."""
+    b, s, k = idx.shape
+    n = b * s * k
+    flat_e = idx.reshape(n)
+    pos = _expert_positions(flat_e, n)
+    if not dp and not stripe:
+        return pos, pos
+    counts = torch.zeros((b, num_experts), dtype=torch.int32,
+                         device=idx.device)
+    counts.scatter_add_(1, idx.reshape(b, s * k),
+                        torch.ones((b, s * k), dtype=torch.int32,
+                                   device=idx.device))
+    table = counts[:, None]                            # (b, 1, E)
+    if stripe:
+        table = all_gather(table, 1, "model", ctx)     # (b, m, E)
+    if dp:
+        table = all_gather(table, 0, dp, ctx)          # (B, m, E)
+    flat = table.reshape(-1, num_experts)
+    before = (torch.cumsum(flat, 0) - flat).view(table.shape)
+    if dp:
+        before = chunk_of(before, 0, dp, ctx)
+    if stripe:
+        before = chunk_of(before, 1, "model", ctx)
+    # minus this rank's own earlier rows, which the local position counts
+    offset = before[:, 0] - (torch.cumsum(counts, 0) - counts)
+    row = torch.arange(b, device=idx.device).repeat_interleave(s * k)
+    return pos, pos + offset[row, flat_e]
 
 
 def _capacity(cfg, tokens: int) -> int:
@@ -292,28 +347,40 @@ def _experts(x_grouped: torch.Tensor, w_gate: torch.Tensor,
 def _grouped_experts(x_flat: torch.Tensor, gates: torch.Tensor,
                      idx: torch.Tensor, w_gate: torch.Tensor,
                      w_up: torch.Tensor, w_down: torch.Tensor, capacity: int,
-                     e_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+                     e_offset: int = 0, positions=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Capacity-bucketed grouped-GEMM over one shard's local experts,
     global ids ``e_offset`` … ``e_offset + E_loc − 1``.
 
     x_flat: (T, D); gates / idx: (T, k); w_*: (E_loc, D, F) / (E_loc, F,
     D).  Returns ``(y, kept)``: (T, D) sum of the local experts'
     contributions, pairs past ``capacity`` dropped, and each token's count
-    of choices that landed on a local expert and kept their slot."""
+    of choices that landed on a local expert and kept their slot.
+
+    ``positions``, when this rank holds part of the batch that routes
+    together, is :func:`_global_positions`' (local, global) pair: a pair
+    is kept while its global position is below ``capacity``, and its local
+    position is its slot in a bucket of min(capacity, T) rows (the kept
+    pairs of an expert are its first ones on this rank)."""
     t, _d = x_flat.shape
     k = idx.shape[1]
     e_loc = w_gate.shape[0]
     n = t * k
     flat_e = idx.reshape(n)
     flat_g = gates.reshape(n)
-    pos = _expert_positions(flat_e, n)
+    if positions is None:
+        pos = gpos = _expert_positions(flat_e, n)
+        bucket = capacity
+    else:
+        pos, gpos = positions
+        bucket = min(capacity, t)
     local_e = flat_e - e_offset
-    valid = ((local_e >= 0) & (local_e < e_loc) & (pos < capacity)
+    valid = ((local_e >= 0) & (local_e < e_loc) & (gpos < capacity)
              & (flat_g > 0))
     safe_e = torch.where(valid, local_e, 0)
-    safe_pos = torch.where(valid, pos, capacity)          # row C: trash
+    safe_pos = torch.where(valid, pos, bucket)            # the trash row
     w = flat_g * valid
-    x_grouped = _dispatch(x_flat, safe_e, safe_pos, w, k, e_loc, capacity)
+    x_grouped = _dispatch(x_flat, safe_e, safe_pos, w, k, e_loc, bucket)
     y_grouped = _experts(x_grouped, w_gate, w_up, w_down)   # (E, C, D)
     y = _combine(y_grouped, safe_e, safe_pos, w, k)
     kept = valid.view(t, k).sum(dim=1).float()
@@ -403,9 +470,10 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg
     or psum region (module docs): the a2a takes a stripe as its own
     split of the sequence, the psum region gathers the stripe's tokens
     (``gather_seq``) and sums its partial outputs back into the stripe
-    (``scatter_seq``).  y leaves in x's layout.  Expert banks may come
-    whole or as this rank's shard (E/m experts, the FSDP dim cut or
-    not)."""
+    (``scatter_seq``); elsewhere the rank's pairs take their global-view
+    slots (:func:`_global_positions`) at the capacity of the whole
+    batch.  y leaves in x's layout.  Expert banks may come whole or as
+    this rank's shard (E/m experts, the FSDP dim cut or not)."""
     ctx = current_ctx()
     b, s, d = x.shape
     t = b * s
@@ -418,12 +486,6 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg
                and (rows or ctx.resolve("sp", s) is not None))
     # a training step that split its batch: statistics sum over "dp"
     dp_sum = ctx.split_batch if ctx.active else ()
-    if dp_sum and not use_region:
-        raise NotImplementedError(
-            "MoE under a batch split over 'dp' runs only the expert-"
-            "parallel branch (num_experts divisible by the 'model' axis, "
-            "not pure_dp): the reference's global view places every "
-            "token's bucket slot over the whole batch")
     stat_axes = dp_sum + (("model",) if rows else ())
     logits = x.reshape(t, d).float() @ tp.on_rows(params["router"])
     gates, idx = _route(logits, k)
@@ -433,10 +495,17 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg
     a2a_bytes = torch.zeros((), dtype=torch.float32, device=x.device)
 
     if not use_region:
-        w_gate, w_up, w_down = tp.on_rows(
-            _gather_banks(params, d, e, ctx, False, ()))
+        w_gate, w_up, w_down = (tp.on_rows(w) for w in _gather_banks(
+            params, d, e, ctx, False, ()))
+        # the reference's global view: slots over the whole batch
+        positions, parts = None, 1
+        if stat_axes:
+            positions = _global_positions(idx.view(b, s, k), e, dp_sum,
+                                          rows, ctx)
+            parts = int(np.prod([ctx.axis_sizes[a] for a in stat_axes]))
         y, kept = _grouped_experts(x.reshape(t, d), gates, idx, w_gate,
-                                   w_up, w_down, _capacity(cfg, t))
+                                   w_up, w_down, _capacity(cfg, t * parts),
+                                   positions=positions)
         y = y.view(b, s, d)
         kept_sum = kept.sum()
     else:
