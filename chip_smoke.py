@@ -12,7 +12,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    head widths 120 (h2o-danube3-4b, window 4096) and 32 (the reduced
    configs) and at DeepSeek-V2's MLA widths, q/k 192 and v 128 (fp32,
    bf16, window, ragged) and (48, 32) (the narrow test variant, and the
-   reduced config's absorbed route at one kv head), timed (median and
+   reduced config's absorbed route at one kv head), and its absorbed
+   route's full width (576, 512) at one kv head (fp32 ragged q_offset,
+   bf16 window; ``csrc/flash_attention_wide.cu``), timed (median and
    min-max of 20 cold-L2 samples) beside its plain version,
    ``scaled_dot_product_attention`` (the backend that served it printed,
    "no single call" where none takes the shape) and its bound, at hd 64,
@@ -21,9 +23,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    its 1 x 4096, at deepseek-v2-236b's prefill 4 x 4096 at (192,
    128), G 1, at whisper-small's 1 x 4096 (12 over 12 heads, G 1, hd 64)
    and at llava-next-mistral-7b's 2 x 5200 (G 4, hd 128, window 4096
-   binding, a ragged last tile) (arctic's, deepseek's, deepseek's ragged
-   4 x 2100, whisper's and llava's each checked twice for the same
-   bits),
+   binding, a ragged last tile), and at deepseek's absorbed prefill 4 x
+   4096 at (576, 512), G 128 (arctic's, deepseek's, deepseek's ragged
+   4 x 2100, whisper's, llava's and the absorbed one each checked twice
+   for the same bits),
    then the kernel and sdpa once more after a ~0.5 ms device spin each
    (their device work alone, without the host work the device waits on);
    the HMMA instructions ``cuobjdump -sass`` finds in each K1 kernel (the
@@ -64,16 +67,21 @@ Phases, in order; any failure raises and the script exits nonzero:
    / hd 32 variants, arctic's (B=4, H=56, KH=8, S=4096, hd 128) and
    MLA's (deepseek's micro-batch B=1, H=KH=128, S=4096 at (192, 128);
    fp32, window and ragged (192, 128); (48, 32) in bf16 and fp32 and at
-   one kv head), whisper's (B=4, H=KH=12, S=4096, hd 64) and llava's
-   (B=4, H=32, KH=8, S=4096, hd 128, window 4096), K3 against K2, K1-lse
+   one kv head), whisper's (B=4, H=KH=12, S=4096, hd 64), llava's
+   (B=4, H=32, KH=8, S=4096, hd 128, window 4096) and the absorbed MLA
+   route's (B=1, H=128, KH=1, S=4096 at (576, 512); fp32 ragged with a
+   q_offset), K3 against K2, K1-lse
    and K2 twice the same bits; the
    HMMA instructions ``cuobjdump -sass`` finds in the bf16 K1, K2 and K3
    kernels of each compiled width pair and their blocks per SM; then
-   timed at the training shape, at arctic's, deepseek's and whisper's (median
+   timed at the training shape, at arctic's, deepseek's, whisper's and
+   the absorbed route's (median
    and min-max
    of 10 cold-L2 samples) beside the plain versions, the forward and the
    backward (``torch.autograd.grad``) of one
-   ``scaled_dot_product_attention`` call, and their bounds;
+   ``scaled_dot_product_attention`` call (with ``enable_gqa``, or on k
+   and v expanded to the query heads where that form falls to the math
+   backend: the memory-efficient one takes (576, 512)), and their bounds;
 4a. K4f and K4b (the whole-sequence megakernels; bf16 on tensor cores)
    against their plain versions at the short-sequence training shape
    (B=64, H=15, KH=5, S=256, hd 64, bf16) and at ragged / window /
@@ -141,7 +149,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    layer) for 6 steps of 4 x 4096; the cross entropy must fall and each
    step launch K9 twice a layer and K9b once; step median, peak memory
    and a profiled step;
-8d. hybrid training: zamba2-1.2b the same way, 6 steps of 4 x 4096: K9
+8d. hybrid training: zamba2-1.2b the same way, 10 steps of 4 x 4096: K9
    twice and K9b once a Mamba layer (38), K1-lse and K3 once per
    application of the shared attention block (6, outside remat as in the
    reference);
@@ -215,6 +223,17 @@ Phases, in order; any failure raises and the script exits nonzero:
     fp32 K1, K1-lse and K3 at (192, 128)): routing, prefill and 4 decode
     logits, loss and every gradient on the card against the port's CPU
     path;
+18a. the absorbed MLA route at full width: one deepseek attention block
+    (d_model 5120, q_lora_rank 1536, 128 heads, kv_lora_rank 512, q/k
+    128 + 64, v 128; seeded weights, bf16) through
+    ``attention.mla_prefill`` at 4 x 4096 (K1 at (576, 512) once, wall
+    and device busy, the latent caches ``_mla_kv_latents``' bits) and
+    ``mla_train`` forward and backward at 1 x 4096 (K1-lse and K3 once;
+    again in deterministic mode: K2, every gradient within 2e-2 of its
+    leaf's largest entry of K3's); then in fp32 at 1 x 2180 the absorbed
+    route against the dense route (loss, every gradient, prefill output
+    and caches; the route with the kernels' plain version in their place
+    printed beside);
 19. encoder-decoder serving: whisper-small at full width (12 encoder + 12
     decoder layers, 12 heads of 64, 278 M parameters), fp32 master
     weights cast to bf16 per layer, seeded weights and frames: prefill
@@ -319,6 +338,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from unittest import mock
 
 # cuBLAS reads this when CUDA starts: the deterministic-restart phase
 # needs it for torch.use_deterministic_algorithms(True)
@@ -347,7 +367,7 @@ from repro_torch.core import NULL_GUID, Runtime, spawn_main  # noqa: E402
 from repro_torch.launch import analysis  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
-from repro_torch.models import blocks, moe  # noqa: E402
+from repro_torch.models import attention, blocks, moe  # noqa: E402
 from repro_torch.models.model import LanguageModel  # noqa: E402
 from repro_torch.optim import (OptimizerConfig, adamw_update,  # noqa: E402
                                init_opt_state)
@@ -386,19 +406,24 @@ def _randn(shape, dtype, seed):
 # of width 64, at its 1 x 4096 prefill, its 4 x 4096 train step and its
 # decode cache of 448 + 32 positions; llava: llava-next-mistral-7b's (32
 # over 8, hd 128, window 4096) at its serve prefill 2 x (576 + 4624),
-# where the window binds, and its decode cache of 5200 + 16
+# where the window binds, and its decode cache of 5200 + 16.
+# mla_absorbed: deepseek-v2-236b's absorbed MLA route, one latent kv head
+# of q/k 512 + 64 and v 512 for its 128 query heads (G 128, the (576,
+# 512) pair), at the prefill 4 x 4096 and the micro-batch 1 x 4096
 K1_TIMED = {"serve": (1, 15, 5, 3008, 64, 64, 0),
             "danube": (1, 32, 8, 6000, 120, 120, 4096),
             "arctic": (4, 56, 8, 2100, 128, 128, 0),
             "arctic_4096": (1, 56, 8, 4096, 128, 128, 0),
             "deepseek": (4, 128, 128, 4096, 192, 128, 0),
             "whisper": (1, 12, 12, 4096, 64, 64, 0),
-            "llava": (2, 32, 8, 5200, 128, 128, 4096)}
+            "llava": (2, 32, 8, 5200, 128, 128, 4096),
+            "mla_absorbed": (4, 128, 1, 4096, 576, 512, 0)}
 K1_LSE_TIMED = {"train": (4, 15, 5, 4096, 64, 64),
                 "short": (64, 15, 5, 256, 64, 64),
                 "arctic": (4, 56, 8, 4096, 128, 128),
                 "deepseek": (1, 128, 128, 4096, 192, 128),
-                "whisper": (4, 12, 12, 4096, 64, 64)}
+                "whisper": (4, 12, 12, 4096, 64, 64),
+                "mla_absorbed": (1, 128, 1, 4096, 576, 512)}
 K5_TIMED = {"smollm": (4, 5, 3, 2624, 64, 2600, 0),
             "danube": (1, 8, 4, 6016, 120, 6001, 4096),
             "arctic": (4, 8, 7, 2116, 128, 2116, 0),
@@ -590,26 +615,64 @@ def _pair_name(hd, hd_v):
     return f"hd{hd}" if hd == hd_v else f"hd{hd}/{hd_v}"
 
 
+def _sdpa_pick(q, k, v, do, kw):
+    """(closure, backend) of the sdpa call that serves these tensors best,
+    or (None, "no single call").  The ``enable_gqa`` form comes first.
+    Where it raises or falls to the math backend and one kv head serves
+    several query heads, the same function on k and v expanded to q's
+    heads (views) is tried: the memory-efficient backend takes no
+    ``enable_gqa`` but widths past flash's and cuDNN's (MLA's absorbed
+    (576, 512)).  With ``do`` the closure is the backward alone:
+    ``autograd.grad`` through a kept graph on copies of the tensors
+    (nothing added into ``.grad``)."""
+    forms = [("", lambda q, k, v: F.scaled_dot_product_attention(
+        q, k, v, enable_gqa=True, **kw))]
+    if k.shape[1] == 1 < q.shape[1]:
+        forms.append((", kv expanded", lambda q, k, v:
+                      F.scaled_dot_product_attention(
+                          q, *(t.expand(-1, q.shape[1], -1, -1)
+                               for t in (k, v)), **kw)))
+    best = (None, "no single call")
+    for form, attend in forms:
+        try:
+            if do is None:
+                fn = (lambda attend=attend: attend(q, k, v))
+                backend = _sdpa_backend(fn)
+            else:
+                leaves = [t.detach().clone().requires_grad_()
+                          for t in (q, k, v)]
+                backend = _sdpa_backend(lambda: torch.autograd.grad(
+                    attend(*leaves), leaves, do))
+                out = attend(*leaves)
+                fn = (lambda out=out, leaves=leaves: torch.autograd.grad(
+                    out, leaves, do, retain_graph=True))
+        except RuntimeError as e:
+            print(f"  sdpa{form} takes no call here: "
+                  f"{str(e).splitlines()[0][:120]}")
+            torch.cuda.empty_cache()
+            continue
+        print(f"  sdpa{form}{' backward' if do is not None else ''}: "
+              f"{backend}")
+        if best[0] is None or backend != "math":
+            best = (fn, backend + form)
+        if backend != "math":
+            break
+    torch.cuda.empty_cache()
+    return best
+
+
 def _sdpa_call(q, k, v, **kw):
-    """``scaled_dot_product_attention`` on these tensors, or None where
-    no backend takes them (the yardstick is then "no single call")."""
-    try:
-        F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
-    except RuntimeError as e:
-        print(f"  sdpa takes no call here: {str(e).splitlines()[0][:120]}")
-        return None
-    return lambda: F.scaled_dot_product_attention(  # noqa: E731
-        q, k, v, enable_gqa=True, **kw)
+    """(closure, backend) of one ``scaled_dot_product_attention`` call on
+    these tensors, or (None, "no single call") where no backend takes
+    them (see ``_sdpa_pick``)."""
+    return _sdpa_pick(q, k, v, None, kw)
 
 
 def _sdpa_backward(q, k, v, do, **kw):
-    """The backward alone of one ``scaled_dot_product_attention`` call on
-    copies of these tensors: ``autograd.grad`` through a kept graph
-    (nothing added into ``.grad``).  The closure holds the graph."""
-    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    out = F.scaled_dot_product_attention(*leaves, enable_gqa=True, **kw)
-    return lambda: torch.autograd.grad(  # noqa: E731
-        out, leaves, do, retain_graph=True)
+    """(closure, backend) of the backward alone of one
+    ``scaled_dot_product_attention`` call on copies of these tensors;
+    the closure holds the graph (see ``_sdpa_pick``)."""
+    return _sdpa_pick(q, k, v, do, kw)
 
 
 def _ptxas_report(pattern):
@@ -680,8 +743,13 @@ def phase_k1(flush):
         ("mla narrow (48, 32) fp32", 2, 8, 8, 300, 300, 48, 32, f32, 0, 0),
         ("mla absorbed reduced (48, 32) bf16 KH 1", 2, 4, 1, 300, 300, 48,
          32, bf, 0, 0),
+        ("mla absorbed (576, 512) fp32 ragged q_offset 143", 1, 16, 1, 257,
+         400, 576, 512, f32, 0, 143),
+        ("mla absorbed (576, 512) bf16 window 100", 1, 16, 1, 600, 600, 576,
+         512, bf, 100, 0),
     ]
-    worst = 0.0
+    # the worst error over every case, and over the (576, 512) ones alone
+    worst = wide = 0.0
     for i, (name, b, h, kh, sq, sk, hd, hd_v, dt, win, off) in \
             enumerate(cases):
         q = _randn((b, h, sq, hd), dt, 10 * i)
@@ -690,7 +758,10 @@ def phase_k1(flush):
         got = fa.flash_attention(q, k, v, off, causal=True, window=win)
         torch.cuda.synchronize()
         want = fa.flash_attention_plain(q, k, v, off, causal=True, window=win)
-        worst = max(worst, _check(name, got, want, dt))
+        err = _check(name, got, want, dt)
+        worst = max(worst, err)
+        if (hd, hd_v) == autotune.WIDE_PAIR:
+            wide = max(wide, err)
 
     def timed(b, h, kh, s, hd, hd_v, win, seed):
         dt = torch.bfloat16
@@ -703,9 +774,10 @@ def phase_k1(flush):
         plain_ms = _time_ms(lambda: fa.flash_attention_plain(
             q, k, v, window=win), 3, flush)
         if win:
-            lib = _sdpa_call(q, k, v, attn_mask=_window_mask(s, s, 0, win))
+            lib, lib_backend = _sdpa_call(
+                q, k, v, attn_mask=_window_mask(s, s, 0, win))
         else:
-            lib = _sdpa_call(q, k, v, is_causal=True)
+            lib, lib_backend = _sdpa_call(q, k, v, is_causal=True)
         lib_st = lib_dev = None
         if lib is not None:
             lib_st = _time_stats(lib, 20, flush)
@@ -720,8 +792,7 @@ def phase_k1(flush):
                "library_ms": lib_st and lib_st["median"],
                "library_min": lib_st and lib_st["min"],
                "library_max": lib_st and lib_st["max"],
-               "library_backend": (_sdpa_backend(lib) if lib is not None
-                                   else "no single call"),
+               "library_backend": lib_backend,
                "bound_ms": bound_ms,
                "bound_by": bound_by, "gflop": flops / 1e9,
                "tflops": flops / st["median"] / 1e9, "device_ms": dev,
@@ -741,10 +812,12 @@ def phase_k1(flush):
     # 1 x 4096; deepseek-v2-236b's MLA heads (192, 128) at G 1, at its
     # serve prefill 4 x 4096 and at a ragged 4 x 2100; whisper's G 1 at hd
     # 64, 1 x 4096; llava's 2 x 5200 (81.25 tiles of 64 rows, the window
-    # binding on the last 1104)
+    # binding on the last 1104); deepseek's absorbed route (576, 512) at G
+    # 128, its prefill 4 x 4096
     for shape, s_over in (("arctic", None), ("arctic_4096", None),
                           ("deepseek", None), ("deepseek", 2100),
-                          ("whisper", None), ("llava", None)):
+                          ("whisper", None), ("llava", None),
+                          ("mla_absorbed", None)):
         b, h, kh, s, hd, hd_v, win = K1_TIMED[shape]
         s = s_over or s
         dt = torch.bfloat16
@@ -758,9 +831,12 @@ def phase_k1(flush):
                 + (f" window {win}" if win else ""))
         if not torch.equal(got, again):
             raise AssertionError(f"K1 {what}: two runs gave other bits")
-        worst = max(worst, _check(
-            f"{what} (twice the same bits)", got,
-            fa.flash_attention_plain(q, k, v, causal=True, window=win), dt))
+        err = _check(f"{what} (twice the same bits)", got,
+                     fa.flash_attention_plain(q, k, v, causal=True,
+                                              window=win), dt)
+        worst = max(worst, err)
+        if shape == "mla_absorbed":
+            wide = max(wide, err)
         del q, k, v, got, again
         torch.cuda.empty_cache()
 
@@ -772,6 +848,8 @@ def phase_k1(flush):
     torch.cuda.empty_cache()
     whisper = timed(*K1_TIMED["whisper"], 94)
     llava = timed(*K1_TIMED["llava"], 95)
+    torch.cuda.empty_cache()
+    absorbed = timed(*K1_TIMED["mla_absorbed"], 96)
     torch.cuda.empty_cache()
     hmma, occupancy = _fwd_hmma()
     return {"name": "flash_attention (K1)", "route": "cuda",
@@ -794,7 +872,12 @@ def phase_k1(flush):
                         "prefill, G 1)"},
             "llava": {**llava, "timed_shape": "B=2 H=32 KH=8 Sq=Sk=5200 "
                       "hd=128 bf16 causal window 4096 (llava-next-mistral-"
-                      "7b's serve prefill, 576 patches + 4624 text)"}}
+                      "7b's serve prefill, 576 patches + 4624 text)"},
+            "mla_absorbed": {**absorbed, "max_abs_err": wide,
+                             "timed_shape": "B=4 H=128 KH=1 Sq=Sk=4096 "
+                             "hd=576 hd_v=512 bf16 causal (deepseek-v2-"
+                             "236b's absorbed MLA route, G 128: its "
+                             "prefill)"}}
 
 
 def phase_k5(flush):
@@ -1395,14 +1478,24 @@ def phase_k_train(flush):
          0, 0),
         ("llava G4 hd128 window 4096 4x4096 bf16", 4, 32, 8, 4096, 4096,
          128, 128, bf, 4096, 0),
+        ("mla absorbed (576, 512) G128 1x4096 bf16", 1, 128, 1, 4096, 4096,
+         576, 512, bf, 0, 0),
+        ("mla absorbed (576, 512) fp32 ragged 1100 q_offset 200", 1, 16, 1,
+         1100, 1300, 576, 512, f32, 0, 200),
     ]
-    worst = {k: [0.0, 0.0] for k in ("k1_lse", "k2_dq", "k2_dkv", "k3")}
+    # the worst errors over every case, and over the (576, 512) ones alone
+    keys = ("k1_lse", "k2_dq", "k2_dkv", "k3")
+    worst = {k: [0.0, 0.0] for k in keys}
+    worst_wide = {k: [0.0, 0.0] for k in keys}
+    wide = False
 
     def note(key, err):
-        worst[key] = [max(worst[key][0], err[0]), max(worst[key][1], err[1])]
+        for w in (worst, worst_wide) if wide else (worst,):
+            w[key] = [max(w[key][0], err[0]), max(w[key][1], err[1])]
 
     for i, (name, b, h, kh, sq, sk, hd, hd_v, dt, win, off) in \
             enumerate(cases):
+        wide = (hd, hd_v) == autotune.WIDE_PAIR
         q = _randn((b, h, sq, hd), dt, 200 + 10 * i)
         k = _randn((b, kh, sk, hd), dt, 201 + 10 * i)
         v = _randn((b, kh, sk, hd_v), dt, 202 + 10 * i)
@@ -1468,16 +1561,20 @@ def phase_k_train(flush):
                  for hd, hd_v in autotune.ATTN_PAIRS for dt in (bf, f32)}
     print(f"  blocks per SM (occupancy calculator): {occupancy}")
     fwd_hmma, fwd_occ = _fwd_hmma()
-    # the compiled pair MLA added: registers and spills of each kernel
+    # the compiled pairs MLA added, (192, 128) and the absorbed route's
+    # (576, 512): registers and spills of each kernel, eight each
     mla_regs = {}
-    for kern in ("flash_fwd", "bwd_dq", "bwd_dkv"):
-        mla_regs.update(_ptxas_report((kern, "192ELi128")))
-    for kname, r in mla_regs.items():
-        print(f"  ptxas {kname[-64:]}: {r.get('registers')} registers, "
-              f"{r.get('spill_stores')} B spill stores, "
-              f"{r.get('spill_loads')} B spill loads")
-    if len(mla_regs) != 8:
-        raise AssertionError(f"ptxas report for (192, 128): {mla_regs}")
+    for pair in ("192ELi128", "576ELi512"):
+        regs = {}
+        for kern in ("flash_fwd", "bwd_dq", "bwd_dkv"):
+            regs.update(_ptxas_report((kern, pair)))
+        for kname, r in regs.items():
+            print(f"  ptxas {kname[-64:]}: {r.get('registers')} registers, "
+                  f"{r.get('spill_stores')} B spill stores, "
+                  f"{r.get('spill_loads')} B spill loads")
+        if len(regs) != 8:
+            raise AssertionError(f"ptxas report for {pair}: {regs}")
+        mla_regs[pair] = regs
 
     def occ(pair):
         return {"k1_lse": fwd_occ[f"{pair} {bf}"],
@@ -1492,6 +1589,8 @@ def phase_k_train(flush):
                               occ("hd192/128"))
     whisper = _k_train_times(K1_LSE_TIMED["whisper"], 360, flush, worst,
                              occ("hd64"))
+    absorbed = _k_train_times(K1_LSE_TIMED["mla_absorbed"], 380, flush,
+                              worst_wide, occ("hd576/512"))
     rows = train
     for key, other, shape in (
             ("arctic", arctic, "B=4 H=56 KH=8 S=4096 hd=128 bf16 causal "
@@ -1501,12 +1600,16 @@ def phase_k_train(flush):
              "its accumulated train step)"),
             ("whisper", whisper, "B=4 H=KH=12 S=4096 hd=64 bf16 causal "
              "(whisper-small's decoder self-attention, G 1: its train "
-             "step)")):
+             "step)"),
+            ("mla_absorbed", absorbed, "B=1 H=128 KH=1 S=4096 hd=576 "
+             "hd_v=512 bf16 causal (deepseek-v2-236b's absorbed MLA route, "
+             "G 128: one micro-batch)")):
         rows[key] = {k: other[k] for k in ("k1_lse", "k2_dq", "k2_dkv", "k3",
                                            "library_bwd", "library_backend")}
         rows[key]["timed_shape"] = shape
     rows["hmma"] = {**hmma, **fwd_hmma}
-    rows["ptxas_192_128"] = mla_regs
+    rows["ptxas_192_128"] = mla_regs["192ELi128"]
+    rows["ptxas_576_512"] = mla_regs["576ELi512"]
     rows["occupancy"] = {**occupancy, **{f"k1 {k}": n
                                          for k, n in fwd_occ.items()}}
     return rows
@@ -1538,27 +1641,20 @@ def _k_train_times(shape, seed, flush, worst, occ):
         q, k, v, with_lse=True), 3, flush)
     plain_bwd = _time_ms(lambda: fa.flash_attention_bwd_plain(
         q, k, v, out, lse, do), 3, flush)
-    lib_f = _sdpa_call(q, k, v, is_causal=True)
     k1_dev = _time_stats(lambda: fa.flash_attention_fwd(q, k, v), 10, flush,
                          spin=True)
+    lib_f, fwd_backend = _sdpa_call(q, k, v, is_causal=True)
     lib_fwd = lib_fwd_dev = lib_bwd = None
-    backend = {"forward": "no single call", "backward": "no single call"}
     if lib_f is not None:
         lib_fwd = _time_stats(lib_f, 10, flush)
         lib_fwd_dev = _time_stats(lib_f, 10, flush, spin=True)
-        ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
-        lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
-                                            enable_gqa=True)
-        # autograd.grad: the backward alone, nothing added into .grad
-        lib_b = lambda: torch.autograd.grad(  # noqa: E731
-            lo, (ql, kl, vl), do, retain_graph=True)
+    del lib_f
+    lib_b, bwd_backend = _sdpa_backward(q, k, v, do, is_causal=True)
+    if lib_b is not None:
         lib_bwd = _time_stats(lib_b, 10, flush)
-        backend = {"forward": _sdpa_backend(lib_f),
-                   "backward": _sdpa_backend(lambda: torch.autograd.grad(
-                       F.scaled_dot_product_attention(
-                           ql, kl, vl, is_causal=True, enable_gqa=True),
-                       (ql, kl, vl), do))}
-        del ql, kl, vl, lo
+    del lib_b
+    torch.cuda.empty_cache()
+    backend = {"forward": fwd_backend, "backward": bwd_backend}
     # FLOP per live pair: 2 x the width of each product (S and dK, dQ
     # over hd; dP, P V and dV over hd_v); bytes read once + written once
     work = {key: kcounts.attention_work(key, b, h, kh, s, s, hd, hd_v, 0,
@@ -1593,10 +1689,11 @@ def _k_train_times(shape, seed, flush, worst, occ):
               f"{nbytes / 1e6:.1f} MB), {rows[key]['tflops']:.1f} TFLOP/s, "
               f"{occ[key]} blocks an SM")
     pair = st["k2_dq"]["median"] + st["k2_dkv"]["median"]
-    if lib_f is not None:
-        print(f"  sdpa forward [{backend['forward']}] {_fmt(lib_fwd)}; sdpa "
+    if lib_fwd is not None or lib_bwd is not None:
+        print(f"  sdpa forward [{backend['forward']}] "
+              f"{'-' if lib_fwd is None else _fmt(lib_fwd)}; sdpa "
               f"backward via autograd.grad [{backend['backward']}] "
-              f"{_fmt(lib_bwd)}")
+              f"{'-' if lib_bwd is None else _fmt(lib_bwd)}")
     print(f"  K2 pair {pair:.4f} ms, K3 {st['k3']['median']:.4f} ms; after "
           f"a device spin: K1 with lse {_fmt(k1_dev)}, sdpa forward "
           f"{'-' if lib_fwd_dev is None else _fmt(lib_fwd_dev)}")
@@ -2253,7 +2350,12 @@ def phase_restart(ckpt_dir):
 SSM_TRAIN_ARGS = ["--arch", "mamba2-1.3b", "--data", "markov", "--batch",
                   "4", "--seq", "4096", "--steps", "6", "--lr", "1e-3",
                   "--device", "cuda"]
-HYBRID_TRAIN_ARGS = ["--arch", "zamba2-1.2b"] + SSM_TRAIN_ARGS[2:]
+# zamba2's loss rises over its first steps at this lr before it falls,
+# and from run to run (K3's dq atomics sum in another order) its sixth
+# lies ±0.01 about the first: 10 steps take it clearly below
+HYBRID_TRAIN_ARGS = ["--arch", "zamba2-1.2b", "--data", "markov",
+                     "--batch", "4", "--seq", "4096", "--steps", "10",
+                     "--lr", "1e-3", "--device", "cuda"]
 
 
 def _ssm_want(cfg, steps, counts, deterministic=False):
@@ -2325,7 +2427,7 @@ def phase_ssm_train():
 
 def phase_hybrid_train():
     """zamba2-1.2b at full width (38 Mamba layers, the shared attention
-    block applied 6 times), 6 steps of 4 x 4096."""
+    block applied 6 times), 10 steps of 4 x 4096."""
     return _ssm_train(HYBRID_TRAIN_ARGS, "hybrid train")
 
 
@@ -4260,6 +4362,236 @@ def phase_mla_reference():
     return info
 
 
+# deepseek-v2-236b's absorbed MLA route: one latent kv head of q/k 512 +
+# 64 and v 512 (the (576, 512) pair) for all 128 query heads.  The fp32
+# check's length lies past the 2048 flash gate and cuts a ragged last
+# tile from every (576, 512) kernel's q and kv tiles (16, 32, 64 rows)
+MLA_ABSORBED_PREFILL = (4, 4096)
+MLA_ABSORBED_TRAIN = (1, 4096)
+MLA_ABSORBED_CHECK = 2180
+
+
+def _grad_leaves(params):
+    """(tree, leaves): an MLA block's parameters (the norms' scales too)
+    as fresh gradient leaves, in a tree of the block's layout."""
+    leaf = {k: (v["scale"] if isinstance(v, dict) else v).detach()
+            .requires_grad_() for k, v in params.items()}
+    return ({k: {"scale": leaf[k]} if isinstance(v, dict) else leaf[k]
+             for k, v in params.items()}, list(leaf.values()))
+
+
+def _plain_flash(q, k, v, q_offset=0, *, causal=True, window=0, **_):
+    """``ops.flash_attention``'s function (model layout) through the
+    kernels' plain version, differentiable by autograd."""
+    out = fa.flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), q_offset,
+                                   causal=causal, window=window)
+    return out.transpose(1, 2)
+
+
+def _absorbed_train(params, x, w, cfg, pos):
+    """``attention.mla_train`` forward and backward: the loss sum(out ·
+    w) in fp32 and the gradients of every parameter and of x."""
+    tree, leaves = _grad_leaves(params)
+    xg = x.detach().requires_grad_()
+    out = attention.mla_train(tree, xg, cfg, pos)
+    loss = (out.float() * w.float()).sum()
+    grads = torch.autograd.grad(loss, leaves + [xg])
+    return loss.item(), grads
+
+
+def phase_mla_absorbed():
+    """deepseek-v2-236b's absorbed MLA route at full width, one attention
+    block (d_model 5120, q_lora_rank 1536, 128 heads, kv_lora_rank 512,
+    q/k 128 + 64, v 128) of seeded weights (``attention.mla_init``, fp32
+    cast to bf16): ``mla_prefill`` at 4 x 4096 (K1 at (576, 512) once;
+    the wall and the device's busy time; the latent caches equal
+    ``_mla_kv_latents``' bits), ``mla_train`` forward and backward at 1 x
+    4096 (K1-lse and K3 once), then again in deterministic mode (K1-lse,
+    K2): every gradient finite and K3's within 2e-2 of each leaf's
+    largest entry of K2's; then in fp32 at 1 x ``MLA_ABSORBED_CHECK`` the
+    absorbed route against the dense route of the same functions (the
+    flash gate raised for the dense side), as the reference's
+    test_mla_flash_bwd_matches_dense holds it: loss (1e-3 + 1e-5
+    relative), every gradient (1e-4 of its leaf's largest entry; that
+    test's elementwise 1e-3 + 1e-3 |g| printed beside, for the kernels
+    and for the route with their plain version in their place), prefill
+    output (1e-4) and caches (1e-5)."""
+    cfg = _deepseek_cfg()
+    print("== mla absorbed: deepseek-v2-236b's attention block at full "
+          "width on the absorbed route, one kv head of (576, 512) for 128 "
+          "heads; bf16 prefill 4 x 4096 and train 1 x 4096, fp32 against "
+          f"the dense route at 1 x {MLA_ABSORBED_CHECK}")
+    bf, f32 = torch.bfloat16, torch.float32
+    master = attention.mla_init(torch.Generator(device="cuda").manual_seed(85),
+                                cfg)
+    params = _tree_to(master, bf)
+    info = {}
+
+    b, s = MLA_ABSORBED_PREFILL
+    x = _randn((b, s, cfg.d_model), bf, 86)
+    pos = torch.arange(s, device="cuda")[None].expand(b, s)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        out, cache = attention.mla_prefill(params, x, cfg, pos)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = _counts()
+        c_kv, k_rope = attention._mla_kv_latents(params, x, cfg, pos)
+        same = (torch.equal(cache["c_kv"], c_kv)
+                and torch.equal(cache["k_rope"], k_rope[:, :, 0]))
+        finite = bool(torch.isfinite(out).all())
+        prof = _profile(lambda: attention.mla_prefill(params, x, cfg, pos),
+                        2)
+    _print_profile(f"prefill {b} x {s}", prof, prof["profiled_wall_ms"])
+    print(f"  prefill {b} x {s}: first call {wall:.1f} ms, launches "
+          f"{counts}; output {tuple(out.shape)} finite {finite}; caches "
+          f"equal _mla_kv_latents' bits {same}")
+    _want_launches("absorbed prefill", counts,
+                   {**dict.fromkeys(counts, 0), "k1": 1})
+    if not (same and finite and out.shape == (b, s, cfg.d_model)):
+        raise AssertionError("absorbed prefill: output or caches wrong")
+    info["prefill"] = {"first_call_ms": wall, "launches": counts, **prof}
+    del x, pos, out, cache, c_kv, k_rope
+    torch.cuda.empty_cache()
+
+    b, s = MLA_ABSORBED_TRAIN
+    x = _randn((b, s, cfg.d_model), bf, 87)
+    w = _randn((b, s, cfg.d_model), bf, 88)
+    pos = torch.arange(s, device="cuda")[None].expand(b, s)
+    runs = {}
+    for mode in ("default", "deterministic"):
+        torch.use_deterministic_algorithms(mode == "deterministic")
+        try:
+            torch.cuda.synchronize()
+            _zero_counts()
+            t0 = time.perf_counter()
+            loss, grads = _absorbed_train(params, x, w, cfg, pos)
+            torch.cuda.synchronize()
+            runs[mode] = {"wall_ms": (time.perf_counter() - t0) * 1e3,
+                          "launches": _counts(), "loss": loss,
+                          "grads": grads}
+        finally:
+            torch.use_deterministic_algorithms(False)
+    k3, k2 = runs["default"], runs["deterministic"]
+    none = dict.fromkeys(k3["launches"], 0)
+    _want_launches("absorbed train", k3["launches"],
+                   {**none, "k1_lse": 1, "k3": 1})
+    _want_launches("absorbed train, deterministic", k2["launches"],
+                   {**none, "k1_lse": 1, "k2_dq": 1, "k2_dkv": 1})
+    finite = all(bool(torch.isfinite(g).all()) for r in (k3, k2)
+                 for g in r["grads"])
+    # K3's dq differs from K2's by its atomics' order (phase_k_train holds
+    # the kernels' outputs at this shape: dk, dv the same bits, dq within
+    # 2^-7); through the bf16 projections each leaf's gradient stays
+    # within the repo's bf16 limit, 2e-2 of its largest entry
+    leaf_diff = [((a.float() - c.float()).abs().max()
+                  / c.float().abs().max().clamp_min(1e-30)).item()
+                 for a, c in zip(k3["grads"], k2["grads"])]
+    print(f"  train {b} x {s}: forward and backward {k3['wall_ms']:.1f} ms "
+          f"(K3), {k2['wall_ms']:.1f} ms (deterministic: K2), first calls; "
+          f"launches {k3['launches']} / {k2['launches']}; loss "
+          f"{k3['loss']:.6g} / {k2['loss']:.6g}; every gradient finite "
+          f"{finite}; K3's gradients against K2's, max diff / max over "
+          f"the leaves {max(leaf_diff):.3e} (limit 2e-2)")
+    if not (finite and max(leaf_diff) <= 2e-2):
+        raise AssertionError("absorbed train: K2's and K3's gradients "
+                             "disagree or one is not finite")
+    info["train"] = {"wall_ms": k3["wall_ms"], "launches": k3["launches"],
+                     "loss": k3["loss"],
+                     "leaf_max_diff_over_max": leaf_diff}
+    info["train_deterministic"] = {"wall_ms": k2["wall_ms"],
+                                   "launches": k2["launches"],
+                                   "loss": k2["loss"]}
+    del x, w, pos, runs, k3, k2
+    torch.cuda.empty_cache()
+
+    # fp32: the absorbed route (the fp32 kernels) against the dense route
+    s = MLA_ABSORBED_CHECK
+    flash_cfg = dataclasses.replace(cfg, dtype="float32")
+    dense_cfg = dataclasses.replace(flash_cfg, attn_flash_min_seq=1 << 20)
+    assert attention.flash_min_seq(flash_cfg) < s <= \
+        attention.flash_min_seq(dense_cfg)
+    x = _randn((1, s, cfg.d_model), f32, 89)
+    pos = torch.arange(s, device="cuda")[None]
+    sides = {}
+    for name, c in (("absorbed", flash_cfg), ("plain", flash_cfg),
+                    ("dense", dense_cfg)):
+        # "plain": the absorbed route with the kernels' plain version
+        # (autograd through it) in their place, the yardstick of their
+        # fp32 error
+        with (mock.patch.object(kernel_ops, "flash_attention", _plain_flash)
+              if name == "plain" else contextlib.nullcontext()):
+            _zero_counts()
+            tree, leaves = _grad_leaves(master)
+            xg = x.detach().requires_grad_()
+            loss = torch.sin(attention.mla_train(tree, xg, c, pos)).sum()
+            grads = torch.autograd.grad(loss, leaves + [xg])
+            train_counts = _counts()
+            _zero_counts()
+            with torch.no_grad():
+                out, cache = attention.mla_prefill(master, x, c, pos)
+        sides[name] = {"loss": loss.item(), "grads": grads, "out": out,
+                       "cache": cache, "train": train_counts,
+                       "prefill": _counts()}
+        del tree, leaves, xg, loss
+    fl, pl, de = sides["absorbed"], sides["plain"], sides["dense"]
+    none = dict.fromkeys(fl["train"], 0)
+    _want_launches("fp32 absorbed train", fl["train"],
+                   {**none, "k1_lse": 1, "k3": 1})
+    _want_launches("fp32 absorbed prefill", fl["prefill"], {**none, "k1": 1})
+    _want_launches("fp32 plain train", pl["train"], none)
+    _want_launches("fp32 dense train", de["train"], none)
+    loss_err = abs(fl["loss"] - de["loss"])
+    # each gradient within 1e-4 of its leaf's largest entry (as
+    # phase_mla_reference): the reference's elementwise 1e-3 + 1e-3 |g|,
+    # set at its reduced widths' O(1) gradients, does not scale to
+    # w_dkv's, which reach ~2e3 here and lose ~5e-3 to fp32 summation
+    # order on entries near zero, the plain version's too: both ratios
+    # are printed beside
+    def of_max(side):
+        return max(((a - c).abs().max() / c.abs().max().clamp_min(1e-30))
+                   .item() for a, c in zip(side["grads"], de["grads"]))
+
+    def elementwise(side):
+        return max(((a - c).abs() / (1e-3 + 1e-3 * c.abs())).max().item()
+                   for a, c in zip(side["grads"], de["grads"]))
+    grad_err, grad_ratio = of_max(fl), elementwise(fl)
+    plain_err, plain_ratio = of_max(pl), elementwise(pl)
+    out_ratio = ((fl["out"] - de["out"]).abs()
+                 / (1e-4 + 1e-4 * de["out"].abs())).max().item()
+    cache_ratio = max(((fl["cache"][k] - de["cache"][k]).abs()
+                       / (1e-5 + 1e-5 * de["cache"][k].abs())).max().item()
+                      for k in ("c_kv", "k_rope"))
+    print(f"  fp32 1 x {s}, absorbed vs dense: loss {fl['loss']:.6g} vs "
+          f"{de['loss']:.6g} (|diff| {loss_err:.3e}, limit 1e-3 + 1e-5 "
+          f"|loss|); gradients {grad_err:.3e} of each leaf's max (limit "
+          f"1e-4; the plain version {plain_err:.3e}), elementwise "
+          f"{grad_ratio:.3f} of 1e-3 + 1e-3 |g| (the plain version "
+          f"{plain_ratio:.3f}; reported), prefill output {out_ratio:.3f} "
+          f"of 1e-4 + 1e-4 |o|, "
+          f"caches {cache_ratio:.3f} of 1e-5 + 1e-5 |c|; launches train "
+          f"{fl['train']}, prefill {fl['prefill']}")
+    if not (loss_err <= 1e-3 + 1e-5 * abs(de["loss"]) and grad_err <= 1e-4
+            and out_ratio <= 1 and cache_ratio <= 1):
+        raise AssertionError("fp32: the absorbed route disagrees with the "
+                             "dense route")
+    info["fp32"] = {"seq": s, "loss_abs_diff": loss_err,
+                    "grad_rel_err": grad_err,
+                    "grad_elementwise_of_1e-3": grad_ratio,
+                    "plain_grad_rel_err": plain_err,
+                    "plain_grad_elementwise_of_1e-3": plain_ratio,
+                    "out_of_limit": out_ratio,
+                    "cache_of_limit": cache_ratio,
+                    "launches_train": fl["train"],
+                    "launches_prefill": fl["prefill"]}
+    del master, params, x, pos, sides, fl, pl, de
+    torch.cuda.empty_cache()
+    return info
+
+
 # ---------------------------------------------- encoder-decoder and VLM
 
 WHISPER = "whisper-small"
@@ -5845,9 +6177,8 @@ def _shard_kernel_times(flush):
                                         True, 0, q.element_size())
             for key in ("k1_lse", "k3")}
     mask = _window_mask(sq, sk, off, sk + 1)
-    lib = _sdpa_call(q, k, v, attn_mask=mask)
-    libs = {"k1_lse": lib, "k3": (_sdpa_backward(q, k, v, do, attn_mask=mask)
-                                  if lib is not None else None)}
+    libs = {"k1_lse": _sdpa_call(q, k, v, attn_mask=mask)[0],
+            "k3": _sdpa_backward(q, k, v, do, attn_mask=mask)[0]}
     rows = {}
     for key, fn, plain, flops, nbytes, err in (
             ("k1_lse", lambda: fa.flash_attention_fwd(q, k, v, off),
@@ -5871,7 +6202,7 @@ def _shard_kernel_times(flush):
         print(f"  {key} at the stripe: {_fmt(st)}, plain "
               f"{rows[key]['plain_ms']:.3f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}), library {rows[key]['library_ms']}")
-    del q, k, v, do, out, lse, want, grads, wgrads, mask, lib, libs
+    del q, k, v, do, out, lse, want, grads, wgrads, mask, libs
     b, kh, g, hd, s, cur = 4, 4, 3, 128, 8192, 8001
     qd = _randn((b, kh, g, hd), dt, 85)
     kc, vc = _randn((b, kh, s, hd), dt, 86), _randn((b, kh, s, hd), dt, 87)
@@ -6250,6 +6581,7 @@ def main() -> int:
     mla_serve = timed("mla_serve_s", phase_mla_serve)
     mla_train = timed("mla_train_s", phase_mla_train)
     mla_ref = timed("mla_reference_s", phase_mla_reference)
+    mla_abs = timed("mla_absorbed_s", phase_mla_absorbed)
     encdec_serve = timed("encdec_serve_s", phase_encdec_serve)
     encdec_train = timed("encdec_train_s", phase_encdec_train)
     encdec_ref = timed("encdec_reference_s", phase_encdec_reference)
@@ -6304,6 +6636,13 @@ def main() -> int:
                     mla_train["deterministic"]["launches"],
                 "mla_reference_serve": mla_ref["launches_serve"],
                 "mla_reference_train": mla_ref["launches_train"],
+                "mla_absorbed_prefill": mla_abs["prefill"]["launches"],
+                "mla_absorbed_train": mla_abs["train"]["launches"],
+                "mla_absorbed_train_deterministic":
+                    mla_abs["train_deterministic"]["launches"],
+                "mla_absorbed_fp32_train": mla_abs["fp32"]["launches_train"],
+                "mla_absorbed_fp32_prefill":
+                    mla_abs["fp32"]["launches_prefill"],
                 "encdec_serve": encdec_serve["launches"],
                 "encdec_prefill_4096": encdec_serve["launches_4096"],
                 "encdec_train": encdec_train["launches"],
@@ -6391,6 +6730,31 @@ def main() -> int:
             row["launches_with_lse"] = launches("k4f_lse")[0]
             row["lse"] = k4["k4f_lse"]
         kernels.append(row)
+    # the (576, 512) pair's kernels (csrc/flash_attention_wide.cu): their
+    # launches on the absorbed route alone, timed at its shapes
+    src_wide = "src/repro_torch/kernels/csrc/flash_attention_wide.cu"
+    absorbed = [ph for ph in by_phase if ph.startswith("mla_absorbed")]
+    for key, name, replaces, timing, shape in (
+            ("k1", "flash_attention at (576, 512) (K1, absorbed MLA)",
+             ":134", k1["mla_absorbed"], k1["mla_absorbed"]["timed_shape"]),
+            ("k1_lse", "flash_attention_fwd at (576, 512) (K1-lse)", ":134",
+             ktrain["mla_absorbed"]["k1_lse"],
+             ktrain["mla_absorbed"]["timed_shape"]),
+            ("k2_dq", "flash_attention_bwd_dq at (576, 512) (K2 dq)", ":451",
+             ktrain["mla_absorbed"]["k2_dq"],
+             ktrain["mla_absorbed"]["timed_shape"]),
+            ("k2_dkv", "flash_attention_bwd_dkv at (576, 512) (K2 dk/dv)",
+             ":494", ktrain["mla_absorbed"]["k2_dkv"],
+             ktrain["mla_absorbed"]["timed_shape"]),
+            ("k3", "flash_attention_bwd_fused at (576, 512) (K3)", ":541",
+             ktrain["mla_absorbed"]["k3"],
+             ktrain["mla_absorbed"]["timed_shape"])):
+        per = {ph: by_phase[ph].get(key, 0) for ph in absorbed}
+        kernels.append({"name": name, "route": "cuda", "source": src_wide,
+                        "replaces": "src/repro/kernels/flash_attention.py"
+                        + replaces, **timing, "timed_shape": shape,
+                        "launches": sum(per.values()),
+                        "launches_by_phase": per})
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} never launched on the path")
@@ -6409,7 +6773,8 @@ def main() -> int:
               "ssm_deterministic": ssm_det, "moe_serve": moe_serve,
               "moe_train": moe_train, "moe_reference": moe_ref,
               "mla_serve": mla_serve, "mla_train": mla_train,
-              "mla_reference": mla_ref, "encdec_serve": encdec_serve,
+              "mla_reference": mla_ref, "mla_absorbed": mla_abs,
+              "encdec_serve": encdec_serve,
               "encdec_train": encdec_train, "encdec_reference": encdec_ref,
               "vlm_serve": vlm_serve, "vlm_train": vlm_train,
               "vlm_reference": vlm_ref, "mesh": mesh, "mesh_dp": mesh_dp,

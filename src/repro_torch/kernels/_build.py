@@ -35,10 +35,12 @@ _ENTRIES = {
     # q, k, v, dout, lse, delta, dq, B, H, KH, Sq, Sk, hd, hd_v, q_offset,
     # causal, window, dtype, scale, stream
     "repro_flash_bwd_dq": (_P,) * 7 + (_I,) * 11 + (_F, _P),
-    # q, k, v, dout, lse, delta, dk, dv, then as above
-    "repro_flash_bwd_dkv": (_P,) * 8 + (_I,) * 11 + (_F, _P),
-    # q, k, v, dout, lse, delta, dq_acc (fp32), dk, dv, then as above
-    "repro_flash_bwd_fused": (_P,) * 9 + (_I,) * 11 + (_F, _P),
+    # q, k, v, dout, lse, delta, dk, dv, ws (the (576, 512) pair's fp32
+    # workspace, or null), splits, then as above
+    "repro_flash_bwd_dkv": (_P,) * 9 + (_I,) * 12 + (_F, _P),
+    # q, k, v, dout, lse, delta, dq_acc (fp32), dk, dv, ws, splits, then as
+    # above
+    "repro_flash_bwd_fused": (_P,) * 10 + (_I,) * 12 + (_F, _P),
     # which (0 dq, 1 dk/dv, 2 fused), hd, hd_v, dtype, out: blocks per SM
     "repro_flash_bwd_occupancy": (_I,) * 4 + (_P,),
     # q, k, v, out, lse (or null), B, H, KH, Sq, Sk, hd, q_offset, causal,

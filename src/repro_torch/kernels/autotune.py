@@ -18,7 +18,8 @@
   one block per (batch, kv head) must fill the SMs;
 * :func:`kernel_head_dim`, the compiled (q/k width, v width) pair at
   which the tiled kernels K1, K2, K3 and the decode kernel K5 run a
-  head;
+  head, and :func:`wide_dkv_splits`, the head slices of the dk/dv pass
+  at the widest pair, (576, 512);
 * :func:`decode_splits`, how many blocks the split-sequence decode
   kernel K5 (``csrc/flash_decode.cu``) gives each (batch, kv head), and
   :func:`decode_chunk`, the rows each split takes.  The reference's
@@ -68,27 +69,56 @@ def plan_copy_chunk(total_rows: int, smem_budget: int | None = None) -> int:
 
 # The (q/k width, v width) pairs K1, K2 and K3 are compiled for, in the
 # order ``attn_pair`` in ``csrc/common.cuh`` tries them: (192, 128) is
-# DeepSeek-V2's MLA head (q/k 128 + 64, v 128).  K5 takes the first two.
-ATTN_PAIRS = ((64, 64), (128, 128), (192, 128))
+# DeepSeek-V2's MLA head (q/k 128 + 64, v 128), (576, 512) its absorbed
+# route (one latent kv head: k = [c_kv 512, k_rope 64], v = c_kv), whose
+# kernels are ``csrc/flash_attention_wide.cu``.  K5 takes the first two.
+ATTN_PAIRS = ((64, 64), (128, 128), (192, 128), (576, 512))
+WIDE_PAIR = ATTN_PAIRS[-1]
+DECODE_PAIRS = ATTN_PAIRS[:2]
 
 
-def kernel_head_dim(hd: int, hd_v: int | None = None) -> tuple:
-    """The compiled pair (HD, HD_V) at which K1, K2, K3 and K5 run q/k
-    heads of width ``hd`` and v heads of width ``hd_v`` (default ``hd``):
-    the first of :data:`ATTN_PAIRS` that holds both.  The kernels load the
-    true columns and zero-fill the rest in shared memory, so the tensors
-    stay unpadded.  Both widths must be multiples of 8 (whole 16-byte
-    vectors a row in bf16) from 8; raises ``ValueError`` naming both
-    widths where no pair holds them (e.g. the absorbed MLA route's
-    (576, 512))."""
+def kernel_head_dim(hd: int, hd_v: int | None = None,
+                    pairs: tuple = ATTN_PAIRS) -> tuple:
+    """The compiled pair (HD, HD_V) at which K1, K2 and K3 (``pairs``
+    :data:`ATTN_PAIRS`) or K5 (:data:`DECODE_PAIRS`) run q/k heads of
+    width ``hd`` and v heads of width ``hd_v`` (default ``hd``): the
+    first of ``pairs`` that holds both, so every pair of multiples of 8
+    up to (576, 512) has one.  The kernels load the true columns and
+    zero-fill the rest in shared memory, so the tensors stay unpadded.
+    Both widths must be multiples of 8 (whole 16-byte vectors a row in
+    bf16) from 8; raises ``ValueError`` naming both widths where no pair
+    holds them (e.g. (584, 512))."""
     hd_v = hd if hd_v is None else hd_v
     if hd % 8 == 0 and hd_v % 8 == 0 and hd >= 8 and hd_v >= 8:
-        for pair in ATTN_PAIRS:
+        for pair in pairs:
             if hd <= pair[0] and hd_v <= pair[1]:
                 return pair
     raise ValueError(f"head_dim {hd}, v head_dim {hd_v}: the attention "
                      "kernels take multiples of 8 held by one of the "
-                     f"compiled pairs {ATTN_PAIRS}")
+                     f"compiled pairs {pairs}")
+
+
+# kv rows of one block of the dk/dv pass at WIDE_PAIR, by element size
+# (``csrc/flash_attention_wide.cu``: KV_BK in bf16, 16 in fp32)
+WIDE_DKV_ROWS = {2: 32, 4: 16}
+
+
+@functools.lru_cache(maxsize=1024)
+def wide_dkv_splits(bkv: int, g: int, sk: int, itemsize: int) -> int:
+    """Slices of the G query heads of each kv head that the dk/dv pass
+    (K2's, and K3's) at :data:`WIDE_PAIR` spreads across blocks, from the
+    shapes alone.  One block per (slice, kv tile, batch × kv head) holds
+    one SM (its tiles take most of the shared memory); the target is
+    about four blocks for each of an H100's :data:`SM_COUNT` SMs, so
+    that the causal kv tiles' unequal q ranges even out, and at most G
+    slices.  Each block sums its slice's heads into an fp32 workspace,
+    which the pass adds in slice order: the same bits for the same
+    shapes on any card.  deepseek-v2-236b's
+    absorbed route, B 1, KH 1, G 128 at 1 × 4096 in bf16 (128 kv tiles):
+    5 slices of 26 heads, 640 blocks."""
+    tiles = bkv * -(-sk // WIDE_DKV_ROWS[itemsize])
+    want = -(-4 * SM_COUNT // max(1, tiles))
+    return max(1, min(g, want))
 
 
 # K5's tile and split cap.  The wrapper passes DECODE_TILE to every

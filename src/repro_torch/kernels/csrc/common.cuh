@@ -72,16 +72,38 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src,
 
 // The (q/k width, v width) pairs the tiled attention kernels K1, K2 and
 // K3 are compiled for: 0 = (64, 64), 1 = (128, 128), 2 = (192, 128)
-// (DeepSeek-V2's MLA heads, q/k 128 + 64 and v 128).  Returns the first
-// pair that holds (hd, hd_v), both multiples of 8, or -1 where none does
-// (the wrapper's autotune.kernel_head_dim holds the same table).
+// (DeepSeek-V2's MLA heads, q/k 128 + 64 and v 128), 3 = (576, 512) (its
+// absorbed route: one latent kv head, k = [c_kv 512, k_rope 64], v =
+// c_kv; the kernels of flash_attention_wide.cu).  Returns the first pair
+// that holds (hd, hd_v), both multiples of 8, or -1 where none does (the
+// wrapper's autotune.kernel_head_dim holds the same table).
 __host__ __device__ inline int attn_pair(int hd, int hd_v) {
   if (hd % 8 || hd_v % 8 || hd < 8 || hd_v < 8) return -1;
   if (hd <= 64 && hd_v <= 64) return 0;
   if (hd <= 128 && hd_v <= 128) return 1;
   if (hd <= 192 && hd_v <= 128) return 2;
+  if (hd <= 576 && hd_v <= 512) return 3;
   return -1;
 }
+
+// The (576, 512) pair's kernels (flash_attention_wide.cu), which the
+// entry points of flash_attention.cu (K1) and flash_attention_bwd.cu (K2,
+// K3: which 0 dq, 1 dk/dv, 2 fused) call for attn_pair 3.  dtype 0 fp32,
+// 1 bf16.  ws is the dk/dv kernels' fp32 workspace of `splits` head
+// slices, (splits, B*KH*Sk, hd) then (splits, B*KH*Sk, hd_v); dq is K3's
+// fp32 accumulator.  With occupancy non-null, report the kernel's blocks
+// per SM instead of launching.
+cudaError_t wide_fwd(const void* q, const void* k, const void* v, void* o,
+                     float* lse, int B, int H, int KH, int Sq, int Sk,
+                     int hd, int hd_v, int q_offset, int causal, int window,
+                     float scale, int dtype, int* occupancy,
+                     cudaStream_t st);
+cudaError_t wide_bwd(int which, const void* q, const void* k, const void* v,
+                     const void* dout, const float* lse, const float* delta,
+                     void* dq, void* dk, void* dv, float* ws, int splits,
+                     int B, int H, int KH, int Sq, int Sk, int hd, int hd_v,
+                     int q_offset, int causal, int window, float scale,
+                     int dtype, int* occupancy, cudaStream_t st);
 
 // ------------------------------------------- CUDA-core tile products
 //

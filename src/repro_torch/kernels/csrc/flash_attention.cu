@@ -16,7 +16,9 @@
 // and (192, 128) (attn_pair in common.cuh) and run any hd, hd_v that are
 // multiples of 8 at the first pair that holds both (hd 32 at 64; hd 120,
 // h2o-danube3-4b's, at 128; DeepSeek-V2's MLA, q/k 128 + 64 = 192 and v
-// 128, at (192, 128); its reduced variant (48, 32) at 64).  The tiles
+// 128, at (192, 128); its reduced variant (48, 32) at 64).  The fourth
+// pair, (576, 512), MLA's absorbed route, has kernels of its own
+// (flash_attention_wide.cu), which dispatch() calls.  The tiles
 // load the true columns and zero-fill the rest in shared memory, so the
 // padded columns add zeros to every score and yield zeros that the store
 // skips; the tensors stay unpadded.  The wrapper passes hd, hd_v and the
@@ -501,6 +503,10 @@ cudaError_t dispatch(const FwdArgs& a, int dtype, cudaStream_t st) {
     if ((dtype == 0 && a.B * a.H > 65535) || (dtype == 1 && nq > 65535))
       return cudaErrorInvalidValue;
   }
+  if (pair == 3)
+    return wide_fwd(a.q, a.k, a.v, a.o, a.lse, a.B, a.H, a.KH, a.Sq, a.Sk,
+                    a.hd, a.hd_v, a.q_offset, a.causal, a.window, a.scale,
+                    dtype, a.occupancy, st);
   const bool same = a.hd == a.hd_v;
   if (dtype == 0)
     return pair == 2 ? launch_f32<192, 128, false>(a, st)

@@ -37,7 +37,11 @@
 // (attn_pair in common.cuh), the kernels run any multiples of 8 at the
 // first pair that holds both (hd 32 at 64, h2o-danube3-4b's 120 at 128,
 // DeepSeek-V2's MLA heads (192, 128) as they are, its reduced (48, 32) at
-// 64).  S and dK run over HD columns, dP and dV over HD_V.  Loads
+// 64).  The fourth pair, (576, 512) (MLA's absorbed route), has kernels
+// of their own in flash_attention_wide.cu, which dispatch() calls; their
+// dk/dv pass sums head slices through an fp32 workspace that the entry
+// points below take (ws, splits; unused at the other pairs).  S and dK
+// run over HD columns, dP and dV over HD_V.  Loads
 // zero-fill the columns past the true widths in shared memory, which add
 // nothing to any product, and stores write the true columns.  The
 // wrapper passes hd, hd_v and scale = 1/sqrt(hd).  The equal-width pairs
@@ -915,6 +919,8 @@ struct BwdArgs {
   int B, H, KH, Sq, Sk, hd, hd_v, q_offset, causal, window;
   float scale;
   int* occupancy;   // non-null: report blocks per SM instead of launching
+  float* ws;        // the (576, 512) dk/dv workspace and its head slices
+  int splits;
 };
 
 // Set the kernel's shared-memory limit, then either report its blocks
@@ -999,6 +1005,11 @@ cudaError_t dispatch(int which, const BwdArgs& a, void* dq, void* dk,
     if (a.KH <= 0 || a.H % a.KH || a.B * a.H > 65535)
       return cudaErrorInvalidValue;
   }
+  if (pair == 3)
+    return wide_bwd(which, a.q, a.k, a.v, a.dout, a.lse, a.delta, dq, dk, dv,
+                    a.ws, a.splits, a.B, a.H, a.KH, a.Sq, a.Sk, a.hd, a.hd_v,
+                    a.q_offset, a.causal, a.window, a.scale, dtype,
+                    a.occupancy, st);
   const bool same = a.hd == a.hd_v;
   if (pair == 2)
     return launch<192, 128, false>(which, a, dq, dk, dv, dtype, st);
@@ -1012,10 +1023,11 @@ cudaError_t dispatch(int which, const BwdArgs& a, void* dq, void* dk,
 BwdArgs args(const void* q, const void* k, const void* v, const void* dout,
              const void* lse, const void* delta, int B, int H, int KH,
              int Sq, int Sk, int hd, int hd_v, int q_offset, int causal,
-             int window, float scale) {
+             int window, float scale, void* ws = nullptr, int splits = 0) {
   return BwdArgs{q, k, v, dout, static_cast<const float*>(lse),
                  static_cast<const float*>(delta), B, H, KH, Sq, Sk, hd,
-                 hd_v, q_offset, causal, window, scale, nullptr};
+                 hd_v, q_offset, causal, window, scale, nullptr,
+                 static_cast<float*>(ws), splits};
 }
 
 }  // namespace
@@ -1040,11 +1052,15 @@ extern "C" int repro_flash_bwd_dq(const void* q, const void* k, const void* v,
                          static_cast<cudaStream_t>(stream));
 }
 
-// As above; dk (B,KH,Sk,hd) and dv (B,KH,Sk,hd_v) in k's dtype.
+// As above; dk (B,KH,Sk,hd) and dv (B,KH,Sk,hd_v) in k's dtype.  At the
+// (576, 512) pair, ws is an fp32 workspace of splits * B*KH*Sk*(hd + hd_v)
+// elements for `splits` head slices (autotune.wide_dkv_splits); the other
+// pairs take null and 0.
 extern "C" int repro_flash_bwd_dkv(const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const void* lse, const void* delta,
-                                   void* dk, void* dv, int B, int H, int KH,
+                                   void* dk, void* dv, void* ws, int splits,
+                                   int B, int H, int KH,
                                    int Sq, int Sk, int hd, int hd_v,
                                    int q_offset,
                                    int causal, int window, int dtype,
@@ -1052,7 +1068,7 @@ extern "C" int repro_flash_bwd_dkv(const void* q, const void* k,
   return repro::dispatch(1,
                          repro::args(q, k, v, dout, lse, delta, B, H, KH, Sq,
                                      Sk, hd, hd_v, q_offset, causal, window,
-                                     scale),
+                                     scale, ws, splits),
                          nullptr, dk, dv, dtype,
                          static_cast<cudaStream_t>(stream));
 }
@@ -1062,7 +1078,8 @@ extern "C" int repro_flash_bwd_dkv(const void* q, const void* k,
 extern "C" int repro_flash_bwd_fused(const void* q, const void* k,
                                      const void* v, const void* dout,
                                      const void* lse, const void* delta,
-                                     void* dq_acc, void* dk, void* dv, int B,
+                                     void* dq_acc, void* dk, void* dv,
+                                     void* ws, int splits, int B,
                                      int H, int KH, int Sq, int Sk, int hd,
                                      int hd_v, int q_offset, int causal,
                                      int window,
@@ -1070,7 +1087,7 @@ extern "C" int repro_flash_bwd_fused(const void* q, const void* k,
   return repro::dispatch(2,
                          repro::args(q, k, v, dout, lse, delta, B, H, KH, Sq,
                                      Sk, hd, hd_v, q_offset, causal, window,
-                                     scale),
+                                     scale, ws, splits),
                          dq_acc, dk, dv, dtype,
                          static_cast<cudaStream_t>(stream));
 }

@@ -55,13 +55,17 @@ gradient), ragged lengths masked by index.
 
 Head widths: q and k have width hd, v and the output hd_v.  K1, K2 and
 K3 take any pair of multiples of 8 that one of their compiled pairs
-(64, 64), (128, 128) and (192, 128) holds (``autotune.kernel_head_dim``;
-hd 32 for the ``reduced()`` configs, 120 for h2o-danube3-4b, (192, 128)
-for DeepSeek-V2's MLA heads and (48, 32) for its narrow test variant).
-They zero-fill the columns past the true widths in shared memory, so the
-tensors stay unpadded; the wrapper passes the scale 1/√hd of the true
-q/k width.  Any other pair (the absorbed MLA route's (576, 512)) raises
-``ValueError`` naming both widths.  The bf16 K4f and K4b take the widths
+(64, 64), (128, 128), (192, 128) and (576, 512) holds
+(``autotune.kernel_head_dim``; hd 32 for the ``reduced()`` configs, 120
+for h2o-danube3-4b, (192, 128) for DeepSeek-V2's MLA heads, (48, 32) for
+its narrow test variant and (576, 512) for its absorbed route, one
+latent kv head for all 128 query heads; ``csrc/flash_attention_wide.cu``
+holds that pair's kernels, whose dk/dv pass sums head slices through an
+fp32 workspace that the K2 and K3 wrappers allocate).  They zero-fill
+the columns past the true widths in shared memory, so the tensors stay
+unpadded; the wrapper passes the scale 1/√hd of the true q/k width.  A
+pair past (576, 512) raises ``ValueError`` naming both widths.  The bf16
+K4f and K4b take the widths
 up to 128 the same way (``autotune.mega_width``), with hd_v == hd; the
 fp32 ones take hd 64 and 128 only (``autotune.HEAD_DIMS``): the planner
 keeps other shapes off them, and a K4 wrapper given one on the card
@@ -319,21 +323,43 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, q_offset: int = 0, *,
     return dq
 
 
+def _dkv_workspace(q, k, v):
+    """(fp32 workspace, head slices) of the dk/dv pass: at
+    ``autotune.WIDE_PAIR`` the kernel's blocks take slices of each kv
+    head's query heads (``autotune.wide_dkv_splits``) and write their
+    partial dK, dV there, (splits, B·KH·Sk, hd) then (splits, B·KH·Sk,
+    hd_v), summed in slice order by the same launch; (None, 0) at the
+    other pairs, whose blocks sum every query head themselves."""
+    b, h, _sq, hd = q.shape
+    _, kh, sk, _ = k.shape
+    hd_v = v.shape[-1]
+    if autotune.kernel_head_dim(hd, hd_v) != autotune.WIDE_PAIR:
+        return None, 0
+    splits = autotune.wide_dkv_splits(b * kh, h // kh, sk, q.element_size())
+    ws = torch.empty(splits * b * kh * sk * (hd + hd_v), dtype=torch.float32,
+                     device=q.device)
+    return ws, splits
+
+
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, q_offset: int = 0, *,
                             causal: bool = True, window: int = 0
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2's dk/dv pass: (dk like k, dv like v), summed over each kv
-    head's G query heads inside one block (no atomics)."""
+    head's G query heads in a fixed order (no atomics): inside one block,
+    or at the (576, 512) pair over head slices through an fp32 workspace
+    (:func:`_dkv_workspace`)."""
     if q.device.type == "cpu":
         return _bwd_plain(q, k, v, do, lse, delta, q_offset, causal,
                           window)[1:]
     _check_bwd("flash_attention_bwd_dkv", q, k, v, do, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    ws, splits = _dkv_workspace(q, k, v)
     if not _count("k2_dkv", q, k, v, q_offset, causal, window):
         return dk, dv
     err = _build.load().repro_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        None if ws is None else ws.data_ptr(), splits,
         *_dims(q, k, q_offset, causal, window, v), _scale(q), _stream(q))
     _build.check(err, "flash_attention_bwd_dkv launch")
     flash_attention_bwd_dkv.launches += 1
@@ -344,7 +370,8 @@ def flash_attention_bwd_fused(q, k, v, do, lse, delta, q_offset: int = 0, *,
                               causal: bool = True, window: int = 0
                               ) -> Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
-    """K3: (dq, dk, dv) in one launch.  dk and dv equal K2's bit for bit;
+    """K3: (dq, dk, dv) in one launch.  dk and dv equal K2's bit for bit
+    (the same code and, at the (576, 512) pair, the same head slices);
     dq is summed in fp32 with atomics (order varies run to run) and cast
     to q's dtype afterwards, as the reference casts K3's dk/dv outside
     its kernel."""
@@ -354,13 +381,14 @@ def flash_attention_bwd_fused(q, k, v, do, lse, delta, q_offset: int = 0, *,
     _check_bwd("flash_attention_bwd_fused", q, k, v, do, lse, delta)
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    ws, splits = _dkv_workspace(q, k, v)
     if not _count("k3", q, k, v, q_offset, causal, window):
         return dq_acc.to(q.dtype), dk, dv
     err = _build.load().repro_flash_bwd_fused(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), *_dims(q, k, q_offset, causal, window, v), _scale(q),
-        _stream(q))
+        dv.data_ptr(), None if ws is None else ws.data_ptr(), splits,
+        *_dims(q, k, q_offset, causal, window, v), _scale(q), _stream(q))
     _build.check(err, "flash_attention_bwd_fused launch")
     flash_attention_bwd_fused.launches += 1
     return dq_acc.to(q.dtype), dk, dv

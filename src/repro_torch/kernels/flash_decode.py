@@ -12,7 +12,8 @@ device, so a decode loop never waits on the host; the kernel skips cache
 rows at or past ``cur_len`` and, with a window, rows before
 ``cur_len − window``, and masks the ragged edge by index.  It takes any
 head width that is a multiple of 8 up to 128
-(``autotune.kernel_head_dim``): compiled at 64 and 128, it zero-fills
+(``autotune.kernel_head_dim`` over ``autotune.DECODE_PAIRS``): compiled
+at 64 and 128, it zero-fills
 the columns past hd in shared memory, and the wrapper passes 1/√hd.
 A meta tensor (the dry run) takes the meta route: the checks, the
 output and the split partials at their shapes, no launch.  Both routes
@@ -87,7 +88,7 @@ def check_shapes(q: torch.Tensor, k_cache: torch.Tensor,
     128) and 1 ≤ G ≤ ``MAX_GROUP``.  A pure function of the shapes."""
     b, kh, g, hd = q.shape
     try:
-        autotune.kernel_head_dim(hd)
+        autotune.kernel_head_dim(hd, pairs=autotune.DECODE_PAIRS)
     except ValueError as e:
         raise ValueError(f"flash_decode: {e}") from None
     if k_cache.shape[:2] != (b, kh) or k_cache.shape[3] != hd \

@@ -248,9 +248,10 @@ def _mla_absorbed_flash(params: Params, x: torch.Tensor, cfg,
     into the query and W_UV applied to the latent output.  The kernels
     scale by 1/√(rkv + dr); q is pre-scaled by √((rkv + dr)/(dn + dr))
     (rounded to q's dtype, as there) for MLA's 1/√(dn + dr).  At full
-    width that is (576, 512), which no compiled pair of the kernels
-    holds: a CUDA call raises ``ValueError`` naming both widths.
-    Returns (out (b,s,h,dv), c_kv, k_rope)."""
+    width that is (576, 512), one kv head for 128 query heads: on the
+    card the kernels' widest compiled pair
+    (``csrc/flash_attention_wide.cu``).  Returns (out (b,s,h,dv), c_kv,
+    k_rope)."""
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     rkv = cfg.kv_lora_rank
     q_nope, q_rope, c_kv, k_rope = _mla_latents(params, x, cfg, positions)

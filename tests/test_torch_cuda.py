@@ -8,8 +8,10 @@ hybrid serving on the card against the CPU, the runtime's fused copy
 on the card against its numpy backend, and the MoE layer and a reduced
 arctic model on the card against the CPU (the layer also twice for the
 same bits); K1, K1-lse, K2 and K3 at DeepSeek-V2's MLA widths (q/k 192,
-v 128) and (48, 32) against their plain versions, and a reduced MLA
-model on the card against the CPU; K1, K1-lse, K2, K3 and K5 at
+v 128), (48, 32) and its absorbed route's (576, 512) against their
+plain versions, a reduced MLA model on the card against the CPU, and
+the absorbed route's mla_prefill / mla_train at the full kernel widths
+on the card against the CPU; K1, K1-lse, K2, K3 and K5 at
 whisper-small's shapes (G 1, hd 64) against their plain versions, and
 reduced whisper (encoder-decoder) and llava (patch prefix) models on the
 card against the CPU.
@@ -100,9 +102,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.zeros((1, 2, 8, 100), device=cuda)    # not a multiple of 8
     with pytest.raises(ValueError):
         fa.flash_attention(q, q, q)
-    q = torch.zeros((1, 2, 8, 136), device=cuda)    # wider than 128
+    q = torch.zeros((1, 2, 8, 584), device=cuda)    # wider than 576
     with pytest.raises(ValueError):
         fa.flash_attention(q, q, q)
+    q = torch.zeros((1, 2, 8, 136), device=cuda)    # K5: wider than 128
     with pytest.raises(ValueError):
         fd.flash_decode(q[:, :, :1].reshape(1, 2, 1, 136), q, q,
                         torch.ones(1, dtype=torch.int32, device=cuda))
@@ -1325,7 +1328,8 @@ def test_moe_model_on_the_card_matches_the_cpu(cuda):
 
 # DeepSeek-V2's heads, q/k 128 + 64 and v 128 (the compiled pair (192,
 # 128)), and the narrow test variant (48, 32) at (64, 64), at one kv head
-# too (the absorbed route's layout)
+# too (the absorbed route's layout), and the absorbed route's full width
+# (576, 512) at G 16 (csrc/flash_attention_wide.cu)
 MLA_CASES = [  # b, h, kh, sq, sk, hd, hd_v, dtype, window, q_offset
     (1, 8, 8, 300, 300, 192, 128, torch.bfloat16, 0, 0),
     (1, 8, 8, 257, 400, 192, 128, torch.float32, 0, 143),
@@ -1333,6 +1337,10 @@ MLA_CASES = [  # b, h, kh, sq, sk, hd, hd_v, dtype, window, q_offset
     (2, 8, 8, 200, 200, 48, 32, torch.bfloat16, 0, 0),
     (2, 8, 1, 150, 150, 48, 32, torch.float32, 0, 0),
     (2, 4, 2, 333, 333, 48, 32, torch.bfloat16, 64, 0),
+    # the absorbed route at full width, one kv head: (576, 512)
+    (2, 16, 1, 300, 300, 576, 512, torch.bfloat16, 0, 0),
+    (1, 16, 1, 257, 400, 576, 512, torch.float32, 0, 143),
+    (1, 16, 1, 600, 600, 576, 512, torch.bfloat16, 100, 0),
 ]
 
 
@@ -1378,10 +1386,10 @@ def test_mla_widths_kernels_match_plain(cuda, b, h, kh, sq, sk, hd, hd_v,
 
 
 def test_wrappers_refuse_widths_no_pair_holds(cuda):
-    """The absorbed MLA route at full width, (576, 512), and v wider than
-    128: ``ValueError`` naming both widths, no launch."""
+    """Widths past the widest compiled pair, (576, 512): ``ValueError``
+    naming both widths, no launch."""
     before = fa.flash_attention.launches
-    for hd, hd_v in ((576, 512), (192, 192), (64, 136)):
+    for hd, hd_v in ((584, 512), (64, 520)):
         q = torch.zeros((1, 2, 8, hd), device=cuda, dtype=torch.bfloat16)
         v = torch.zeros((1, 1, 8, hd_v), device=cuda, dtype=torch.bfloat16)
         with pytest.raises(ValueError, match=f"head_dim {hd}, v head_dim "
@@ -1447,6 +1455,62 @@ def test_mla_model_on_the_card_matches_the_cpu(cuda):
             fa.flash_attention_fwd.launches - before[1],
             fa.flash_attention_bwd_fused.launches - before[2]) == (
         layers, 2 * layers, layers)
+    (loss_g, grads_g), (loss_c, grads_c) = out
+    assert loss_g == pytest.approx(loss_c, rel=1e-5)
+    for a, c in zip(grads_g, grads_c):
+        assert (a.cpu() - c).abs().max().item() <= \
+            1e-4 * max(c.abs().max().item(), 1e-30)
+
+
+def test_mla_absorbed_route_on_the_card_matches_the_cpu(cuda):
+    """The absorbed MLA route with the kernel widths at full size:
+    reduced deepseek with kv_lora_rank 512, q/k 128 + 64, v 128 and 16
+    heads (one latent kv head of (576, 512) for 16 query heads),
+    ``attn_flash_min_seq=32``; ``mla_prefill`` of 2 x 96 (K1 once) and
+    ``mla_train`` with the gradients of sum(sin(out)) (K1-lse and K3
+    once each) in fp32 on the card against the CPU from the same
+    weights; the limits of the model test above: outputs 1e-3, caches
+    1e-4, loss 1e-5 relative, gradients 1e-4 of each leaf's largest
+    entry."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as TA
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(
+        get_config("deepseek-v2-236b").reduced(), kv_lora_rank=512,
+        qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128,
+        num_heads=16, attn_flash_min_seq=32)
+    params = TA.mla_init(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.RandomState(3)
+    b, s = 2, 96
+    assert s > TA.flash_min_seq(cfg)
+    x = torch.from_numpy(rng.randn(b, s, cfg.d_model).astype(np.float32))
+    pos = torch.arange(s)[None].expand(b, s)
+    params_gpu = _tree_to(params, cuda)
+    before = (fa.flash_attention.launches, fa.flash_attention_fwd.launches,
+              fa.flash_attention_bwd_fused.launches)
+    with torch.no_grad():
+        og, cg = TA.mla_prefill(params_gpu, x.to(cuda), cfg, pos.to(cuda))
+        oc, cc = TA.mla_prefill(params, x, cfg, pos)
+    assert (og.cpu() - oc).abs().max().item() <= 1e-3
+    for name in ("c_kv", "k_rope"):
+        assert (cg[name].cpu() - cc[name]).abs().max().item() <= 1e-4
+    out = []
+    for p, xx in ((params_gpu, x.to(cuda)), (params, x)):
+        # every leaf (the norms' scales too) and x, as gradient leaves
+        leaf = {k: (v["scale"] if isinstance(v, dict) else v).detach()
+                .requires_grad_() for k, v in p.items()}
+        tree = {k: {"scale": leaf[k]} if isinstance(v, dict) else leaf[k]
+                for k, v in p.items()}
+        xg = xx.detach().requires_grad_()
+        loss = torch.sin(TA.mla_train(tree, xg, cfg, pos.to(xx.device))).sum()
+        out.append((loss.item(), torch.autograd.grad(
+            loss, [*leaf.values(), xg])))
+    assert (fa.flash_attention.launches - before[0],
+            fa.flash_attention_fwd.launches - before[1],
+            fa.flash_attention_bwd_fused.launches - before[2]) == (1, 1, 1)
     (loss_g, grads_g), (loss_c, grads_c) = out
     assert loss_g == pytest.approx(loss_c, rel=1e-5)
     for a, c in zip(grads_g, grads_c):

@@ -12,7 +12,8 @@ zero-filled), held against the JAX package.
     attention at width 128 with the scale of width 120, cut back to 120
     columns, is attention at width 120.
 (c) The wrappers' head-width check, a pure function of the shapes:
-    32, 64, 120 and 128 pass, 100 and 136 raise.
+    32, 64, 120 and 128 pass, 100 and 136 raise for K5 (and 100 for the
+    tiled kernels, which run 136 at their widest pair, (576, 512)).
 (d) A danube-shaped tiny model (``reduced()`` danube with head_dim 120,
     2 layers, window 16, 48 tokens, ``attn_flash_min_seq`` lowered so
     that both packages take the flash route): prefill logits and caches,
@@ -154,18 +155,26 @@ def test_wrappers_take_multiples_of_8_up_to_128(hd, takes):
     q = torch.empty((1, 4, 8, hd), device="meta")
     k = torch.empty((1, 2, 8, hd), device="meta")
     qd = torch.empty((1, 2, 2, hd), device="meta")
-    checks = (lambda: tfa.check_head_dim("flash_attention", q, k, k),
-              lambda: tfd.check_shapes(qd, k, k),
-              lambda: autotune.kernel_head_dim(hd))
-    for check in checks:
+    k5 = (lambda: tfd.check_shapes(qd, k, k),
+          lambda: autotune.kernel_head_dim(hd, pairs=autotune.DECODE_PAIRS))
+    tiled = (lambda: tfa.check_head_dim("flash_attention", q, k, k),
+             lambda: autotune.kernel_head_dim(hd))
+    # K5 takes the multiples of 8 up to 128, the tiled kernels every
+    # multiple of 8 up to 576 (136 at their widest pair)
+    for check in k5 + (() if hd % 8 == 0 else tiled):
         if takes:
             check()
         else:
             with pytest.raises(ValueError, match="head_dim"):
                 check()
+    if hd % 8 == 0:
+        for check in tiled:
+            check()
     if takes:
         w = 64 if hd <= 64 else 128
         assert autotune.kernel_head_dim(hd) == (w, w)
+    elif hd % 8 == 0:
+        assert autotune.kernel_head_dim(hd) == autotune.WIDE_PAIR
     # K4 keeps its compiled widths: the planner sends it nothing else
     plan = autotune.plan_attention(
         40, hd, hd, 2, 66, 32,

@@ -11,7 +11,10 @@ Also: the flash kernels' plain version and the autograd
 absorbed route as the reference's ``test_autotune`` holds it (above the
 threshold ``mla_train`` never reaches ``full_attention``, and its loss,
 gradients, prefill output and caches match the dense route's); and the
-pure width checks (``autotune.kernel_head_dim``, ``check_head_dim``).
+pure width checks (``autotune.kernel_head_dim``, ``check_head_dim``),
+which take the absorbed route's full width (576, 512) at the fourth
+compiled pair (``tests/test_torch_mla_absorbed.py`` holds that width
+against the reference).
 
 Tolerances: fp32 1e-5 for the projections and the latents (the same
 arithmetic), 1e-4 for outputs through attention (summation order), as
@@ -336,34 +339,48 @@ def test_flash_mla_dims(kh):
     (32, 32, (64, 64)), (48, 32, (64, 64)), (64, 64, (64, 64)),
     (120, 120, (128, 128)), (128, 128, (128, 128)), (64, 128, (128, 128)),
     (192, 128, (192, 128)), (136, 64, (192, 128)),
-    (576, 512, None), (192, 192, None), (200, 128, None), (52, 32, None),
-    (48, 36, None)])
+    (576, 512, (576, 512)), (192, 192, (576, 512)), (200, 128, (576, 512)),
+    (52, 32, None), (48, 36, None), (136, 136, (576, 512)),
+    (512, 512, (576, 512)), (584, 512, None), (64, 520, None)])
 def test_kernel_head_dim_pairs(hd, hd_v, pair):
     """``kernel_head_dim`` returns the first compiled pair that holds
-    both widths, or raises ``ValueError`` naming both; one width means v
-    as wide as q and k."""
+    both widths — the absorbed route's (576, 512) and every pair of
+    multiples of 8 under it past (192, 128) at the fourth pair — or
+    raises ``ValueError`` naming both; one width means v as wide as q
+    and k.  K5's pairs stop at 128."""
     if pair is None:
         with pytest.raises(ValueError, match=f"head_dim {hd}, v head_dim "
                            f"{hd_v}"):
             autotune.kernel_head_dim(hd, hd_v)
     else:
         assert autotune.kernel_head_dim(hd, hd_v) == pair
-    assert autotune.ATTN_PAIRS == ((64, 64), (128, 128), (192, 128))
+    assert autotune.ATTN_PAIRS == ((64, 64), (128, 128), (192, 128),
+                                   (576, 512))
+    assert autotune.WIDE_PAIR == (576, 512)
     if hd == hd_v and hd <= 128:
         assert autotune.kernel_head_dim(hd) == pair
+        assert autotune.kernel_head_dim(
+            hd, pairs=autotune.DECODE_PAIRS) == pair
+    elif hd == hd_v:
+        with pytest.raises(ValueError, match=f"head_dim {hd}"):
+            autotune.kernel_head_dim(hd, pairs=autotune.DECODE_PAIRS)
 
 
 @pytest.mark.parametrize("q,k,v,ok", [
     ((2, 4, 8, 192), (2, 4, 8, 192), (2, 4, 8, 128), True),
     ((2, 8, 8, 48), (2, 2, 16, 48), (2, 2, 16, 32), True),
-    ((2, 128, 8, 576), (2, 1, 8, 576), (2, 1, 8, 512), False),
+    ((2, 128, 8, 576), (2, 1, 8, 576), (2, 1, 8, 512), True),
+    ((2, 128, 8, 584), (2, 1, 8, 584), (2, 1, 8, 512), False),
+    ((2, 128, 8, 576), (2, 1, 8, 576), (2, 1, 8, 520), False),
     ((2, 4, 8, 192), (2, 4, 8, 192), (2, 2, 8, 128), False),
     ((2, 4, 8, 192), (2, 4, 8, 192), (1, 4, 8, 128), False),
     ((2, 4, 8, 192), (2, 4, 8, 192), (2, 4, 9, 128), False),
     ((2, 4, 8, 192), (2, 4, 8, 128), (2, 4, 8, 128), False)])
 def test_check_head_dim(q, k, v, ok):
     """``check_head_dim``, a pure function of the shapes: v (B, KH, Sk,
-    hd_v) under k's (B, KH, Sk), k as wide as q, and a compiled pair."""
+    hd_v) under k's (B, KH, Sk), k as wide as q, and a compiled pair
+    (the absorbed route's (576, 512) is one; (584, 512) and (576, 520)
+    are past it)."""
     q, k, v = (torch.empty(s, device="meta") for s in (q, k, v))
     if ok:
         tfa.check_head_dim("flash_attention", q, k, v)
