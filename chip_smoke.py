@@ -196,7 +196,7 @@ Phases, in order; any failure raises and the script exits nonzero:
     its bound, peak memory, a profiled step), then 2 steps twice in
     deterministic mode (K2): the same bits;
 15. MoE against the CPU: arctic at full width in fp32 with 1 layer and
-    8 experts, 1 x 1152 (the flash gate lowered to 1024): the routing of
+    8 experts, 1 x 576 (the flash gate lowered to 512): the routing of
     every MoE call (a choice may differ only between probabilities
     within 1e-5), prefill and 4 decode
     logits, ``train_loss`` and every gradient on the card (K1, K5,
@@ -219,7 +219,7 @@ Phases, in order; any failure raises and the script exits nonzero:
     profiled step), then 2 steps twice in deterministic mode (K2): the
     same bits;
 18. MLA against the CPU: deepseek at full width in fp32, dense + 1 MoE
-    layer of 8 experts, 1 x 1152 (the flash gate lowered to 1024: the
+    layer of 8 experts, 1 x 576 (the flash gate lowered to 512: the
     fp32 K1, K1-lse and K3 at (192, 128)): routing, prefill and 4 decode
     logits, loss and every gradient on the card against the port's CPU
     path;
@@ -263,6 +263,17 @@ Phases, in order; any failure raises and the script exits nonzero:
     K3 4 a step; the ``tokens`` metric exactly 4 x 3520);
 24. llava against the CPU: fp32, 1 layer at full width, 1 x (576 +
     1728): prefill and one decode step's logits, loss and every gradient;
+24a. the port's four example scripts (``examples/torch_*.py``) in this
+    process at the reference examples' sizes: the quickstart (its lines
+    equal to its CPU run's; its one ``db_copy`` is a zero-copy partition,
+    so no batch reaches K7 / K8), the wavefront pipeline (order and
+    makespan equal to its CPU run's, pipeline output equal to the
+    sequential stages bit for bit), serving reduced llama3.2-3b, mamba2
+    and zamba2 (B 4, 24-token prompts, 12 tokens: K5 and K9 must launch)
+    and training reduced llama 240 steps with a fail-stop at 150 and a
+    restart from the last committed checkpoint (the final loss below the
+    first); each one's wall, the serve tokens/s and the kernels each
+    launched printed;
 25. the mesh (2 ranks sharing one H100 over gloo: no time of it is a
     multi-card time): ``launch.mesh.spawn`` starts 2 rank processes on
     cuda:0 after the kernels are built here, mesh (1, 2) ("data",
@@ -283,7 +294,10 @@ Phases, in order; any failure raises and the script exits nonzero:
     width through
     ``Trainer(mesh=...)`` (K1-lse twice and K3 once a layer a step on each
     rank), each with an fp32 depth-cut step held against one rank's (loss
-    1e-3, parameters 3e-4); smollm's mesh-trained state (fp32 params, m
+    1e-3, parameters 3e-4), and two full-width mamba2-1.3b layers' fp32
+    step (1 x 4096) the same way, a rank's B / C projection GEMM FLOPs
+    exactly half of one rank's (each rank projects its stripe of the
+    sequence); smollm's mesh-trained state (fp32 params, m
     and v) saved by its Trainer inside the last step on the §6
     sharded path by both ranks (no leaf gathered: ``host_gathers`` 0;
     sharded and replicated leaves both), resumed by a second
@@ -315,7 +329,8 @@ logits through K4f and one step's gradients through K4f and K4b; and the reduced
 
 Counters on the kernel wrappers are zeroed just before each main-path
 phase (5, 6, 6a, 6b, 6c, 6d, 8, 8a and its other route, 8b, 8c-8f, 9,
-10, each path of 12, 13-24, and in each rank each part of 25 and 26)
+10, each path of 12, 13-24, each example of 24a, and in each rank each
+part of 25 and 26)
 and read just after: every kernel of the path must have launched (25's
 and 26's counts are both ranks' sums).  The kernel line's
 launches are those counts alone; the reduced model of phase 7 and the
@@ -327,6 +342,7 @@ PATH`` also writes every number of the run as JSON to PATH.
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import hashlib
 import json
@@ -347,6 +363,7 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -503,15 +520,20 @@ def _sdpa_backend(fn):
         "unknown: " + ", ".join(sorted(n for n in names if "dot_product" in n))
 
 
+@functools.lru_cache(maxsize=None)
+def _sass_text():
+    """``cuobjdump -sass`` of the built library, dumped once a run."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return subprocess.run([cuobjdump, "-sass", str(_build.library_path())],
+                          capture_output=True, text=True, check=True).stdout
+
+
 def _sass_counts(pattern):
     """Per kernel whose mangled name contains ``pattern``: the count of
     tensor-core (HMMA / HGMMA) instructions ``cuobjdump -sass`` finds in
     the built library."""
-    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path())],
-                          capture_output=True, text=True, check=True).stdout
     counts, name = {}, None
-    for line in sass.splitlines():
+    for line in _sass_text().splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
             if pattern not in name:
@@ -2277,7 +2299,7 @@ def _n_params(cfg):
 
 # smollm's depth in the restart phase (of 32), cut to keep the whole run
 # inside its time limit: the two checkpoints are host-bound
-RESTART_LAYERS = 16
+RESTART_LAYERS = 8
 
 
 def phase_restart(ckpt_dir):
@@ -3847,8 +3869,8 @@ def _route_flips(card, host):
 # the card-vs-CPU references of MoE and MLA run 1 x REFERENCE_SEQ tokens
 # with the flash gate lowered to REFERENCE_MIN_SEQ, so the fp32 kernels
 # run on the card: the CPU side's time grows with the tokens
-REFERENCE_SEQ = 1152
-REFERENCE_MIN_SEQ = 1024
+REFERENCE_SEQ = 576
+REFERENCE_MIN_SEQ = 512
 
 
 def phase_moe_reference():
@@ -5198,6 +5220,112 @@ def phase_vlm_reference():
 
 # --------------------------------------------------------------- the mesh
 
+# ------------------------------------------------ the port's example scripts
+
+EXAMPLES = Path(__file__).resolve().parent / "examples"
+
+
+def _example(name):
+    """The module of ``examples/<name>.py``, loaded by path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(f"example_{name}",
+                                                  EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _example_run(fn, *args, **kwargs):
+    """(``fn``'s result, its wall in s, the kernels it launched): the
+    kernel and copy counters zeroed just before and read just after."""
+    _zero_counts()
+    _zero_copy_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = {**_counts(), **_copy_counts()}
+    return out, wall, {k: v for k, v in counts.items() if v}
+
+
+def phase_examples():
+    """The port's four example scripts (``examples/torch_*.py``) in this
+    process on cuda:0 at the reference examples' sizes: the quickstart's
+    lines equal to the same script's on the CPU; the wavefront's order
+    and makespan equal to its CPU run's and its pipeline output equal to
+    the sequential stages bit for bit on the card (the script asserts
+    it); serving reduced llama3.2-3b, mamba2-1.3b and zamba2-1.2b (B 4, a
+    24-token prompt, 12 tokens: K5 in decode, K9 in the SSM and hybrid
+    prefills); training reduced llama 240 steps with a fail-stop at 150,
+    a restart from the last committed checkpoint and the greedy decode
+    (the final loss below the first).  Prints each example's wall, the
+    serve tokens/s and the kernels each launched."""
+    smi = _smi()
+    print(f"== examples: examples/torch_*.py on cuda:0 at the reference "
+          f"examples' sizes; {smi}")
+    out = {"device": smi}
+    qs = _example("torch_quickstart")
+    lines, wall, launched = _example_run(qs.main, "cuda")
+    cpu_lines = qs.main("cpu")
+    if lines != cpu_lines:
+        raise AssertionError(f"quickstart: card lines {lines} != CPU "
+                             f"lines {cpu_lines}")
+    out["quickstart"] = {"wall_s": wall, "launches": launched,
+                         "lines": lines}
+    print(f"  quickstart: {wall:.2f} s, the card's lines equal the CPU's; "
+          f"kernels {launched} (the demo's one db_copy is a zero-copy "
+          f"partition, so no batch reaches the fused copy)")
+
+    wf = _example("torch_wavefront_pipeline")
+    card, wall, launched = _example_run(wf.main, "cuda")
+    cpu = wf.main("cpu")
+    if card["order"] != cpu["order"] or card["makespan"] != cpu["makespan"]:
+        raise AssertionError("wavefront: the card's order or makespan "
+                             "differs from the CPU's")
+    worst = max(float((a.cpu() - b).abs().max())
+                for a, b in zip(card["outputs"], cpu["outputs"]))
+    out["wavefront"] = {"wall_s": wall, "launches": launched,
+                        "makespan": card["makespan"],
+                        "max_err_vs_sequential": card["max_err"],
+                        "card_vs_cpu_max_abs": worst}
+    print(f"  wavefront: {wall:.2f} s, {card['cells']} cells, makespan "
+          f"{card['makespan']:.1f} and order equal to the CPU's, pipeline "
+          f"== sequential exactly on the card; card vs CPU outputs max "
+          f"|diff| {worst:.2e}; kernels {launched}")
+
+    sv = _example("torch_serve_lm")
+    res, wall, launched = _example_run(sv.main, "cuda")
+    if not (launched.get("k5", 0) > 0 and launched.get("k9", 0) > 0):
+        raise AssertionError(f"serve example: kernels {launched}, want K5 "
+                             f"and K9")
+    out["serve"] = {"wall_s": wall, "launches": launched,
+                    "tok_s": {r["arch"]: r["tok_s"] for r in res}}
+    print(f"  serve: {wall:.2f} s; tokens/s "
+          + ", ".join(f"{r['arch']} {r['tok_s']:.1f}" for r in res)
+          + f"; kernels {launched} ({smi})")
+
+    tl = _example("torch_train_lm")
+    res, wall, launched = _example_run(tl.main, "cuda")
+    first, final = res["first_loss"], res["final"]["ce_loss"]
+    ok = (res["died_at"] == tl.FAIL_AT - 1 and res["latest_step"] == tl.FAIL_AT
+          and res["restart_step"] == res["latest_step"]
+          and res["final"]["step"] == tl.STEPS - 1 and final < first)
+    out["train"] = {"wall_s": wall, "launches": launched,
+                    **{k: res[k] for k in ("died_at", "latest_step",
+                                           "restart_step", "first_loss",
+                                           "hits", "preds", "want")},
+                    "final": res["final"]}
+    print(f"  train: {wall:.2f} s for {tl.STEPS} steps with the restart; "
+          f"died after step {res['died_at']}, restarted from "
+          f"{res['restart_step']} (latest_step {res['latest_step']}); "
+          f"loss {first:.4f} -> {final:.4f}; chain hits {res['hits']}/5; "
+          f"kernels {launched} ({smi})")
+    if not ok:
+        raise AssertionError(f"train example: {out['train']}")
+    return out
+
+
 MESH_NOTE = "2 ranks sharing one H100 over gloo; not a multi-card time"
 MESH_STEPS = 2
 MESH_SMOLLM_ARGS = ["--arch", "smollm-360m", "--data", "markov", "--batch",
@@ -5212,11 +5340,13 @@ MESH_LLAMA_LAYERS = 4
 # save is host-bound, ~0.5-0.7 ms a range, ~5,800 ranges a layer a rank
 MESH_SMOLLM_LAYERS = 4
 MESH_MOE_EXPERTS = 32
+MESH_MAMBA_LAYERS = 2
 # (batch, seq[, cached positions | decodes]) of each part of the phase
 MESH_SHAPES = {"head_attn": (4, 4096), "ctx_attn": (2, 8192),
                "decode": (4, 8192, 8000), "mla": (4, 4096, 4000),
                "moe": (2, 1024), "fp32_smollm": (1, 8192),
-               "fp32_llama": (1, 4096), "serve_smollm": (4, 4608, 8),
+               "fp32_llama": (1, 4096), "fp32_mamba": (1, 4096),
+               "serve_smollm": (4, 4608, 8),
                "serve_llama": (4, 4096, 8)}
 
 
@@ -5494,7 +5624,26 @@ def _mesh_train(name, cfg, argv, rank, mesh, tc=None):
             "wall_s": wall, "layers": layers}, tr, state
 
 
-def _mesh_fp32_step(name, cfg, b, s, rank, mesh, device="cuda", oc=None):
+class _BCGemms(TorchDispatchMode):
+    """FLOPs of the GEMMs that produce or contract a width-``n`` operand:
+    in a Mamba train step (n = ssm_state, a width no other GEMM of the
+    step has) the B / C projections' forward and remat recompute (x @
+    w_B: output n), dX (contracting n) and dW (output n)."""
+
+    def __init__(self, n):
+        super().__init__()
+        self.n, self.flops = n, 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten.mm.default:
+            a, b = args[0], args[1]
+            if self.n in (a.shape[1], b.shape[1]):
+                self.flops += 2 * a.shape[0] * a.shape[1] * b.shape[1]
+        return func(*args, **(kwargs or {}))
+
+
+def _mesh_fp32_step(name, cfg, b, s, rank, mesh, device="cuda", oc=None,
+                    bc_width=None):
     """One fp32 step under the mesh against the one-rank step on the same
     weights and batch: ce_loss within 1e-3, every parameter within 3e-4,
     the clip's global gradient norm within 1e-4 of it (relative) and the
@@ -5506,8 +5655,11 @@ def _mesh_fp32_step(name, cfg, b, s, rank, mesh, device="cuda", oc=None):
     scale, so the gradient norm holds that.  ``device`` "cpu" runs the
     same check on gloo ranks of the CPU; ``oc`` another optimizer (its
     moments' dtype).  The one-rank parameters wait on the host while the
-    mesh steps."""
+    mesh steps.  ``bc_width`` (a Mamba model's ssm_state) also counts
+    both steps' B / C GEMM FLOPs (:class:`_BCGemms`) and records the mesh
+    step's wall and the bytes it hands gloo."""
     import torch.distributed as dist
+    from repro_torch.dist import sharding
     from repro_torch.convert import place_state
     from repro_torch.dist.sharding import (full_tensor, param_shardings,
                                            use_mesh)
@@ -5524,16 +5676,31 @@ def _mesh_fp32_step(name, cfg, b, s, rank, mesh, device="cuda", oc=None):
         p = model.init(torch.Generator(device=device).manual_seed(3))
         return {"params": p, "opt": init_opt_state(p, oc)}
 
-    one = None
+    def counted():
+        return (_BCGemms(bc_width) if bc_width
+                else contextlib.nullcontext(None))
+
+    one, bc_one = None, None
     if rank == 0:
-        one, m1 = step(fresh(), batch)
+        with counted() as bc:
+            one, m1 = step(fresh(), batch)
+        bc_one = bc and bc.flops
         one = _tree_to(one["params"], "cpu")
         _release()
     dist.barrier()
     state = place_state(fresh(), mesh)
     _release()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    sharding.reset_traffic()
+    t = time.perf_counter()
     with use_mesh(mesh) as ctx:
-        state, m2 = step(state, batch)
+        with counted() as bc:
+            state, m2 = step(state, batch)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t)
+        traffic = {k: list(v) for k, v in sharding.TRAFFIC.items()}
         sh = param_shardings(param_shapes(cfg), ctx)
         worst = 0.0
         for path, leaf in iter_leaves(state["params"]):
@@ -5550,6 +5717,9 @@ def _mesh_fp32_step(name, cfg, b, s, rank, mesh, device="cuda", oc=None):
     moe_keys = ("moe_dropped_tokens", "moe_overflow_rate")
     info = {"ce_loss": float(m2["ce_loss"]),
             **{k: float(m2[k]) for k in moe_keys}}
+    if bc_width:
+        info.update(step_ms=step_ms, traffic=traffic, bc_flops=bc.flops,
+                    bc_flops_one_rank=bc_one)
     if rank == 0:
         ce = abs(float(m1["ce_loss"]) - float(m2["ce_loss"]))
         gn, gn1 = float(m2["grad_norm"]), float(m1["grad_norm"])
@@ -6093,6 +6263,7 @@ def _mesh_rank(rank, world, ckpt_dir, ckpt_layers, prediction):
     out["fp32_llama"] = _mesh_fp32_step(
         "llama3.2-3b", dataclasses.replace(llama, num_layers=2),
         *sh["fp32_llama"], rank, mesh)
+    out["fp32_mamba"] = _mesh_mamba(rank, mesh)
 
     print(f"== mesh serve ({MESH_NOTE})")
     out["serve_smollm"] = _mesh_serve(
@@ -6104,6 +6275,35 @@ def _mesh_rank(rank, world, ckpt_dir, ckpt_layers, prediction):
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     dist.barrier()
     return out
+
+
+def _mesh_mamba(rank, mesh):
+    """Two mamba2-1.3b layers at full width (d_model 2048, d_inner 4096,
+    64 heads of 64, N 128), one fp32 train step of 1 x 4096 under (1, 2)
+    against one rank's (``_mesh_fp32_step``): each rank its 32 heads and
+    2048 channels, B and C projected on its 2048-row stripe and gathered
+    (``models.mamba``).  Fails unless a rank's B / C GEMM FLOPs are
+    exactly half of one rank's; prints them, the step's wall and what it
+    hands gloo."""
+    cfg = dataclasses.replace(get_config("mamba2-1.3b"),
+                              num_layers=MESH_MAMBA_LAYERS)
+    info = _mesh_fp32_step("mamba2-1.3b", cfg, *MESH_SHAPES["fp32_mamba"],
+                           rank, mesh, bc_width=cfg.ssm_state)
+    if rank == 0:
+        ratio = info["bc_flops"] / info["bc_flops_one_rank"]
+        info["bc_ratio"] = ratio
+        print(f"  mamba2-1.3b B / C GEMMs a rank {info['bc_flops'] / 1e9:.3f} "
+              f"GFLOP, one rank alone "
+              f"{info['bc_flops_one_rank'] / 1e9:.3f} (ratio {ratio:.4f}, "
+              f"want 0.5); the mesh step {info['step_ms']:.1f} ms, hands "
+              f"gloo " + ", ".join(
+                  f"{k} {c} calls {b / 1e6:.1f} MB"
+                  for k, (c, b, _big) in sorted(info["traffic"].items()))
+              + f" ({MESH_NOTE}; {_smi()})")
+        if ratio != 0.5:
+            raise AssertionError(f"mamba2's B / C GEMMs: {ratio} of one "
+                                 f"rank's on a rank, want 0.5")
+    return info
 
 
 def _mesh_k7(ranks):
@@ -6588,6 +6788,7 @@ def main() -> int:
     vlm_serve = timed("vlm_serve_s", phase_vlm_serve)
     vlm_train = timed("vlm_train_s", phase_vlm_train)
     vlm_ref = timed("vlm_reference_s", phase_vlm_reference)
+    examples = timed("examples_s", phase_examples)
     mesh = timed("mesh_s", phase_mesh)
     mesh_dp = timed("mesh_dp_s", phase_mesh_dp)
 
@@ -6654,6 +6855,9 @@ def main() -> int:
                 "vlm_train": vlm_train["launches"],
                 "vlm_reference_serve": vlm_ref["launches_serve"],
                 "vlm_reference_train": vlm_ref["launches_train"],
+                "examples_serve": examples["serve"]["launches"],
+                "examples_train": examples["train"]["launches"],
+                "examples_wavefront": examples["wavefront"]["launches"],
                 # both ranks' launches (2 ranks sharing the card)
                 "mesh_train_smollm": both("train_smollm"),
                 "mesh_train_llama": both("train_llama"),
@@ -6699,7 +6903,10 @@ def main() -> int:
     copy_phase = {"ops_partition_copy_bytes": copy_paths["ops"],
                   "runtime_4mib": copy_paths["runtime_4mib"]["launches"],
                   "runtime_256mib": copy_paths["runtime_256mib"]["launches"],
-                  "mesh_leaf_reassembly": mesh["k7"]["launches"]}
+                  "mesh_leaf_reassembly": mesh["k7"]["launches"],
+                  "examples_quickstart": {
+                      k: examples["quickstart"]["launches"].get(k, 0)
+                      for k in ("k6", "k7", "k8")}}
     for key, name, replaces in (
             ("k6", "partition_copy (K6)",
              "src/repro/kernels/partition_copy.py:52"),
@@ -6777,7 +6984,8 @@ def main() -> int:
               "encdec_serve": encdec_serve,
               "encdec_train": encdec_train, "encdec_reference": encdec_ref,
               "vlm_serve": vlm_serve, "vlm_train": vlm_train,
-              "vlm_reference": vlm_ref, "mesh": mesh, "mesh_dp": mesh_dp,
+              "vlm_reference": vlm_ref, "examples": examples,
+              "mesh": mesh, "mesh_dp": mesh_dp,
               "library_bwd_ms": ktrain["library_bwd_ms"], "phase_s": timings,
               "total_s": time.perf_counter() - t_start,
               "build_log": _build.log_path().read_text()}

@@ -17,10 +17,18 @@ Under tensor parallelism (``models.tp``) a mixer whose ``w_x`` came as
 the rank's share of ``d_inner`` runs a region on its channels and SSM
 heads: ``w_z`` / ``w_x`` / ``conv_x`` / ``conv_b_x`` as they came,
 ``A_log`` / ``D`` / ``dt_bias``, the ``w_dt`` columns and the norm's
-scale cut to them (those leaves are stored whole), B and C (and their
-convolutions) computed whole from every row (``tp.shared``), the gated
-RMSNorm's mean square summed over "model", and ``out_proj`` row-
-parallel.  Its caches hold the rank's conv channels and state heads.
+scale cut to them (those leaves are stored whole), the gated RMSNorm's
+mean square summed over "model", and ``out_proj`` row-parallel.  B and
+C are shared by every head, so every rank's scan reads all of them.
+Where the stream's rows are the rank's stripe of the sequence, the rank
+projects only its stripe (``x @ w_B``, ``x @ w_C``: 1/m of the rows, as
+the reference's GSPMD layout gives a device its rows) and one
+``gather_seq`` of the two hands every rank every row before the causal
+convolutions, which run whole; the gradient reduce-scatters back to the
+stripe.  Elsewhere (a stream whose rows do not split, decode) every rank
+projects every row.  ``w_B`` / ``w_C`` and the convolutions' leaves see
+part of their gradient on each rank either way (``tp.shared``).  Its
+caches hold the rank's conv channels and state heads.
 """
 from __future__ import annotations
 
@@ -30,7 +38,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist.sharding import current_ctx, psum, split, whole
+from repro_torch.dist.sharding import (current_ctx, gather_seq, psum, split,
+                                       whole)
 from repro_torch.kernels import ops as kernel_ops
 from . import tp
 from .layers import Params, _dtype, dense_init, rmsnorm, rmsnorm_init
@@ -87,13 +96,27 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
     return F.silu(out).to(xbc.dtype)
 
 
-def _mamba_proj(params: Params, x: torch.Tensor, cfg):
-    """Shared projection + conv for the train and prefill paths."""
-    z = x @ params["w_z"]
-    xr = x @ params["w_x"]
-    Br = x @ params["w_B"]
-    Cr = x @ params["w_C"]
-    dt_raw = x @ params["w_dt"]
+def _bc_proj(params: Params, x: torch.Tensor, xf: torch.Tensor,
+             split_: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(Br, Cr) on every row.  On a stripe of the sequence (a mixer on the
+    rank's share) the rank projects its stripe ``x`` and gathers both
+    over "model"; else every row of ``xf`` (module docs)."""
+    if not (split_ and tp.rows_split()):
+        return xf @ params["w_B"], xf @ params["w_C"]
+    n = params["w_B"].shape[-1]
+    bc = gather_seq(torch.cat([x @ params["w_B"], x @ params["w_C"]], -1), 1)
+    return bc[..., :n], bc[..., n:]
+
+
+def _mamba_proj(params: Params, x: torch.Tensor, cfg, split_: bool = False):
+    """Shared projection + conv for the train and prefill paths.  ``x`` is
+    the stream's rows; a mixer on the rank's share enters its region with
+    every row (``tp.enter``)."""
+    xf = tp.enter(x) if split_ else x
+    z = xf @ params["w_z"]
+    xr = xf @ params["w_x"]
+    Br, Cr = _bc_proj(params, x, xf, split_)
+    dt_raw = xf @ params["w_dt"]
     xs = _causal_conv(xr, params["conv_x"], params["conv_b_x"])
     B = _causal_conv(Br, params["conv_B"], params["conv_b_B"])
     C = _causal_conv(Cr, params["conv_C"], params["conv_b_C"])
@@ -150,17 +173,18 @@ def mamba_train(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     a CUDA tensor, whose backward is K9b; its plain chunked version on a
     CPU tensor, which autograd differentiates.  The final state is
     dropped, so the scan's backward sees no state gradient.  A mixer on
-    the rank's share takes every row of the stream (``tp.enter``) and
-    hands back its summed output in the stream's layout; a whole one
+    the rank's share takes every row of the stream (``tp.enter``), B and
+    C from its stripe (module docs), and hands back its summed output in
+    the stream's layout; a whole one
     runs every row on every rank."""
     p, h, split_ = _region(params, cfg)
     if not split_:
         return tp.replicated(lambda xx: _train(p, xx, cfg, h, False), x)
-    return _train(p, tp.enter(x), cfg, h, True)
+    return _train(p, x, cfg, h, True)
 
 
 def _train(p: Params, x: torch.Tensor, cfg, h: int, split_: bool):
-    z, xs, B, C, dt, A, _ = _mamba_proj(p, x, cfg)
+    z, xs, B, C, dt, A, _ = _mamba_proj(p, x, cfg, split_)
     xh = xs.reshape(*xs.shape[:-1], h, cfg.ssm_head_dim)
     y, _ = kernel_ops.ssd_scan(xh, dt, A, B, C, chunk=cfg.ssm_chunk)
     return _mamba_out(p, y, xh, z, cfg, xs.shape[:-1], split_)
@@ -180,13 +204,13 @@ def mamba_prefill(params: Params, x: torch.Tensor, cfg
         out, box["cache"] = _prefill(p, xx, cfg, h, split_)
         return out
 
-    out = run(tp.enter(x)) if split_ else tp.replicated(run, x)
+    out = run(x) if split_ else tp.replicated(run, x)
     return out, box["cache"]
 
 
 def _prefill(p: Params, x: torch.Tensor, cfg, h: int, split_: bool):
     ck = cfg.conv_kernel
-    z, xs, B, C, dt, A, (xr, Br, Cr) = _mamba_proj(p, x, cfg)
+    z, xs, B, C, dt, A, (xr, Br, Cr) = _mamba_proj(p, x, cfg, split_)
     xh = xs.reshape(*xs.shape[:-1], h, cfg.ssm_head_dim)
     y, state = kernel_ops.ssd_scan(xh, dt, A, B, C, chunk=cfg.ssm_chunk)
     out = _mamba_out(p, y, xh, z, cfg, xs.shape[:-1], split_)

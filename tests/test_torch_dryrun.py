@@ -23,10 +23,8 @@ port runs the same cell on a ``MeshLayout`` (rank 0) on the meta device.
 * **(2, 2)**: per-rank FLOPs within 3 % of the reference's per-device
   count (the scan term out as above), except arctic's and deepseek's
   train, where GSPMD computes more than a quarter; both are printed.  A
-  Mamba mixer's B and C projections run on every row of each "model"
-  rank (``models.mamba``: shared by every head, computed whole), where
-  the reference's count is a quarter of one device's: that excess is
-  computed and taken out.
+  Mamba mixer's B and C projections run on the rank's stripe of the
+  sequence, as the reference's do, so nothing is taken out for them.
 * **Argument bytes** equal, except where a difference is known and
   computed: int8 moments (the port shards an int8 moment's ``q`` /
   ``scale``, the reference replicates them), whisper's decode (the
@@ -179,14 +177,7 @@ def _compared_flops(reference, arch, kind, shape):
     if "flops_no_scan" in ref:
         scan = {k: v for k, v in rep.kernels.items() if k in ("k9", "k9b")}
         assert scan, "the port's step ran no K9"
-        # B and C projections on every row of a "model" rank: forward,
-        # and in a train step the remat recompute, dX and dW
-        rows = B // shape[0] * S
-        per_call = 2 * 2 * rows * cfg.d_model * cfg.ssm_state
-        excess = (cfg.num_layers * (4 if kind == "train" else 1) * per_call
-                  * (shape[1] - 1) // shape[1])
-        return (rep.flops - sum(v[1] for v in scan.values()) - excess,
-                ref["flops_no_scan"])
+        return rep.flops - sum(v[1] for v in scan.values()), ref["flops_no_scan"]
     got = rep.flops
     if kind == "decode" and cfg.sliding_window:
         # K5 counts the window; the reference's dense decode every

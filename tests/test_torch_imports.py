@@ -1,5 +1,6 @@
-"""The port's import boundary: ``repro_torch`` and ``chip_smoke.py`` import
-neither jax nor anything of the reference package ``repro``."""
+"""The port's import boundary: ``repro_torch``, ``chip_smoke.py`` and the
+port's example scripts (``examples/torch_*.py``) import neither jax nor
+anything of the reference package ``repro``."""
 import os
 import pathlib
 import re
@@ -8,6 +9,8 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
+EXAMPLES = tuple(ROOT / "examples" / f"torch_{n}.py" for n in (
+    "quickstart", "serve_lm", "train_lm", "wavefront_pipeline"))
 
 _PROBE = r"""
 import importlib, pkgutil, sys
@@ -51,7 +54,27 @@ _IMPORT = re.compile(r"^\s*(?:from|import)\s+(jax|repro)(?:[.\s]|$)", re.M)
 
 
 def test_sources_name_no_jax_or_repro_import():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", *EXAMPLES]
     hits = [(str(f.relative_to(ROOT)), m.group(0).strip())
             for f in files for m in _IMPORT.finditer(f.read_text())]
     assert not hits, hits
+
+
+_EXAMPLE_PROBE = r"""
+import importlib.util, sys
+for i, path in enumerate(sys.argv[1:]):
+    spec = importlib.util.spec_from_file_location(f"example_{i}", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+print(sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m == "repro" or m.startswith("repro.")))
+"""
+
+
+def test_port_examples_load_without_jax_or_repro():
+    assert all(f.exists() for f in EXAMPLES), EXAMPLES
+    out = subprocess.run([sys.executable, "-c", _EXAMPLE_PROBE,
+                          *map(str, EXAMPLES)], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout

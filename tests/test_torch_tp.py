@@ -20,7 +20,10 @@ the CPU.
   a ``MeshLayout`` on the meta device, no process) of the same step on
   rank 0 and rank 3 of (2, 2) gives exactly the live rank's aten FLOPs
   (``FlopCounterMode``) and its ``TRAFFIC``: every kind's calls and
-  bytes.
+  bytes; for reduced mamba2's step on the same group, its ``TRAFFIC``.
+* A Mamba mixer on the rank's share projects B and C on its stripe of
+  the sequence: on (1, 2) and (1, 4) layout ranks its B / C GEMM FLOPs
+  are exactly 1/m of one device's.
 """
 import os
 import pathlib
@@ -29,6 +32,7 @@ import sys
 
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 RANKS = 4
@@ -139,8 +143,19 @@ def _rank(rank, world, out_dir):
                            param_shardings(param_shapes(cfg), ctx), rank)
         with batch_split(("data",)):
             got = model_mod.gather_params(local, cfg, current_ctx())
+    # a Mamba model's train step on the same mesh: B / C on the stripe
+    mcfg = get_config("mamba2-1.3b").reduced()
+    mmodel = LanguageModel(mcfg, device="cpu")
+    mp = mmodel.init(torch.Generator().manual_seed(0))
+    mbatch = {k: torch.randint(0, mcfg.vocab_size, (4, 64), generator=g)
+              for k in ("tokens", "targets")}
+    mstate = place_state({"params": mp, "opt": init_opt_state(mp, oc)}, mesh)
+    sharding.reset_traffic()
+    with use_mesh(mesh):
+        make_train_step(mmodel, oc)(mstate, mbatch)
+    mamba_traffic = {k: list(v) for k, v in sharding.TRAFFIC.items()}
     return {"one": one, "per_rank": per_rank, "gathered": gathered,
-            "traffic": traffic,
+            "traffic": traffic, "mamba_traffic": mamba_traffic,
             "w_q": tuple(got["layers"]["attn"]["w_q"].shape),
             "w_k": tuple(got["layers"]["attn"]["w_k"].shape),
             "embedding": tuple(got["embedding"].shape),
@@ -210,3 +225,72 @@ def test_layout_pass_equals_the_live_rank(group, rank):
     assert {k: [int(rep.coll_counts[k]), int(v)]
             for k, v in rep.coll_bytes.items()} == \
         {k: v[:2] for k, v in live["traffic"].items()}
+
+
+@pytest.mark.parametrize("rank", [0, 3])
+def test_layout_pass_counts_the_mamba_rank_traffic(group, rank):
+    """Reduced mamba2's train step on (2, 2): the layout pass counts the
+    collectives a live rank hands gloo, the B / C gather over "model"
+    among them (the live CPU rank runs the scan's plain version, so its
+    aten FLOPs are not the pass's, which counts K9 / K9b)."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import MeshLayout
+    from repro_torch.launch.dryrun import train_report
+    from repro_torch.optim import OptimizerConfig
+    cfg = get_config("mamba2-1.3b").reduced()
+    oc = OptimizerConfig(peak_lr=1e-3, warmup_steps=2, total_steps=50)
+    batch = {k: torch.empty((4, 64), dtype=torch.int64, device="meta")
+             for k in ("tokens", "targets")}
+    rep = train_report(cfg, oc, batch, MeshLayout((2, 2), ("data", "model")),
+                       rank)
+    live = {k: v[:2] for k, v in group[rank]["mamba_traffic"].items()}
+    assert live["all_gather/model"][0] > 0, live
+    assert {k: [int(rep.coll_counts[k]), int(v)]
+            for k, v in rep.coll_bytes.items()} == live
+
+
+# ------------------------------------- Mamba's B / C projections on a rank
+
+class _BCGemms(TorchDispatchMode):
+    """FLOPs of the GEMMs that produce or contract a width-``n`` operand:
+    in a Mamba train step (n = ssm_state) the B / C projections' forward
+    and remat recompute (x @ w_B: output n), dX (contracting n) and dW
+    (output n)."""
+
+    def __init__(self, n):
+        super().__init__()
+        self.n, self.flops = n, 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten.mm.default:
+            a, b = args[0], args[1]
+            if self.n in (a.shape[1], b.shape[1]):
+                self.flops += 2 * a.shape[0] * a.shape[1] * b.shape[1]
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("m", [2, 4])
+def test_mamba_bc_projections_take_the_rank_share(m):
+    """On a (1, m) layout rank (the dry run's pass, meta tensors) a Mamba
+    mixer projects B and C on its stripe of the sequence: 1/m of one
+    device's B / C GEMM FLOPs (which the reference's GSPMD layout also
+    gives a device), where projecting every row on every rank gave all
+    of them."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import MeshLayout
+    from repro_torch.launch.dryrun import optimizer_config, train_report
+    cfg = get_config("mamba2-1.3b").reduced()
+    b, s = 4, 64
+    batch = {k: torch.empty((b, s), dtype=torch.int64, device="meta")
+             for k in ("tokens", "targets")}
+    counted = {}
+    for shape in ((1, 1), (1, m)):
+        with _BCGemms(cfg.ssm_state) as bc:
+            rep = train_report(cfg, optimizer_config(cfg), batch,
+                               MeshLayout(shape, ("data", "model")), 0)
+        counted[shape] = bc.flops
+        assert rep.kernels, "the step ran no K9"
+    # B and C: forward, remat recompute, dX, dW, each 2 rows D N a layer
+    whole = cfg.num_layers * 4 * 2 * 2 * b * s * cfg.d_model * cfg.ssm_state
+    assert counted[(1, 1)] == whole
+    assert counted[(1, m)] * m == whole, (counted, m)
