@@ -26,12 +26,15 @@ Phases, in order; any failure raises and the script exits nonzero:
    binding, a ragged last tile), and at deepseek's absorbed prefill 4 x
    4096 at (576, 512), G 128 (arctic's, deepseek's, deepseek's ragged
    4 x 2100, whisper's, llava's and the absorbed one each checked twice
-   for the same bits),
+   for the same bits; every (576, 512) case also with v as k's first 512
+   columns, the absorbed route's form, which the timed absorbed row
+   uses, the separate-v time beside it),
    then the kernel and sdpa once more after a ~0.5 ms device spin each
    (their device work alone, without the host work the device waits on);
-   the HMMA instructions ``cuobjdump -sass`` finds in each K1 kernel (the
-   bf16 ones run on tensor cores and must hold some) and K1's blocks per
-   SM;
+   the HMMA and HGMMA (wgmma) instructions ``cuobjdump -sass`` finds in
+   each K1 kernel (the bf16 ones run on tensor cores and must hold some;
+   the (576, 512) ones are wgmma kernels and must hold HGMMA) and K1's
+   blocks per SM;
 3. K5 (flash-decode, split across blocks, then combined) the same way
    at the contiguous-decode shape, at danube's (hd 120, window 4096) and
    at arctic's (B=4, KH=8, G=7, hd 128, the serve phase's cache of 2116
@@ -70,10 +73,14 @@ Phases, in order; any failure raises and the script exits nonzero:
    one kv head), whisper's (B=4, H=KH=12, S=4096, hd 64), llava's
    (B=4, H=32, KH=8, S=4096, hd 128, window 4096) and the absorbed MLA
    route's (B=1, H=128, KH=1, S=4096 at (576, 512); fp32 ragged with a
-   q_offset), K3 against K2, K1-lse
-   and K2 twice the same bits; the
-   HMMA instructions ``cuobjdump -sass`` finds in the bf16 K1, K2 and K3
-   kernels of each compiled width pair and their blocks per SM; then
+   q_offset; both also with v as k's first 512 columns), K3 against K2,
+   K1-lse and K2 twice the same bits, and at (576, 512) in bf16 K3's dq
+   (summed from the stored dS, no atomics) twice the same bits; the
+   HMMA and HGMMA instructions ``cuobjdump -sass`` finds in the bf16 K1,
+   K2 and K3 kernels of each compiled width pair (the (576, 512) wgmma
+   kernels must hold HGMMA) and their blocks per SM, and the registers
+   and spills ptxas reports for the (576, 512) kernels (a spill fails);
+   then
    timed at the training shape, at arctic's, deepseek's, whisper's and
    the absorbed route's (median
    and min-max
@@ -532,17 +539,53 @@ def _sass_counts(pattern):
     """Per kernel whose mangled name contains ``pattern``: the count of
     tensor-core (HMMA / HGMMA) instructions ``cuobjdump -sass`` finds in
     the built library."""
-    counts, name = {}, None
+    return {name: sum(n) for name, n in _sass_ops(pattern).items()}
+
+
+def _sass_ops(pattern):
+    """Per kernel whose mangled name contains ``pattern``: its count of
+    (HMMA, HGMMA) instructions, mma.sync's and wgmma's, in the built
+    library's SASS."""
+    ops, name = {}, None
     for line in _sass_text().splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
             if pattern not in name:
                 name = None
             else:
-                counts[name] = 0
-        elif name is not None and ("HMMA" in line or "HGMMA" in line):
-            counts[name] += 1
-    return counts
+                ops[name] = [0, 0]
+        elif name is not None:
+            ops[name][0] += "HMMA" in line
+            ops[name][1] += "HGMMA" in line
+    return ops
+
+
+# the (576, 512) pair's wgmma kernels (csrc/flash_attention_wide.cu)
+WIDE_WGMMA = ("flash_fwd_wide_tc_kernel", "tc_bwd_dv_wide_kernel",
+              "tc_bwd_dk_wide_kernel", "tc_bwd_dq_ds_wide_kernel")
+
+
+def _wide_wgmma_check():
+    """The HMMA and HGMMA counts of each (576, 512) wgmma kernel (one
+    without HGMMA fails) and its registers and spills from the build's
+    ptxas report (a spill fails), printed."""
+    ops, regs = {}, {}
+    for pat in WIDE_WGMMA:
+        ops.update(_sass_ops(pat))
+        regs.update(_ptxas_report((pat,)))
+    for name, (hmma, hgmma) in ops.items():
+        print(f"  SASS {name[-60:]}: {hmma} HMMA, {hgmma} HGMMA")
+    for name, r in regs.items():
+        print(f"  ptxas {name[-64:]}: {r.get('registers')} registers, "
+              f"{r.get('spill_stores')} B spill stores, "
+              f"{r.get('spill_loads')} B spill loads")
+    # K1: v apart and v k's prefix; dV; dK: 2 forms of v x dS on / off
+    if len(ops) != 8 or min(h for _, h in ops.values()) == 0:
+        raise AssertionError(f"(576, 512) wgmma kernels without HGMMA: {ops}")
+    if len(regs) != 8 or any(r.get("spill_stores", 1) or r.get(
+            "spill_loads", 1) for r in regs.values()):
+        raise AssertionError(f"(576, 512) wgmma kernels spill: {regs}")
+    return {"sass_hmma_hgmma": ops, "ptxas": regs}
 
 
 def _errors(got, want):
@@ -783,6 +826,14 @@ def phase_k1(flush):
         err = _check(name, got, want, dt)
         worst = max(worst, err)
         if (hd, hd_v) == autotune.WIDE_PAIR:
+            # the absorbed route's form: v is k's first 512 columns
+            v = k[..., :hd_v]
+            err = max(err, _check(
+                f"{name}, v = k's first {hd_v} columns",
+                fa.flash_attention(q, k, v, off, causal=True, window=win),
+                fa.flash_attention_plain(q, k, v, off, causal=True,
+                                         window=win), dt))
+            worst = max(worst, err)
             wide = max(wide, err)
 
     def timed(b, h, kh, s, hd, hd_v, win, seed):
@@ -790,6 +841,13 @@ def phase_k1(flush):
         q, k, v = (_randn((b, h, s, hd), dt, seed),
                    _randn((b, kh, s, hd), dt, seed + 1),
                    _randn((b, kh, s, hd_v), dt, seed + 2))
+        separate = None
+        if (hd, hd_v) == autotune.WIDE_PAIR:
+            # timed on the absorbed route's form (v k's first 512
+            # columns), the separate v's time beside it
+            separate = _time_stats(lambda: fa.flash_attention(q, k, v), 20,
+                                   flush)
+            v = k[..., :hd_v]
         kern = lambda: fa.flash_attention(q, k, v, window=win)  # noqa: E731
         st = _time_stats(kern, 20, flush)
         dev = _time_stats(kern, 20, flush, spin=True)
@@ -819,6 +877,10 @@ def phase_k1(flush):
                "bound_by": bound_by, "gflop": flops / 1e9,
                "tflops": flops / st["median"] / 1e9, "device_ms": dev,
                "library_device_ms": lib_dev}
+        if separate is not None:
+            row["v_form"] = "k's first columns"
+            row["separate_v_ms"] = separate
+            print(f"  (576, 512) with v apart from k: {_fmt(separate)}")
         lib_txt = ("no single call" if lib is None else
                    f"{_fmt(lib_st)} [{row['library_backend']}]")
         print(f"  B={b} H={h} KH={kh} S={s} hd={hd} hd_v={hd_v} window "
@@ -846,11 +908,14 @@ def phase_k1(flush):
         q, k, v = (_randn((b, h, s, hd), dt, 90),
                    _randn((b, kh, s, hd), dt, 91),
                    _randn((b, kh, s, hd_v), dt, 92))
+        if shape == "mla_absorbed":   # the absorbed route's form
+            v = k[..., :hd_v]
         got = fa.flash_attention(q, k, v, causal=True, window=win)
         again = fa.flash_attention(q, k, v, causal=True, window=win)
         torch.cuda.synchronize()
         what = (f"{shape} {b}x{s} ({hd}, {hd_v}) G{h // kh} bf16 causal"
-                + (f" window {win}" if win else ""))
+                + (f" window {win}" if win else "")
+                + (" v = k's prefix" if shape == "mla_absorbed" else ""))
         if not torch.equal(got, again):
             raise AssertionError(f"K1 {what}: two runs gave other bits")
         err = _check(f"{what} (twice the same bits)", got,
@@ -874,7 +939,8 @@ def phase_k1(flush):
     absorbed = timed(*K1_TIMED["mla_absorbed"], 96)
     torch.cuda.empty_cache()
     hmma, occupancy = _fwd_hmma()
-    return {"name": "flash_attention (K1)", "route": "cuda",
+    wgmma = _wide_wgmma_check()
+    return {"name": "flash_attention (K1)", "route": "cuda", "wide_wgmma": wgmma,
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:134",
             "max_abs_err": worst, **main, "bound_us": main["bound_ms"] * 1e3,
@@ -1504,6 +1570,14 @@ def phase_k_train(flush):
          576, 512, bf, 0, 0),
         ("mla absorbed (576, 512) fp32 ragged 1100 q_offset 200", 1, 16, 1,
          1100, 1300, 576, 512, f32, 0, 200),
+        # the absorbed route's form: v is k's first 512 columns
+        ("mla absorbed (576, 512) G128 1x4096 bf16, v = k's prefix", 1,
+         128, 1, 4096, 4096, 576, 512, bf, 0, 0),
+        ("mla absorbed (576, 512) bf16 window 100 ragged 1100 q_offset "
+         "200, v = k's prefix", 1, 16, 1, 1100, 1300, 576, 512, bf, 100,
+         200),
+        ("mla absorbed (576, 512) fp32 ragged 1100 q_offset 200, v = k's "
+         "prefix", 1, 16, 1, 1100, 1300, 576, 512, f32, 0, 200),
     ]
     # the worst errors over every case, and over the (576, 512) ones alone
     keys = ("k1_lse", "k2_dq", "k2_dkv", "k3")
@@ -1520,7 +1594,8 @@ def phase_k_train(flush):
         wide = (hd, hd_v) == autotune.WIDE_PAIR
         q = _randn((b, h, sq, hd), dt, 200 + 10 * i)
         k = _randn((b, kh, sk, hd), dt, 201 + 10 * i)
-        v = _randn((b, kh, sk, hd_v), dt, 202 + 10 * i)
+        v = (k[..., :hd_v] if name.endswith("v = k's prefix") else
+             _randn((b, kh, sk, hd_v), dt, 202 + 10 * i))
         do = _randn((b, h, sq, hd_v), dt, 203 + 10 * i)
         kw = dict(causal=True, window=win)
         out, lse = fa.flash_attention_fwd(q, k, v, off, **kw)
@@ -1551,9 +1626,16 @@ def phase_k_train(flush):
         e3 = [_check_rel(f"{name} K3 {n}", g, w, dt)
               for n, g, w in zip(("dq", "dk", "dv"), (dq3, dk3, dv3), want)]
         note("k3", (max(e[0] for e in e3), max(e[1] for e in e3)))
-        # one code path for dk/dv; dq summed with atomics in another order
+        # one code path for dk/dv; dq summed in another order (with
+        # atomics, except at (576, 512) in bf16, from the stored dS)
         if not (torch.equal(dk2, dk3) and torch.equal(dv2, dv3)):
             raise AssertionError(f"{name}: K3 dk/dv differ from K2's")
+        if wide and dt == bf:
+            if not torch.equal(fa.flash_attention_bwd_fused(
+                    q, k, v, do, lse, delta, off, **kw)[0], dq3):
+                raise AssertionError(f"{name}: K3's dq run twice gave "
+                                     "other bits")
+            print(f"  {name}: K3's dq twice the same bits")
         again = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, off, **kw)
         if not (torch.equal(again, dq2) and all(torch.equal(a, c) for a, c in
                 zip(fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, off,
@@ -1594,7 +1676,9 @@ def phase_k_train(flush):
             print(f"  ptxas {kname[-64:]}: {r.get('registers')} registers, "
                   f"{r.get('spill_stores')} B spill stores, "
                   f"{r.get('spill_loads')} B spill loads")
-        if len(regs) != 8:
+        # (576, 512): the fp32 kernels and K2's bf16 dq (the wgmma kernels
+        # are phase_k1's _wide_wgmma_check)
+        if len(regs) != (8 if pair == "192ELi128" else 5):
             raise AssertionError(f"ptxas report for {pair}: {regs}")
         mla_regs[pair] = regs
 
@@ -1612,7 +1696,7 @@ def phase_k_train(flush):
     whisper = _k_train_times(K1_LSE_TIMED["whisper"], 360, flush, worst,
                              occ("hd64"))
     absorbed = _k_train_times(K1_LSE_TIMED["mla_absorbed"], 380, flush,
-                              worst_wide, occ("hd576/512"))
+                              worst_wide, occ("hd576/512"), k_prefix=True)
     rows = train
     for key, other, shape in (
             ("arctic", arctic, "B=4 H=56 KH=8 S=4096 hd=128 bf16 causal "
@@ -1637,17 +1721,34 @@ def phase_k_train(flush):
     return rows
 
 
-def _k_train_times(shape, seed, flush, worst, occ):
+def _k_train_times(shape, seed, flush, worst, occ, k_prefix=False):
     """K1 with lse, the K2 pair and K3 timed at one training shape (bf16,
     causal; median and min-max of 10 cold-L2 samples) beside their plain
     versions, one ``scaled_dot_product_attention`` forward and its
     backward, and their bounds; K1-lse and sdpa's forward again after a
-    device spin."""
+    device spin.  With ``k_prefix`` (the absorbed route's (576, 512)) the
+    kernels are timed with v as k's first hd_v columns, the route's form,
+    and each once more with v apart (``separate_v_ms``)."""
     (b, h, kh, s, hd, hd_v), dt = shape, torch.bfloat16
     q, k, v, do = (_randn((b, h, s, hd), dt, seed),
                    _randn((b, kh, s, hd), dt, seed + 1),
                    _randn((b, kh, s, hd_v), dt, seed + 2),
                    _randn((b, h, s, hd_v), dt, seed + 3))
+    separate = {}
+    if k_prefix:
+        out, lse = fa.flash_attention_fwd(q, k, v)
+        delta = (do.float() * out.float()).sum(-1)
+        args = (q, k, v, do, lse, delta)
+        separate = {
+            "k1_lse": _time_stats(lambda: fa.flash_attention_fwd(q, k, v),
+                                  10, flush),
+            "k2_dq": _time_stats(lambda: fa.flash_attention_bwd_dq(*args),
+                                 10, flush),
+            "k2_dkv": _time_stats(lambda: fa.flash_attention_bwd_dkv(*args),
+                                  10, flush),
+            "k3": _time_stats(lambda: fa.flash_attention_bwd_fused(*args),
+                              10, flush)}
+        v = k[..., :hd_v]
     out, lse = fa.flash_attention_fwd(q, k, v)
     delta = (do.float() * out.float()).sum(-1)
     args = (q, k, v, do, lse, delta)
@@ -1705,6 +1806,9 @@ def _k_train_times(shape, seed, flush, worst, occ):
                      "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
                      "tflops": flops / st[key]["median"] / 1e9,
                      "blocks_per_sm": occ[key]}
+        if k_prefix:
+            rows[key]["v_form"] = "k's first columns"
+            rows[key]["separate_v_ms"] = separate[key]
         print(f"  {names[key]}: kernel {_fmt(st[key])}, plain {plain:.4f} "
               f"ms, library {'none' if lib is None else _fmt(lib)}, bound "
               f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.1f} GFLOP, "
@@ -1716,6 +1820,15 @@ def _k_train_times(shape, seed, flush, worst, occ):
               f"{'-' if lib_fwd is None else _fmt(lib_fwd)}; sdpa "
               f"backward via autograd.grad [{backend['backward']}] "
               f"{'-' if lib_bwd is None else _fmt(lib_bwd)}")
+    if k_prefix:
+        passes = autotune.wide_ds_passes(b * h, s, s, 0, True, 0)
+        rows["k3"]["ds_workspace_bytes"] = (
+            b * h * max(p[2] for p in passes) * autotune.WIDE_DS_PAIR_BYTES)
+        rows["k3"]["ds_passes"] = len(passes)
+        print("  with v apart from k: " + ", ".join(
+            f"{names[key]} {_fmt(separate[key])}" for key in separate)
+            + f"; K3's dS workspace {rows['k3']['ds_workspace_bytes']} B "
+            f"in {len(passes)} pass(es)")
     print(f"  K2 pair {pair:.4f} ms, K3 {st['k3']['median']:.4f} ms; after "
           f"a device spin: K1 with lse {_fmt(k1_dev)}, sdpa forward "
           f"{'-' if lib_fwd_dev is None else _fmt(lib_fwd_dev)}")
@@ -4505,9 +4618,9 @@ def phase_mla_absorbed():
                    {**none, "k1_lse": 1, "k2_dq": 1, "k2_dkv": 1})
     finite = all(bool(torch.isfinite(g).all()) for r in (k3, k2)
                  for g in r["grads"])
-    # K3's dq differs from K2's by its atomics' order (phase_k_train holds
-    # the kernels' outputs at this shape: dk, dv the same bits, dq within
-    # 2^-7); through the bf16 projections each leaf's gradient stays
+    # K3's dq differs from K2's by its summation order (phase_k_train
+    # holds the kernels' outputs at this shape: dk, dv the same bits, dq
+    # within 2^-7; K3's dq twice the same bits); through the bf16 projections each leaf's gradient stays
     # within the repo's bf16 limit, 2e-2 of its largest entry
     leaf_diff = [((a.float() - c.float()).abs().max()
                   / c.float().abs().max().clamp_min(1e-30)).item()

@@ -3,7 +3,7 @@ whichever ``repro_torch`` is first on ``sys.path``, so that two trees
 can be compared on one card in one run.
 
     PYTHONPATH=<tree>/src python scripts/torch_attention_ab.py LABEL OUT
-        [--zamba2]
+        [--zamba2] [--absorbed]
 
 Appends one JSON line to OUT: LABEL, the package's path, and per timed
 shape of ``chip_smoke.py`` (``K1_TIMED``, ``K1_LSE_TIMED``,
@@ -16,7 +16,12 @@ and K3 (``k2_dq_*``, ``k2_dkv_*``, ``k3_*``, 10 calls each).
 Per shape also the largest |difference| from the plain version (a shape
 whose widths the tree's kernels do not take, such as MLA's (192, 128) on
 a tree before it, is recorded as ``not_taken``), and per
-K5 shape the host µs a call of the wrapper takes (``host_us``).  At
+K5 shape the host µs a call of the wrapper takes (``host_us``).  The
+absorbed MLA shapes ((576, 512), ``mla_absorbed``) are timed with v
+apart from k and again with v as k's first 512 columns, the route's
+form (``*_k_prefix``; ``not_taken`` on a tree whose wrappers refuse that
+view), with K3's dS workspace bytes where the tree has one
+(``ds_workspace_bytes``).  ``--absorbed`` times those shapes alone.  At
 chip_smoke's short training shape (``MEGA_TIMED["train"]``, B=64 x 256)
 also K4f, K4f-lse and K4b beside K1-lse, K3 and one
 ``scaled_dot_product_attention`` forward and backward (``mega_*``, 20
@@ -67,13 +72,20 @@ def main() -> int:
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
     bf = torch.bfloat16
     res = {"label": label, "src": fa.__file__}
+    absorbed_only = "--absorbed" in sys.argv[3:]
     shapes = {**{f"k1_{n}": (*v, False) for n, v in cs.K1_TIMED.items()},
               **{f"k1_lse_{n}": (*v, 0, True)
                  for n, v in cs.K1_LSE_TIMED.items()}}
+    shapes.update({f"{n}_k_prefix": v for n, v in shapes.items()
+                   if n.endswith("mla_absorbed")})
+    if absorbed_only:
+        shapes = {n: v for n, v in shapes.items() if "mla_absorbed" in n}
     for name, (b, h, kh, s, hd, hd_v, win, lse) in shapes.items():
         q, k, v = (cs._randn((b, h, s, hd), bf, 1),
                    cs._randn((b, kh, s, hd), bf, 2),
                    cs._randn((b, kh, s, hd_v), bf, 3))
+        if name.endswith("_k_prefix"):   # v as k's first hd_v columns
+            v = k[..., :hd_v]
         kernel = fa.flash_attention_fwd if lse else fa.flash_attention
         try:
             kernel(q, k, v, window=win)
@@ -93,9 +105,20 @@ def main() -> int:
                               ("k2_dkv", fa.flash_attention_bwd_dkv),
                               ("k3", fa.flash_attention_bwd_fused)):
                 res[f"{kname}_{stem}"] = _both(lambda: fn(*args), 10, flush)
+            plan = getattr(fa.autotune, "wide_ds_passes", None)
+            if "mla_absorbed" in stem and plan is not None:
+                passes = plan(b * h, s, s, 0, True, 0)
+                res[f"k3_{stem}"]["ds_workspace_bytes"] = (
+                    b * h * max(p[2] for p in passes)
+                    * fa.autotune.WIDE_DS_PAIR_BYTES)
             del do, o_t, lse_t, args
         del q, k, v, got
         torch.cuda.empty_cache()
+    if absorbed_only:
+        print(json.dumps(res))
+        with open(out, "a") as f:
+            f.write(json.dumps(res) + "\n")
+        return 0
     for name, (b, kh, g, s, hd, cur, win) in cs.K5_TIMED.items():
         q, kc, vc = (cs._randn((b, kh, g, hd), bf, 4),
                      cs._randn((b, kh, s, hd), bf, 5),

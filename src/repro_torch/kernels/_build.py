@@ -27,20 +27,23 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 # C entry points: (name, argtypes); each returns a cudaError_t
 _ENTRIES = {
-    # q, k, v, out, lse (or null), B, H, KH, Sq, Sk, hd, hd_v, q_offset,
-    # causal, window, dtype, scale, stream
-    "repro_flash_fwd": (_P,) * 5 + (_I,) * 11 + (_F, _P),
+    # q, k, v, out, lse (or null), B, H, KH, Sq, Sk, hd, hd_v, v's row
+    # stride, q_offset, causal, window, dtype, scale, stream
+    "repro_flash_fwd": (_P,) * 5 + (_I,) * 12 + (_F, _P),
     # hd, hd_v, dtype, out: blocks per SM of K1
     "repro_flash_fwd_occupancy": (_I,) * 3 + (_P,),
-    # q, k, v, dout, lse, delta, dq, B, H, KH, Sq, Sk, hd, hd_v, q_offset,
-    # causal, window, dtype, scale, stream
-    "repro_flash_bwd_dq": (_P,) * 7 + (_I,) * 11 + (_F, _P),
+    # q, k, v, dout, lse, delta, dq, B, H, KH, Sq, Sk, hd, hd_v, v's row
+    # stride, q_offset, causal, window, dtype, scale, stream
+    "repro_flash_bwd_dq": (_P,) * 7 + (_I,) * 12 + (_F, _P),
     # q, k, v, dout, lse, delta, dk, dv, ws (the (576, 512) pair's fp32
     # workspace, or null), splits, then as above
-    "repro_flash_bwd_dkv": (_P,) * 9 + (_I,) * 12 + (_F, _P),
-    # q, k, v, dout, lse, delta, dq_acc (fp32), dk, dv, ws, splits, then as
+    "repro_flash_bwd_dkv": (_P,) * 9 + (_I,) * 13 + (_F, _P),
+    # q, k, v, dout, lse, delta, dq_acc (fp32; dq itself at the (576, 512)
+    # pair in bf16), dk, dv, ws, splits, the pair's bf16 dS workspace (or
+    # null), its passes (host int triples, or null), their count, then as
     # above
-    "repro_flash_bwd_fused": (_P,) * 10 + (_I,) * 12 + (_F, _P),
+    "repro_flash_bwd_fused": (_P,) * 10 + (_I, _P, _P) + (_I,) * 13
+    + (_F, _P),
     # which (0 dq, 1 dk/dv, 2 fused), hd, hd_v, dtype, out: blocks per SM
     "repro_flash_bwd_occupancy": (_I,) * 4 + (_P,),
     # q, k, v, out, lse (or null), B, H, KH, Sq, Sk, hd, q_offset, causal,

@@ -18,8 +18,10 @@
   one block per (batch, kv head) must fill the SMs;
 * :func:`kernel_head_dim`, the compiled (q/k width, v width) pair at
   which the tiled kernels K1, K2, K3 and the decode kernel K5 run a
-  head, and :func:`wide_dkv_splits`, the head slices of the dk/dv pass
-  at the widest pair, (576, 512);
+  head, :func:`wide_dkv_splits`, the head slices of the dk/dv pass at
+  the widest pair, (576, 512), and :func:`wide_ds_passes`, the runs of
+  query tiles over which K3 there holds its dS workspace under
+  :data:`WIDE_DS_CAP`;
 * :func:`decode_splits`, how many blocks the split-sequence decode
   kernel K5 (``csrc/flash_decode.cu``) gives each (batch, kv head), and
   :func:`decode_chunk`, the rows each split takes.  The reference's
@@ -99,8 +101,8 @@ def kernel_head_dim(hd: int, hd_v: int | None = None,
 
 
 # kv rows of one block of the dk/dv pass at WIDE_PAIR, by element size
-# (``csrc/flash_attention_wide.cu``: KV_BK in bf16, 16 in fp32)
-WIDE_DKV_ROWS = {2: 32, 4: 16}
+# (``csrc/flash_attention_wide.cu``: KV_T in bf16, 16 in fp32)
+WIDE_DKV_ROWS = {2: 64, 4: 16}
 
 
 @functools.lru_cache(maxsize=1024)
@@ -114,11 +116,103 @@ def wide_dkv_splits(bkv: int, g: int, sk: int, itemsize: int) -> int:
     slices.  Each block sums its slice's heads into an fp32 workspace,
     which the pass adds in slice order: the same bits for the same
     shapes on any card.  deepseek-v2-236b's
-    absorbed route, B 1, KH 1, G 128 at 1 × 4096 in bf16 (128 kv tiles):
-    5 slices of 26 heads, 640 blocks."""
+    absorbed route, B 1, KH 1, G 128 at 1 × 4096 in bf16 (64 kv tiles):
+    9 slices of 15 heads, 576 blocks."""
     tiles = bkv * -(-sk // WIDE_DKV_ROWS[itemsize])
     want = -(-4 * SM_COUNT // max(1, tiles))
     return max(1, min(g, want))
+
+
+# The bf16 wgmma kernels at WIDE_PAIR (``csrc/flash_attention_wide.cu``):
+# kv rows of a K1 stage and q rows of a dK stage, by whether v is k's
+# first 512 columns (one tile for both) or a tensor apart; q rows of a dV
+# stage.  Their tiles are 64-column boxes (128 bytes a row).
+WIDE_K1_ROWS = {True: 48, False: 32}
+WIDE_DK_ROWS = {True: 32, False: 16}
+WIDE_DV_ROWS = 32
+
+
+def wide_smem_bytes() -> dict:
+    """Shared memory of each bf16 wgmma kernel's tile plan at
+    :data:`WIDE_PAIR`, by (kernel, v is k's prefix): the sums that
+    ``csrc/flash_attention_wide.cu``'s k1_bytes / dv_bytes / dk_bytes /
+    dq_bytes make (a 1 KB alignment slack and the mbarriers included),
+    each held there against the 232,448 B opt-in by a static_assert.  A
+    pure function of the constants."""
+    row, q, kv, hd_boxes, v_boxes = 64 * 2, 64, 64, 9, 8
+    out = {}
+    for sv in (True, False):
+        bk, tq = WIDE_K1_ROWS[sv], WIDE_DK_ROWS[sv]
+        out[("k1", sv)] = (1024 + q * hd_boxes * row
+                           + 2 * bk * (hd_boxes + (0 if sv else v_boxes)) * row
+                           + 2 * q * bk * 4 + 64)
+        out[("dk", sv)] = (1024 + kv * (hd_boxes + (0 if sv else v_boxes)) * row
+                           + 2 * tq * (hd_boxes + v_boxes) * row
+                           + kv * tq * 4 + kv * tq * 2 * 2 + 4 * tq * 4 + 64)
+        out[("dv", sv)] = (1024 + kv * hd_boxes * row
+                           + 2 * WIDE_DV_ROWS * (hd_boxes + v_boxes) * row
+                           + 2 * kv * WIDE_DV_ROWS * 4 + 64)
+        out[("dq", sv)] = 1024 + 2 * (2 * 64 * 64 + kv * hd_boxes * 64) * 2 + 64
+    return out
+
+
+# K3 at WIDE_PAIR in bf16 stores dS for its dq kernel: one tile pair of
+# WIDE_DS_TILE q rows by WIDE_DS_TILE kv rows for every (batch x head, q
+# tile, kv tile) the masks keep, as a bf16 hi + lo pair
+# (``csrc/flash_attention_wide.cu``: tc_bwd_dk_wide_kernel writes it,
+# tc_bwd_dq_ds_wide_kernel reads it).  WIDE_DS_CAP bounds the workspace:
+# deepseek-v2-236b's absorbed micro-batch, 1 x 4096 at 128 heads (2,080
+# causal pairs a head, 4.36 GB), takes one pass.
+WIDE_DS_TILE = 64
+WIDE_DS_PAIR_BYTES = 2 * WIDE_DS_TILE * WIDE_DS_TILE * 2
+WIDE_DS_CAP = 9 << 29          # 4.5 GiB
+
+
+def wide_kv_tiles(q0: int, q_offset: int, sk: int, causal: bool,
+                  window: int) -> tuple:
+    """The WIDE_DS_TILE-row kv tiles [lo, hi) that the query tile whose
+    first row is ``q0`` meets under the causal and window masks (the
+    kernels' ``ds_kv_tiles``)."""
+    row0 = q_offset + q0
+    kv_begin, kv_end = 0, sk
+    if causal:
+        kv_end = min(sk, row0 + WIDE_DS_TILE)
+    if window > 0:
+        kv_begin = max(0, row0 - window + 1)
+    lo = kv_begin // WIDE_DS_TILE
+    return (lo, -(-kv_end // WIDE_DS_TILE) if kv_end > kv_begin else lo)
+
+
+@functools.lru_cache(maxsize=1024)
+def wide_ds_passes(bh: int, sq: int, sk: int, q_offset: int, causal: bool,
+                   window: int, cap: int | None = None) -> tuple:
+    """The passes of K3 at :data:`WIDE_PAIR` in bf16: (first q row, end q
+    row, tile pairs) triples of whole WIDE_DS_TILE-row query tiles, from
+    the last tiles down (the order in which the dk blocks walk them), each
+    as many tiles as keep the pass's dS workspace, ``bh`` × pairs ×
+    :data:`WIDE_DS_PAIR_BYTES`, within ``cap`` (default
+    :data:`WIDE_DS_CAP`).  The wrapper allocates the largest pass's
+    workspace and runs the dk and dq kernels once a pass.  Raises
+    ``ValueError`` where one query tile alone would pass the cap."""
+    cap = WIDE_DS_CAP if cap is None else cap
+    per = bh * WIDE_DS_PAIR_BYTES
+    passes, end, pairs = [], -(-sq // WIDE_DS_TILE), 0
+    for qt in range(end - 1, -1, -1):
+        lo, hi = wide_kv_tiles(qt * WIDE_DS_TILE, q_offset, sk, causal,
+                               window)
+        n = hi - lo
+        if n * per > cap:
+            raise ValueError(
+                f"K3 at {WIDE_PAIR}: one {WIDE_DS_TILE}-row query tile of "
+                f"{bh} heads holds {n * per} B of dS, past the cap {cap}")
+        if (pairs + n) * per > cap:
+            passes.append(((qt + 1) * WIDE_DS_TILE, end * WIDE_DS_TILE,
+                           pairs))
+            end, pairs = qt + 1, 0
+        pairs += n
+    if end > 0:
+        passes.append((0, end * WIDE_DS_TILE, pairs))
+    return tuple(passes)
 
 
 # K5's tile and split cap.  The wrapper passes DECODE_TILE to every

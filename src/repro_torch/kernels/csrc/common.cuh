@@ -48,16 +48,17 @@ from_float<__nv_bfloat16>(float x) {
 template <typename T, int HD, int ROWS, int LDS, int NT>
 __device__ __forceinline__ void load_rows(float* dst, const T* src,
                                           int valid_rows, float mul,
-                                          int hd = HD) {
+                                          int hd = HD, int ld = 0) {
   constexpr int V = 16 / sizeof(T);
   constexpr int PER_ROW = HD / V;
+  const size_t rs = ld > 0 ? ld : hd;   // the tensor's row stride
   for (int idx = threadIdx.x; idx < ROWS * PER_ROW; idx += NT) {
     const int r = idx / PER_ROW;
     const int c = (idx % PER_ROW) * V;
     float x[V];
     if (r < valid_rows && c < hd) {
       const uint4 raw =
-          *reinterpret_cast<const uint4*>(src + (size_t)r * hd + c);
+          *reinterpret_cast<const uint4*>(src + r * rs + c);
       const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
       for (int i = 0; i < V; ++i) x[i] = to_float(e[i]) * mul;
@@ -89,19 +90,24 @@ __host__ __device__ inline int attn_pair(int hd, int hd_v) {
 // The (576, 512) pair's kernels (flash_attention_wide.cu), which the
 // entry points of flash_attention.cu (K1) and flash_attention_bwd.cu (K2,
 // K3: which 0 dq, 1 dk/dv, 2 fused) call for attn_pair 3.  dtype 0 fp32,
-// 1 bf16.  ws is the dk/dv kernels' fp32 workspace of `splits` head
-// slices, (splits, B*KH*Sk, hd) then (splits, B*KH*Sk, hd_v); dq is K3's
-// fp32 accumulator.  With occupancy non-null, report the kernel's blocks
-// per SM instead of launching.
+// 1 bf16.  v's rows are ldv elements apart: hd_v, or hd where v is k's
+// first hd_v columns (v == k).  ws is the dk/dv kernels' fp32 workspace
+// of `splits` head slices, (splits, B*KH*Sk, hd) then (splits, B*KH*Sk,
+// hd_v).  K3's dq is an fp32 accumulator in fp32; in bf16 it is dq in
+// q's dtype, summed from the dS workspace `ds` over n_pass passes (host
+// triples of first q row, end q row, tile pairs; autotune.wide_ds_passes).
+// With occupancy non-null, report the kernel's blocks per SM instead of
+// launching.
 cudaError_t wide_fwd(const void* q, const void* k, const void* v, void* o,
                      float* lse, int B, int H, int KH, int Sq, int Sk,
-                     int hd, int hd_v, int q_offset, int causal, int window,
-                     float scale, int dtype, int* occupancy,
+                     int hd, int hd_v, int ldv, int q_offset, int causal,
+                     int window, float scale, int dtype, int* occupancy,
                      cudaStream_t st);
 cudaError_t wide_bwd(int which, const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, const float* delta,
                      void* dq, void* dk, void* dv, float* ws, int splits,
-                     int B, int H, int KH, int Sq, int Sk, int hd, int hd_v,
+                     void* ds, const int* passes, int n_pass, int B, int H,
+                     int KH, int Sq, int Sk, int hd, int hd_v, int ldv,
                      int q_offset, int causal, int window, float scale,
                      int dtype, int* occupancy, cudaStream_t st);
 
@@ -355,17 +361,19 @@ __device__ __forceinline__ void scale_split(uint32_t x, float2 w, uint32_t& hi,
 // the chunk as the tc kernels hold it: whole 16-row tiles
 __host__ __device__ constexpr int qpad16(int q) { return (q + 15) / 16 * 16; }
 
-// Rows [0, ROWS) of a bf16 (rows, hd) tile into shared memory with row
-// stride LD by 16-byte cp.async; rows at or past valid_rows and columns
-// hd..HD are zero-filled (nothing is read for them).
+// Rows [0, ROWS) of a bf16 (rows, hd) tile (row stride ld, default hd)
+// into shared memory with row stride LD by 16-byte cp.async; rows at or
+// past valid_rows and columns hd..HD are zero-filled (nothing is read for
+// them).
 template <int HD, int ROWS, int LD, int NT>
 __device__ __forceinline__ void cp_tile(bf16* dst, const bf16* src,
-                                        int valid_rows, int hd) {
+                                        int valid_rows, int hd, int ld = 0) {
   constexpr int CH = HD / 8;
+  const size_t rs = ld > 0 ? ld : hd;
   for (int idx = threadIdx.x; idx < ROWS * CH; idx += NT) {
     const int r = idx / CH, c = (idx % CH) * 8;
     const bool ok = r < valid_rows && c < hd;
-    cp_async16(dst + r * LD + c, ok ? src + (size_t)r * hd + c : src, ok);
+    cp_async16(dst + r * LD + c, ok ? src + r * rs + c : src, ok);
   }
 }
 

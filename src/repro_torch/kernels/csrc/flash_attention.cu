@@ -454,7 +454,7 @@ struct FwdArgs {
   const void *q, *k, *v;
   void* o;
   float* lse;
-  int B, H, KH, Sq, Sk, hd, hd_v, q_offset, causal, window;
+  int B, H, KH, Sq, Sk, hd, hd_v, ldv, q_offset, causal, window;
   float scale;
   int* occupancy;   // non-null: report blocks per SM instead of launching
 };
@@ -498,6 +498,9 @@ cudaError_t dispatch(const FwdArgs& a, int dtype, cudaStream_t st) {
   if (a.occupancy == nullptr) {
     if (a.B <= 0 || a.H <= 0 || a.Sq <= 0) return cudaSuccess;
     if (a.KH <= 0 || a.H % a.KH) return cudaErrorInvalidValue;
+    // v's rows are hd_v apart, or (the (576, 512) pair) k's prefix
+    if (a.ldv != a.hd_v && !(pair == 3 && a.v == a.k && a.ldv == a.hd))
+      return cudaErrorInvalidValue;
     // grid limits: fp32 (q tiles, B*H), bf16 (B*H, q tiles)
     const int nq = (a.Sq + BQ - 1) / BQ;
     if ((dtype == 0 && a.B * a.H > 65535) || (dtype == 1 && nq > 65535))
@@ -505,8 +508,8 @@ cudaError_t dispatch(const FwdArgs& a, int dtype, cudaStream_t st) {
   }
   if (pair == 3)
     return wide_fwd(a.q, a.k, a.v, a.o, a.lse, a.B, a.H, a.KH, a.Sq, a.Sk,
-                    a.hd, a.hd_v, a.q_offset, a.causal, a.window, a.scale,
-                    dtype, a.occupancy, st);
+                    a.hd, a.hd_v, a.ldv, a.q_offset, a.causal, a.window,
+                    a.scale, dtype, a.occupancy, st);
   const bool same = a.hd == a.hd_v;
   if (dtype == 0)
     return pair == 2 ? launch_f32<192, 128, false>(a, st)
@@ -528,18 +531,20 @@ cudaError_t dispatch(const FwdArgs& a, int dtype, cudaStream_t st) {
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  q
 // (B,H,Sq,hd), k (B,KH,Sk,hd), v (B,KH,Sk,hd_v), out (B,H,Sq,hd_v), all
-// contiguous, (hd, hd_v) multiples of 8 that a compiled pair holds
-// (attn_pair); lse (B,H,Sq) fp32, or null for the forward without it;
-// scale 1/sqrt(hd).  Returns the launch's cudaError_t.
+// contiguous but v, whose rows are ldv elements apart: hd_v, or at the
+// (576, 512) pair hd where v is k's first hd_v columns (v == k); (hd,
+// hd_v) multiples of 8 that a compiled pair holds (attn_pair); lse
+// (B,H,Sq) fp32, or null for the forward without it; scale 1/sqrt(hd).
+// Returns the launch's cudaError_t.
 extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
                                void* o, void* lse, int B, int H, int KH,
-                               int Sq, int Sk, int hd, int hd_v,
+                               int Sq, int Sk, int hd, int hd_v, int ldv,
                                int q_offset, int causal, int window,
                                int dtype, float scale, void* stream) {
-  const repro::FwdArgs a{q,  k,    v,        o,      static_cast<float*>(lse),
-                         B,  H,    KH,       Sq,     Sk,
-                         hd, hd_v, q_offset, causal, window,
-                         scale, nullptr};
+  const repro::FwdArgs a{q,  k,    v,   o,        static_cast<float*>(lse),
+                         B,  H,    KH,  Sq,       Sk,
+                         hd, hd_v, ldv, q_offset, causal,
+                         window, scale, nullptr};
   return repro::dispatch(a, dtype, static_cast<cudaStream_t>(stream));
 }
 
@@ -549,7 +554,7 @@ extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
 extern "C" int repro_flash_fwd_occupancy(int hd, int hd_v, int dtype,
                                          int* blocks) {
   const repro::FwdArgs a{nullptr, nullptr, nullptr, nullptr, nullptr,
-                         1, 1, 1, 1, 1, hd, hd_v, 0, 0, 0, 1.f, blocks};
+                         1, 1, 1, 1, 1, hd, hd_v, hd_v, 0, 0, 0, 1.f, blocks};
   return repro::dispatch(a, dtype, nullptr);
 }
 

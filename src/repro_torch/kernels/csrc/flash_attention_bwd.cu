@@ -916,11 +916,14 @@ tc_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 struct BwdArgs {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
-  int B, H, KH, Sq, Sk, hd, hd_v, q_offset, causal, window;
+  int B, H, KH, Sq, Sk, hd, hd_v, ldv, q_offset, causal, window;
   float scale;
   int* occupancy;   // non-null: report blocks per SM instead of launching
   float* ws;        // the (576, 512) dk/dv workspace and its head slices
   int splits;
+  void* ds;             // the (576, 512) bf16 K3's dS workspace
+  const int* passes;    // and its passes (host triples)
+  int n_pass;
 };
 
 // Set the kernel's shared-memory limit, then either report its blocks
@@ -1004,12 +1007,15 @@ cudaError_t dispatch(int which, const BwdArgs& a, void* dq, void* dk,
     if (a.B <= 0 || a.H <= 0 || a.Sq <= 0 || a.Sk <= 0) return cudaSuccess;
     if (a.KH <= 0 || a.H % a.KH || a.B * a.H > 65535)
       return cudaErrorInvalidValue;
+    // v's rows are hd_v apart, or (the (576, 512) pair) k's prefix
+    if (a.ldv != a.hd_v && !(pair == 3 && a.v == a.k && a.ldv == a.hd))
+      return cudaErrorInvalidValue;
   }
   if (pair == 3)
     return wide_bwd(which, a.q, a.k, a.v, a.dout, a.lse, a.delta, dq, dk, dv,
-                    a.ws, a.splits, a.B, a.H, a.KH, a.Sq, a.Sk, a.hd, a.hd_v,
-                    a.q_offset, a.causal, a.window, a.scale, dtype,
-                    a.occupancy, st);
+                    a.ws, a.splits, a.ds, a.passes, a.n_pass, a.B, a.H, a.KH,
+                    a.Sq, a.Sk, a.hd, a.hd_v, a.ldv, a.q_offset, a.causal,
+                    a.window, a.scale, dtype, a.occupancy, st);
   const bool same = a.hd == a.hd_v;
   if (pair == 2)
     return launch<192, 128, false>(which, a, dq, dk, dv, dtype, st);
@@ -1022,12 +1028,14 @@ cudaError_t dispatch(int which, const BwdArgs& a, void* dq, void* dk,
 
 BwdArgs args(const void* q, const void* k, const void* v, const void* dout,
              const void* lse, const void* delta, int B, int H, int KH,
-             int Sq, int Sk, int hd, int hd_v, int q_offset, int causal,
-             int window, float scale, void* ws = nullptr, int splits = 0) {
+             int Sq, int Sk, int hd, int hd_v, int ldv, int q_offset,
+             int causal, int window, float scale, void* ws = nullptr,
+             int splits = 0, void* ds = nullptr,
+             const int* passes = nullptr, int n_pass = 0) {
   return BwdArgs{q, k, v, dout, static_cast<const float*>(lse),
                  static_cast<const float*>(delta), B, H, KH, Sq, Sk, hd,
-                 hd_v, q_offset, causal, window, scale, nullptr,
-                 static_cast<float*>(ws), splits};
+                 hd_v, ldv, q_offset, causal, window, scale, nullptr,
+                 static_cast<float*>(ws), splits, ds, passes, n_pass};
 }
 
 }  // namespace
@@ -1036,18 +1044,21 @@ BwdArgs args(const void* q, const void* k, const void* v, const void* dout,
 // dtype: 0 = float32, 1 = bfloat16.  q (B,H,Sq,hd), k (B,KH,Sk,hd), v
 // (B,KH,Sk,hd_v) and dout (B,H,Sq,hd_v) in that dtype, (hd, hd_v)
 // multiples of 8 that a compiled pair holds (attn_pair); lse, delta
-// (B,H,Sq) fp32; all contiguous; scale 1/sqrt(hd).  dq (B,H,Sq,hd) in
-// q's dtype.  Returns the launch's cudaError_t.
+// (B,H,Sq) fp32; all contiguous but v, whose rows are ldv elements apart:
+// hd_v, or at the (576, 512) pair hd where v is k's first hd_v columns
+// (v == k); scale 1/sqrt(hd).  dq (B,H,Sq,hd) in q's dtype.  Returns the
+// launch's cudaError_t.
 extern "C" int repro_flash_bwd_dq(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse,
                                   const void* delta, void* dq, int B, int H,
                                   int KH, int Sq, int Sk, int hd, int hd_v,
-                                  int q_offset, int causal, int window,
-                                  int dtype, float scale, void* stream) {
+                                  int ldv, int q_offset, int causal,
+                                  int window, int dtype, float scale,
+                                  void* stream) {
   return repro::dispatch(0,
                          repro::args(q, k, v, dout, lse, delta, B, H, KH, Sq,
-                                     Sk, hd, hd_v, q_offset, causal, window,
-                                     scale),
+                                     Sk, hd, hd_v, ldv, q_offset, causal,
+                                     window, scale),
                          dq, nullptr, nullptr, dtype,
                          static_cast<cudaStream_t>(stream));
 }
@@ -1061,33 +1072,38 @@ extern "C" int repro_flash_bwd_dkv(const void* q, const void* k,
                                    const void* lse, const void* delta,
                                    void* dk, void* dv, void* ws, int splits,
                                    int B, int H, int KH,
-                                   int Sq, int Sk, int hd, int hd_v,
+                                   int Sq, int Sk, int hd, int hd_v, int ldv,
                                    int q_offset,
                                    int causal, int window, int dtype,
                                    float scale, void* stream) {
   return repro::dispatch(1,
                          repro::args(q, k, v, dout, lse, delta, B, H, KH, Sq,
-                                     Sk, hd, hd_v, q_offset, causal, window,
-                                     scale, ws, splits),
+                                     Sk, hd, hd_v, ldv, q_offset, causal,
+                                     window, scale, ws, splits),
                          nullptr, dk, dv, dtype,
                          static_cast<cudaStream_t>(stream));
 }
 
 // As above; dq_acc (B,H,Sq,hd) fp32, zeroed by the caller, receives dq by
-// atomicAdd.
+// atomicAdd, except at the (576, 512) pair in bf16: there dq_acc is dq in
+// q's dtype, summed in order from the bf16 dS workspace ds over n_pass
+// passes, `passes` a host array of (first q row, end q row, tile pairs)
+// triples from the last rows down (autotune.wide_ds_passes).
 extern "C" int repro_flash_bwd_fused(const void* q, const void* k,
                                      const void* v, const void* dout,
                                      const void* lse, const void* delta,
                                      void* dq_acc, void* dk, void* dv,
-                                     void* ws, int splits, int B,
+                                     void* ws, int splits, void* ds,
+                                     const int* passes, int n_pass, int B,
                                      int H, int KH, int Sq, int Sk, int hd,
-                                     int hd_v, int q_offset, int causal,
-                                     int window,
+                                     int hd_v, int ldv, int q_offset,
+                                     int causal, int window,
                                      int dtype, float scale, void* stream) {
   return repro::dispatch(2,
                          repro::args(q, k, v, dout, lse, delta, B, H, KH, Sq,
-                                     Sk, hd, hd_v, q_offset, causal, window,
-                                     scale, ws, splits),
+                                     Sk, hd, hd_v, ldv, q_offset, causal,
+                                     window, scale, ws, splits, ds, passes,
+                                     n_pass),
                          dq_acc, dk, dv, dtype,
                          static_cast<cudaStream_t>(stream));
 }
@@ -1098,8 +1114,8 @@ extern "C" int repro_flash_bwd_fused(const void* q, const void* k,
 extern "C" int repro_flash_bwd_occupancy(int which, int hd, int hd_v,
                                          int dtype, int* blocks) {
   repro::BwdArgs a = repro::args(nullptr, nullptr, nullptr, nullptr, nullptr,
-                                 nullptr, 1, 1, 1, 1, 1, hd, hd_v, 0, 0, 0,
-                                 1.f);
+                                 nullptr, 1, 1, 1, 1, 1, hd, hd_v, hd_v, 0,
+                                 0, 0, 1.f);
   a.occupancy = blocks;
   return repro::dispatch(which, a, nullptr, nullptr, nullptr, dtype,
                          nullptr);

@@ -11,7 +11,8 @@ Replaces the Pallas TPU kernels of ``repro/kernels/flash_attention.py``:
   and dk/dv per kv tile with the GQA group sum inside one block — no
   atomics, bit-reproducible;
 * K3 ``_bwd_fused_kernel`` (same source): dq, dk and dv on one tile
-  visit, dq summed into an fp32 buffer with atomics;
+  visit, dq summed into an fp32 buffer with atomics (at the (576, 512)
+  pair in bf16, from a stored dS in a fixed order instead);
 * K4f ``_fwd_mega_kernel`` and K4b ``_bwd_mega_kernel`` (and their
   batch-tiled ``_bt`` variants; ``csrc/flash_attention_mega.cu``): the
   same functions for short sequences, one block per (batch, kv head)
@@ -61,7 +62,11 @@ for h2o-danube3-4b, (192, 128) for DeepSeek-V2's MLA heads, (48, 32) for
 its narrow test variant and (576, 512) for its absorbed route, one
 latent kv head for all 128 query heads; ``csrc/flash_attention_wide.cu``
 holds that pair's kernels, whose dk/dv pass sums head slices through an
-fp32 workspace that the K2 and K3 wrappers allocate).  They zero-fill
+fp32 workspace that the K2 and K3 wrappers allocate, and whose bf16 K3
+sums dq from a dS workspace, :func:`_ds_workspace`).  At that pair v
+may be k's first 512 columns (:func:`is_k_prefix`, the absorbed route's
+v = c_kv inside k = [c_kv, k_rope]): the kernels then read v through k's
+row stride, and the bf16 K1 and K3 load one tile for both.  They zero-fill
 the columns past the true widths in shared memory, so the tensors stay
 unpadded; the wrapper passes the scale 1/√hd of the true q/k width.  A
 pair past (576, 512) raises ``ValueError`` naming both widths.  The bf16
@@ -203,10 +208,36 @@ def _check(name, q, k, v, *rest):
     check_head_dim(name, q, k, v)
     if h % kh or k.shape[0] != b:
         raise ValueError(f"{name}: {h} q heads over {kh} kv heads")
+    if not (v.is_contiguous() or is_k_prefix(k, v)):
+        raise ValueError(f"{name}: v must be contiguous, or k's first "
+                         f"{autotune.WIDE_PAIR[1]} columns at "
+                         f"{autotune.WIDE_PAIR}")
     if q.device.type == "cuda" and not all(
-            t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors):
+            (t.is_contiguous() or t is v) and t.data_ptr() % 16 == 0
+            for t in tensors):
         raise ValueError(f"{name}: tensors must be contiguous and 16-byte "
                          "aligned")
+
+
+def is_k_prefix(k: torch.Tensor, v: torch.Tensor) -> bool:
+    """True where v is k's first ``v.shape[-1]`` columns — k's storage
+    start, k's strides and sizes but the last — at the widths whose
+    kernels take v so (:data:`autotune.WIDE_PAIR`, v 512 wide): the
+    absorbed MLA route's v = c_kv inside k = [c_kv, k_rope].  A pure
+    function of the two tensors' layout, in either the model's or the
+    kernels' order of dims."""
+    hd, hd_v = k.shape[-1], v.shape[-1]
+    return (v.dim() == k.dim() == 4 and v.shape[:-1] == k.shape[:-1]
+            and v.stride() == k.stride() and k.stride(-1) == 1
+            and v.data_ptr() == k.data_ptr()
+            and v.storage_offset() == k.storage_offset()
+            and hd_v == autotune.WIDE_PAIR[1]
+            and hd_v <= hd <= autotune.WIDE_PAIR[0] and hd % 8 == 0)
+
+
+def _ldv(k, v):
+    """v's row stride in elements: k's where v is k's prefix."""
+    return k.shape[-1] if is_k_prefix(k, v) else v.shape[-1]
 
 
 def check_head_dim(name, q, k, v):
@@ -237,11 +268,11 @@ def _check_bwd(name, q, k, v, do, lse, delta):
 
 
 def _dims(q, k, q_offset, causal, window, v=None):
-    """The launch's shape ints; with ``v`` (the tiled kernels) hd_v
-    follows hd."""
+    """The launch's shape ints; with ``v`` (the tiled kernels) hd_v and
+    v's row stride follow hd."""
     b, h, sq, hd = q.shape
     _, kh, sk, _ = k.shape
-    widths = (hd,) if v is None else (hd, v.shape[-1])
+    widths = (hd,) if v is None else (hd, v.shape[-1], _ldv(k, v))
     return (b, h, kh, sq, sk, *widths, int(q_offset), int(causal),
             int(window), _DTYPES[q.dtype])
 
@@ -352,7 +383,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, q_offset: int = 0, *,
         return _bwd_plain(q, k, v, do, lse, delta, q_offset, causal,
                           window)[1:]
     _check_bwd("flash_attention_bwd_dkv", q, k, v, do, lse, delta)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dk, dv = torch.empty_like(k), v.new_empty(v.shape)
     ws, splits = _dkv_workspace(q, k, v)
     if not _count("k2_dkv", q, k, v, q_offset, causal, window):
         return dk, dv
@@ -366,6 +397,27 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, q_offset: int = 0, *,
     return dk, dv
 
 
+def _ds_workspace(q, k, v, q_offset, causal, window):
+    """(bf16 dS workspace, passes as a ctypes int array, their count) of
+    K3 at ``autotune.WIDE_PAIR`` in bf16, whose dq kernel sums dq from the
+    dS tile pairs the dk kernel stores, pass by pass
+    (``autotune.wide_ds_passes``: the workspace holds the largest pass,
+    under ``autotune.WIDE_DS_CAP``); (None, None, 0) elsewhere, where K3
+    sums dq into an fp32 buffer with atomics."""
+    b, h, sq, hd = q.shape
+    if (q.dtype != torch.bfloat16
+            or autotune.kernel_head_dim(hd, v.shape[-1])
+            != autotune.WIDE_PAIR):
+        return None, None, 0
+    passes = autotune.wide_ds_passes(b * h, sq, k.shape[2], int(q_offset),
+                                     bool(causal), int(window))
+    most = max((p[2] for p in passes), default=0)
+    ds = torch.empty(max(1, b * h * most * autotune.WIDE_DS_PAIR_BYTES // 2),
+                     dtype=torch.bfloat16, device=q.device)
+    flat = [x for p in passes for x in p]
+    return ds, (ctypes.c_int * max(1, len(flat)))(*flat), len(passes)
+
+
 def flash_attention_bwd_fused(q, k, v, do, lse, delta, q_offset: int = 0, *,
                               causal: bool = True, window: int = 0
                               ) -> Tuple[torch.Tensor, torch.Tensor,
@@ -374,13 +426,17 @@ def flash_attention_bwd_fused(q, k, v, do, lse, delta, q_offset: int = 0, *,
     (the same code and, at the (576, 512) pair, the same head slices);
     dq is summed in fp32 with atomics (order varies run to run) and cast
     to q's dtype afterwards, as the reference casts K3's dk/dv outside
-    its kernel."""
+    its kernel — except at the (576, 512) pair in bf16, where a second
+    kernel sums dq from the stored dS in a fixed order
+    (:func:`_ds_workspace`): the same bits on every run."""
     if q.device.type == "cpu":
         return _bwd_plain(q, k, v, do, lse, delta, q_offset, causal,
                           window)
     _check_bwd("flash_attention_bwd_fused", q, k, v, do, lse, delta)
-    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    ds, passes, n_pass = _ds_workspace(q, k, v, q_offset, causal, window)
+    dq_acc = (torch.empty_like(q) if ds is not None else
+              torch.zeros(q.shape, dtype=torch.float32, device=q.device))
+    dk, dv = torch.empty_like(k), v.new_empty(v.shape)
     ws, splits = _dkv_workspace(q, k, v)
     if not _count("k3", q, k, v, q_offset, causal, window):
         return dq_acc.to(q.dtype), dk, dv
@@ -388,6 +444,7 @@ def flash_attention_bwd_fused(q, k, v, do, lse, delta, q_offset: int = 0, *,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), None if ws is None else ws.data_ptr(), splits,
+        None if ds is None else ds.data_ptr(), passes, n_pass,
         *_dims(q, k, q_offset, causal, window, v), _scale(q), _stream(q))
     _build.check(err, "flash_attention_bwd_fused launch")
     flash_attention_bwd_fused.launches += 1

@@ -30,12 +30,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``q_offset`` is the global position of q row 0 (no gradient).
     ``block_q``/``block_k`` default to the planner; ints pin the tiles,
     which keeps the call off the K4 megakernels (as in the reference).
+    Where v is k's first columns (``flash_attention.is_k_prefix``: the
+    absorbed MLA route's v = c_kv inside k = [c_kv, k_rope]), v reaches
+    the kernels as the same prefix of the transposed k, not as a copy of
+    its own; the values, and the gradient's sum into k's columns, are
+    the same.
     """
-    out = _fa.flash_attention(q.transpose(1, 2).contiguous(),
-                              k.transpose(1, 2).contiguous(),
-                              v.transpose(1, 2).contiguous(), q_offset,
-                              causal=causal, window=window, block_q=block_q,
-                              block_k=block_k)
+    kt = k.transpose(1, 2).contiguous()
+    vt = (kt[..., :v.shape[-1]] if _fa.is_k_prefix(k, v)
+          else v.transpose(1, 2).contiguous())
+    out = _fa.flash_attention(q.transpose(1, 2).contiguous(), kt, vt,
+                              q_offset, causal=causal, window=window,
+                              block_q=block_q, block_k=block_k)
     return out.transpose(1, 2)
 
 

@@ -250,8 +250,9 @@ def _mla_absorbed_flash(params: Params, x: torch.Tensor, cfg,
     (rounded to q's dtype, as there) for MLA's 1/√(dn + dr).  At full
     width that is (576, 512), one kv head for 128 query heads: on the
     card the kernels' widest compiled pair
-    (``csrc/flash_attention_wide.cu``).  Returns (out (b,s,h,dv), c_kv,
-    k_rope)."""
+    (``csrc/flash_attention_wide.cu``), which reads v as the view of k's
+    first ``kv_lora_rank`` columns it is here.  Returns (out (b,s,h,dv),
+    c_kv, k_rope)."""
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     rkv = cfg.kv_lora_rank
     q_nope, q_rope, c_kv, k_rope = _mla_latents(params, x, cfg, positions)
@@ -260,7 +261,8 @@ def _mla_absorbed_flash(params: Params, x: torch.Tensor, cfg,
     ratio = torch.tensor(np.sqrt((rkv + dr) / (dn + dr)), dtype=q_eff.dtype)
     q_eff = q_eff * ratio.to(q_eff.device)
     k_eff = torch.cat([c_kv[:, :, None, :], k_rope], dim=-1)
-    v_eff = c_kv[:, :, None, :]
+    v_eff = k_eff[..., :rkv]   # c_kv's values, as k's prefix: one tile
+    # for both in the kernels
     out_latent = kernel_ops.flash_attention(
         q_eff, k_eff, v_eff, q_offset, causal=True,
         block_q=cfg.attn_block_q, block_k=cfg.attn_block_k)

@@ -1385,6 +1385,77 @@ def test_mla_widths_kernels_match_plain(cuda, b, h, kh, sq, sk, hd, hd_v,
     assert torch.equal(dk2, dk3) and torch.equal(dv2, dv3)
 
 
+WIDE_CASES = [c for c in MLA_CASES if (c[5], c[6]) == autotune.WIDE_PAIR]
+
+
+@pytest.mark.parametrize("b,h,kh,sq,sk,hd,hd_v,dtype,window,q_offset",
+                         WIDE_CASES)
+def test_wide_kernels_take_v_as_k_prefix(cuda, b, h, kh, sq, sk, hd, hd_v,
+                                         dtype, window, q_offset):
+    """At (576, 512) the absorbed route hands v as k's first 512 columns:
+    K1, K1-lse, K2 and K3 on that view against the plain versions; the
+    outputs equal those of the same values in a v of their own up to the
+    summation order; K2 twice the same bits, K3's dk and dv K2's, and in
+    bf16 K3's dq (no atomics) twice the same bits."""
+    q = _randn((b, h, sq, hd), dtype, cuda, 0)
+    k = _randn((b, kh, sk, hd), dtype, cuda, 1)
+    v = k[..., :hd_v]
+    assert fa.is_k_prefix(k, v) and not v.is_contiguous()
+    do = _randn((b, h, sq, hd_v), dtype, cuda, 6)
+    kw = dict(causal=True, window=window)
+    out, lse = fa.flash_attention_fwd(q, k, v, q_offset, **kw)
+    got = fa.flash_attention(q, k, v, q_offset, **kw)
+    torch.cuda.synchronize()
+    want_out, want_lse = fa.flash_attention_plain(q, k, v, q_offset,
+                                                  with_lse=True, **kw)
+    for o in (got, out):
+        assert (o.float() - want_out.float()).abs().max().item() <= \
+            TOL[dtype]
+    _close(lse, want_lse, (1e-5, 1e-4))
+    delta = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, q_offset)
+    dq2 = fa.flash_attention_bwd_dq(*args, **kw)
+    dk2, dv2 = fa.flash_attention_bwd_dkv(*args, **kw)
+    dq3, dk3, dv3 = fa.flash_attention_bwd_fused(*args, **kw)
+    again = (fa.flash_attention_bwd_dq(*args, **kw),
+             *fa.flash_attention_bwd_dkv(*args, **kw),
+             fa.flash_attention_bwd_fused(*args, **kw)[0])
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, q_offset,
+                                        causal=True, window=window)
+    for got2, got3, w in zip((dq2, dk2, dv2), (dq3, dk3, dv3), want):
+        assert got2.is_contiguous() and got3.shape == w.shape
+        _close(got2, w, BWD_TOL[dtype])
+        _close(got3, w, BWD_TOL[dtype])
+    assert all(torch.equal(a, c) for a, c in zip(again[:3], (dq2, dk2, dv2)))
+    assert torch.equal(dk2, dk3) and torch.equal(dv2, dv3)
+    if dtype == torch.bfloat16:
+        assert torch.equal(again[3], dq3)
+
+
+def test_wide_k3_passes_give_one_pass_bits(cuda, monkeypatch):
+    """K3 at (576, 512) in bf16 with the dS workspace's cap lowered so
+    that it runs several passes: the same bits as one pass (the dk
+    blocks resume their partial sums in K2's order; dq is summed per q
+    tile)."""
+    b, h, s = 1, 16, 1100
+    q = _randn((b, h, s, 576), torch.bfloat16, cuda, 5)
+    k = _randn((b, 1, s, 576), torch.bfloat16, cuda, 6)
+    v = k[..., :512]
+    do = _randn((b, h, s, 512), torch.bfloat16, cuda, 7)
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    args = (q, k, v, do, lse, (do.float() * out.float()).sum(-1))
+    one = fa.flash_attention_bwd_fused(*args)
+    cap = 40 * b * h * autotune.WIDE_DS_PAIR_BYTES
+    assert len(autotune.wide_ds_passes(b * h, s, s, 0, True, 0, cap)) > 1
+    real = autotune.wide_ds_passes
+    monkeypatch.setattr(autotune, "wide_ds_passes",
+                        lambda *a: real(*a, cap))
+    many = fa.flash_attention_bwd_fused(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(one, many))
+
+
 def test_wrappers_refuse_widths_no_pair_holds(cuda):
     """Widths past the widest compiled pair, (576, 512): ``ValueError``
     naming both widths, no launch."""

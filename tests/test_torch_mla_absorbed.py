@@ -135,8 +135,8 @@ def test_flash_attention_at_the_absorbed_width(dtype, sq, sk, q_offset):
 
 
 @pytest.mark.parametrize("bkv,g,sk,itemsize,splits", [
-    (1, 128, 4096, 2, 5),     # deepseek's micro-batch: 128 kv tiles
-    (4, 128, 4096, 2, 2),     # its prefill batch: 512 tiles
+    (1, 128, 4096, 2, 9),     # deepseek's micro-batch: 64 kv tiles
+    (4, 128, 4096, 2, 3),     # its prefill batch: 256 tiles
     (1, 128, 2180, 4, 4),     # the fp32 check: 137 tiles of 16 rows
     (1, 16, 300, 2, 16),      # few tiles: one head a slice
     (64, 128, 4096, 2, 1),    # enough tiles already
@@ -223,3 +223,24 @@ def test_mla_train_gradients_at_full_width():
         assert tuple(got.shape) == w.shape, name
         np.testing.assert_allclose(got.numpy(), _f32(w), atol=1e-3,
                                    rtol=1e-3, err_msg=name)
+
+
+def test_absorbed_route_hands_v_as_k_prefix(monkeypatch):
+    """``_mla_absorbed_flash`` hands the kernels v as a view of k's first
+    ``kv_lora_rank`` columns (k's storage start and strides), not a copy
+    of c_kv: the wrappers then read one tile for both."""
+    _, tcfg, params, x, pos = _setup()
+    seen = []
+    real = tfa.flash_attention
+
+    def record(q, k, v, *a, **kw):
+        seen.append((k, v))
+        return real(q, k, v, *a, **kw)
+
+    monkeypatch.setattr(tfa, "flash_attention", record)
+    TA._mla_absorbed_flash(_tparams(params), _t(x), tcfg,
+                           torch.from_numpy(pos))
+    (k, v), = seen
+    assert k.shape[-1] == HD and v.shape[-1] == HD_V == tcfg.kv_lora_rank
+    assert v.data_ptr() == k.data_ptr() and v.stride() == k.stride()
+    assert tfa.is_k_prefix(k, v) and not v.is_contiguous()
