@@ -33,8 +33,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    (their device work alone, without the host work the device waits on);
    the HMMA and HGMMA (wgmma) instructions ``cuobjdump -sass`` finds in
    each K1 kernel (the bf16 ones run on tensor cores and must hold some;
-   the (576, 512) ones are wgmma kernels and must hold HGMMA) and K1's
-   blocks per SM;
+   the wgmma ones, at (64, 64), (128, 128) and (576, 512), must hold
+   HGMMA, no HMMA, and spill nothing) and K1's blocks per SM;
 3. K5 (flash-decode, split across blocks, then combined) the same way
    at the contiguous-decode shape, at danube's (hd 120, window 4096) and
    at arctic's (B=4, KH=8, G=7, hd 128, the serve phase's cache of 2116
@@ -77,9 +77,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    K1-lse and K2 twice the same bits, and at (576, 512) in bf16 K3's dq
    (summed from the stored dS, no atomics) twice the same bits; the
    HMMA and HGMMA instructions ``cuobjdump -sass`` finds in the bf16 K1,
-   K2 and K3 kernels of each compiled width pair (the (576, 512) wgmma
-   kernels must hold HGMMA) and their blocks per SM, and the registers
-   and spills ptxas reports for the (576, 512) kernels (a spill fails);
+   K2 and K3 kernels of each compiled width pair (every one must hold
+   some; the wgmma kernels HGMMA alone) and their blocks per SM, and the
+   registers and spills ptxas reports for the (192, 128) and (576, 512)
+   kernels (a spill fails);
    then
    timed at the training shape, at arctic's, deepseek's, whisper's and
    the absorbed route's (median
@@ -93,7 +94,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    against their plain versions at the short-sequence training shape
    (B=64, H=15, KH=5, S=256, hd 64, bf16) and at ragged / window /
    q_offset / window + q_offset / G=1 / hd 128 / hd 120 / fp32
-   variants; K4b deterministic and against K2 (same bits in bf16); K3
+   variants; K4b deterministic and against K2 (within one bf16 rounding
+   of two fp32 sums; dq the same bits in bf16); K3
    fed K4f's lse; the HMMA instructions in the bf16 K4 kernels' SASS
    (a kernel without any fails) and their blocks per SM and waves at 320
    and 160 blocks; then timed (events and device-only) beside K1,
@@ -560,18 +562,26 @@ def _sass_ops(pattern):
     return ops
 
 
-# the (576, 512) pair's wgmma kernels (csrc/flash_attention_wide.cu)
-WIDE_WGMMA = ("flash_fwd_wide_tc_kernel", "tc_bwd_dv_wide_kernel",
-              "tc_bwd_dk_wide_kernel", "tc_bwd_dq_ds_wide_kernel")
+# the wgmma kernels: the (576, 512) pair's (csrc/flash_attention_wide.cu;
+# K1 with v apart and v k's prefix, dV, dK in 2 forms of v x dS on / off,
+# K3's dq) and those of (64, 64) and (128, 128) in bf16
+# (csrc/flash_attention_hopper.cu; K1 at each width, K2's dk/dv and K3 at
+# each width)
+WGMMA = {"flash_fwd_wide_tc_kernel": 2, "tc_bwd_dv_wide_kernel": 1,
+         "tc_bwd_dk_wide_kernel": 4, "tc_bwd_dq_ds_wide_kernel": 1,
+         "flash_fwd_hopper_kernel": 2, "tc_bwd_hopper_kernel": 4}
 
 
-def _wide_wgmma_check():
-    """The HMMA and HGMMA counts of each (576, 512) wgmma kernel (one
-    without HGMMA fails) and its registers and spills from the build's
+def _wgmma_check():
+    """The HMMA and HGMMA counts of each wgmma kernel (one without HGMMA or
+    with any HMMA fails) and its registers and spills from the build's
     ptxas report (a spill fails), printed."""
     ops, regs = {}, {}
-    for pat in WIDE_WGMMA:
-        ops.update(_sass_ops(pat))
+    for pat, n in WGMMA.items():
+        found = _sass_ops(pat)
+        if len(found) != n:
+            raise AssertionError(f"{pat}: {len(found)} kernels, want {n}")
+        ops.update(found)
         regs.update(_ptxas_report((pat,)))
     for name, (hmma, hgmma) in ops.items():
         print(f"  SASS {name[-60:]}: {hmma} HMMA, {hgmma} HGMMA")
@@ -579,12 +589,12 @@ def _wide_wgmma_check():
         print(f"  ptxas {name[-64:]}: {r.get('registers')} registers, "
               f"{r.get('spill_stores')} B spill stores, "
               f"{r.get('spill_loads')} B spill loads")
-    # K1: v apart and v k's prefix; dV; dK: 2 forms of v x dS on / off
-    if len(ops) != 8 or min(h for _, h in ops.values()) == 0:
-        raise AssertionError(f"(576, 512) wgmma kernels without HGMMA: {ops}")
-    if len(regs) != 8 or any(r.get("spill_stores", 1) or r.get(
+    if any(hmma or not hgmma for hmma, hgmma in ops.values()):
+        raise AssertionError(f"wgmma kernels without HGMMA or with HMMA: "
+                             f"{ops}")
+    if len(regs) != len(ops) or any(r.get("spill_stores", 1) or r.get(
             "spill_loads", 1) for r in regs.values()):
-        raise AssertionError(f"(576, 512) wgmma kernels spill: {regs}")
+        raise AssertionError(f"wgmma kernels spill: {regs}")
     return {"sass_hmma_hgmma": ops, "ptxas": regs}
 
 
@@ -767,15 +777,18 @@ def _ptxas_report(pattern):
 
 
 def _fwd_hmma():
-    """The tensor-core instructions in each K1 kernel's SASS (the bf16
-    ones must hold some) and K1's blocks per SM, printed."""
+    """The tensor-core instructions in each K1 kernel's SASS (every bf16
+    one must hold some: mma.sync's HMMA at (192, 128), wgmma's HGMMA at
+    the other pairs) and K1's blocks per SM, printed."""
     hmma = _sass_counts("flash_fwd")
     for name, n in hmma.items():
         print(f"  SASS {name[-60:]}: {n} HMMA/HGMMA instructions")
-    tc = [n for name, n in hmma.items() if "tc_kernel" in name]
-    # one per compiled pair at least (equal widths build twice: SAME)
-    if len(tc) < len(autotune.ATTN_PAIRS) or min(tc) == 0:
-        raise AssertionError("the bf16 K1 kernels hold no HMMA")
+    tc = [n for name, n in hmma.items()
+          if "tc_kernel" in name or "hopper_kernel" in name]
+    # (192, 128) on mma.sync, (576, 512) twice (v apart, v k's prefix),
+    # (64, 64) and (128, 128) on wgmma
+    if len(tc) != 5 or min(tc) == 0:
+        raise AssertionError(f"the bf16 K1 kernels: {hmma}")
     occupancy = {f"{_pair_name(hd, hd_v)} {dt}": fa.fwd_occupancy(hd, dt, hd_v)
                  for hd, hd_v in autotune.ATTN_PAIRS
                  for dt in (torch.bfloat16, torch.float32)}
@@ -939,9 +952,15 @@ def phase_k1(flush):
     absorbed = timed(*K1_TIMED["mla_absorbed"], 96)
     torch.cuda.empty_cache()
     hmma, occupancy = _fwd_hmma()
-    wgmma = _wide_wgmma_check()
-    return {"name": "flash_attention (K1)", "route": "cuda", "wide_wgmma": wgmma,
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    wgmma = _wgmma_check()
+    return {"name": "flash_attention (K1)", "route": "cuda", "wgmma": wgmma,
+            "source": "src/repro_torch/kernels/csrc/flash_attention_hopper.cu",
+            "sources": {"bf16 (64, 64), (128, 128)":
+                        "src/repro_torch/kernels/csrc/flash_attention_hopper.cu",
+                        "bf16 (192, 128), fp32":
+                        "src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "(576, 512)":
+                        "src/repro_torch/kernels/csrc/flash_attention_wide.cu"},
             "replaces": "src/repro/kernels/flash_attention.py:134",
             "max_abs_err": worst, **main, "bound_us": main["bound_ms"] * 1e3,
             "hmma": hmma, "blocks_per_sm": occupancy,
@@ -1652,13 +1671,17 @@ def phase_k_train(flush):
         del want, dq2, dk2, dv2, dq3, dk3, dv3, again
         torch.cuda.empty_cache()
 
-    # the tensor cores: HMMA instructions in the bf16 kernels' SASS, and
-    # the blocks per SM the occupancy calculator gives
+    # the tensor cores: HMMA / HGMMA instructions in the bf16 kernels'
+    # SASS, and the blocks per SM the occupancy calculator gives.  Every
+    # bf16 backward kernel holds some: K2's dq on mma.sync at the first
+    # three pairs (twice at (64, 64) and (128, 128): SAME and not), dk/dv
+    # and K3 on mma.sync at (192, 128), on wgmma at (64, 64) and (128,
+    # 128), the (576, 512) pair's seven
     hmma = {name: n for name, n in _sass_counts("tc_bwd").items()}
     for name, n in hmma.items():
         print(f"  SASS {name[-60:]}: {n} HMMA/HGMMA instructions")
-    if len(hmma) < 3 * len(autotune.ATTN_PAIRS) or min(hmma.values()) == 0:
-        raise AssertionError("the bf16 K2/K3 kernels hold no HMMA")
+    if len(hmma) != 18 or min(hmma.values()) == 0:
+        raise AssertionError(f"the bf16 K2/K3 kernels: {hmma}")
     occupancy = {f"{w} {_pair_name(hd, hd_v)} {dt}":
                  fa.bwd_occupancy(w, hd, dt, hd_v)
                  for w in ("dq", "dkv", "fused")
@@ -1677,7 +1700,7 @@ def phase_k_train(flush):
                   f"{r.get('spill_stores')} B spill stores, "
                   f"{r.get('spill_loads')} B spill loads")
         # (576, 512): the fp32 kernels and K2's bf16 dq (the wgmma kernels
-        # are phase_k1's _wide_wgmma_check)
+        # are phase_k1's _wgmma_check)
         if len(regs) != (8 if pair == "192ELi128" else 5):
             raise AssertionError(f"ptxas report for {pair}: {regs}")
         mla_regs[pair] = regs
@@ -6995,6 +7018,7 @@ def main() -> int:
     k5["mesh_local_heads"] = mesh["shard_kernels"]["k5"]
     kernels = [k1, k5]
     src_bwd = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+    src_hopper = "src/repro_torch/kernels/csrc/flash_attention_hopper.cu"
     for key, name, replaces in (
             ("k2_dq", "flash_attention_bwd_dq (K2 dq)",
              "src/repro/kernels/flash_attention.py:451"),
@@ -7002,7 +7026,10 @@ def main() -> int:
              "src/repro/kernels/flash_attention.py:494"),
             ("k3", "flash_attention_bwd_fused (K3)",
              "src/repro/kernels/flash_attention.py:541")):
-        row = {"name": name, "route": "cuda", "source": src_bwd,
+        # the timed shape (hd 64, bf16) runs K2's dq on mma.sync, dk/dv
+        # and K3 on wgmma
+        row = {"name": name, "route": "cuda",
+               "source": src_bwd if key == "k2_dq" else src_hopper,
                "replaces": replaces, **ktrain[key],
                "timed_shape": "B=4 H=15 KH=5 S=4096 hd=64 bf16 causal",
                **{shape: {**ktrain[shape][key],

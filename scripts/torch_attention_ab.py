@@ -3,7 +3,7 @@ whichever ``repro_torch`` is first on ``sys.path``, so that two trees
 can be compared on one card in one run.
 
     PYTHONPATH=<tree>/src python scripts/torch_attention_ab.py LABEL OUT
-        [--zamba2] [--absorbed]
+        [--zamba2] [--absorbed | --tiled]
 
 Appends one JSON line to OUT: LABEL, the package's path, and per timed
 shape of ``chip_smoke.py`` (``K1_TIMED``, ``K1_LSE_TIMED``,
@@ -21,12 +21,17 @@ absorbed MLA shapes ((576, 512), ``mla_absorbed``) are timed with v
 apart from k and again with v as k's first 512 columns, the route's
 form (``*_k_prefix``; ``not_taken`` on a tree whose wrappers refuse that
 view), with K3's dS workspace bytes where the tree has one
-(``ds_workspace_bytes``).  ``--absorbed`` times those shapes alone.  At
-chip_smoke's short training shape (``MEGA_TIMED["train"]``, B=64 x 256)
+(``ds_workspace_bytes``).  ``--absorbed`` times those shapes alone;
+``--tiled`` the shapes at the head-width pairs (64, 64) and (128, 128)
+alone (no K5), with the K4 rows below at both ``MEGA_TIMED`` shapes.  At
+chip_smoke's short training shape (``MEGA_TIMED["train"]``, B=64 x 256;
+with ``--tiled`` also its serve shape, B=32, keyed ``mega_serve_*``)
 also K4f, K4f-lse and K4b beside K1-lse, K3 and one
 ``scaled_dot_product_attention`` forward and backward (``mega_*``, 20
 calls, 10 for the backwards), with K4f's and K4b's largest |difference|
-from the plain versions.  With
+from the plain versions: the planner's table
+(``autotune.MEGA_TIMINGS``) reads K4f-lse against K1-lse and K4b
+against K3 there.  With
 ``--zamba2``, also chip_smoke's bf16 prefill/decode consistency of
 zamba2-1.2b at full width (B=4, S=2100): the largest and RMS logit gap.
 The timer, the shapes and the consistency check are chip_smoke's own,
@@ -63,6 +68,38 @@ def _err(got, want):
     return (got.float() - want.float()).abs().max().item()
 
 
+def _mega_rows(res, key, b, s, flush):
+    """K4f, K4f-lse and K4b beside K1-lse, K3 and sdpa at (B, S), into
+    ``res`` under ``key`` + the kernel's name."""
+    q, k, v, do, o4, lse, delta = cs._k4_inputs(b, s, 7)
+    args = (q, k, v, do, lse, delta)
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                        enable_gqa=True)
+    calls = {
+        "k4f": (lambda: fa.flash_attention_mega_fwd(q, k, v), 20),
+        "k4f_lse": (lambda: fa.flash_attention_mega_fwd(
+            q, k, v, with_lse=True), 20),
+        "k4b": (lambda: fa.flash_attention_mega_bwd(*args), 10),
+        "k1_lse": (lambda: fa.flash_attention_fwd(q, k, v), 20),
+        "k3": (lambda: fa.flash_attention_bwd_fused(*args), 10),
+        "sdpa_fwd": (lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 20),
+        "sdpa_bwd": (lambda: torch.autograd.grad(
+            lo, (ql, kl, vl), do, retain_graph=True), 10)}
+    for name, (fn, reps) in calls.items():
+        res[f"{key}{name}"] = _both(fn, reps, flush)
+    res[f"{key}k4f"]["max_abs_err"] = _err(
+        fa.flash_attention_mega_fwd(q, k, v),
+        fa.flash_attention_plain(q, k, v))
+    res[f"{key}k4b"]["max_abs_err"] = max(
+        _err(g, w) for g, w in zip(fa.flash_attention_mega_bwd(*args),
+                                   fa.flash_attention_bwd_plain(
+                                       q, k, v, o4, lse, do)))
+    del q, k, v, do, o4, lse, delta, args, ql, kl, vl, lo
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     label, out = sys.argv[1], sys.argv[2]
     if not torch.cuda.is_available():
@@ -73,6 +110,7 @@ def main() -> int:
     bf = torch.bfloat16
     res = {"label": label, "src": fa.__file__}
     absorbed_only = "--absorbed" in sys.argv[3:]
+    tiled_only = "--tiled" in sys.argv[3:]
     shapes = {**{f"k1_{n}": (*v, False) for n, v in cs.K1_TIMED.items()},
               **{f"k1_lse_{n}": (*v, 0, True)
                  for n, v in cs.K1_LSE_TIMED.items()}}
@@ -80,6 +118,8 @@ def main() -> int:
                    if n.endswith("mla_absorbed")})
     if absorbed_only:
         shapes = {n: v for n, v in shapes.items() if "mla_absorbed" in n}
+    if tiled_only:   # the pairs (64, 64) and (128, 128)
+        shapes = {n: v for n, v in shapes.items() if v[4] <= 128}
     for name, (b, h, kh, s, hd, hd_v, win, lse) in shapes.items():
         q, k, v = (cs._randn((b, h, s, hd), bf, 1),
                    cs._randn((b, kh, s, hd), bf, 2),
@@ -119,7 +159,8 @@ def main() -> int:
         with open(out, "a") as f:
             f.write(json.dumps(res) + "\n")
         return 0
-    for name, (b, kh, g, s, hd, cur, win) in cs.K5_TIMED.items():
+    for name, (b, kh, g, s, hd, cur, win) in (
+            () if tiled_only else cs.K5_TIMED.items()):
         q, kc, vc = (cs._randn((b, kh, g, hd), bf, 4),
                      cs._randn((b, kh, s, hd), bf, 5),
                      cs._randn((b, kh, s, hd), bf, 6))
@@ -130,34 +171,9 @@ def main() -> int:
             **_both(kern, 50, flush), "host_us": cs._host_us(kern),
             "max_abs_err": _err(kern(), fd.flash_decode_plain(
                 q, kc, vc, cur_t, window=win))}
-    b, s = cs.MEGA_TIMED["train"]
-    q, k, v, do, o4, lse, delta = cs._k4_inputs(b, s, 7)
-    args = (q, k, v, do, lse, delta)
-    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
-                                        enable_gqa=True)
-    calls = {
-        "k4f": (lambda: fa.flash_attention_mega_fwd(q, k, v), 20),
-        "k4f_lse": (lambda: fa.flash_attention_mega_fwd(
-            q, k, v, with_lse=True), 20),
-        "k4b": (lambda: fa.flash_attention_mega_bwd(*args), 10),
-        "k1_lse": (lambda: fa.flash_attention_fwd(q, k, v), 20),
-        "k3": (lambda: fa.flash_attention_bwd_fused(*args), 10),
-        "sdpa_fwd": (lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), 20),
-        "sdpa_bwd": (lambda: torch.autograd.grad(
-            lo, (ql, kl, vl), do, retain_graph=True), 10)}
-    for name, (fn, reps) in calls.items():
-        res[f"mega_{name}"] = _both(fn, reps, flush)
-    res["mega_k4f"]["max_abs_err"] = _err(
-        fa.flash_attention_mega_fwd(q, k, v),
-        fa.flash_attention_plain(q, k, v))
-    res["mega_k4b"]["max_abs_err"] = max(
-        _err(g, w) for g, w in zip(fa.flash_attention_mega_bwd(*args),
-                                   fa.flash_attention_bwd_plain(
-                                       q, k, v, o4, lse, do)))
-    del q, k, v, do, o4, lse, delta, args, ql, kl, vl, lo
-    torch.cuda.empty_cache()
+    for shape in ("train", "serve") if tiled_only else ("train",):
+        _mega_rows(res, "mega_" if shape == "train" else "mega_serve_",
+                   *cs.MEGA_TIMED[shape], flush)
     if "--zamba2" in sys.argv[3:]:
         gap = cs._consistency("zamba2-1.2b", 4, 2100, "bfloat16", 32)
         res["zamba2_bf16"] = {k: gap[k] for k in (

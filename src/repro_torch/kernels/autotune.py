@@ -18,7 +18,10 @@
   one block per (batch, kv head) must fill the SMs;
 * :func:`kernel_head_dim`, the compiled (q/k width, v width) pair at
   which the tiled kernels K1, K2, K3 and the decode kernel K5 run a
-  head, :func:`wide_dkv_splits`, the head slices of the dk/dv pass at
+  head, :func:`attn_route`, which kernels run it, the host-side mirrors
+  of the wgmma kernels' tiles at the first two pairs
+  (:func:`hopper_smem_bytes`, :func:`hopper_kv_tiles`,
+  :func:`hopper_q_tiles`, :func:`hopper_q_order`), :func:`wide_dkv_splits`, the head slices of the dk/dv pass at
   the widest pair, (576, 512), and :func:`wide_ds_passes`, the runs of
   query tiles over which K3 there holds its dS workspace under
   :data:`WIDE_DS_CAP`;
@@ -154,6 +157,100 @@ def wide_smem_bytes() -> dict:
                            + 2 * kv * WIDE_DV_ROWS * 4 + 64)
         out[("dq", sv)] = 1024 + 2 * (2 * 64 * 64 + kv * hd_boxes * 64) * 2 + 64
     return out
+
+
+# The bf16 wgmma kernels at the first two pairs, (64, 64) and (128, 128)
+# (``csrc/flash_attention_hopper.cu``): K1's block takes HOPPER_Q_ROWS q
+# rows (two consumer warpgroups of 64) over kv tiles of HOPPER_K1_ROWS rows
+# a stage; the dk/dv block of K2 and K3 takes HOPPER_KV_ROWS kv rows (two
+# consumers of 64) over q tiles of HOPPER_Q_TILE rows.  K2's dq pass keeps
+# its mma.sync kernel at every pair but WIDE_PAIR.
+HOPPER_PAIRS = ATTN_PAIRS[:2]
+HOPPER_Q_ROWS = 128
+HOPPER_K1_ROWS = 128
+HOPPER_KV_ROWS = 128
+HOPPER_Q_TILE = 64
+
+
+def attn_route(hd: int, hd_v: int, itemsize: int) -> str:
+    """Which kernels run K1, K2's dk/dv and K3 for these head widths and
+    element size: "wgmma" (``csrc/flash_attention_hopper.cu``) in bf16 at
+    :data:`HOPPER_PAIRS`, "mma.sync" (``csrc/flash_attention.cu``,
+    ``flash_attention_bwd.cu``) in bf16 at (192, 128), "wide" (the wgmma
+    kernels of ``csrc/flash_attention_wide.cu``) in bf16 at
+    :data:`WIDE_PAIR`, "cuda_cores" in fp32 at every pair.  Raises
+    ``ValueError`` where no pair holds the widths
+    (:func:`kernel_head_dim`)."""
+    pair = kernel_head_dim(hd, hd_v)
+    if itemsize == 4:
+        return "cuda_cores"
+    if pair == WIDE_PAIR:
+        return "wide"
+    return "wgmma" if pair in HOPPER_PAIRS else "mma.sync"
+
+
+def hopper_smem_bytes(kernel: str, hd: int) -> int:
+    """Shared memory of one block of the wgmma kernel ``kernel`` ("k1",
+    "k2_dkv" or "k3") at the compiled width ``hd`` (64 or 128): the sums
+    of ``csrc/flash_attention_hopper.cu``'s fwd_bytes / bwd_bytes, held
+    there by static_asserts (a 1 KB alignment slack and the ring's
+    mbarriers included).  K1: Q and two stages of K and V; the dk/dv
+    block: K and V, two stages of Q and dO, four 64 x 64 bf16 dS^T tiles
+    (hi and lo of each consumer), two stages of lse and delta, and for K3
+    two 64 x 64 fp32 dQ staging tiles a consumer."""
+    if hd not in (64, 128):
+        raise ValueError(f"hopper_smem_bytes: compiled width {hd}")
+    slack = 1024 + 64
+    if kernel == "k1":
+        return slack + HOPPER_Q_ROWS * hd * 2 + 2 * 2 * HOPPER_K1_ROWS * hd * 2
+    dkv = (slack + 2 * HOPPER_KV_ROWS * hd * 2 + 2 * 2 * HOPPER_Q_TILE * hd * 2
+           + 4 * 64 * 64 * 2 + 2 * 2 * HOPPER_Q_TILE * 4)
+    if kernel == "k2_dkv":
+        return dkv
+    if kernel == "k3":
+        return dkv + 4 * 64 * 64 * 4
+    raise ValueError(f"hopper_smem_bytes: kernel {kernel!r}")
+
+
+def hopper_kv_tiles(q0: int, sq: int, sk: int, q_offset: int, causal: bool,
+                    window: int, rows: int = HOPPER_K1_ROWS) -> tuple:
+    """(first kv row, tiles) that K1's block of the q tile at ``q0`` walks
+    at the wgmma pairs: the ``rows``-row kv tiles that some real row of
+    the tile (``q0`` up to ``min(q0 + HOPPER_Q_ROWS, sq)``) meets under
+    the causal mask, the window and ``q_offset``."""
+    row0 = q_offset + q0
+    kv_begin, kv_end = 0, sk
+    if causal:
+        kv_end = min(sk, q_offset + min(q0 + HOPPER_Q_ROWS, sq))
+    if window > 0:
+        kv_begin = max(0, row0 - window + 1)
+    kt0 = kv_begin // rows * rows
+    return kt0, (-(-(kv_end - kt0) // rows) if kv_end > kv_begin else 0)
+
+
+def hopper_q_tiles(k0: int, sq: int, sk: int, q_offset: int, causal: bool,
+                   window: int) -> tuple:
+    """(first q row, tiles) that the dk/dv block of K2 / K3 at kv row
+    ``k0`` walks for each query head at the wgmma pairs: the
+    :data:`HOPPER_Q_TILE`-row q tiles with a row that meets one of the
+    block's real kv rows (``k0`` up to ``min(k0 + HOPPER_KV_ROWS,
+    sk)``)."""
+    kv_rows = min(HOPPER_KV_ROWS, sk - k0)
+    q_lo, q_hi = 0, sq
+    if causal:
+        q_lo = max(0, k0 - q_offset)
+    if window > 0:
+        q_hi = min(sq, k0 + kv_rows - 1 + window - q_offset)
+    qt0 = q_lo // HOPPER_Q_TILE * HOPPER_Q_TILE
+    return qt0, (-(-(q_hi - qt0) // HOPPER_Q_TILE) if q_hi > q_lo else 0)
+
+
+def hopper_q_order(sq: int) -> tuple:
+    """The first q row of each of K1's blocks in launch order at the wgmma
+    pairs (``blockIdx.y`` 0, 1, ...): the last q tile first, the one
+    with the most kv tiles under the causal mask."""
+    n = -(-sq // HOPPER_Q_ROWS)
+    return tuple((n - 1 - y) * HOPPER_Q_ROWS for y in range(n))
 
 
 # K3 at WIDE_PAIR in bf16 stores dS for its dq kernel: one tile pair of
@@ -355,17 +452,20 @@ class MegaTiming:
     card: str
 
 
-# Every shape at which K4 has been timed against the tiled kernels, from
-# chip_smoke.py's phase 4a (MEGA_TIMED: H=15, KH=5, S=256, hd 64, bf16
-# causal, all on tensor cores): smollm-360m's short training batch (B=64)
-# and its short-serve prefill (B=32).  The planner takes a megakernel
-# only at a shape listed here where it won.
+# Every shape at which K4 has been timed against the tiled kernels
+# (MEGA_TIMED of chip_smoke.py: H=15, KH=5, S=256, hd 64, bf16 causal):
+# smollm-360m's short training batch (B=64) and its short-serve prefill
+# (B=32).  Since the tiled kernels moved to wgmma, the times are
+# scripts/torch_attention_ab.py --tiled's device-only medians (after a
+# device spin; two runs of the tree averaged) against K1-lse and K3 on
+# wgmma.  The planner takes a megakernel only at a shape listed here
+# where it won.
 MEGA_TIMINGS = (
-    MegaTiming(256, 64, 16, 64, 5, k4f_ms=0.0969, k1_ms=0.1020,
-               k4b_ms=0.2987, k3_ms=0.3431,
+    MegaTiming(256, 64, 16, 64, 5, k4f_ms=0.0974, k1_ms=0.1228,
+               k4b_ms=0.3001, k3_ms=0.3062,
                card="NVIDIA H100 80GB HBM3, 700.00 W"),
-    MegaTiming(256, 64, 16, 32, 5, k4f_ms=0.0696, k1_ms=0.0580,
-               k4b_ms=0.2016, k3_ms=0.1941,
+    MegaTiming(256, 64, 16, 32, 5, k4f_ms=0.0701, k1_ms=0.0679,
+               k4b_ms=0.2045, k3_ms=0.1645,
                card="NVIDIA H100 80GB HBM3, 700.00 W"),
 )
 
@@ -408,21 +508,22 @@ def plan_attention(sk: int, hd: int, hd_v: int, kh: int, batch: int,
       (``repro/kernels/autotune.py:433-454``).  Measured so far:
       smollm-360m's short training batch and its short-serve prefill,
       H=15, KH=5, S=256, hd 64, bf16 causal, on an NVIDIA H100 80GB
-      HBM3 at 700 W (``chip_smoke.py`` phase 4a, every kernel on tensor
-      cores):
+      HBM3 at 700 W (device-only medians of
+      ``scripts/torch_attention_ab.py --tiled``; K1-lse and K3 on
+      wgmma):
 
       =====  =========  =================  ===================
       B      pass       K4                 tiled kernel
       =====  =========  =================  ===================
-      64     forward    K4f-lse 0.0969 ms  K1-lse 0.1020 ms
-      64     backward   K4b 0.2987 ms      K3 0.3431 ms
-      32     forward    K4f-lse 0.0696 ms  K1-lse 0.0580 ms
-      32     backward   K4b 0.2016 ms      K3 0.1941 ms
+      64     forward    K4f-lse 0.0974 ms  K1-lse 0.1228 ms
+      64     backward   K4b 0.3001 ms      K3 0.3062 ms
+      32     forward    K4f-lse 0.0701 ms  K1-lse 0.0679 ms
+      32     backward   K4b 0.2045 ms      K3 0.1645 ms
       =====  =========  =================  ===================
 
       so B=64 plans K4f + K4b (320 blocks: K4f fills 396 slots in one
-      wave) and B=32 K1 + K3 (160 blocks: a few SMs run two K4 blocks
-      while the tiled kernels' thousands of blocks even out);
+      wave; the wgmma K1-lse's 128-row q tiles leave 2 a head at S 256)
+      and B=32 K1 + K3;
 
     * the block fits: the kv head's K and V for the whole ``sk`` in the
       input dtype, plus the kernel's streams (bf16) or a strip of at

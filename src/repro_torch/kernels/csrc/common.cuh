@@ -111,6 +111,23 @@ cudaError_t wide_bwd(int which, const void* q, const void* k, const void* v,
                      int q_offset, int causal, int window, float scale,
                      int dtype, int* occupancy, cudaStream_t st);
 
+// The bf16 wgmma kernels at the pairs (64, 64) and (128, 128)
+// (flash_attention_hopper.cu), which the entry points of
+// flash_attention.cu (K1) and flash_attention_bwd.cu (K2's dk/dv with
+// fused 0, K3 with fused 1) call for attn_pair 0 and 1 in bf16; K3 adds
+// dq into the fp32 buffer dq_acc.  With occupancy non-null, report the
+// kernel's blocks per SM instead of launching.
+cudaError_t hopper_fwd(const void* q, const void* k, const void* v, void* o,
+                       float* lse, int B, int H, int KH, int Sq, int Sk,
+                       int hd, int hd_v, int q_offset, int causal, int window,
+                       float scale, int* occupancy, cudaStream_t st);
+cudaError_t hopper_bwd(int fused, const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse,
+                       const float* delta, void* dk, void* dv, float* dq_acc,
+                       int B, int H, int KH, int Sq, int Sk, int hd, int hd_v,
+                       int q_offset, int causal, int window, float scale,
+                       int* occupancy, cudaStream_t st);
+
 // ------------------------------------------- CUDA-core tile products
 //
 // The SSD kernels' fp32 products from shared memory (csrc/ssd_scan.cu's

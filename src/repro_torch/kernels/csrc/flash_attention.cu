@@ -18,12 +18,14 @@
 // h2o-danube3-4b's, at 128; DeepSeek-V2's MLA, q/k 128 + 64 = 192 and v
 // 128, at (192, 128); its reduced variant (48, 32) at 64).  The fourth
 // pair, (576, 512), MLA's absorbed route, has kernels of its own
-// (flash_attention_wide.cu), which dispatch() calls.  The tiles
+// (flash_attention_wide.cu), which dispatch() calls, and so do the bf16
+// kernels of the first two (flash_attention_hopper.cu).  The tiles
 // load the true columns and zero-fill the rest in shared memory, so the
 // padded columns add zeros to every score and yield zeros that the store
 // skips; the tensors stay unpadded.  The wrapper passes hd, hd_v and the
-// scale 1/sqrt(hd).  The equal-width pairs are built twice, SAME (hd_v ==
-// hd: the compiler sees one width) and not, as in flash_attention_bwd.cu.
+// scale 1/sqrt(hd).  The fp32 kernels of the equal-width pairs are built
+// twice, SAME (hd_v == hd: the compiler sees one width) and not, as in
+// flash_attention_bwd.cu.
 //
 // Numerics follow the reference: s = (q . k) * 1/sqrt(hd) with fp32
 // sums, masked scores -1e30, exp(s - m) and the rescale exp(m_old -
@@ -47,52 +49,34 @@
 // ~18 us at 989 TFLOP/s of bf16 tensor cores; at training's 4 x 4096,
 // 128.9 GFLOP, 0.13 ms.
 //
-// bf16 inputs: tensor cores (flash_fwd_tc_kernel), FlashAttention-2's
-// layout.  A block of four warps owns a BQ = 64-row q tile, 16 rows a
-// warp; q tiles launch heaviest first (the causal diagonal's last tiles
-// have the most kv tiles), so the tail wave is short.  The Q fragments
-// are loaded once with ldmatrix and stay in registers.  K and V tiles of
-// BK = 64 rows are double-buffered in shared memory by 16-byte cp.async
-// (zero-fill past hd and past Sk), rows padded by 16 B (stride HD + 8
-// bf16) so the eight rows an ldmatrix phase reads fall in distinct
-// banks.  Per kv tile each warp computes S = Q K^T (16 x 64) with
-// mma.sync.m16n8k16 (bf16 in, fp32 sums; K's B fragments by ldmatrix),
-// scales the fp32 accumulators, masks only on tiles that the causal
-// edge, the window edge or Sk cuts (full tiles take a path without
-// masks), runs the online softmax on the accumulator fragments (row max
-// and sum across the 4 lanes of a quad by shfl_xor 1 and 2, O rescaled
-// in registers), splits P into bf16 A fragments in registers (the C
-// layout of two n8 tiles is the A layout of one k16 step) and adds P V
-// (V's B fragments by ldmatrix.trans).  P enters P V as a bf16 hi + lo
-// pair (P = hi + lo to ~2^-16 relative), as in the backward kernels, so
-// P V keeps the reference's fp32 P: rounded once to bf16 (2^-9), P moved
-// the output against the plain version by one bf16 ulp of its own at
-// every large |o| (1.6e-2 at |o| in [2, 4), 78 % of the bf16 limit; one
-// ulp at |o| >= 4 exceeds it), and l, which sums the fp32 P, no longer
-// matched the numerator.  HMMA per warp and kv tile: HD/16 * 8 for S and
-// 2 * 4 * HD/8 for P V, 64 + 128 at HD 128 and 32 + 64 at HD 64.
-// Shared memory: (BQ + 2 BK) * (HD + 8) * 2 B + 2 BK * (HD_V + 8) * 2 B
-// = 87,040 B at HD 128 and 46,080 B at HD 64 (111,616 B at (192, 128)).
-// Registers (ptxas, sm_90a): O (HD_V/2 fp32), S (32 fp32) and Q (HD/4) a
-// thread, 217 at HD 128 and 152 at HD 64, no spills; the occupancy
-// calculator gives 2 and 3 blocks an SM.  At HD 192 the Q fragments
-// (48 registers a thread) would push the block past the 255 the launch
-// bound allows beside O, so that kernel reads them from the Q tile in
-// shared memory at each kv tile instead (KS ldmatrix a warp and tile,
-// beside the 4 KS of K's B fragments): 193 registers, no spills, 2
-// blocks an SM.  The
-// launch bound's minimum of 2 blocks lets ptxas take over 200 registers
-// at HD 128 (182 without it), which ran h2o-danube3-4b's prefill shape
-// 4.5 % faster; a minimum of 4 at HD 64 (128 registers) spilled and
-// ran the serve shape 9 % slower.  What bounds it on the H100 (700 W):
-// 164 TFLOP/s at 4 x 4096 (0.785 ms) and 184 at danube's 1 x 6000 hd
-// 120 (1.35 ms) against mma.sync's share of the 989 peak: with 8-12
-// warps an SM each warp's softmax work (scale, max, exp, sum, rescale,
-// split: ~10 instructions an element with __expf) issues beside its own
-// mma, and nothing overlaps them but the other resident warps; the hi +
-// lo pair made K1 ~20 % slower than one rounding of P (0.65 ms at 4 x
-// 4096).  wgmma with
-// a producer warp feeding TMA tiles is the next step.
+// bf16 inputs at the pairs (64, 64) and (128, 128): the wgmma kernel of
+// flash_attention_hopper.cu (TMA-fed tiles, a producer warpgroup and two
+// consumers of 64 q rows each), which dispatch() calls.
+//
+// bf16 at (192, 128): tensor cores (flash_fwd_tc_kernel), FlashAttention-
+// 2's layout on mma.sync.  A block of four warps owns a BQ = 64-row q
+// tile, 16 rows a warp; q tiles launch heaviest first (the causal
+// diagonal's last tiles have the most kv tiles), so the tail wave is
+// short.  K and V tiles of BK = 64 rows are double-buffered in shared
+// memory by 16-byte cp.async (zero-fill past hd and past Sk), rows padded
+// by 16 B (stride HD + 8 bf16) so the eight rows an ldmatrix phase reads
+// fall in distinct banks.  Per kv tile each warp computes S = Q K^T (16 x
+// 64) with mma.sync.m16n8k16 (bf16 in, fp32 sums), Q's A fragments read
+// from the Q tile in shared memory (48 registers a thread held in
+// registers would push the block past the 255 the launch bound allows
+// beside O) and K's B fragments by ldmatrix, scales the fp32
+// accumulators, masks only on tiles that the causal edge, the window edge
+// or Sk cuts, runs the online softmax on the accumulator fragments (row
+// max and sum across the 4 lanes of a quad by shfl_xor 1 and 2, O
+// rescaled in registers), splits P into bf16 A fragments in registers
+// (the C layout of two n8 tiles is the A layout of one k16 step) and adds
+// P V (V's B fragments by ldmatrix.trans).  P enters P V as a bf16 hi +
+// lo pair (P = hi + lo to ~2^-16 relative), as in the backward kernels,
+// so P V keeps the reference's fp32 P: rounded once to bf16 (2^-9), P
+// moved the output against the plain version by one bf16 ulp of its own
+// at every large |o|, and l, which sums the fp32 P, no longer matched the
+// numerator.  Shared memory: (BQ + 2 BK) * (HD + 8) * 2 B + 2 BK * (HD_V
+// + 8) * 2 B = 111,616 B; 193 registers, no spills, 2 blocks an SM.
 //
 // fp32 inputs keep the CUDA-core kernel (flash_fwd_kernel): the card's
 // fp32 comparisons hold K1 to 1e-4 of the plain version, which TF32
@@ -259,19 +243,15 @@ constexpr size_t tc_fwd_smem_bytes() {
 }
 
 // one block per (b*H + h, q tile); q tiles in reverse, heaviest first
-template <int HD, int HDV, bool SAME>
+template <int HD, int HDV>
 __global__ void __launch_bounds__(TC_NT, 2)
 flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ o,
                     float* __restrict__ lse, int H, int G, int Sq, int Sk,
                     int hd, int hd_v, int q_offset, int causal, int window,
                     float scale) {
-  if (SAME) hd_v = hd;   // v as wide as q, k: one width for the compiler
   constexpr int LD = HD + 8, LDV = HDV + 8, KS = HD / 16, NK = TC_BK / 8,
                 ND = HDV / 8;
-  // Q's fragments stay in registers up to HD 128; wider, they are read
-  // from sQ at each kv tile (see the header)
-  constexpr bool QREG = HD <= 128;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // TC_BQ x LD
   bf16* sK = sQ + TC_BQ * LD;                      // 2 stages of TC_BK x LD
@@ -302,7 +282,6 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_async_commit();
 
   // this thread's rows of the warp's 16: w0 + g and w0 + g + 8
-  uint32_t qf[QREG ? KS : 1][4];
   float acc[ND][4];
 #pragma unroll
   for (int n = 0; n < ND; ++n)
@@ -325,11 +304,6 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (QREG && it == 0) {
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
-        ldsm_x4(qf[QREG ? ks : 0], a_addr(sQ, LD, w0, ks * 16, lane));
-    }
     const bf16* Ks = sK + st * TC_BK * LD;
     const bf16* Vs = sV + st * TC_BK * LDV;
 
@@ -342,12 +316,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
       uint32_t a[4];
-      if (QREG) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) a[e] = qf[QREG ? ks : 0][e];
-      } else {
-        ldsm_x4(a, a_addr(sQ, LD, w0, ks * 16, lane));
-      }
+      ldsm_x4(a, a_addr(sQ, LD, w0, ks * 16, lane));
 #pragma unroll
       for (int np = 0; np < NK / 2; ++np) {
         uint32_t b[4];
@@ -485,9 +454,9 @@ cudaError_t launch_f32(const FwdArgs& a, cudaStream_t st) {
                     fwd_smem_bytes<HD, HDV>(), st);
 }
 
-template <int HD, int HDV, bool SAME>
+template <int HD, int HDV>
 cudaError_t launch_tc(const FwdArgs& a, cudaStream_t st) {
-  return run<bf16>(flash_fwd_tc_kernel<HD, HDV, SAME>, a,
+  return run<bf16>(flash_fwd_tc_kernel<HD, HDV>, a,
                    dim3(a.B * a.H, (a.Sq + TC_BQ - 1) / TC_BQ), TC_NT,
                    tc_fwd_smem_bytes<HD, HDV>(), st);
 }
@@ -517,13 +486,11 @@ cudaError_t dispatch(const FwdArgs& a, int dtype, cudaStream_t st) {
                                   : launch_f32<128, 128, true>(a, st))
                      : (pair == 0 ? launch_f32<64, 64, false>(a, st)
                                   : launch_f32<128, 128, false>(a, st));
-  if (dtype == 1)
-    return pair == 2 ? launch_tc<192, 128, false>(a, st)
-           : same    ? (pair == 0 ? launch_tc<64, 64, true>(a, st)
-                                  : launch_tc<128, 128, true>(a, st))
-                     : (pair == 0 ? launch_tc<64, 64, false>(a, st)
-                                  : launch_tc<128, 128, false>(a, st));
-  return cudaErrorInvalidValue;
+  if (dtype != 1) return cudaErrorInvalidValue;
+  if (pair == 2) return launch_tc<192, 128>(a, st);
+  return hopper_fwd(a.q, a.k, a.v, a.o, a.lse, a.B, a.H, a.KH, a.Sq, a.Sk,
+                    a.hd, a.hd_v, a.q_offset, a.causal, a.window, a.scale,
+                    a.occupancy, st);
 }
 
 }  // namespace

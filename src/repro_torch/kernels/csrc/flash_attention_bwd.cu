@@ -44,12 +44,13 @@
 // run over HD columns, dP and dV over HD_V.  Loads
 // zero-fill the columns past the true widths in shared memory, which add
 // nothing to any product, and stores write the true columns.  The
-// wrapper passes hd, hd_v and scale = 1/sqrt(hd).  The equal-width pairs
-// are built twice: SAME (hd_v == hd, every model's heads but MLA's)
-// tells the compiler that v is as wide as q and k, which keeps K2's dq
-// pass at its speed before hd_v existed (4-9 % slower with the widths
-// apart, scripts/torch_attention_ab.py on the H100); the other build
-// runs a v narrower than q and k (MLA's reduced (48, 32)).
+// wrapper passes hd, hd_v and scale = 1/sqrt(hd).  The equal-width
+// pairs' dq and fp32 kernels are built twice: SAME (hd_v == hd, every
+// model's heads but MLA's) tells the compiler that v is as wide as q and
+// k, which keeps K2's dq pass at its speed before hd_v existed (4-9 %
+// slower with the widths apart, scripts/torch_attention_ab.py on the
+// H100); the other build runs a v narrower than q and k (MLA's reduced
+// (48, 32)).
 //
 // Bound on the H100 at the training shape (B=4, H=15, KH=5, S=4096,
 // hd=64, bf16, causal; 8.39M live (query, key) pairs per head): the
@@ -60,21 +61,23 @@
 // 0.46 ms.  Bytes (q, k, v, dO, lse, delta read once, dq, dk, dv written
 // once) are ~138 MB, 0.041 ms at 3.35 TB/s, so both are compute-bound.
 //
-// bf16 inputs: tensor cores (the tc_bwd_* kernels below).  All five
-// products of a tile are bf16 mma.sync.m16n8k16 with fp32 sums, operands
-// from ldmatrix; 128 threads, four warps.
-//   dkv  BK = 64 kv rows a block, 16 a warp; q tiles of BQ = 64 rows at
-//        hd 64 and 32 at hd 128.  Each warp keeps its 16 rows of dK and dV
-//        (HD/2 fp32 each a thread) in registers across the G heads and the
-//        q tiles.  S^T = K Q^T and dP^T = V dO^T come out as accumulator
-//        fragments; P^T and dS^T are computed in place and re-packed as
-//        the A operands of dV += P^T dO and dK += dS^T Q without a trip
-//        through shared memory.  K3 also writes dS^T (bf16) to shared
-//        memory, and the four warps then compute the tile's dQ = dS K,
-//        16 q rows by HD/(4*16/BQ) columns each, and add it into dq_acc.
+// bf16 inputs: tensor cores.  K2's dk/dv and K3 at the pairs (64, 64)
+// and (128, 128) are the wgmma kernels of flash_attention_hopper.cu,
+// which dispatch() calls; K2's dq at those pairs and every bf16 kernel at
+// (192, 128) are the mma.sync kernels below (tc_bwd_*): all five products
+// of a tile bf16 mma.sync.m16n8k16 with fp32 sums, operands from
+// ldmatrix; 128 threads, four warps.
+//   dkv  ((192, 128)) BK = 64 kv rows a block, 16 a warp; q tiles of BQ =
+//        32 rows.  Each warp keeps its 16 rows of dK and dV in fp32
+//        registers across the G heads and the q tiles.  S^T = K Q^T and
+//        dP^T = V dO^T come out as accumulator fragments; P^T and dS^T
+//        are computed in place and re-packed as the A operands of dV +=
+//        P^T dO and dK += dS^T Q without a trip through shared memory.
+//        K3 also writes dS^T (bf16) to shared memory, and the four warps
+//        then compute the tile's dQ = dS K and add it into dq_acc.
 //   dq   BQ = 64 q rows a block, 16 a warp; kv tiles of BK = 64 rows at
-//        hd 64 and 32 at hd 128.  S = Q K^T and dP = dO V^T as fragments,
-//        dS in place, then dQ += dS K from registers.
+//        hd 64 and 32 wider.  S = Q K^T and dP = dO V^T as fragments, dS
+//        in place, then dQ += dS K from registers.
 // Rounding: the mma operands are bf16.  q, k, v and dO are bf16 already;
 // P and dS are not.  Rounding them once to bf16 (2^-8 relative) moves dV,
 // dK and dQ by about 2^-8 / sqrt(3) of the typical entry, which puts
@@ -82,38 +85,30 @@
 // to against K4b (2^-7 |x| + 1e-4 max|x|).  So P and dS enter each of
 // their products as a bf16 pair hi + lo (hi = bf16(x), lo = bf16(x - hi),
 // about 2^-16 relative): dV, dK and dQ take two mma each, eight products
-// a tile in K3 instead of five.
+// a tile in K3 instead of five (the wgmma kernels do the same).
 // Asynchronous copies: the dkv block double-buffers the q, dO, lse and
 // delta tiles, the dq block the k and v tiles, with 16-byte (4-byte for
 // lse and delta) cp.async, so the next tile loads while this one
 // computes.  Shared-memory rows are padded by 16 B (stride HD + 8 bf16),
 // so the eight rows an ldmatrix phase reads fall in distinct banks.
-// Shared memory: dkv 56,320 B (hd 64; +18,432 for K3's dS^T), 70,144 B
-// (hd 128; +10,240) and 86,528 B ((192, 128); +10,240); dq 55,296 B (hd
-// 64), 69,632 B (hd 128) and 86,016 B ((192, 128)), all under the
-// 232,448 B (227 KB) a block may use.  Registers (ptxas,
+// Shared memory: dkv 86,528 B ((192, 128); +10,240 for K3's dS^T); dq
+// 55,296 B (hd 64), 69,632 B (hd 128) and 86,016 B ((192, 128)), all
+// under the 232,448 B (227 KB) a block may use.  Registers (ptxas,
 // sm_90a) and blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor
 // through repro_flash_bwd_occupancy) on an H100:
 //   dq   hd 64: 168 registers, 3 blocks an SM; hd 128: 191, 2;
 //        (192, 128): 233, 2
-//   dkv  hd 64: 189 (K3 239), 2 blocks an SM; hd 128: 255, 2 (as the
-//        two-pass kernel below is written; 12 B of spill stores, K3
-//        28 B, in the one-pass form before it, which ran K3 at hd 128
-//        ~4 % and hd 64's dk/dv ~2 % faster); (192, 128): 215 (K3 230),
-//        2; no spills
+//   dkv  (192, 128): 215 (K3 230), 2; no spills
 // so the SM's 65,536 registers, not shared memory, bound the residency.
 // At (192, 128) a warp's dK (HD/2 fp32 a thread) and dV (HD_V/2) would
 // take 160 registers before S, dP and the fragments, past the 255 a
 // thread may hold, so the dkv block makes two passes over its q tiles
 // (TcTiles::DK_SPLIT): dV with dK's columns [0, 64) (96 accumulator
-// registers, fewer than hd 128's 128), then dK's columns [64, 192) (64),
-// each pass recomputing S^T and dP^T; K3's dQ runs in the second pass.
-// That costs the S and dP products once more (HD + HD_V = 320 of the
-// 1,280 bf16 mma columns a live pair takes in K3, counting hi + lo) and
-// a second read of the q and dO tiles.
-// At the training shape the bf16 K3 runs at 90 TFLOP/s of the reference
-// count (3.57 ms; 144 TFLOP/s counting the lo halves' products),
-// the K2 pair at 128 (1.17 + 2.35 ms); chip_smoke.py prints both.
+// registers), then dK's columns [64, 192) (64), each pass recomputing S^T
+// and dP^T; K3's dQ runs in the second pass.  That costs the S and dP
+// products once more (HD + HD_V = 320 of the 1,280 bf16 mma columns a
+// live pair takes in K3, counting hi + lo) and a second read of the q and
+// dO tiles.
 //
 // fp32 inputs keep the CUDA-core kernels (flash_bwd_* below): the
 // card's fp32 comparisons hold the backward to 1e-4 / 1e-5 of the plain
@@ -477,15 +472,17 @@ template <int HD, int HDV>
 struct TcTiles {
   static constexpr int LD = HD + 8;               // q/k smem row stride
   static constexpr int LDV = HDV + 8;             // v/dO smem row stride
+  // the dkv block (the (192, 128) pair's; the others run the wgmma
+  // kernels of flash_attention_hopper.cu)
   static constexpr int DKV_BK = 64;               // kv rows of a dkv block
-  static constexpr int DKV_BQ = HD == 64 ? 64 : 32;
+  static constexpr int DKV_BQ = 32;               // q rows of its tiles
   static constexpr int DQ_BQ = 64;                // q rows of a dq block
   static constexpr int DQ_BK = HD == 64 ? 64 : 32;
   static constexpr int LDS = DKV_BQ + 8;          // K3's dS^T row stride
-  // dK columns of the dkv block's first pass: all of them up to HD 128;
-  // at HD 192 the block makes two passes over its q tiles, dV with dK
-  // columns [0, 64), then dK columns [64, 192) (see the header)
-  static constexpr int DK_SPLIT = HD > 128 ? 64 : HD;
+  // dK columns of the dkv block's first pass: it makes two passes over
+  // its q tiles, dV with dK columns [0, 64), then dK columns [64, 192)
+  // (see the header)
+  static constexpr int DK_SPLIT = 64;
   static constexpr size_t dkv_bytes(bool fused) {
     return (size_t)(DKV_BK * (LD + LDV) + 2 * DKV_BQ * (LD + LDV)) * 2 +
            4 * DKV_BQ * sizeof(float) +
@@ -857,9 +854,9 @@ __device__ __forceinline__ void tc_dkv_pass(const DkvBlock& b) {
   }
 }
 
-// K2 dk/dv (FUSED = false) and K3 (FUSED = true) on tensor cores: one
-// block per (64-row kv tile, b*KH + kh)
-template <int HD, int HDV, bool FUSED, bool SAME>
+// K2 dk/dv (FUSED = false) and K3 (FUSED = true) on tensor cores at the
+// (192, 128) pair: one block per (64-row kv tile, b*KH + kh)
+template <int HD, int HDV, bool FUSED>
 __global__ void __launch_bounds__(TC_NT)
 tc_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -868,7 +865,6 @@ tc_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   bf16* __restrict__ dv, float* __restrict__ dq_acc, int H,
                   int G, int Sq, int Sk, int hd, int hd_v, int q_offset,
                   int causal, int window, float scale) {
-  if (SAME) hd_v = hd;   // v as wide as q, k: one width for the compiler
   using C = TcTiles<HD, HDV>;
   constexpr int TK = C::DKV_BK, TQ = C::DKV_BQ, LD = C::LD, LDV = C::LDV,
                 LDS = C::LDS;
@@ -905,12 +901,8 @@ tc_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      sD,  bkv,  bh0, k0,    kv_rows, qt0, n_qt,
                      G * n_qt,  Sq,  Sk,    hd,      hd_v, q_offset,
                      causal,    window, scale};
-  if constexpr (C::DK_SPLIT == HD) {
-    tc_dkv_pass<HD, HDV, FUSED, 0, HD, true>(blk);
-  } else {
-    tc_dkv_pass<HD, HDV, false, 0, C::DK_SPLIT, true>(blk);
-    tc_dkv_pass<HD, HDV, FUSED, C::DK_SPLIT, HD - C::DK_SPLIT, false>(blk);
-  }
+  tc_dkv_pass<HD, HDV, false, 0, C::DK_SPLIT, true>(blk);
+  tc_dkv_pass<HD, HDV, FUSED, C::DK_SPLIT, HD - C::DK_SPLIT, false>(blk);
 }
 
 struct BwdArgs {
@@ -965,6 +957,7 @@ cudaError_t launch_f32(int which, const BwdArgs& a, void* dq, void* dk,
              a.Sk, a.hd, a.hd_v, a.q_offset, a.causal, a.window, a.scale);
 }
 
+// K2 dq at any pair but (576, 512); K2 dk/dv and K3 at (192, 128)
 template <int HD, int HDV, bool SAME>
 cudaError_t launch_tc(int which, const BwdArgs& a, void* dq, void* dk,
                       void* dv, cudaStream_t st) {
@@ -980,14 +973,21 @@ cudaError_t launch_tc(int which, const BwdArgs& a, void* dq, void* dk,
                C::dq_bytes(), st, q, k, v, dout, a.lse, a.delta,
                static_cast<bf16*>(dq), a.H, G, a.Sq, a.Sk, a.hd, a.hd_v,
                a.q_offset, a.causal, a.window, a.scale);
-  const dim3 grid((a.Sk + C::DKV_BK - 1) / C::DKV_BK, a.B * a.KH);
-  auto kern = which == 1 ? tc_bwd_dkv_kernel<HD, HDV, false, SAME>
-                         : tc_bwd_dkv_kernel<HD, HDV, true, SAME>;
-  return run(kern, a, grid, TC_NT, C::dkv_bytes(which == 2), st, q, k, v,
-             dout, a.lse, a.delta, static_cast<bf16*>(dk),
-             static_cast<bf16*>(dv),
-             which == 2 ? static_cast<float*>(dq) : nullptr, a.H, G, a.Sq,
-             a.Sk, a.hd, a.hd_v, a.q_offset, a.causal, a.window, a.scale);
+  if constexpr (HD != 192) {
+    return hopper_bwd(which == 2, a.q, a.k, a.v, a.dout, a.lse, a.delta, dk,
+                      dv, static_cast<float*>(dq), a.B, a.H, a.KH, a.Sq,
+                      a.Sk, a.hd, a.hd_v, a.q_offset, a.causal, a.window,
+                      a.scale, a.occupancy, st);
+  } else {
+    const dim3 grid((a.Sk + C::DKV_BK - 1) / C::DKV_BK, a.B * a.KH);
+    auto kern = which == 1 ? tc_bwd_dkv_kernel<HD, HDV, false>
+                           : tc_bwd_dkv_kernel<HD, HDV, true>;
+    return run(kern, a, grid, TC_NT, C::dkv_bytes(which == 2), st, q, k, v,
+               dout, a.lse, a.delta, static_cast<bf16*>(dk),
+               static_cast<bf16*>(dv),
+               which == 2 ? static_cast<float*>(dq) : nullptr, a.H, G, a.Sq,
+               a.Sk, a.hd, a.hd_v, a.q_offset, a.causal, a.window, a.scale);
+  }
 }
 
 template <int HD, int HDV, bool SAME>

@@ -268,30 +268,6 @@ tc_bwd_dq_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// This thread's warpgroup, broadcast from lane 0 so that the compiler
-// sees one value across the warp: the roles' branches and the wgmma in
-// them are then not divergent code (which would serialize the wgmma).
-__device__ __forceinline__ int warpgroup() {
-  return __shfl_sync(0xffffffffu, threadIdx.x / WG, 0);
-}
-
-// wgmma fragments of a k16 step of d as a bf16 hi + lo pair (split_frag)
-template <int R>
-__device__ __forceinline__ void frag_pair(const float (&d)[R], int kk,
-                                          uint32_t (&hi)[4],
-                                          uint32_t (&lo)[4]) {
-  split_bf16(d[8 * kk + 0], d[8 * kk + 1], hi[0], lo[0]);
-  split_bf16(d[8 * kk + 2], d[8 * kk + 3], hi[1], lo[1]);
-  split_bf16(d[8 * kk + 4], d[8 * kk + 5], hi[2], lo[2]);
-  split_bf16(d[8 * kk + 6], d[8 * kk + 7], hi[3], lo[3]);
-}
-
-template <int R>
-__device__ __forceinline__ void zero_acc(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) d[i] = 0.f;
-}
-
 // Hand a warpgroup's accumulator to the other consumer warpgroup through
 // shared memory: slot w holds warpgroup w's registers, thread-major, so
 // thread t reads the same (row, column) positions of the other's.
@@ -1525,71 +1501,7 @@ dkv_reduce_kernel(const float* __restrict__ ws, T* __restrict__ dk,
 }
 
 
-// Set the kernel's shared-memory limit, then either report its blocks per
-// SM (occupancy non-null) or launch it on `grid` with `threads` threads.
-template <typename Kern, typename... Args>
-cudaError_t run(Kern kern, int* occupancy, dim3 grid, int threads,
-                size_t smem, cudaStream_t st, Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  if (occupancy != nullptr)
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, kern,
-                                                         threads, smem);
-  kern<<<grid, threads, smem, st>>>(args...);
-  return cudaGetLastError();
-}
-
 constexpr int HD_W = 576, HDV_W = 512;   // the pair's compiled widths
-
-// The driver's cuTensorMapEncodeTiled, through the runtime's entry-point
-// query (no link against libcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The tensor map of `n` bf16 matrices of (rows, cols), row stride ld and
-// matrix stride mstride elements, read as boxes of 64 columns by
-// box_rows rows with the 128-byte swizzle; past an edge TMA reads zeros.
-// False where the driver refuses it.
-bool tile_map(CUtensorMap* m, const void* p, int cols, long long rows, int n,
-              long long ld, long long mstride, int box_rows) {
-  const EncodeTiled encode = encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
-                              (cuuint64_t)n};
-  const cuuint64_t strides[2] = {(cuuint64_t)ld * 2,
-                                 (cuuint64_t)mstride * 2};
-  const cuuint32_t box[3] = {BOX, (cuuint32_t)box_rows, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  return encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p),
-                dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 // K1 bf16 at the pair: v is k's first hd_v columns (sv) or a tensor of its
 // own with row stride ldv

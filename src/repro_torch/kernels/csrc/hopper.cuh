@@ -1,12 +1,15 @@
-// Hopper's building blocks for the wgmma kernels (flash_attention_wide.cu):
-// mbarriers, TMA tile loads from a tensor map, named barriers between
-// consumer warpgroups, setmaxnreg, and wgmma with its shared-memory
-// descriptors for tiles that TMA lays down with the 128-byte swizzle.  A
-// tile is held as boxes of 64 bf16 columns (128 bytes a row), each box
-// its rows one after the other, box after box; a box starts on a 1 KB
-// boundary, where the swizzle pattern starts.  The wgmma wrappers take
-// every shape the kernels run (m64 x n16, 32, 48, 192 from shared
-// memory; n64, 256 with A in registers), fp32 sums, bf16 operands.
+// Hopper's building blocks for the wgmma kernels (flash_attention_wide.cu
+// at the (576, 512) pair, flash_attention_hopper.cu at (64, 64) and
+// (128, 128)): mbarriers, TMA tile loads from a tensor map, named
+// barriers between warpgroups, setmaxnreg, and wgmma with its
+// shared-memory descriptors for tiles that TMA lays down with the
+// 128-byte swizzle.  A tile is held as boxes of 64 bf16 columns (128
+// bytes a row), each box its rows one after the other, box after box; a
+// box starts on a 1 KB boundary, where the swizzle pattern starts.  The
+// wgmma wrappers take every shape the kernels run (m64 x n16, 32, 48, 64,
+// 128, 192 from shared memory; n64, 128, 256 with A in registers), fp32
+// sums, bf16 operands.  On the host: the tensor maps (tile_map, through
+// the runtime's driver entry point) and the launch helper both files use.
 #pragma once
 
 #include <cuda.h>
@@ -50,6 +53,42 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap& map,
       : "memory");
 }
 
+// Add a box of fp32 values in shared memory (laid out as the tensor map's
+// box, 128-byte swizzle) into global memory at box (c0, c1, c2) of a 3-D
+// tensor map: the adds run in L2, elements past the tensor's edge are
+// skipped.  Joins the issuing thread's current bulk group.
+__device__ __forceinline__ void tma_reduce_add(const CUtensorMap& map,
+                                               const void* src, int c0,
+                                               int c1, int c2) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(&map)), "r"(smem_u32(src)),
+         "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// until at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+// until every bulk group of this thread has completed
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// A pointer the compiler cannot see through here: descriptors made from
+// it inside a loop are made there, not hoisted out and held in registers.
+template <typename T>
+__device__ __forceinline__ T* opaque(T* p) {
+  asm volatile("" : "+l"(p));
+  return p;
+}
+
 // the two consumer warpgroups (256 threads) meet at named barrier `id`
 __device__ __forceinline__ void wg_pair_sync(int id) {
   asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
@@ -59,6 +98,17 @@ __device__ __forceinline__ void wg_pair_sync(int id) {
 // warpgroup's bar.sync on it completes the phase
 __device__ __forceinline__ void wg_pair_arrive(int id) {
   asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
+}
+
+// the 128 threads of one warpgroup meet at named barrier `id`
+__device__ __forceinline__ void wg_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" :: "r"(id) : "memory");
+}
+
+// Make this thread's shared-memory stores visible to the async proxy,
+// through which wgmma reads its shared-memory operands.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 template <int N>
@@ -76,8 +126,11 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
+// until at most N of this warpgroup's committed wgmma groups are pending
+// (they complete in order)
+template <int N = 0>
 __device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
 // The block's dynamic shared memory from its first 1 KB boundary, where
@@ -91,13 +144,15 @@ __device__ __forceinline__ bf16* smem_tiles() {
 }
 
 // A two-stage ring's mbarriers at `bars`: `lead` one-arrival barriers
-// (tiles loaded once), then full[2] (the producer's arrival and the
-// bytes) and empty[2] (`consumers` arrivals); set up by thread 0 before
-// any thread of the block uses them.
+// (tiles loaded once), then full[2] (`producers` arrivals, one of them
+// with the bytes) and empty[2] (`consumers` arrivals); set up by thread 0
+// before any thread of the block uses them.
 __device__ __forceinline__ void init_ring(uint64_t* bars, int lead,
-                                          uint32_t consumers) {
+                                          uint32_t consumers,
+                                          uint32_t producers = 1) {
   if (threadIdx.x == 0) {
-    for (int i = 0; i < lead + 2; ++i) mbar_init(&bars[i], 1);
+    for (int i = 0; i < lead; ++i) mbar_init(&bars[i], 1);
+    for (int s = 0; s < 2; ++s) mbar_init(&bars[lead + s], producers);
     for (int s = 0; s < 2; ++s) mbar_init(&bars[lead + 2 + s], consumers);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -119,6 +174,30 @@ __device__ __forceinline__ void fence_regs(uint32_t (&d)[R][4]) {
   for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(d[i][j])::"memory");
+}
+
+// This thread's warpgroup, broadcast from lane 0 so that the compiler
+// sees one value across the warp: the roles' branches and the wgmma in
+// them are then not divergent code (which would serialize the wgmma).
+__device__ __forceinline__ int warpgroup() {
+  return __shfl_sync(0xffffffffu, threadIdx.x / WG, 0);
+}
+
+// wgmma fragments of a k16 step of d as a bf16 hi + lo pair (split_frag)
+template <int R>
+__device__ __forceinline__ void frag_pair(const float (&d)[R], int kk,
+                                          uint32_t (&hi)[4],
+                                          uint32_t (&lo)[4]) {
+  split_bf16(d[8 * kk + 0], d[8 * kk + 1], hi[0], lo[0]);
+  split_bf16(d[8 * kk + 2], d[8 * kk + 3], hi[1], lo[1]);
+  split_bf16(d[8 * kk + 4], d[8 * kk + 5], hi[2], lo[2]);
+  split_bf16(d[8 * kk + 6], d[8 * kk + 7], hi[3], lo[3]);
+}
+
+template <int R>
+__device__ __forceinline__ void zero_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) d[i] = 0.f;
 }
 
 // wgmma's descriptor of a 128-byte-swizzled operand in shared memory, as
@@ -203,6 +282,61 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[24], uint64_t a,
       : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
 }
 
+// m64n64k16, both operands from shared memory
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+}
+
+// m64n128k16, both operands from shared memory
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+}
+
 // m64n192k16, both operands from shared memory
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[96], uint64_t a,
@@ -270,6 +404,41 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
         "n"(TB));
 }
 
+// m64n128k16, A from registers, B from shared memory
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+        "n"(TB));
+}
+
 // m64n256k16, A from registers, B from shared memory
 template <int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[128],
@@ -326,6 +495,77 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128],
         "n"(TB));
 }
 
+// ------------------------------------------------------------------ host
 
+// Set the kernel's shared-memory limit, then either report its blocks per
+// SM (occupancy non-null) or launch it on `grid` with `threads` threads.
+template <typename Kern, typename... Args>
+cudaError_t run(Kern kern, int* occupancy, dim3 grid, int threads,
+                size_t smem, cudaStream_t st, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  if (occupancy != nullptr)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, kern,
+                                                         threads, smem);
+  kern<<<grid, threads, smem, st>>>(args...);
+  return cudaGetLastError();
+}
+
+// The driver's cuTensorMapEncodeTiled, through the runtime's entry-point
+// query (no link against libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The tensor map of `n` matrices of (rows, cols), bf16 (or fp32 with
+// f32), row stride ld and matrix stride mstride elements, read as boxes of
+// 128 bytes of columns (64 bf16, 32 fp32) by box_rows rows with the
+// 128-byte swizzle; past an edge TMA reads zeros (and a reduction skips).
+// False where the driver refuses it (a base or a stride that is not a
+// multiple of 16 bytes, an empty dimension).
+inline bool tile_map(CUtensorMap* m, const void* p, int cols, long long rows,
+                     int n, long long ld, long long mstride, int box_rows,
+                     bool f32 = false) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const int el = f32 ? 4 : 2;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)n};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * el,
+                                 (cuuint64_t)mstride * el};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / el), (cuuint32_t)box_rows,
+                             1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(m,
+                f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                3, const_cast<void*>(p), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 }  // namespace repro

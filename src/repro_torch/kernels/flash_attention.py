@@ -5,14 +5,20 @@ Replaces the Pallas TPU kernels of ``repro/kernels/flash_attention.py``:
 
 * K1 ``_fwd_kernel`` (``csrc/flash_attention.cu``): the forward, with the
   per-row logsumexp as an optional output (``with_lse``); bf16 on the
-  tensor cores (``mma.sync``), fp32 on the CUDA cores;
+  tensor cores — ``wgmma`` on TMA-fed tiles at the pairs (64, 64) and
+  (128, 128) (``csrc/flash_attention_hopper.cu``), ``mma.sync`` at
+  (192, 128), the (576, 512) pair's own ``wgmma`` kernels
+  (``csrc/flash_attention_wide.cu``) —, fp32 on the CUDA cores
+  (``autotune.attn_route``);
 * K2 ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``
-  (``csrc/flash_attention_bwd.cu``): the split backward, dq per q tile
-  and dk/dv per kv tile with the GQA group sum inside one block — no
-  atomics, bit-reproducible;
-* K3 ``_bwd_fused_kernel`` (same source): dq, dk and dv on one tile
-  visit, dq summed into an fp32 buffer with atomics (at the (576, 512)
-  pair in bf16, from a stored dS in a fixed order instead);
+  (``csrc/flash_attention_bwd.cu``; dk/dv at (64, 64) and (128, 128) in
+  bf16 the ``wgmma`` kernel of ``csrc/flash_attention_hopper.cu``): the
+  split backward, dq per q tile and dk/dv per kv tile with the GQA group
+  sum inside one block — no atomics, bit-reproducible;
+* K3 ``_bwd_fused_kernel`` (same sources): dq, dk and dv on one tile
+  visit, dq summed into an fp32 buffer with atomics (TMA reduce-adds of
+  a staged fp32 tile at (64, 64) and (128, 128) in bf16; at the (576,
+  512) pair in bf16, from a stored dS in a fixed order instead);
 * K4f ``_fwd_mega_kernel`` and K4b ``_bwd_mega_kernel`` (and their
   batch-tiled ``_bt`` variants; ``csrc/flash_attention_mega.cu``): the
   same functions for short sequences, one block per (batch, kv head)

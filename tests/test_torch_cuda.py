@@ -1042,10 +1042,12 @@ def test_mega_kernels_match_plain(cuda, b, h, kh, sq, sk, hd, dtype, window,
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_mega_backward_is_deterministic_and_matches_k2(cuda, dtype):
     """Two K4b runs give the same bits (no atomics); its dq, dk and dv
-    agree with K2's.  In bf16 they are the same bits: the tensor-core K4b
-    runs K2's tiles and sums each element in K2's order, skipping only
-    chunks that add exact zeros there.  In fp32 the CUDA-core K4b sums in
-    another order: fp32 rounding (1e-5 relative)."""
+    agree with K2's.  In bf16 dq is the same bits: the tensor-core K4b
+    runs K2's dq tiles and sums each element in K2's order, skipping only
+    chunks that add exact zeros there; K2's dk/dv pass runs on wgmma, in
+    another order, so dk and dv agree to one bf16 rounding of two fp32
+    sums.  In fp32 the CUDA-core K4b sums in another order: fp32 rounding
+    (1e-5 relative)."""
     b, s = (64, 256) if dtype == torch.bfloat16 else (32, 128)
     q, k, v, do = _mega_inputs(cuda, b, 15, 5, s, s, 64, dtype, seed=10)
     out, lse = fa.flash_attention_mega_fwd(q, k, v, with_lse=True)
@@ -1059,8 +1061,8 @@ def test_mega_backward_is_deterministic_and_matches_k2(cuda, dtype):
     tol = (2.0 ** -7, 1e-4) if dtype == torch.bfloat16 else (1e-5, 1e-5)
     for got, want in zip(first, (dq2, dk2, dv2)):
         _close(got, want, tol)
-        if dtype == torch.bfloat16:
-            assert torch.equal(got, want)
+    if dtype == torch.bfloat16:
+        assert torch.equal(first[0], dq2)
 
 
 def test_mixed_plan_feeds_k4f_lse_to_k3(cuda, monkeypatch):
@@ -1762,3 +1764,67 @@ def test_launches_count_what_the_meta_route_counts(cuda):
     on_card = run(cuda)
     assert set(on_card) == {"k1_lse", "k3", "k5", "k9", "k9b"}
     assert run(torch.device("meta")) == on_card
+
+
+# The bf16 wgmma kernels at (64, 64) and (128, 128)
+# (csrc/flash_attention_hopper.cu): K1 / K1-lse, K2's dk/dv and K3 at hd
+# 32, 64, 120 and 128, G 1, 3 and 7, with a window, q_offset, ragged Sq /
+# Sk and Sk shorter than one 128-row kv tile, against the plain versions;
+# K2's dk/dv twice the same bits and equal to K3's
+HOPPER_CASES = [  # b, h, kh, sq, sk, hd, window, q_offset
+    (1, 3, 3, 300, 300, 64, 0, 0),       # G 1, ragged
+    (2, 6, 2, 257, 257, 64, 0, 0),       # G 3
+    (1, 14, 2, 400, 400, 128, 0, 0),     # G 7
+    (1, 7, 1, 300, 500, 120, 0, 200),    # hd 120, q_offset, Sq < Sk
+    (2, 4, 2, 333, 333, 32, 100, 0),     # hd 32, window
+    (1, 6, 2, 1000, 1000, 128, 300, 0),  # window past a tile
+    (1, 3, 1, 40, 50, 64, 0, 10),        # Sk < a tile
+    (1, 14, 2, 90, 100, 128, 64, 10),    # Sk < a tile, window
+]
+
+
+@pytest.mark.parametrize("b,h,kh,sq,sk,hd,window,q_offset", HOPPER_CASES)
+def test_wgmma_kernels_match_plain(cuda, b, h, kh, sq, sk, hd, window,
+                                   q_offset):
+    dt = torch.bfloat16
+    assert autotune.attn_route(hd, hd, 2) == "wgmma"
+    q = _randn((b, h, sq, hd), dt, cuda, 10)
+    k = _randn((b, kh, sk, hd), dt, cuda, 11)
+    v = _randn((b, kh, sk, hd), dt, cuda, 12)
+    do = _randn((b, h, sq, hd), dt, cuda, 13)
+    kw = dict(causal=True, window=window)
+    out1 = fa.flash_attention(q, k, v, q_offset, **kw)
+    out, lse = fa.flash_attention_fwd(q, k, v, q_offset, **kw)
+    torch.cuda.synchronize()
+    want_out, want_lse = fa.flash_attention_plain(q, k, v, q_offset,
+                                                  with_lse=True, **kw)
+    for got in (out1, out):
+        assert (got.float() - want_out.float()).abs().max().item() \
+            <= TOL[dt]
+    _close(lse, want_lse, (1e-5, 1e-4))
+    delta = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, q_offset)
+    dk2, dv2 = fa.flash_attention_bwd_dkv(*args, **kw)
+    again = fa.flash_attention_bwd_dkv(*args, **kw)
+    dq3, dk3, dv3 = fa.flash_attention_bwd_fused(*args, **kw)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, q_offset,
+                                        causal=True, window=window)
+    for got, w in zip((dq3, dk3, dv3, dk2, dv2), want + want[1:]):
+        _close(got, w, BWD_TOL[dt])
+    assert torch.equal(dk2, again[0]) and torch.equal(dv2, again[1])
+    assert torch.equal(dk2, dk3) and torch.equal(dv2, dv3)
+
+
+def test_wgmma_wrappers_refuse_a_misaligned_view(cuda):
+    """TMA reads a tensor from a 16-byte aligned base: a view that starts
+    2 bytes in is refused by the wrapper, not read wrongly."""
+    dt = torch.bfloat16
+    base = _randn((2 * 64 * 64 + 1,), dt, cuda, 14)
+    q = base[1:].view(1, 2, 64, 64)   # contiguous, 2 bytes past the base
+    assert q.is_contiguous() and q.data_ptr() % 16
+    k = _randn((1, 1, 64, 64), dt, cuda, 15)
+    for call in (lambda: fa.flash_attention(q, k, k),
+                 lambda: fa.flash_attention_fwd(q, k, k)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            call()
