@@ -94,8 +94,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    against their plain versions at the short-sequence training shape
    (B=64, H=15, KH=5, S=256, hd 64, bf16) and at ragged / window /
    q_offset / window + q_offset / G=1 / hd 128 / hd 120 / fp32
-   variants; K4b deterministic and against K2 (within one bf16 rounding
-   of two fp32 sums; dq the same bits in bf16); K3
+   variants; K4b deterministic and against K2 (same bits in bf16); K3
    fed K4f's lse; the HMMA instructions in the bf16 K4 kernels' SASS
    (a kernel without any fails) and their blocks per SM and waves at 320
    and 160 blocks; then timed (events and device-only) beside K1,
@@ -598,6 +597,41 @@ def _wgmma_check():
     return {"sass_hmma_hgmma": ops, "ptxas": regs}
 
 
+def _hopper_ranges_check():
+    """autotune's mirror of the wgmma kernels' tile ranges (the CPU tests'
+    plans) against the .cu's own range functions, run on the host, for
+    every q tile and kv block of 300 random shapes; the cases compared."""
+    rng = np.random.RandomState(0)
+    kv, qt, order = [], [], []
+    for _ in range(300):
+        sq, sk = (int(x) for x in rng.randint(1, 5000, size=2))
+        q_offset, causal = int(rng.randint(0, 700)), int(rng.randint(2))
+        window = int(rng.choice([0, 1, 100, 300, 4096]))
+        kv += [(q0, sq, sk, q_offset, causal, window)
+               for q0 in range(0, sq, autotune.HOPPER_Q_ROWS)]
+        qt += [(k0, sq, sk, q_offset, causal, window)
+               for k0 in range(0, sk, autotune.HOPPER_KV_ROWS)]
+        order.append(sq)
+    got_kv = [tuple(r) for r in fa.hopper_ranges("kv_tiles", kv)]
+    got_qt = [tuple(r) for r in fa.hopper_ranges("q_tiles", qt)]
+    bad = [c for c, g in zip(kv, got_kv) if g != autotune.hopper_kv_tiles(
+        *c[:4], bool(c[4]), c[5])]
+    bad += [c for c, g in zip(qt, got_qt) if g != autotune.hopper_q_tiles(
+        *c[:4], bool(c[4]), c[5])]
+    for sq in order:
+        ny = -(-sq // autotune.HOPPER_Q_ROWS)
+        got = fa.hopper_ranges("q_order", [(y, ny) for y in range(ny)])
+        if tuple(got[:, 0]) != autotune.hopper_q_order(sq):
+            bad.append(("q_order", sq))
+    n = len(kv) + len(qt) + len(order)
+    print(f"  wgmma tile ranges: autotune's mirror against the kernels' own "
+          f"functions, {n} cases, {len(bad)} differ")
+    if bad:
+        raise AssertionError(f"autotune's hopper ranges differ from the "
+                             f"kernels' at {bad[:5]}")
+    return n
+
+
 def _errors(got, want):
     d = (got.float() - want.float()).abs()
     return d.max().item(), d.mean().item()
@@ -953,6 +987,7 @@ def phase_k1(flush):
     torch.cuda.empty_cache()
     hmma, occupancy = _fwd_hmma()
     wgmma = _wgmma_check()
+    wgmma["range_cases"] = _hopper_ranges_check()
     return {"name": "flash_attention (K1)", "route": "cuda", "wgmma": wgmma,
             "source": "src/repro_torch/kernels/csrc/flash_attention_hopper.cu",
             "sources": {"bf16 (64, 64), (128, 128)":

@@ -3,7 +3,7 @@ whichever ``repro_torch`` is first on ``sys.path``, so that two trees
 can be compared on one card in one run.
 
     PYTHONPATH=<tree>/src python scripts/torch_attention_ab.py LABEL OUT
-        [--zamba2] [--absorbed | --tiled]
+        [--zamba2] [--absorbed | --tiled] [--host] [--train-step]
 
 Appends one JSON line to OUT: LABEL, the package's path, and per timed
 shape of ``chip_smoke.py`` (``K1_TIMED``, ``K1_LSE_TIMED``,
@@ -34,6 +34,11 @@ from the plain versions: the planner's table
 against K3 there.  With
 ``--zamba2``, also chip_smoke's bf16 prefill/decode consistency of
 zamba2-1.2b at full width (B=4, S=2100): the largest and RMS logit gap.
+With ``--host``, every row whose device median is under 1.5 ms also
+holds the wrapper's host µs a call (``host_us``, ``chip_smoke._host_us``).
+With ``--train-step``, also chip_smoke's smollm-360m training run
+(``phase_train``: 8 steps at B=4 x 4096 through ``launch.train``), its
+step times, wall and profiled step (``train_step``).
 The timer, the shapes and the consistency check are chip_smoke's own,
 imported after the tree's ``repro_torch``, so chip_smoke runs on that
 tree.  To compare a change with its parent, unpack the parent's ``src``
@@ -57,18 +62,24 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402
 
 
-def _both(fn, reps, flush):
-    return {"events": [cs._time_stats(fn, reps, flush)[k]
-                       for k in ("median", "min", "max")],
-            "device": [cs._time_stats(fn, reps, flush, spin=True)[k]
-                       for k in ("median", "min", "max")]}
+def _both(fn, reps, flush, host=False):
+    """Both timers; with ``host``, also the wrapper's host µs a call
+    (``cs._host_us``) where the device median is under 1.5 ms (500 calls
+    of a longer kernel would take the run's time)."""
+    res = {"events": [cs._time_stats(fn, reps, flush)[k]
+                      for k in ("median", "min", "max")],
+           "device": [cs._time_stats(fn, reps, flush, spin=True)[k]
+                      for k in ("median", "min", "max")]}
+    if host and res["device"][0] < 1.5:
+        res["host_us"] = cs._host_us(fn)
+    return res
 
 
 def _err(got, want):
     return (got.float() - want.float()).abs().max().item()
 
 
-def _mega_rows(res, key, b, s, flush):
+def _mega_rows(res, key, b, s, flush, host=False):
     """K4f, K4f-lse and K4b beside K1-lse, K3 and sdpa at (B, S), into
     ``res`` under ``key`` + the kernel's name."""
     q, k, v, do, o4, lse, delta = cs._k4_inputs(b, s, 7)
@@ -88,7 +99,7 @@ def _mega_rows(res, key, b, s, flush):
         "sdpa_bwd": (lambda: torch.autograd.grad(
             lo, (ql, kl, vl), do, retain_graph=True), 10)}
     for name, (fn, reps) in calls.items():
-        res[f"{key}{name}"] = _both(fn, reps, flush)
+        res[f"{key}{name}"] = _both(fn, reps, flush, host)
     res[f"{key}k4f"]["max_abs_err"] = _err(
         fa.flash_attention_mega_fwd(q, k, v),
         fa.flash_attention_plain(q, k, v))
@@ -111,6 +122,7 @@ def main() -> int:
     res = {"label": label, "src": fa.__file__}
     absorbed_only = "--absorbed" in sys.argv[3:]
     tiled_only = "--tiled" in sys.argv[3:]
+    host = "--host" in sys.argv[3:]
     shapes = {**{f"k1_{n}": (*v, False) for n, v in cs.K1_TIMED.items()},
               **{f"k1_lse_{n}": (*v, 0, True)
                  for n, v in cs.K1_LSE_TIMED.items()}}
@@ -132,7 +144,8 @@ def main() -> int:
         except ValueError as e:      # a tree whose kernels lack the widths
             res[name] = {"not_taken": str(e)}
             continue
-        res[name] = _both(lambda: kernel(q, k, v, window=win), 20, flush)
+        res[name] = _both(lambda: kernel(q, k, v, window=win), 20, flush,
+                          host)
         got = fa.flash_attention(q, k, v, window=win, block_q=64)  # K1
         res[name]["max_abs_err"] = _err(
             got, fa.flash_attention_plain(q, k, v, window=win))
@@ -144,7 +157,8 @@ def main() -> int:
             for kname, fn in (("k2_dq", fa.flash_attention_bwd_dq),
                               ("k2_dkv", fa.flash_attention_bwd_dkv),
                               ("k3", fa.flash_attention_bwd_fused)):
-                res[f"{kname}_{stem}"] = _both(lambda: fn(*args), 10, flush)
+                res[f"{kname}_{stem}"] = _both(lambda: fn(*args), 10, flush,
+                                               host)
             plan = getattr(fa.autotune, "wide_ds_passes", None)
             if "mla_absorbed" in stem and plan is not None:
                 passes = plan(b * h, s, s, 0, True, 0)
@@ -173,11 +187,17 @@ def main() -> int:
                 q, kc, vc, cur_t, window=win))}
     for shape in ("train", "serve") if tiled_only else ("train",):
         _mega_rows(res, "mega_" if shape == "train" else "mega_serve_",
-                   *cs.MEGA_TIMED[shape], flush)
+                   *cs.MEGA_TIMED[shape], flush, host)
     if "--zamba2" in sys.argv[3:]:
         gap = cs._consistency("zamba2-1.2b", 4, 2100, "bfloat16", 32)
         res["zamba2_bf16"] = {k: gap[k] for k in (
             "max_logit_diff", "rms_logit_diff", "argmax_agreement")}
+    if "--train-step" in sys.argv[3:]:
+        del flush
+        torch.cuda.empty_cache()
+        info = cs.phase_train()
+        res["train_step"] = {k: info[k] for k in (
+            "step_ms", "wall_s", "step_profile")}
     print(json.dumps(res))
     with open(out, "a") as f:
         f.write(json.dumps(res) + "\n")

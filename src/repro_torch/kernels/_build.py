@@ -53,6 +53,9 @@ _ENTRIES = {
     "repro_flash_mega_bwd": (_P,) * 9 + (_I,) * 12 + (_P,),
     # bwd, hd, dtype, strip rows, shared-memory bytes, out: blocks per SM
     "repro_flash_mega_occupancy": (_I,) * 5 + (_P,),
+    # which (0 K1's kv tiles, 1 the dk/dv block's q tiles, 2 K1's q
+    # tile order), n cases, their (n, 6) int32 args, (n, 2) int32 out
+    "repro_hopper_ranges": (_I, _I, _P, _P),
     # q, k_cache, v_cache, cur_len, out, partials scratch, B, KH, G, S,
     # hd, window, splits, tile rows, dtype, scale, stream
     "repro_flash_decode": (_P,) * 6 + (_I,) * 9 + (_F, _P),

@@ -128,6 +128,45 @@ static_assert(bwd_bytes<64, true>() == 165952 &&
 static_assert(fwd_bytes<128>() <= 232448 && bwd_bytes<128, true>() <= 232448,
               "one block's shared memory");
 
+// The kernels' tile ranges, also run on the host by
+// repro_hopper_ranges, which holds autotune.hopper_kv_tiles,
+// hopper_q_tiles and hopper_q_order against them.  A range: its first
+// row and its tiles.
+struct Range {
+  int first, n;
+};
+
+// The HK-row kv tiles that some real row of K1's q tile at q0 (q0 up to
+// min(q0 + HQ, Sq)) meets under causal, the window and q_offset
+__host__ __device__ inline Range fwd_kv_range(int q0, int Sq, int Sk,
+                                              int q_offset, int causal,
+                                              int window) {
+  int kv_begin = 0, kv_end = Sk;
+  if (causal) kv_end = min(Sk, q_offset + min(q0 + HQ, Sq));
+  if (window > 0) kv_begin = max(0, q_offset + q0 - window + 1);
+  const int kt0 = (kv_begin / HK) * HK;
+  return {kt0, kv_end > kv_begin ? (kv_end - kt0 + HK - 1) / HK : 0};
+}
+
+// K1's q tile of block row y of ny: the last first, the heaviest under
+// the causal mask
+__host__ __device__ inline int fwd_q_row(int y, int ny) {
+  return (ny - 1 - y) * HQ;
+}
+
+// The TQ-row q tiles with a row that meets a real kv row of the dk/dv
+// block at k0 (k0 up to min(k0 + HK, Sk))
+__host__ __device__ inline Range bwd_q_range(int k0, int Sq, int Sk,
+                                             int q_offset, int causal,
+                                             int window) {
+  const int kv_rows = min(HK, Sk - k0);
+  int q_lo = 0, q_hi = Sq;
+  if (causal) q_lo = max(0, k0 - q_offset);
+  if (window > 0) q_hi = min(Sq, k0 + kv_rows - 1 + window - q_offset);
+  const int qt0 = (q_lo / TQ) * TQ;
+  return {qt0, q_hi > q_lo ? (q_hi - qt0 + TQ - 1) / TQ : 0};
+}
+
 // ----------------------------------------------------------------- K1
 
 template <int HD>
@@ -150,15 +189,11 @@ flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tmq,
   uint64_t *qbar = bars, *full = bars + 1, *empty = bars + 3;
 
   const int bh = blockIdx.x;                          // b * H + h
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * HQ;   // heaviest first
+  const int q0 = fwd_q_row(blockIdx.y, gridDim.y);   // heaviest first
   const int bkv = (bh / H) * (H / G) + (bh % H) / G;  // b * KH + h / G
   const int row0 = q_offset + q0;
-  // the kv tiles that the tile's real rows meet (autotune.hopper_kv_tiles)
-  int kv_begin = 0, kv_end = Sk;
-  if (causal) kv_end = min(Sk, q_offset + min(q0 + HQ, Sq));
-  if (window > 0) kv_begin = max(0, row0 - window + 1);
-  const int kt0 = (kv_begin / BK) * BK;
-  const int n_it = kv_end > kv_begin ? (kv_end - kt0 + BK - 1) / BK : 0;
+  const Range kv = fwd_kv_range(q0, Sq, Sk, q_offset, causal, window);
+  const int kt0 = kv.first, n_it = kv.n;
 
   init_ring(bars, 1, 2 * WG);
   const int wg = warpgroup();
@@ -350,14 +385,8 @@ tc_bwd_hopper_kernel(const __grid_constant__ CUtensorMap tmk,
   const int bkv = blockIdx.x, k0 = blockIdx.y * HK;   // b * KH + kh
   const int KH = H / G;
   const int bh0 = (bkv / KH) * H + (bkv % KH) * G;    // b * H + kh * G
-  const int kv_rows = min(HK, Sk - k0);
-  // the q tiles whose rows meet this kv tile (autotune.hopper_q_tiles)
-  int q_lo = 0, q_hi = Sq;
-  if (causal) q_lo = max(0, k0 - q_offset);
-  if (window > 0) q_hi = min(Sq, k0 + kv_rows - 1 + window - q_offset);
-  const int qt0 = (q_lo / TQ) * TQ;
-  const int n_qt = q_hi > q_lo ? (q_hi - qt0 + TQ - 1) / TQ : 0;
-  const int n_it = G * n_qt;
+  const Range qr = bwd_q_range(k0, Sq, Sk, q_offset, causal, window);
+  const int qt0 = qr.first, n_qt = qr.n, n_it = G * n_qt;
   // iteration it: head bh0 + it / n_qt, q tile qt0 + (it % n_qt) * TQ
 
   init_ring(bars, 1, 2 * WG, 32);
@@ -684,3 +713,28 @@ cudaError_t hopper_bwd(int fused, const void* q, const void* k, const void* v,
 }
 
 }  // namespace repro
+
+// The kernels' tile ranges run on the host for n cases of six ints each,
+// two ints out a case: which 0, K1's kv tiles of (q0, Sq, Sk, q_offset,
+// causal, window) as (first kv row, tiles); 1, the dk/dv block's q tiles
+// of (k0, Sq, Sk, q_offset, causal, window) as (first q row, tiles); 2,
+// K1's q row of block row y of ny, (y, ny, ...) as (q0, 0).  The card
+// tests hold autotune's mirror of them against these.
+extern "C" int repro_hopper_ranges(int which, int n, const int* args,
+                                   int* out) {
+  for (int i = 0; i < n; ++i) {
+    const int* a = args + 6 * i;
+    repro::Range r{0, 0};
+    if (which == 0)
+      r = repro::fwd_kv_range(a[0], a[1], a[2], a[3], a[4], a[5]);
+    else if (which == 1)
+      r = repro::bwd_q_range(a[0], a[1], a[2], a[3], a[4], a[5]);
+    else if (which == 2)
+      r.first = repro::fwd_q_row(a[0], a[1]);
+    else
+      return cudaErrorInvalidValue;
+    out[2 * i] = r.first;
+    out[2 * i + 1] = r.n;
+  }
+  return cudaSuccess;
+}

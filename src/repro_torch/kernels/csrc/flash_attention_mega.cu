@@ -63,11 +63,9 @@
 //        then writes the slice's dq once.  P and dS enter their products
 //        as bf16 hi + lo pairs, as in K2/K3 (scripts/torch_bwd_rounding.py).
 //        No atomics and no global scratch: each output element is summed
-//        by one thread in a fixed order, so K4b gives the same bits on
-//        every run; its dq the same bits as K2's mma.sync dq pass (dead
-//        16-row chunks that it skips add exact zeros there), its dk, dv
-//        K2's to fp32 rounding (K2's dk/dv pass at hd 64 and 128 runs on
-//        wgmma, in another order).  At hd 64 a block is two four-warp
+//        by one thread in K2's order, so K4b gives the same bits on every
+//        run, and the same bits as K2 (dead 16-row chunks that it skips
+//        add exact zeros in K2).  At hd 64 a block is two four-warp
 //        groups (256 threads), which take the kv tiles in snake order in
 //        phase 1: at 225 registers a thread the SM holds eight warps, and
 //        320 four-warp blocks at two an SM took 1.21 waves (the last 56

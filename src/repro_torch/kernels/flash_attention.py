@@ -581,6 +581,26 @@ def fwd_occupancy(hd: int, dtype: torch.dtype,
     return blocks.value
 
 
+def hopper_ranges(which: str, cases) -> np.ndarray:
+    """The wgmma kernels' own tile ranges (``csrc/flash_attention_hopper.cu``,
+    run on the host), which ``autotune`` mirrors: ``which`` "kv_tiles"
+    takes (q0, Sq, Sk, q_offset, causal, window) cases and gives K1's
+    (first kv row, tiles) (:func:`autotune.hopper_kv_tiles`); "q_tiles"
+    takes (k0, ...) and gives the dk/dv block's (first q row, tiles)
+    (:func:`autotune.hopper_q_tiles`); "q_order" takes (y, blocks) and
+    gives K1's q row of block row y first (:func:`autotune.hopper_q_order`).
+    (n, 2) int32; builds the kernels."""
+    args = np.zeros((len(cases), 6), dtype=np.int32)
+    for i, case in enumerate(cases):
+        args[i, :len(case)] = case
+    out = np.zeros((len(cases), 2), dtype=np.int32)
+    err = _build.load().repro_hopper_ranges(
+        ("kv_tiles", "q_tiles", "q_order").index(which), len(cases),
+        args.ctypes.data, out.ctypes.data)
+    _build.check(err, "hopper_ranges")
+    return out
+
+
 def bwd_occupancy(which: str, hd: int, dtype: torch.dtype,
                   hd_v: Optional[int] = None) -> int:
     """Blocks per SM of the backward kernel ``which`` ("dq", "dkv" or

@@ -1042,12 +1042,10 @@ def test_mega_kernels_match_plain(cuda, b, h, kh, sq, sk, hd, dtype, window,
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_mega_backward_is_deterministic_and_matches_k2(cuda, dtype):
     """Two K4b runs give the same bits (no atomics); its dq, dk and dv
-    agree with K2's.  In bf16 dq is the same bits: the tensor-core K4b
-    runs K2's dq tiles and sums each element in K2's order, skipping only
-    chunks that add exact zeros there; K2's dk/dv pass runs on wgmma, in
-    another order, so dk and dv agree to one bf16 rounding of two fp32
-    sums.  In fp32 the CUDA-core K4b sums in another order: fp32 rounding
-    (1e-5 relative)."""
+    agree with K2's.  In bf16 they are the same bits: the tensor-core K4b
+    runs K2's tiles and sums each element in K2's order, skipping only
+    chunks that add exact zeros there.  In fp32 the CUDA-core K4b sums in
+    another order: fp32 rounding (1e-5 relative)."""
     b, s = (64, 256) if dtype == torch.bfloat16 else (32, 128)
     q, k, v, do = _mega_inputs(cuda, b, 15, 5, s, s, 64, dtype, seed=10)
     out, lse = fa.flash_attention_mega_fwd(q, k, v, with_lse=True)
@@ -1061,8 +1059,8 @@ def test_mega_backward_is_deterministic_and_matches_k2(cuda, dtype):
     tol = (2.0 ** -7, 1e-4) if dtype == torch.bfloat16 else (1e-5, 1e-5)
     for got, want in zip(first, (dq2, dk2, dv2)):
         _close(got, want, tol)
-    if dtype == torch.bfloat16:
-        assert torch.equal(first[0], dq2)
+        if dtype == torch.bfloat16:
+            assert torch.equal(got, want)
 
 
 def test_mixed_plan_feeds_k4f_lse_to_k3(cuda, monkeypatch):

@@ -16,7 +16,9 @@ bf16 at those pairs.  Its host-side arithmetic has a Python mirror in
 * the wrappers' meta route counts the same FLOPs and bytes as
   ``kernels/counts.py`` says.
 
-``tests/test_torch_cuda.py`` holds the kernels themselves on the card.
+On the card (marker ``cuda``) the last test holds the mirror against the
+``.cu``'s own range functions, the ones the kernels call;
+``tests/test_torch_cuda.py`` holds the kernels themselves.
 """
 import re
 from pathlib import Path
@@ -170,3 +172,34 @@ def test_meta_route_counts_what_counts_py_says(hd, hd_v, kh):
         want = counts.attention_work(name, b, h, kh, s, s, hd, hd_v, 7, True,
                                      100, 2)
         assert counts.KERNELS[name] == [1, *want]
+
+
+@pytest.mark.cuda
+def test_the_mirror_is_the_kernels_arithmetic():
+    """autotune's ranges against the .cu's own range functions, which the
+    kernels call (``fa.hopper_ranges`` runs them on the host; the library
+    builds only where nvcc is): every q tile and kv block of SHAPES and of
+    400 random cases."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    rng = np.random.RandomState(0)
+    shapes = SHAPES + [
+        (int(rng.randint(1, 3000)), int(rng.randint(1, 3000)),
+         int(rng.randint(0, 700)), bool(rng.randint(2)),
+         int(rng.choice([0, 1, 64, 127, 300, 4096])))
+        for _ in range(400)]
+    kv, qt, order = [], [], []
+    for sq, sk, q_offset, causal, window in shapes:
+        kv += [(q0, sq, sk, q_offset, int(causal), window)
+               for q0 in range(0, sq, autotune.HOPPER_Q_ROWS)]
+        qt += [(k0, sq, sk, q_offset, int(causal), window)
+               for k0 in range(0, sk, autotune.HOPPER_KV_ROWS)]
+        ny = -(-sq // autotune.HOPPER_Q_ROWS)
+        order.append((sq, [(y, ny) for y in range(ny)]))
+    want_kv = [autotune.hopper_kv_tiles(*c[:4], bool(c[4]), c[5]) for c in kv]
+    want_qt = [autotune.hopper_q_tiles(*c[:4], bool(c[4]), c[5]) for c in qt]
+    assert [tuple(r) for r in fa.hopper_ranges("kv_tiles", kv)] == want_kv
+    assert [tuple(r) for r in fa.hopper_ranges("q_tiles", qt)] == want_qt
+    for sq, cases in order:
+        got = fa.hopper_ranges("q_order", cases)[:, 0]
+        assert tuple(got) == autotune.hopper_q_order(sq)
